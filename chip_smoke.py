@@ -22,15 +22,32 @@ Phases, in order, none of them caught:
               count must equal layers x model calls.
   5. parity:  full width, 2 layers, f32 (TF32 off): serve_loop's greedy
               tokens on the card (kernel) equal those on the CPU (plain).
+  6. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
+              forward, K2q dQ, K2kv dK/dV) against their plain versions at
+              the llama3_8b training shapes (B=1, S=2048, H=32, KV=8,
+              D=128), bf16 and f32: causal, non-causal, window 512, and
+              S=1000 (no 128-aligned tiling); two launches give the same
+              bits; then each kernel's time beside its plain version, SDPA
+              and the card's bound.
+  7. train:   llama3_8b at full width and depth as train_llama builds it
+              (tied embeddings, remat, flash attention, blocked CE,
+              adafactor), f32 master weights from a seed, bf16 compute,
+              batch 1 x 2048 (train_llama's 8 x 8192 cut to fit one card),
+              4 steps through run_training; every loss finite, the first
+              near ln(vocab); K2f launched 2 x 32 times a step (forward and
+              remat recompute), K2q and K2kv 32 times.
+  8. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
+              the loss and every parameter's gradient norm of one step on
+              the card (kernels) equal those on the CPU (plain versions).
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-instead builds the kernels and prints where serving time goes at full
-width (device time by kernel under torch.profiler, and the device's idle
-share) for one decode block and one prefill segment.
+instead builds the kernels and prints where the time goes at full width
+(device time by kernel under torch.profiler, and the device's idle share)
+for one decode block, one prefill segment and one training step.
 """
 from __future__ import annotations
 
@@ -251,6 +268,150 @@ def kernel_phase() -> dict:
     return dict(errs=errs, timings=timings)
 
 
+# --------------------------------------------------------- kernel-2 phase
+# llama3_8b training shapes at batch 1 (train_llama's 8 x 8192 cut to the
+# train phase's 1 x 2048)
+TB, TS, TH, TKV, TD = 1, 2048, 32, 8, 128
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def flash_case(dtype, s: int, seed: int):
+    """q [B, S, H, D], and k, v as the two halves of one fused
+    [B, S, 2, KV, D] projection (strided views, as the model hands them
+    over), and dO."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((TB, s, TH, TD), generator=g)
+    kv = torch.randn((TB, s, 2, TKV, TD), generator=g)
+    do = torch.randn((TB, s, TH, TD), generator=g)
+    q, kv, do = (t.to("cuda", dtype) for t in (q, kv, do))
+    return q, kv[:, :, 0], kv[:, :, 1], do
+
+
+def flash_delta(out, do):
+    return (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bound_ms(which: str, dtype, s: int, causal: bool, window) -> tuple:
+    """The least time the card could take for one kernel's work: the
+    larger of its bytes (each input read once, each output written once)
+    over HBM bandwidth and its products over the dtype's peak.  Products:
+    2 flops per multiply-add over the visible (query, key) pairs of this
+    case, for 2 matmuls (forward: QKᵀ, PV), 3 (dQ: QKᵀ, dO·Vᵀ, dS·K) or
+    4 (dK/dV: QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)."""
+    esz = torch.finfo(dtype).bits // 8
+    if not causal:
+        pairs = s * s
+    else:
+        w = window or s
+        pairs = sum(min(i + 1, w) for i in range(s))
+    mm = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[which]
+    flops = mm * 2 * TB * TH * pairs * TD
+    qo = TB * s * TH * TD * esz
+    kv = TB * s * TKV * TD * esz
+    stat = TB * TH * s * 4
+    nbytes = {"flash_fwd": 2 * qo + 2 * kv + stat,           # q k v o lse
+              "flash_dq": 3 * qo + 2 * kv + 2 * stat,        # + do delta dq
+              "flash_dkv": 2 * qo + 4 * kv + 2 * stat}[which]  # + dk dv
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel2_phase() -> dict:
+    """K2f, K2q and K2kv against their plain versions at the training
+    shapes, bf16 and f32: causal; non-causal; window 512; and S=1000,
+    which has no 128-aligned tiling.  The backward kernels take the plain
+    forward's lse and delta, so each kernel is held to its own plain
+    version.  Two launches must give the same bits.  Then each kernel's
+    time beside its plain version, SDPA and the bound (bf16, causal)."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # f32: the kernels sum 64-wide tiles in another order than the whole-
+    # sequence einsums (and fold the forward by online softmax), ~1e-6 on
+    # O(1) values.  bf16: the outputs, p and dS are rounded to bf16 (2^-8
+    # relative), at a running instead of the final maximum in the forward.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    errs = {name: 0.0 for name in FLASH}
+    cases = [(dt, s, causal, w)
+             for (s, causal, w) in ((TS, True, None), (TS, False, None),
+                                    (TS, True, 512), (1000, True, None))
+             for dt in (torch.bfloat16, torch.float32)]
+    for i, (dt, s, causal, w) in enumerate(cases):
+        q, k, v, do = flash_case(dt, s, SEED + 10 + i)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, w)
+        delta = flash_delta(out_p, do)
+        bwd = (q, k, v, do, lse_p, delta, causal, w)
+        want = {"flash_fwd": (out_p, lse_p),
+                "flash_dq": (fa.flash_dq_plain(*bwd),),
+                "flash_dkv": fa.flash_dkv_plain(*bwd)}
+        runs = [{"flash_fwd": fa.flash_fwd(q, k, v, causal, w),
+                 "flash_dq": (fa.flash_dq(*bwd),),
+                 "flash_dkv": fa.flash_dkv(*bwd)} for _ in range(2)]
+        torch.cuda.synchronize()
+        line = []
+        for name in FLASH:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(runs[0][name], runs[1][name]))
+            err = 0.0
+            ok = same
+            for got, ref in zip(runs[0][name], want[name]):
+                diff = (got.float() - ref.float()).abs()
+                err = max(err, float(diff.max()))
+                ok &= bool(torch.isfinite(got).all())
+                ok &= bool((diff <= tol[dt] * (1 + ref.float().abs())).all())
+            if dt == torch.bfloat16:
+                errs[name] = max(errs[name], err)
+            line.append(f"{name} err={err:.3e} repeat={same}")
+            if not ok:
+                raise AssertionError(
+                    f"[kernel2] {name} disagrees with its plain version or "
+                    f"does not repeat: dtype={dt} S={s} causal={causal} "
+                    f"window={w} err={err} bit_identical={same}")
+        log(f"[kernel2] {str(dt)[6:]:8s} S={s} causal={causal} window={w} "
+            f"(atol=rtol={tol[dt]}): " + ", ".join(line))
+        del runs, want, bwd
+
+    q, k, v, do = flash_case(torch.bfloat16, TS, SEED + 30)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = flash_delta(out, do)
+    bwd = (q, k, v, do, lse, delta, True)
+    fns = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
+                         lambda: fa.flash_fwd_plain(q, k, v, True)),
+           "flash_dq": (lambda: fa.flash_dq(*bwd),
+                        lambda: fa.flash_dq_plain(*bwd)),
+           "flash_dkv": (lambda: fa.flash_dkv(*bwd),
+                         lambda: fa.flash_dkv_plain(*bwd))}
+    # the yardstick: SDPA (forward, and its backward through autograd,
+    # which yields dq, dk and dv together); the port never calls it
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach() for x in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    o_s = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
+                                                  retain_graph=True))
+    timings = {}
+    for name, (kern, plain) in fns.items():
+        p1 = time_ms(plain)
+        k1 = time_ms(kern)
+        k2 = time_ms(kern)
+        p2 = time_ms(plain)
+        bnd, by = flash_bound_ms(name, torch.bfloat16, TS, True, None)
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                             library_ms=lib, bound_ms=bnd, bound_by=by)
+        log(f"[kernel2] timing {name} bf16 causal B={TB} S={TS} H={TH} "
+            f"KV={TKV} D={TD}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(errs=errs, timings=timings)
+
+
 # ------------------------------------------------------------- serve phase
 def prompts_for(cfg, n: int, lo: int, hi: int, seed: int):
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -358,10 +519,155 @@ def parity_phase() -> None:
         raise AssertionError(f"[parity] logits differ by {diff}")
 
 
+# -------------------------------------------------------------- train phase
+TRAIN_STEPS = 4
+
+
+def train_model(cfg):
+    """The model train_llama builds for `cfg`, around f32 masters drawn
+    from SEED, and its train state and step."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    model = llama.Llama.from_params(
+        cfg, bridge.init_params(cfg, SEED, device="cuda", train=True),
+        device="cuda", train=True)
+    state = TrainState.create(model, Adafactor(1e-3))
+    return model, state, train_llama.make_lm_step(model)
+
+
+def llama3_train_cfg(**kw):
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+
+    return llama.llama3_8b(tie_embeddings=True, remat=True,
+                           attention_fn=flash_attention, **kw)
+
+
+def train_phase() -> dict:
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models.llama import params_flops_per_token
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_train_cfg()
+    t0 = time.perf_counter()
+    model, state, step = train_model(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] llama3_8b tied, remat, flash attention, {cfg.n_layers} "
+        f"layers, {n_params / 1e9:.4f} B f32 master params in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB); compute "
+        f"{cfg.dtype}; batch {TB} x {TS}")
+    losses, times = [], []
+
+    def timed_step(state, tokens):
+        t = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 4,
+                                     device="cuda")
+    fa.reset_launches()
+    res = run_training(state, timed_step, batches, num_steps=TRAIN_STEPS,
+                       profiler=Profiler(batch_size=TB), log_interval_steps=1,
+                       metrics_sink=lambda line: log(f"[train] metrics {line}"))
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, res
+    torch.cuda.empty_cache()
+
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[train] losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"[train] first loss {losses[0]} is not within "
+                             f"1.5 of ln({cfg.vocab_size})")
+    want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_dkv": cfg.n_layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"[train] kernel launches {launches}, "
+                             f"expected {want}")
+    steady = sorted(times[1:])
+    step_s = steady[len(steady) // 2]
+    tokens_per_s = TB * TS / step_s
+    mfu = tokens_per_s * params_flops_per_token(cfg) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    log(f"[train] losses {[round(x, 4) for x in losses]} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}); step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{TRAIN_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
+        f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
+        f"kernel_launches {json.dumps(launches)}")
+    return dict(launches=launches)
+
+
+def train_parity_phase() -> None:
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_train_cfg(n_layers=2, dtype=torch.float32)
+    params = bridge.init_params(cfg, SEED + 5, device="cuda", train=True)
+    models = {"cuda": llama.Llama.from_params(cfg, params, device="cuda",
+                                              train=True),
+              "cpu": llama.Llama.from_params(
+                  cfg, {k: v.cpu() for k, v in params.items()},
+                  device="cpu", train=True)}
+    del params
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    fa.reset_launches()
+    out = {}
+    for dev, model in models.items():
+        loss = lm_blocked_loss(model, tokens.to(dev))
+        loss.backward()
+        # norms in f64: torch's f32 norm of a 117M-element tensor on the
+        # CPU is off by 1.6 % (measured on blocks.1.mlp.wi), the card's
+        # by 1e-8
+        out[dev] = (loss.item(), {
+            k: torch.linalg.vector_norm(p.grad, dtype=torch.float64).item()
+            for k, p in model.named_parameters()})
+    launches = dict(fa.launches)
+    del models
+    torch.cuda.empty_cache()
+    (l_gpu, n_gpu), (l_cpu, n_cpu) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    norm_rel = {k: abs(n_gpu[k] - n_cpu[k]) / max(n_cpu[k], 1e-30)
+                for k in n_cpu}
+    worst = max(norm_rel, key=norm_rel.get)
+    log(f"[train-parity] 2 layers f32, batch 2 x 128: loss cuda {l_gpu:.7f} "
+        f"cpu {l_cpu:.7f} (rel {loss_rel:.2e}, limit 1e-5); "
+        f"{len(norm_rel)} gradient norms, worst rel {norm_rel[worst]:.2e} "
+        f"({worst}, limit 1e-4); launches {json.dumps(launches)}")
+    if not (math.isfinite(l_gpu) and loss_rel <= 1e-5
+            and norm_rel[worst] <= 1e-4):
+        raise AssertionError("[train-parity] the card and the CPU disagree")
+    if launches != {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}:
+        raise AssertionError(f"[train-parity] launches {launches}")
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if "paged_attention" in name:
         return "paged_attention (K1)"
+    for kernel, label in (("flash_fwd", "flash fwd (K2f)"),
+                          ("flash_dq", "flash dq (K2q)"),
+                          ("flash_dkv", "flash dkv (K2kv)")):
+        if kernel in name:
+            return label
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     return "other"
@@ -435,6 +741,18 @@ def profile_phase() -> None:
                  f"prefill 1 lane x {ctx} tokens", 1)
 
 
+def profile_train_phase() -> None:
+    """Where a training step's time goes at full width: one llama3_8b
+    step (batch 1 x 2048) under torch.profiler."""
+    from tf_operator_tpu_torch import train_llama
+
+    cfg = llama3_train_cfg()
+    model, state, step = train_model(cfg)
+    tokens = next(train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 4,
+                                         device="cuda"))[0]
+    _profile(lambda: step(state, tokens), f"train step {TB} x {TS}", 1)
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -450,10 +768,15 @@ def main() -> int:
     build()
     if sys.argv[1:] == ["--profile"]:
         profile_phase()
+        torch.cuda.empty_cache()
+        profile_train_phase()
         return 0
     kern = kernel_phase()
     serve = serve_phase()
     parity_phase()
+    kern2 = kernel2_phase()
+    train = train_phase()
+    train_parity_phase()
 
     t = kern["timings"]["decode"]
     row = {"name": "paged_attention", "route": "cuda",
@@ -464,7 +787,22 @@ def main() -> int:
            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
            "library_ms": t["library_ms"]}
-    print(json.dumps({"kernels": [row]}))
+    rows = [row]
+    # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
+    # _dkv_kernel)
+    for name, line in (("flash_fwd", 112), ("flash_dq", 217),
+                       ("flash_dkv", 256)):
+        t = kern2["timings"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
+                     "launches": train["launches"][name],
+                     "max_abs_err": kern2["errs"][name],
+                     "ms": t["ms"], "kernel_ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+K1 (paged attention) and K2f/K2q/K2kv (flash attention forward, dQ and
+dK/dV).
 
 Needs a CUDA card and nvcc; every test here carries the `cuda` marker and
 skips without a card.  The file imports nothing of JAX, so it also runs
@@ -19,6 +21,7 @@ import torch
 from tf_operator_tpu_torch.models import llama, paged_attention as tpa
 from tf_operator_tpu_torch.models import bridge
 from tf_operator_tpu_torch.models.serving import serve_loop
+from tf_operator_tpu_torch.ops import flash_attention as tfa
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +133,78 @@ def test_serve_loop_cuda_matches_cpu_tokens():
                      r.slot, r.kv_blocks)
                     for r in serve_loop(model, prompts, device=dev, **kw)])
     assert out[0] == out[1]
+
+
+# ------------------------------------------------------ flash attention
+# f32: 64-wide tiles summed in another order than whole-sequence einsums
+# (and the forward folded by online softmax).  bf16: outputs, p and dS
+# rounded to bf16 (2^-8 relative).
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(
+        "cuda", dtype) for shape in ((b, s, h, d), (b, s, kv, d),
+                                     (b, s, kv, d), (b, s, h, d)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kv,d,causal,window", [
+    (64, 4, 4, 32, True, None), (100, 4, 2, 64, True, None),
+    (200, 4, 1, 128, False, None), (200, 8, 2, 128, True, 37),
+    (130, 2, 2, 16, True, 1)])
+def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
+    """Each kernel against its plain version on the same inputs (the
+    backward kernels take the plain forward's lse and delta), with
+    ragged S, GQA groups 1-4 and bit-identical repeats."""
+    q, k, v, do = _flash_case(s + d, s=s, h=h, kv=kv, d=d, dtype=dtype)
+    out_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, window)
+    delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse_p, delta, causal, window)
+    want = (out_p, lse_p, tfa.flash_dq_plain(*bwd), *tfa.flash_dkv_plain(*bwd))
+    before = dict(tfa.launches)
+    runs = [(*tfa.flash_fwd(q, k, v, causal, window), tfa.flash_dq(*bwd),
+             *tfa.flash_dkv(*bwd)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: tfa.launches[n] - before[n] for n in before} == \
+        {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+    tol = FLASH_TOL[dtype]
+    for name, a, b, ref in zip(["out", "lse", "dq", "dk", "dv"], *runs, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.float(), ref.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+def test_flash_function_on_card_matches_cpu():
+    """The autograd Function on CUDA tensors (kernels) against the same
+    Function on CPU tensors (plain versions), f32, with a strided v as
+    the model hands it over."""
+    q, kvp, _, do = _flash_case(5, s=96, h=4, kv=4, d=32,
+                                dtype=torch.float32)
+    kvp = torch.stack([kvp[:, :, :2], kvp[:, :, 2:]], dim=2)  # [B,S,2,KV,D]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_()
+                  for x in (q, kvp[:, :, 0], kvp[:, :, 1])]
+        out = tfa.flash_attention(*leaves, True, window=40)
+        out.backward(do.to(dev))
+        outs.append([t.detach().cpu() for t in
+                     (out, *(x.grad for x in leaves))])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take():
+    q, k, v, _ = _flash_case(6, s=16, h=2, kv=1, d=8, dtype=torch.float32)
+    with pytest.raises(TypeError, match="must match"):
+        tfa.flash_fwd(q, k.bfloat16(), v, True)
+    with pytest.raises(TypeError, match="float32 or"):
+        tfa.flash_fwd(q.half(), k.half(), v.half(), True)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 4, 1, 256), device="cuda")
+        tfa.flash_fwd(big, big, big, True)
+    with pytest.raises(ValueError, match="unit"):
+        tfa.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                      True)

@@ -156,6 +156,58 @@ def test_paged_forward_matches_jax(dt):
                                        rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tied_paged_forward_matches_jax(dt):
+    """A tied-embedding model serves through the same paged decoder; its
+    head is flax's Embed.attend, computed in cfg.dtype (bf16: logits
+    rounded to bf16 on both sides)."""
+    pair = _Pair(dt, n_blocks=8, bs=4, max_len=64, tie_embeddings=True)
+    assert not hasattr(pair.tmodel, "lm_head")
+    table = np.array([[1, 2, 3, 4]], np.int32)
+    tokens = np.random.default_rng(5).integers(0, 256, (1, 6)).astype(
+        np.int32)
+    tol = _LOGIT_TOL[dt]
+    got, want = pair(tokens, 0, table)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    tok = np.argmax(want[:, -1], axis=-1).astype(np.int32)[:, None]
+    got, want = pair(tok, 6, table)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_training_masters_give_the_serving_forward():
+    """init_params(train=True) draws the same weights in f32; a model
+    around them (cast to cfg.dtype at each use) gives the bits of the
+    serving model whose weights were cast once."""
+    cfg = tl.tiny(tie_embeddings=True)
+    serve = tl.Llama.from_params(cfg, bridge.init_params(cfg, 3, device="cpu"),
+                                 device="cpu")
+    train = tl.Llama.from_params(
+        cfg, bridge.init_params(cfg, 3, device="cpu", train=True),
+        device="cpu", train=True)
+    assert train.embed.dtype == torch.float32 and train.training
+    assert all(p.requires_grad for p in train.parameters())
+    tokens = torch.randint(0, 256, (2, 16), generator=torch.Generator()
+                           .manual_seed(0))
+    with torch.no_grad():
+        torch.testing.assert_close(train(tokens), serve(tokens), rtol=0,
+                                   atol=0)
+
+
+def test_full_forward_positions_match_jax():
+    """Explicit [B, S] positions on the full-sequence path, some out of
+    the table: JAX's gather wraps a negative id once and clamps the rest,
+    which the port does explicitly where torch would fault."""
+    _, jmodel, params, _, tmodel = _models("f32")
+    tokens = np.random.default_rng(6).integers(0, 256, (2, 6))
+    pos = np.array([[-3, 0, 5, 70, 63, 1], [2, 2, 100, -70, 0, 9]])
+    want = jmodel.apply({"params": params}, jnp.asarray(tokens),
+                        positions=jnp.asarray(pos))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(tokens), positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_rope_index_clamps_like_jax():
     """JAX clamps out-of-range gathers where torch would fault: a lane
     stepping past max_len (a finished lane running to its block edge)
@@ -214,8 +266,14 @@ def test_config_factories_match_jax():
                 assert val == want[key]
             else:
                 assert val == want[key], (name, key)
+    # the full-sequence path takes a window; the paged path refuses it
+    cfg = tl.tiny(sliding_window=8)
+    model = tl.Llama.from_params(cfg, bridge.init_params(cfg, 0, device="cpu"),
+                                 device="cpu")
     with pytest.raises(NotImplementedError, match="sliding"):
-        tl.Llama(tl.tiny(sliding_window=8))
+        model(torch.zeros((1, 1), dtype=torch.long),
+              tpg.init_block_pool(cfg, 2, 4, device="cpu"), 0,
+              torch.tensor([[1, 2]], dtype=torch.int32))
 
 
 def test_init_params_follow_flax_initializers():

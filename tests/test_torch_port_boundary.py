@@ -29,7 +29,10 @@ def test_every_module_imports_without_jax():
     and flax cannot be imported at all, and leaves no module of the JAX
     package loaded."""
     names = _modules()
-    assert "tf_operator_tpu_torch.models.serving" in names
+    for name in ("models.serving", "ops.flash_attention", "ops.blocked_ce",
+                 "runtime.optim", "runtime.train", "runtime.loop",
+                 "runtime.profiler", "train_llama"):
+        assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
@@ -99,3 +102,41 @@ def test_chip_smoke_fails_without_a_card(no_card, tmp_path, where):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_training_entry_points_raise_without_a_card(no_card):
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_llama.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.init_params(llama.tiny(n_layers=1), seed=0, train=True)
+    meta = torch.empty((1, 8, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(meta, meta, meta, True)
+
+
+def test_flash_kernels_need_nvcc(no_card, tmp_path, monkeypatch):
+    """The kernel path of each K2 wrapper raises when nvcc is missing,
+    instead of running the plain version."""
+    from tf_operator_tpu_torch import kernels
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is on PATH")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(fa, "_lib", None)
+    q = torch.zeros((1, 8, 2, 4))
+    k = torch.zeros((1, 8, 1, 4))
+    lse = torch.zeros((1, 2, 8))
+    before = dict(fa.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa._launch_fwd(q, k, k, True, None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa._launch_dq(q, k, k, q, lse, lse, True, None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa._launch_dkv(q, k, k, q, lse, lse, True, None)
+    assert fa.launches == before

@@ -95,6 +95,27 @@ def test_serve_loop_eos_matches_jax(setup):
     assert any(len(r.tokens) < b for r, b in zip(stopped, BUDGETS))
 
 
+def test_tied_model_serves_the_jax_tokens():
+    """A tied-embedding tiny model (the train recipe's head): bridged
+    without an lm_head, it serves the JAX package's greedy tokens and
+    schedule."""
+    jcfg = jl.tiny(dtype=jnp.float32, max_len=128, tie_embeddings=True)
+    jmodel = jl.Llama(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32),
+                         train=False)["params"]
+    assert "lm_head" not in params
+    tcfg = tl.tiny(dtype=torch.float32, max_len=128, tie_embeddings=True)
+    tmodel = tl.Llama.from_params(
+        tcfg, bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, params)),
+        device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in LENS]
+    got, _, want, _ = _both((jmodel, params, tmodel, prompts), slots=2,
+                            max_new_tokens=BUDGETS, block_size=4,
+                            prefill_chunk=8, steps_per_sync=4)
+    assert _schedule(got) == _schedule(want)
+
+
 def test_sampling_is_seeded_by_the_generator(setup):
     _, _, tmodel, prompts = setup
     kw = dict(slots=2, max_new_tokens=6, block_size=4, temperature=0.9,

@@ -6,10 +6,12 @@ second implementation.  It imports `torch` and never `jax`, `flax` or any
 JAX package (the block allocator, the segment schedule) are copied here,
 and `tests/test_torch_*.py` hold each copy against its original.
 
-What is ported so far is the paged serving path of the Llama family:
+What is ported so far is the Llama family's paged serving path and its
+one-device training step:
 
-  - models/llama.py           config, rotary, RMSNorm, SwiGLU, paged GQA
-                              attention, the decoder, token selection
+  - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
+                              attention, the decoder (paged decode and
+                              full-sequence training), token selection
   - models/paging.py          block pool allocator and block-table writes
   - models/paged_attention.py the paged-attention wrapper: a hand-written
                               CUDA kernel (csrc/paged_attention.cu) on the
@@ -17,6 +19,15 @@ What is ported so far is the paged serving path of the Llama family:
   - models/bridge.py          flax parameter trees -> the port's state dict,
                               and seeded random weights at full width
   - models/serving.py         serve_loop's paged slot scheduler
+  - models/transformer.py     the einsum attention and the CLM loss
+  - ops/flash_attention.py    flash attention forward and backward: three
+                              hand-written CUDA kernels
+                              (csrc/flash_attention.cu) behind an autograd
+                              Function, plain versions on the CPU
+  - ops/blocked_ce.py         cross-entropy fused with the (tied) head
+  - runtime/                  adafactor, train state and step, the
+                              training loop, the profiler
+  - train_llama.py            the training entry point
 
 Entry points take `device=` and default to "cuda"; without a card they
 raise instead of running on the CPU (device.py).

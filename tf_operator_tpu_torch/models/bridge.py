@@ -4,10 +4,13 @@ random ones at full width.
 `params_from_jax(cfg, tree)` maps the JAX package's flax Llama params
 (a nested dict of numpy arrays, e.g. `jax.tree.map(np.asarray, params)`)
 onto the port's state-dict names.  The layouts are already the same, so
-the map is a rename plus the storage dtype: cfg.dtype for the embedding
-and every projection (flax's DenseGeneral(dtype=...) casts its f32
-kernel to that before each product), f32 for the RMSNorm scales and
-the lm_head (flax runs it as an f32 Dense).
+the map is a rename plus the storage dtype.  For serving: cfg.dtype for
+the embedding and every projection (flax's DenseGeneral(dtype=...) casts
+its f32 kernel to that before each product, so casting once gives the
+same bits), f32 for the RMSNorm scales and the lm_head (flax runs it as
+an f32 Dense).  For training (`train=True`): every parameter in f32, the
+master weights flax's `model.init` holds.  A tied tree
+(cfg.tie_embeddings) has no lm_head: the head is the embedding.
 
 `init_params(cfg, seed, device)` draws the same state dict on the device
 with flax's default initializers — truncated-normal lecun (variance
@@ -32,18 +35,21 @@ from tf_operator_tpu_torch.models.llama import Llama, LlamaConfig
 _TRUNC_STD = 0.87962566103423978
 
 
-def params_from_jax(cfg: LlamaConfig,
-                    tree: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(cfg: LlamaConfig, tree: Mapping,
+                    train: bool = False) -> Dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors) from a flax Llama param tree
-    of numpy arrays.  Raises KeyError naming the missing flax path for
-    trees the port does not take (tied embeddings, MoE blocks)."""
+    of numpy arrays, in serving storage dtypes or (train=True) all f32.
+    Raises KeyError naming the missing flax path for trees the port does
+    not take (MoE blocks)."""
     def t(a, dtype):
         return torch.tensor(a).to(dtype)  # a copy: flax arrays are read-only
 
-    dt, f32 = cfg.dtype, torch.float32
+    f32 = torch.float32
+    dt = f32 if train else cfg.dtype
     sd = {"embed": t(tree["embed"]["embedding"], dt),
-          "ln_f.scale": t(tree["ln_f"]["scale"], f32),
-          "lm_head": t(tree["lm_head"]["kernel"], f32)}
+          "ln_f.scale": t(tree["ln_f"]["scale"], f32)}
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = t(tree["lm_head"]["kernel"], f32)
     for i in range(cfg.n_layers):
         blk, p = tree[f"block{i}"], f"blocks.{i}."
         sd[p + "ln1.scale"] = t(blk["ln1"]["scale"], f32)
@@ -74,16 +80,18 @@ def _trunc_normal_(t: torch.Tensor, std: float,
 
 
 def init_params(cfg: LlamaConfig, seed: int,
-                device: Union[str, torch.device, None] = None
-                ) -> Dict[str, torch.Tensor]:
+                device: Union[str, torch.device, None] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
     """Random weights for `cfg` drawn on `device` (default "cuda") from
-    a generator seeded with `seed`, in the port's storage dtypes."""
+    a generator seeded with `seed`, in the port's serving storage dtypes
+    or (train=True) as f32 masters.  The draws are the same either way:
+    the serving weights are the training ones cast to cfg.dtype."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.device("meta"):
         spec = {k: (tuple(v.shape), v.dtype)
-                for k, v in Llama(cfg).state_dict().items()}
+                for k, v in Llama(cfg, train=train).state_dict().items()}
     sd = {}
     for name, (shape, dtype) in spec.items():
         if name.endswith(".scale"):

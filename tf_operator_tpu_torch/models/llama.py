@@ -1,33 +1,42 @@
-"""LLaMA-class decoder (RoPE + GQA + SwiGLU + RMSNorm) in PyTorch, paged.
+"""LLaMA-class decoder (RoPE + GQA + SwiGLU + RMSNorm) in PyTorch.
 
-The port of tf_operator_tpu/models/llama.py's serving half: the config and
-its factories, rotary embeddings, RMSNorm, the fused SwiGLU MLP, the dense
+The port of tf_operator_tpu/models/llama.py: the config and its
+factories, rotary embeddings, RMSNorm, the fused SwiGLU MLP, the dense
 ring-visibility attention (`cached_attention`, the plain read the paged
-kernel is held against), and the decoder in decode mode over a paged KV
-block pool.  Parameter layouts are the flax ones ([E, H, D] wq, fused
-[E, 2, KV, D] wkv, [H, D, E] out, fused [E, 2, F] wi), so
-models/bridge.params_from_jax is a rename.
+kernel is held against), and the decoder in two modes:
 
-Numerics follow the JAX package: weights stored in cfg.dtype (what
-flax's DenseGeneral(dtype=...) casts to before every product), RoPE and
-RMSNorm in f32, attention scores and softmax in f32, and the lm_head in
-f32 on an upcast hidden state.  The large projections are plain
-torch.matmul, as the JAX package left them to XLA; every paged KV read
-goes through models/paged_attention.paged_attention.
+  - decode over a paged KV block pool (serving): every KV read goes
+    through models/paged_attention.paged_attention;
+  - full sequence (training): causal attention through cfg.attention_fn
+    (ops/flash_attention.flash_attention, or the einsum reference when
+    None), optional recompute of each block in the backward pass
+    (cfg.remat, torch.utils.checkpoint), and tied or untied logits.
+
+Parameter layouts are the flax ones ([E, H, D] wq, fused [E, 2, KV, D]
+wkv, [H, D, E] out, fused [E, 2, F] wi), so models/bridge.params_from_jax
+is a rename.  Numerics follow the JAX package: every projection runs in
+cfg.dtype (flax's DenseGeneral(dtype=...) casts its kernel to that before
+the product, whether the parameter is stored in cfg.dtype for serving or
+kept as an f32 master for training), RoPE and RMSNorm in f32, attention
+scores and softmax in f32, the untied lm_head in f32 on an upcast hidden
+state and the tied head (flax's Embed.attend) in cfg.dtype.  The large
+projections are plain torch.matmul, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import paged_attention as _pa
 from tf_operator_tpu_torch.models import paging
+from tf_operator_tpu_torch.models.transformer import dot_product_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +66,15 @@ class LlamaConfig:
     rope_scaling: Optional[RopeScaling] = None
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Mistral-style sliding window; the port does not serve it yet
-    # (ROADMAP: sliding-window paged tables) and Llama refuses it
+    tie_embeddings: bool = False
+    # None -> the einsum reference (models/transformer.dot_product_attention);
+    # or ops/flash_attention.flash_attention — called with post-RoPE
+    # (q, k, v, causal=True) on the full-sequence path
+    attention_fn: Optional[Callable] = None
+    remat: bool = False  # recompute each block in the backward pass
+    # Mistral-style sliding window: passed as window= to attention_fn on
+    # the full-sequence path; the paged path does not serve it yet
+    # (ROADMAP: sliding-window paged tables) and refuses it
     sliding_window: Optional[int] = None
 
     def __post_init__(self):
@@ -76,6 +92,10 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
 
 
 def _config(base: dict, kw: dict) -> LlamaConfig:
@@ -206,6 +226,16 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, l, h, d).to(q.dtype)
 
 
+def _supports_gqa(attn) -> bool:
+    """Does the backend consume compact [B,S,KV,D] kv natively?  Looks
+    through functools.partial layers."""
+    while attn is not None:
+        if getattr(attn, "supports_gqa", False):
+            return True
+        attn = getattr(attn, "func", None)
+    return False
+
+
 # ------------------------------------------------------------------ modules
 def _weight(*shape: int, dtype: torch.dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
@@ -231,106 +261,134 @@ class RMSNorm(nn.Module):
 
 class SwiGlu(nn.Module):
     """silu(x W_gate) * (x W_up) -> W_down, gate and up fused as
-    wi [E, 2, F]."""
+    wi [E, 2, F].  Weights stored in `wdt`, used in cfg.dtype."""
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
-        self.wi = _weight(cfg.d_model, 2, cfg.d_ff, dtype=cfg.dtype)
-        self.wo = _weight(cfg.d_ff, cfg.d_model, dtype=cfg.dtype)
+        self.dtype = cfg.dtype
+        self.wi = _weight(cfg.d_model, 2, cfg.d_ff, dtype=wdt)
+        self.wo = _weight(cfg.d_ff, cfg.d_model, dtype=wdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e, _, f = self.wi.shape
-        h = (x @ self.wi.view(e, 2 * f)).unflatten(-1, (2, f))
-        return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ self.wo
+        h = (x @ self.wi.to(self.dtype).view(e, 2 * f)).unflatten(-1, (2, f))
+        return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ self.wo.to(self.dtype)
 
 
 class GqaAttention(nn.Module):
-    """Grouped-query attention with rotary embeddings over a paged KV
-    pool: project q and the fused k/v, rotate, write k/v into the lane's
-    blocks, then read every visible position through paged_attention
-    (the CUDA kernel on the card, its plain version on the CPU)."""
+    """Grouped-query attention with rotary embeddings.
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    Decode path (cache = a layer's (k, v) block pools): project q and the
+    fused k/v, rotate, write k/v into the lanes' blocks, then read every
+    visible position through paged_attention (the CUDA kernel on the
+    card, its plain version on the CPU).  Full-sequence path (cache None):
+    causal attention through cfg.attention_fn over compact kv when the
+    backend takes GQA natively, else over kv repeated to H heads."""
+
+    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
         self.cfg = cfg
         e, h, kv, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = _weight(e, h, d, dtype=cfg.dtype)
-        self.wkv = _weight(e, 2, kv, d, dtype=cfg.dtype)
-        self.out = _weight(h, d, e, dtype=cfg.dtype)
+        self.wq = _weight(e, h, d, dtype=wdt)
+        self.wkv = _weight(e, 2, kv, d, dtype=wdt)
+        self.out = _weight(h, d, e, dtype=wdt)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                cache: Tuple[torch.Tensor, torch.Tensor], pos: torch.Tensor,
-                block_table: torch.Tensor,
-                write_index: Tuple[torch.Tensor, torch.Tensor]
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                pos: Optional[torch.Tensor] = None,
+                block_table: Optional[torch.Tensor] = None,
+                write_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
         cfg = self.cfg
+        dt = cfg.dtype
         b, l, e = x.shape
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ self.wq.view(e, h * d)).view(b, l, h, d)
-        kvp = (x @ self.wkv.view(e, 2 * kv * d)).view(b, l, 2, kv, d)
+        q = (x @ self.wq.to(dt).view(e, h * d)).view(b, l, h, d)
+        kvp = (x @ self.wkv.to(dt).view(e, 2 * kv * d)).view(b, l, 2, kv, d)
         q = _rotate(q, cos, sin)
         k = _rotate(kvp[:, :, 0], cos, sin)
-        k_pool, v_pool = cache
-        paging.write_blocks(k_pool, k, write_index)
-        paging.write_blocks(v_pool, kvp[:, :, 1], write_index)
-        out = _pa.paged_attention(q, k_pool, v_pool, block_table, pos,
-                                  window=cfg.sliding_window)
-        return out.reshape(b, l, h * d) @ self.out.view(h * d, e)
+        v = kvp[:, :, 1]
+        if cache is not None:
+            k_pool, v_pool = cache
+            paging.write_blocks(k_pool, k, write_index)
+            paging.write_blocks(v_pool, v, write_index)
+            out = _pa.paged_attention(q, k_pool, v_pool, block_table, pos,
+                                      window=cfg.sliding_window)
+        else:
+            attn = cfg.attention_fn or dot_product_attention
+            if cfg.q_per_kv > 1 and not _supports_gqa(attn):
+                k = k.repeat_interleave(cfg.q_per_kv, dim=2)
+                v = v.repeat_interleave(cfg.q_per_kv, dim=2)
+            kw = {}
+            if cfg.sliding_window is not None:
+                kw["window"] = cfg.sliding_window
+            out = attn(q, k, v, True, **kw)
+        return out.reshape(b, l, h * d) @ self.out.to(dt).view(h * d, e)
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig) -> None:
+    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        self.attn = GqaAttention(cfg)
+        self.attn = GqaAttention(cfg, wdt)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        self.mlp = SwiGlu(cfg)
+        self.mlp = SwiGlu(cfg, wdt)
 
-    def forward(self, x, cos, sin, cache, pos, block_table, write_index):
+    def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
+                write_index=None):
         x = x + self.attn(self.ln1(x), cos, sin, cache, pos, block_table,
                           write_index)
         return x + self.mlp(self.ln2(x))
 
 
 class Llama(nn.Module):
-    """Causal decoder LM in decode mode over a paged KV pool.
+    """Causal decoder LM.
 
-    forward(tokens [B, L], cache, cache_pos, block_table) writes the L
-    new positions' K/V into the pools of `cache` (per-layer (k, v) from
-    paging.init_block_pool; updated IN PLACE) through block_table [B, T]
-    and returns f32 logits [B, L, V] — or, with return_hidden=True, the
-    final-norm hidden states, whose `logits()` the caller takes where it
-    needs them (a prefill segment needs only its last position's).
-    cache_pos is the position of tokens[:, 0]: an int for every row, or
-    a [B] tensor giving each lane its own position."""
+    Decode mode, forward(tokens [B, L], cache, cache_pos, block_table):
+    writes the L new positions' K/V into the pools of `cache` (per-layer
+    (k, v) from paging.init_block_pool; updated IN PLACE) through
+    block_table [B, T].  cache_pos is the position of tokens[:, 0]: an
+    int for every row, or a [B] tensor giving each lane its own position.
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    Full-sequence mode, forward(tokens [B, S]) (cache None): positions
+    0..S-1, or `positions` ([S] or [B, S] ids into the RoPE table).
+
+    Both return f32 logits [B, L, V] — or, with return_hidden=True, the
+    final-norm hidden states in cfg.dtype, whose `logits()` the caller
+    takes where it needs them (a prefill segment needs only its last
+    position's; the blocked cross-entropy fuses the tied head into the
+    loss).
+
+    Parameters are stored in cfg.dtype for serving (f32 for the norm
+    scales and the untied lm_head), or all in f32 (`train=True`): the
+    master weights training updates, cast to cfg.dtype at each use."""
+
+    def __init__(self, cfg: LlamaConfig, train: bool = False) -> None:
         super().__init__()
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding_window models are not ported yet (ROADMAP Queue "
-                "1: sliding-window paged tables)")
         self.cfg = cfg
-        self.embed = _weight(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype)
-        self.blocks = nn.ModuleList(LlamaBlock(cfg)
+        wdt = torch.float32 if train else cfg.dtype
+        self.embed = _weight(cfg.vocab_size, cfg.d_model, dtype=wdt)
+        self.blocks = nn.ModuleList(LlamaBlock(cfg, wdt)
                                     for _ in range(cfg.n_layers))
         self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        # f32 like flax's Dense(dtype=f32) lm_head on the upcast x
-        self.lm_head = _weight(cfg.d_model, cfg.vocab_size,
-                               dtype=torch.float32)
+        if not cfg.tie_embeddings:
+            # f32 like flax's Dense(dtype=f32) lm_head on the upcast x
+            self.lm_head = _weight(cfg.d_model, cfg.vocab_size,
+                                   dtype=torch.float32)
         self._rope: Optional[torch.Tensor] = None
 
     @classmethod
     def from_params(cls, cfg: LlamaConfig, params: dict,
-                    device: Union[str, torch.device, None] = None
-                    ) -> "Llama":
+                    device: Union[str, torch.device, None] = None,
+                    train: bool = False) -> "Llama":
         """Build the model around `params` (models/bridge: a state dict
         in the port's layouts) on `device` (default "cuda").  Tensors
         already on the device in the right dtype are used as they are,
-        not copied."""
+        not copied.  train=True keeps every parameter in f32 with
+        requires_grad and puts the model in training mode."""
         dev = resolve_device(device)
         with torch.device("meta"):
-            model = cls(cfg)
+            model = cls(cfg, train=train)
         want = {k: v.dtype for k, v in model.state_dict().items()}
         missing = set(want) - set(params)
         extra = set(params) - set(want)
@@ -342,8 +400,8 @@ class Llama(nn.Module):
             {k: params[k].to(device=dev, dtype=want[k]) for k in want},
             assign=True)
         for p in model.parameters():
-            p.requires_grad_(False)
-        return model.eval()
+            p.requires_grad_(train)
+        return model.train(train)
 
     def rope(self) -> torch.Tensor:
         """The [max_len, D/2] angle table on the parameters' device."""
@@ -355,14 +413,31 @@ class Llama(nn.Module):
         return self._rope
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits of final-norm hidden states."""
+        if self.cfg.tie_embeddings:
+            # flax Embed.attend promotes both operands to cfg.dtype
+            dt = self.cfg.dtype
+            return (h.to(dt) @ self.embed.to(dt).t()).float()
         return h.float() @ self.lm_head
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        # flax Embed(dtype=...) looks up in cfg.dtype: cast after the
+        # gather, which gives the same bits as casting the table first
+        return F.embedding(tokens.to(torch.long), self.embed).to(self.cfg.dtype)
+
     def forward(self, tokens: torch.Tensor,
-                cache: List[Tuple[torch.Tensor, torch.Tensor]],
-                cache_pos: Union[int, torch.Tensor],
-                block_table: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+                cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                cache_pos: Union[int, torch.Tensor, None] = None,
+                block_table: Optional[torch.Tensor] = None,
+                return_hidden: bool = False,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cache is None:
+            return self._forward_full(tokens, return_hidden, positions)
         cfg = self.cfg
+        if cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "sliding_window models are not served by the port yet "
+                "(ROADMAP Queue 1: sliding-window paged tables)")
         b, l = tokens.shape
         table = self.rope()
         dev = table.device
@@ -385,11 +460,46 @@ class Llama(nn.Module):
         # every layer writes the same positions through the same table
         write_index = paging.block_write_index(pos, block_table, l,
                                                cache[0][0].shape[1])
-        x = F.embedding(tokens.to(torch.long), self.embed)
+        x = self._embed(tokens)
         for blk, layer_cache in zip(self.blocks, cache):
             x = blk(x, cos, sin, layer_cache, pos, block_table, write_index)
         x = self.ln_f(x)
         return x if return_hidden else self.logits(x)
+
+    def _forward_full(self, tokens: torch.Tensor, return_hidden: bool,
+                      positions: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        table = self.rope()
+        if positions is None:
+            angles = table[: tokens.shape[1]]                    # [S, D/2]
+        else:
+            # JAX's gather wraps negative ids once and clamps the rest;
+            # torch would fault, so do both explicitly
+            idx = positions.to(device=table.device, dtype=torch.long)
+            idx = torch.where(idx < 0, idx + cfg.max_len, idx)
+            angles = table[idx.clamp(0, cfg.max_len - 1)]
+        cos, sin = _rope_cos_sin(angles)
+        x = self._embed(tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(blk, x, cos, sin,
+                                                      use_reentrant=False)
+            else:
+                x = blk(x, cos, sin)
+        x = self.ln_f(x)
+        return x if return_hidden else self.logits(x)
+
+
+def params_flops_per_token(cfg: LlamaConfig) -> float:
+    """~6 * matmul-params FLOPs/token for a train step (fwd+bwd): q, k, v
+    and out projections, the SwiGLU MLP and the (tied or untied) vocab
+    projection."""
+    attn = (cfg.n_heads + 2 * cfg.n_kv_heads + cfg.n_heads) * (
+        cfg.d_model * cfg.head_dim)
+    mlp = 3 * cfg.d_model * cfg.d_ff
+    p = cfg.vocab_size * cfg.d_model + cfg.n_layers * (attn + mlp)
+    return 6.0 * p
 
 
 # ---------------------------------------------------------------- sampling
