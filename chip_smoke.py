@@ -14,8 +14,9 @@ Phases, in order, none of them caught:
               of llama3_8b (H=32, KV=8, D=128, bs=16, 8 lanes up to ~1k
               positions, scratch padding, a frozen lane, a modular ring
               table), L=1 and L=512, bf16 and f32, with and without a
-              window; then its time beside the plain version's, an SDPA
-              yardstick and the card's bound.
+              window; two launches give the same bits; then its time
+              beside the plain version's, an SDPA yardstick and the card's
+              bound.
   4. serve:   llama3_8b at full width and depth (bf16, random weights from
               a seed) serves 16 requests through serve_loop on a paged
               pool; every KV read goes through the kernel, whose launch
@@ -39,6 +40,24 @@ Phases, in order, none of them caught:
   8. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
+  9. kernel1q: the int8 paged-attention kernel (K1q, the same source)
+              against its plain version on the kernel phase's cases, with
+              int8 pools quantized from them and the scratch block
+              poisoned (payload 127, scale 1e4); two launches give the
+              same bits; then its time beside the plain version's, an SDPA
+              yardstick over the gathered dequantized view and the bound.
+ 10. serve-int8: llama3_8b at full width and depth with int8 weights
+              (quantized from the seeded f32 draws) and int8 KV serves the
+              serve phase's 16 requests under scheduler="continuous",
+              prefill_chunk=256 streamed one segment per turn, on a pool
+              of 240 blocks (the slot loop's default is 520): the step
+              gate blocks, lanes are preempted, prompt segments ride the
+              decode dispatches; every read goes through K1q, whose launch
+              count must equal layers x model calls, and none through K1.
+ 11. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
+              KV, prefill_chunk set: greedy tokens and schedule of the
+              continuous scheduler on the card equal those on the CPU,
+              and the card's continuous tokens equal its slot tokens.
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
@@ -47,7 +66,8 @@ Prints the kernel table as one JSON line, then the device line, and last
 
 instead builds the kernels and prints where the time goes at full width
 (device time by kernel under torch.profiler, and the device's idle share)
-for one decode block, one prefill segment and one training step.
+for one decode block and one prefill segment (bf16, then int8 weights and
+KV) and one training step.
 """
 from __future__ import annotations
 
@@ -89,7 +109,9 @@ def build() -> None:
         + json.dumps({k: round(v, 2) for k, v in per_source.items()}))
     for name, out in kernels.build_logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas names each kernel (mangled) before its report
+            if any(k in line for k in ("Function properties for",
+                                       "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -137,12 +159,13 @@ def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS):
                 pos=pos.to(dev), window=window, ctx=ctx)
 
 
-def bound_ms(case, dtype) -> tuple:
+def bound_ms(case, dtype, int8: bool = False) -> tuple:
     """The least time the card could take for a full-causal linear-table
     case: the larger of the bytes the function must move over HBM
     bandwidth and its operations over the dtype's peak.  Bytes: each
     visible K/V block read once (a lane at ctx positions sees
-    ceil(ctx / bs) blocks), q, out, the tables and positions.
+    ceil(ctx / bs) blocks; int8 pools: one byte an element plus the f32
+    scale of each (position, head)), q, out, the tables and positions.
     Operations: QK^T and PV of every query row against the positions
     visible to it (2 flops per multiply-add)."""
     from tf_operator_tpu_torch.models.paging import blocks_for
@@ -150,8 +173,8 @@ def bound_ms(case, dtype) -> tuple:
     esz = torch.finfo(dtype).bits // 8
     q = case["q"]
     b, l, h, d = q.shape
-    kv_bytes = sum(blocks_for(c, BS) for c in case["ctx"]) * BS * KV * D \
-        * esz * 2
+    per_pos = KV * D * esz if not int8 else KV * D + KV * 4
+    kv_bytes = sum(blocks_for(c, BS) for c in case["ctx"]) * BS * per_pos * 2
     io = 2 * q.numel() * esz + case["table"].numel() * 4 + b * 4
     flops = 0
     for c in case["ctx"]:
@@ -183,14 +206,20 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def sdpa_inputs(case):
-    """The gathered linear view and mask that torch's
-    scaled_dot_product_attention takes for the same function (the
-    yardstick only: the port never calls SDPA)."""
+    """The gathered linear view (int8 pools: dequantized to q's dtype)
+    and mask that torch's scaled_dot_product_attention takes for the
+    same function (the yardstick only: the port never calls SDPA)."""
     from tf_operator_tpu_torch.models import paging
+    from tf_operator_tpu_torch.models.quant import QTensor
 
     q = case["q"]
-    k = paging.gather_blocks(case["k"], case["table"]).transpose(1, 2)
-    v = paging.gather_blocks(case["v"], case["table"]).transpose(1, 2)
+
+    def view(pool):
+        g = paging.gather_blocks(pool, case["table"])
+        return g.dequantize(q.dtype) if isinstance(g, QTensor) else g
+
+    k = view(case["k"]).transpose(1, 2)
+    v = view(case["v"]).transpose(1, 2)
     c = k.shape[2]
     l = q.shape[1]
     qp = case["pos"].long()[:, None] + torch.arange(l, device=q.device)
@@ -202,18 +231,16 @@ def sdpa_inputs(case):
     return q.transpose(1, 2), k, v, mask[:, None]
 
 
-def kernel_phase() -> dict:
-    from tf_operator_tpu_torch.models import paged_attention as pa
+# f32: the kernel folds 16-position blocks by online softmax, the plain
+# version takes one softmax, so sums run in another order (~1e-6 on O(1)
+# outputs).  bf16: both round p to bf16, but at different maxima (running
+# vs final), and round the output to bf16 (2^-8 relative).  K1q holds the
+# same: kernel and plain version read the same dequantized values.
+PAGED_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # f32: the kernel folds 16-position blocks by online softmax, the
-    # plain version takes one softmax, so sums run in another order
-    # (~1e-6 on O(1) outputs).  bf16: both round p to bf16, but at
-    # different maxima (running vs final), and round the output to bf16
-    # (2^-8 relative).
-    tol = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+def paged_cases() -> list:
+    """(dtype, L, window, ring, block size) of the kernel phases."""
     cases = [(dt, l, w, False, BS)
              for dt in (torch.bfloat16, torch.float32)
              for l in (1, 512) for w in (None, 256)]
@@ -222,49 +249,88 @@ def kernel_phase() -> dict:
     # serve_loop's default block size, 64: past 48 KB of shared memory
     cases += [(dt, 1, None, False, 64) for dt in (torch.bfloat16,
                                                   torch.float32)]
-    for i, (dt, l, w, ring, bs) in enumerate(cases):
+    return cases
+
+
+def int8_pools(case) -> list:
+    """The case's K and V pools quantized over head_dim (models/quant,
+    as the int8 block write does), with the scratch block poisoned:
+    payload 127 and scale 1e4, so a masking fault would show."""
+    from tf_operator_tpu_torch.models import quant
+
+    out = []
+    for name in ("k", "v"):
+        qt = quant.quantize_tensor(case[name], axes=(3,))
+        qt.q[0] = 127
+        qt.scale[0] = 1e4
+        out.append(qt)
+    return out
+
+
+def kernel_phase(int8: bool = False) -> dict:
+    """K1, or K1q (int8=True: the same draws quantized by int8_pools),
+    against its plain version on paged_cases(): live rows within
+    PAGED_TOL, the frozen lane finalizing to 0, two launches with the
+    same bits.  Then its time at decode and prefill (bf16 queries)
+    beside the plain version, SDPA over the gathered (dequantized) view
+    and the bound."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = "[kernel1q]" if int8 else "[kernel]"
+    plain = (pa.paged_attention_int8_plain if int8
+             else pa.paged_attention_plain)
+
+    def inputs(case):
+        k, v = int8_pools(case) if int8 else (case["k"], case["v"])
+        return (case["q"], k, v, case["table"], case["pos"])
+
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (dt, l, w, ring, bs) in enumerate(paged_cases()):
         case = make_case(dt, l, w, ring, SEED + i, bs)
-        args = (case["q"], case["k"], case["v"], case["table"], case["pos"])
+        args = inputs(case)
         got = pa.paged_attention(*args, window=w)
-        ref = pa.paged_attention_plain(*args, window=w)
+        again = pa.paged_attention(*args, window=w)
+        ref = plain(*args, window=w)
         torch.cuda.synchronize()
         live = slice(0, B - 1)
         diff = (got[live].float() - ref[live].float()).abs()
-        atol, rtol = tol[dt]
+        atol, rtol = PAGED_TOL[dt]
         ok = bool((diff <= atol + rtol * ref[live].float().abs()).all())
+        same = torch.equal(got, again)
         frozen_zero = bool((got[B - 1] == 0).all())
         err = float(diff.max())
         errs[dt] = max(errs[dt], err)
-        log(f"[kernel] {str(dt)[6:]:8s} L={l:<4d} bs={bs} window={w} "
-            f"ring={ring} "
-            f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
-            f"frozen_lane_zero={frozen_zero}")
-        if not (ok and frozen_zero and torch.isfinite(got).all()):
+        log(f"{tag} {str(dt)[6:]:8s} L={l:<4d} bs={bs} window={w} "
+            f"ring={ring} max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
+            f"frozen_lane_zero={frozen_zero} repeat={same}")
+        if not (ok and same and frozen_zero and torch.isfinite(got).all()):
             raise AssertionError(
-                f"paged_attention kernel disagrees with its plain version: "
-                f"dtype={dt} L={l} bs={bs} window={w} ring={ring} "
-                f"err={err}")
+                f"{tag} the kernel disagrees with its plain version or does "
+                f"not repeat: dtype={dt} L={l} bs={bs} window={w} "
+                f"ring={ring} err={err} bit_identical={same}")
 
     timings = {}
     for name, l in (("decode", 1), ("prefill", 512)):
         case = make_case(torch.bfloat16, l, None, False, SEED + 100)
-        args = (case["q"], case["k"], case["v"], case["table"], case["pos"])
-        sq, sk, sv, mask = sdpa_inputs(case)
+        args = inputs(case)
+        sq, sk, sv, mask = sdpa_inputs(dict(case, k=args[1], v=args[2]))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         # plain, kernel, kernel, plain: one card, in turns
-        p1 = time_ms(lambda: pa.paged_attention_plain(*args))
+        p1 = time_ms(lambda: plain(*args))
         k1 = time_ms(lambda: pa.paged_attention(*args))
         k2 = time_ms(lambda: pa.paged_attention(*args))
-        p2 = time_ms(lambda: pa.paged_attention_plain(*args))
+        p2 = time_ms(lambda: plain(*args))
         lib = time_ms(lambda: sdpa(sq, sk, sv, attn_mask=mask,
                                    enable_gqa=True))
-        bnd, by = bound_ms(case, torch.bfloat16)
+        bnd, by = bound_ms(case, torch.bfloat16, int8=int8)
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                              library_ms=lib, bound_ms=bnd, bound_by=by)
-        log(f"[kernel] timing {name} bf16 B={B} L={l} H={H} KV={KV} D={D} "
-            f"bs={BS} ctx={case['ctx']}: kernel {k1:.4f}/{k2:.4f} ms, "
-            f"plain {p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
+        log(f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
+            f"B={B} L={l} H={H} KV={KV} D={D} bs={BS} ctx={case['ctx']}: "
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
     return dict(errs=errs, timings=timings)
 
 
@@ -659,10 +725,157 @@ def train_parity_phase() -> None:
         raise AssertionError(f"[train-parity] launches {launches}")
 
 
+# ------------------------------------------------------- serve-int8 phase
+# blocks of the serve-int8 pool: the slot loop's default for the serve
+# phase's requests is 8 lanes x 65 blocks = 520; at 240 the continuous
+# scheduler's step gate blocks and growth preempts
+INT8_POOL = 240
+
+
+def int8_params(cfg, seed: int):
+    """int8 weights on the card, quantized from the f32 draws of `seed`
+    (bridge.init_params(train=True)); the f32 tree is freed here."""
+    from tf_operator_tpu_torch.models import bridge, quant
+
+    master = bridge.init_params(cfg, seed, device="cuda", train=True)
+    params = quant.quantize_params(master)
+    del master
+    return params
+
+
+def serve_int8_phase() -> dict:
+    from tf_operator_tpu_torch.models import llama, quant
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params = int8_params(cfg, SEED)
+    qbytes = quant.quantized_bytes(params)
+    model = llama.Llama.from_params(cfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    log(f"[serve-int8] llama3_8b {cfg.n_layers} layers, int8 weights "
+        f"quantized from the f32 draws of seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s (peak while quantizing "
+        f"{build_peak / 2**30:.3f} GiB); quantized_bytes {qbytes} "
+        f"({qbytes / 2**30:.3f} GiB), resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; compute "
+        f"{cfg.dtype}")
+    kw = dict(slots=8, block_size=BS, steps_per_sync=8, device="cuda",
+              scheduler="continuous", kv_quant=True, prefill_chunk=256,
+              prefill_chunks_per_sync=1)
+    prompts = prompts_for(cfg, 16, 64, MAX_CTX, SEED + 1)
+    # warm-up (cuBLAS handles, allocator) on two short requests
+    serve_loop(model, [p[:64] for p in prompts[:2]], max_new_tokens=8, **kw)
+    torch.cuda.synchronize()
+
+    calls = [0]
+    hook = model.register_forward_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launches()
+    results, stats = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
+                                pool_blocks=INT8_POOL, return_stats=True,
+                                **kw)
+    torch.cuda.synchronize()
+    launches, k1_launches = pa.launches_int8, pa.launches
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, r in enumerate(results):
+        if len(r.tokens) != MAX_NEW:
+            raise AssertionError(f"[serve-int8] request {i} emitted "
+                                 f"{len(r.tokens)} tokens, budget {MAX_NEW}")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"[serve-int8] request {i}: token out of "
+                                 f"vocab")
+    if launches != cfg.n_layers * calls[0] or launches == 0 or k1_launches:
+        raise AssertionError(
+            f"[serve-int8] K1q launched {launches} times and K1 "
+            f"{k1_launches} times for {calls[0]} model calls x "
+            f"{cfg.n_layers} layers")
+    if not (stats.fused_prefill_tokens > 0
+            and stats.admissions_blocked_on_memory > 0
+            and stats.kv_blocks_peak_used <= INT8_POOL):
+        raise AssertionError(f"[serve-int8] the continuous scheduler did not "
+                             f"fuse, gate and bound as planned: {stats}")
+    ttft = sorted(r["ttft_s"] for r in stats.per_request)
+    pct = lambda p: ttft[min(len(ttft) - 1, math.ceil(p * len(ttft)) - 1)]
+    e2e = [r["e2e_latency_s"] for r in stats.per_request]
+    log(f"[serve-int8] {len(results)} requests, {MAX_NEW} new tokens each, "
+        f"scheduler continuous, prefill_chunk 256 one segment a turn, pool "
+        f"{INT8_POOL} blocks of {BS}")
+    log(f"[serve-int8] tokens={stats.total_tokens} "
+        f"wall_s={stats.wall_time_s:.4f} "
+        f"tokens_per_s={stats.tokens_per_sec:.2f} "
+        f"ttft_p50_s={pct(0.5):.4f} ttft_p99_s={pct(0.99):.4f} "
+        f"e2e_max_s={max(e2e):.4f} prefill_s={stats.prefill_time_s:.4f} "
+        f"decode_s={stats.decode_time_s:.4f} "
+        f"fused_prefill_tokens={stats.fused_prefill_tokens} "
+        f"preemptions={stats.preemptions} "
+        f"admissions_blocked_on_memory={stats.admissions_blocked_on_memory} "
+        f"kv_blocks_peak_used={stats.kv_blocks_peak_used} "
+        f"model_calls={calls[0]} k1q_launches={launches} "
+        f"k1_launches={k1_launches} quantized_bytes={qbytes} "
+        f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+# ------------------------------------------------------ parity-int8 phase
+def parity_int8_phase() -> None:
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.llama3_8b(n_layers=2, dtype=torch.float32)
+    params = int8_params(cfg, SEED + 7)
+    m_gpu = llama.Llama.from_params(cfg, params, device="cuda")
+    m_cpu = llama.Llama.from_params(
+        cfg, {k: v.to("cpu") for k, v in params.items()}, device="cpu")
+    del params
+    prompts = prompts_for(cfg, 4, 24, 96, SEED + 3)
+    # staggered budgets: a newcomer's segments ride a neighbour's decode
+    kw = dict(slots=2, max_new_tokens=[6, 16, 10, 12], block_size=BS,
+              steps_per_sync=8, prefill_chunk=32, kv_quant=True)
+    sched = lambda rs: [(r.tokens, r.admitted_at_step, r.finished_at_step,
+                         r.slot, r.kv_blocks) for r in rs]
+    got, stats = serve_loop(m_gpu, prompts, device="cuda",
+                            scheduler="continuous", return_stats=True, **kw)
+    want = serve_loop(m_cpu, prompts, device="cpu", scheduler="continuous",
+                      **kw)
+    slot = serve_loop(m_gpu, prompts, device="cuda", scheduler="slot", **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        log(f"[parity-int8] request {i}: cuda {g.tokens}")
+    if sched(got) != sched(want):
+        raise AssertionError(f"[parity-int8] cuda {sched(got)} != cpu "
+                             f"{sched(want)}")
+    if [r.tokens for r in got] != [r.tokens for r in slot]:
+        raise AssertionError("[parity-int8] continuous tokens differ from "
+                             "slot tokens on the card")
+    if stats.fused_prefill_tokens == 0:
+        raise AssertionError("[parity-int8] no segment was fused")
+    log(f"[parity-int8] 2 layers f32, int8 weights and KV: {len(prompts)} "
+        f"requests, greedy tokens and schedule identical on cuda and cpu "
+        f"(continuous, {stats.fused_prefill_tokens} fused prefill tokens), "
+        f"and continuous == slot on cuda")
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if "paged_attention" in name:
-        return "paged_attention (K1)"
+        return ("paged_attention int8 (K1q)" if "signed char" in name
+                else "paged_attention (K1)")
     for kernel, label in (("flash_fwd", "flash fwd (K2f)"),
                           ("flash_dq", "flash dq (K2q)"),
                           ("flash_dkv", "flash dkv (K2kv)")):
@@ -713,18 +926,23 @@ def _profile(fn, label: str, steps: int) -> None:
         log(f"[profile] {label}:     {us / 1e3 / steps:9.4f} ms  {name[:90]}")
 
 
-def profile_phase() -> None:
+def profile_phase(int8: bool = False) -> None:
     """Where serving time goes at full width: one 8-step decode block of
     llama3_8b for 8 lanes at 512 positions each, and one 512-token
-    prefill segment, each under torch.profiler."""
+    prefill segment, each under torch.profiler; bf16 weights and KV, or
+    (int8) int8 weights and KV."""
     from tf_operator_tpu_torch.models import bridge, llama, paging, serving
 
     cfg = llama.llama3_8b()
-    model = llama.Llama.from_params(
-        cfg, bridge.init_params(cfg, SEED, device="cuda"), device="cuda")
+    params = (int8_params(cfg, SEED) if int8
+              else bridge.init_params(cfg, SEED, device="cuda"))
+    model = llama.Llama.from_params(cfg, params, device="cuda")
+    del params
+    tag = "int8 " if int8 else ""
     lanes, ctx, steps = 8, 512, 8
     per_lane = paging.blocks_for(ctx + steps, BS)
-    cache = paging.init_block_pool(cfg, lanes * per_lane, BS, device="cuda")
+    cache = paging.init_block_pool(cfg, lanes * per_lane, BS, device="cuda",
+                                   kv_quant=int8)
     table = (torch.arange(lanes * per_lane, dtype=torch.int32,
                           device="cuda").view(lanes, per_lane) + 1)
     tok = torch.randint(0, cfg.vocab_size, (lanes,), device="cuda")
@@ -735,10 +953,10 @@ def profile_phase() -> None:
     with torch.inference_mode():
         _profile(lambda: serving.decode_block(model, cache, tok, pos, frozen,
                                               table, steps, greedy),
-                 f"decode {lanes} lanes x ctx {ctx}", steps)
+                 f"{tag}decode {lanes} lanes x ctx {ctx}", steps)
         _profile(lambda: serving.chunk_fill(model, cache, segment, 0,
                                             table[:1]),
-                 f"prefill 1 lane x {ctx} tokens", 1)
+                 f"{tag}prefill 1 lane x {ctx} tokens", 1)
 
 
 def profile_train_phase() -> None:
@@ -769,6 +987,8 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_phase()
         torch.cuda.empty_cache()
+        profile_phase(int8=True)
+        torch.cuda.empty_cache()
         profile_train_phase()
         return 0
     kern = kernel_phase()
@@ -777,6 +997,9 @@ def main() -> int:
     kern2 = kernel2_phase()
     train = train_phase()
     train_parity_phase()
+    kern1q = kernel_phase(int8=True)
+    serve_int8 = serve_int8_phase()
+    parity_int8_phase()
 
     t = kern["timings"]["decode"]
     row = {"name": "paged_attention", "route": "cuda",
@@ -802,6 +1025,16 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+    t = kern1q["timings"]["decode"]
+    rows.insert(1, {"name": "paged_attention_int8", "route": "cuda",
+                    "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
+                    "replaces": "tf_operator_tpu/models/paged_attention.py:259",
+                    "launches": serve_int8["launches"],
+                    "max_abs_err": kern1q["errs"][torch.bfloat16],
+                    "ms": t["ms"], "kernel_ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions:
-K1 (paged attention) and K2f/K2q/K2kv (flash attention forward, dQ and
-dK/dV).
+K1 (paged attention), K1q (paged attention over int8 pools) and
+K2f/K2q/K2kv (flash attention forward, dQ and dK/dV).
 
 Needs a CUDA card and nvcc; every test here carries the `cuda` marker and
 skips without a card.  The file imports nothing of JAX, so it also runs
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from tf_operator_tpu_torch.models import llama, paged_attention as tpa
-from tf_operator_tpu_torch.models import bridge
+from tf_operator_tpu_torch.models import bridge, quant
 from tf_operator_tpu_torch.models.serving import serve_loop
 from tf_operator_tpu_torch.ops import flash_attention as tfa
 
@@ -132,6 +132,110 @@ def test_serve_loop_cuda_matches_cpu_tokens():
         out.append([(r.tokens, r.admitted_at_step, r.finished_at_step,
                      r.slot, r.kv_blocks)
                     for r in serve_loop(model, prompts, device=dev, **kw)])
+    assert out[0] == out[1]
+
+
+# ------------------------------------------------------------------ K1q
+def _int8_pools(k_pool, v_pool):
+    """int8 pools quantized over head_dim from float draws, with the
+    scratch block poisoned (payload 127, scale 1e4)."""
+    out = []
+    for p in (k_pool, v_pool):
+        qt = quant.quantize_tensor(p.float(), axes=(3,))
+        qt.q[0] = 127
+        qt.scale[0] = 1e4
+        out.append(qt)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,g,d,window", [(1, 2, 8, None), (3, 2, 8, 6),
+                                          (3, 4, 128, None),
+                                          (1, 4, 128, 7)])
+def test_int8_kernel_matches_plain_ragged_lanes(dtype, l, g, d, window):
+    """K1q against paged_attention_int8_plain: the same dequantized
+    values (rounded to q's dtype before the products), so the K1
+    tolerances hold; two launches give the same bits."""
+    q, k_pool, v_pool, table, pos = _case(5, l=l, g=g, d=d, bs=4,
+                                          dtype=dtype, **RAGGED)
+    kq, vq = _int8_pools(k_pool, v_pool)
+    before = (tpa.launches, tpa.launches_int8)
+    got = tpa.paged_attention(q, kq, vq, table, pos, window=window)
+    again = tpa.paged_attention(q, kq, vq, table, pos, window=window)
+    torch.cuda.synchronize()
+    assert (tpa.launches, tpa.launches_int8) == (before[0], before[1] + 2)
+    assert torch.equal(got, again)
+    want = tpa.paged_attention_int8_plain(q, kq, vq, table, pos,
+                                          window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_long_prefill_ring_and_frozen_lane(dtype):
+    table = [[3, 1, 2, 4, 5, 6, 7, 8], [0] * 8,
+             [9, 10, 11, 12, 13, 14, 15, 16]]
+    q, k_pool, v_pool, tbl, pos = _case(6, l=300, g=4, d=64, bs=16,
+                                        dtype=dtype, table=table,
+                                        pos=[140, 0, 0])
+    kq, vq = _int8_pools(k_pool, v_pool)
+    for window in (None, 100):
+        got = tpa.paged_attention(q, kq, vq, tbl, pos, window=window)
+        want = tpa.paged_attention_int8_plain(q, kq, vq, tbl, pos,
+                                              window=window)
+        assert bool((got[1] == 0).all())
+        torch.testing.assert_close(got[[0, 2]].float(),
+                                   want[[0, 2]].float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+def test_int8_kernel_refuses_what_it_does_not_take():
+    q, k_pool, v_pool, table, pos = _case(7, l=1, g=2, d=8, bs=4,
+                                          dtype=torch.float32, **RAGGED)
+    kq, vq = _int8_pools(k_pool, v_pool)
+    with pytest.raises(TypeError, match="both be QTensor"):
+        tpa.paged_attention(q, kq, v_pool, table, pos)
+    bad = quant.QTensor(kq.q, kq.scale.double())
+    with pytest.raises(ValueError, match="scales"):
+        tpa.paged_attention(q, bad, vq, table, pos)
+    with pytest.raises(ValueError, match="on cpu"):
+        tpa.paged_attention(q, kq.to("cpu"), vq, table, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_on_the_card_gives_the_two_pass_bits(dtype):
+    """QTensor.dequantize takes the f32 product and rounds it as it is
+    stored, in one pass: the bits of (q.float() * scale).to(dtype)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    w = torch.randn((256, 2, 300), generator=g) * torch.rand(
+        (1, 2, 300), generator=g)
+    qt = quant.quantize_tensor(w.cuda(), axes=(0,))
+    want = (qt.q.float() * qt.scale).to(dtype)
+    assert torch.equal(qt.dequantize(dtype), want)
+
+
+@pytest.mark.parametrize("scheduler", ["slot", "continuous"])
+def test_int8_serve_loop_cuda_matches_cpu_tokens(scheduler):
+    """int8 weights and int8 KV: the tiny f32 model serves the same
+    greedy tokens and schedule on the card (K1q) as on the CPU."""
+    cfg = llama.tiny(dtype=torch.float32, max_len=128)
+    params = quant.quantize_params(bridge.init_params(cfg, seed=0,
+                                                      device="cpu",
+                                                      train=True))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n) for n in (5, 13, 3, 9, 17)]
+    kw = dict(slots=2, max_new_tokens=[8, 5, 9, 6, 7], block_size=4,
+              prefill_chunk=8, pool_blocks=7, steps_per_sync=4,
+              kv_quant=True, scheduler=scheduler)
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = llama.Llama.from_params(
+            cfg, {k: v.to(dev) for k, v in params.items()}, device=dev)
+        before = tpa.launches
+        out.append([(r.tokens, r.admitted_at_step, r.finished_at_step,
+                     r.slot, r.kv_blocks)
+                    for r in serve_loop(model, prompts, device=dev, **kw)])
+        assert tpa.launches == before  # int8 pools never reach K1
     assert out[0] == out[1]
 
 

@@ -29,9 +29,9 @@ def test_every_module_imports_without_jax():
     and flax cannot be imported at all, and leaves no module of the JAX
     package loaded."""
     names = _modules()
-    for name in ("models.serving", "ops.flash_attention", "ops.blocked_ce",
-                 "runtime.optim", "runtime.train", "runtime.loop",
-                 "runtime.profiler", "train_llama"):
+    for name in ("models.serving", "models.quant", "ops.flash_attention",
+                 "ops.blocked_ce", "runtime.optim", "runtime.train",
+                 "runtime.loop", "runtime.profiler", "train_llama"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

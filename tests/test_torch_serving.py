@@ -130,15 +130,11 @@ def test_sampling_is_seeded_by_the_generator(setup):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(paged=False), "dense"),
-    (dict(scheduler="continuous"), "continuous"),
     (dict(draft=object()), "speculative"),
     (dict(shared_prefix=[1, 2]), "shared-prefix"),
-    (dict(kv_quant=True), "int8 KV"),
-    (dict(params_transform=lambda p: p), "int8 weights"),
     (dict(cache_sharding=object()), "distributed"),
     (dict(prefill_only=True), "handoff"),
     (dict(adopt=[]), "handoff"),
-    (dict(prefill_chunks_per_sync=1), "continuous"),
     (dict(telemetry=object()), "telemetry"),
 ])
 def test_refused_options_name_their_roadmap_item(setup, kw, item):
@@ -156,8 +152,26 @@ def test_refused_options_name_their_roadmap_item(setup, kw, item):
     (dict(temperature=0.5), "generator"),
     (dict(scheduler="fifo"), "scheduler"),
     (dict(max_new_tokens=120), "max_len"),
+    (dict(prefill_chunks_per_sync=1), "needs prefill_chunk"),
+    (dict(prefill_chunks_per_sync=0, prefill_chunk=8, block_size=4),
+     "prefill_chunks_per_sync must be >= 1"),
 ])
 def test_validation_matches_jax_refusals(setup, kw, match):
     _, _, tmodel, prompts = setup
     with pytest.raises(ValueError, match=match):
         serve_loop(tmodel, prompts, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("transform", [lambda p: p, "bf16 dequantizer"])
+def test_params_transform_takes_only_the_dequantizer(setup, transform):
+    """The port's model applies its own weights (int8 ones dequantized to
+    cfg.dtype at each use): params_transform takes None or
+    quant.make_dequantizer(cfg.dtype) and refuses any other callable,
+    a dequantizer to another dtype included."""
+    from tf_operator_tpu_torch.models import quant
+
+    _, _, tmodel, prompts = setup
+    if transform == "bf16 dequantizer":
+        transform = quant.make_dequantizer(torch.bfloat16)
+    with pytest.raises(ValueError, match="params_transform"):
+        serve_loop(tmodel, prompts, device="cpu", params_transform=transform)

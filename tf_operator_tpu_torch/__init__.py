@@ -6,19 +6,26 @@ second implementation.  It imports `torch` and never `jax`, `flax` or any
 JAX package (the block allocator, the segment schedule) are copied here,
 and `tests/test_torch_*.py` hold each copy against its original.
 
-What is ported so far is the Llama family's paged serving path and its
-one-device training step:
+What is ported so far is the Llama family's paged serving path (slot and
+continuous schedulers, bf16 or int8 weights and KV) and its one-device
+training step:
 
   - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
                               attention, the decoder (paged decode and
                               full-sequence training), token selection
-  - models/paging.py          block pool allocator and block-table writes
-  - models/paged_attention.py the paged-attention wrapper: a hand-written
-                              CUDA kernel (csrc/paged_attention.cu) on the
-                              card, its plain PyTorch version on the CPU
+  - models/paging.py          block pool allocator, the continuous
+                              scheduler's gate, block-table writes (float
+                              or int8 pools)
+  - models/quant.py           weight-only int8 (QTensor, quantize_params)
+                              and the int8 KV layout
+  - models/paged_attention.py the paged-attention wrapper: hand-written
+                              CUDA kernels (csrc/paged_attention.cu: K1,
+                              and K1q for int8 pools) on the card, their
+                              plain PyTorch versions on the CPU
   - models/bridge.py          flax parameter trees -> the port's state dict,
                               and seeded random weights at full width
-  - models/serving.py         serve_loop's paged slot scheduler
+  - models/serving.py         serve_loop's paged slot and continuous
+                              schedulers
   - models/transformer.py     the einsum attention and the CLM loss
   - ops/flash_attention.py    flash attention forward and backward: three
                               hand-written CUDA kernels

@@ -10,6 +10,14 @@
 //   - online softmax in f32 (running max m, running sum l, accumulator);
 //   - p rounded to V's type before the PV product, as the TPU kernel does.
 //
+// K1q, the int8 variant (`_int8_kernel_adapter` -> `_kernel` with
+// k_scale_ref/v_scale_ref): the pools hold an int8 payload and an f32
+// scale per (position, kv head), scale[(block*bs + o)*KV + j].  Each
+// element is dequantized while the block is staged, exactly as the TPU
+// kernel does: (float)q * scale, ROUNDED TO T (bf16 or f32), and only
+// then widened for the QK and PV products.  Everything else is K1's; the
+// payload type is a template parameter of the one kernel.
+//
 // Design (simple and right first):
 //   - one thread block per (tile of kRows query rows, kv head, lane).  The
 //     rows of a kv head's group are r = l*G + g, so q and out are indexed
@@ -35,6 +43,8 @@
 //
 // What bounds it on this card: decode (L = 1) is memory-bound — the bytes
 // of the visible K/V blocks, read once, dominate; q and out are small.
+// K1q reads a quarter (f32) or half (bf16) of those bytes, plus 4 bytes
+// of scale per (position, head), one byte per element loaded at a time.
 // This design leaves on the table: cp.async/TMA double-buffering of the
 // next block while the current one is used, 16-byte vector loads,
 // tensor-core (mma/wgmma) score and PV products, split-K across the table
@@ -48,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -74,6 +86,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
+// One K or V element as the products see it: float pools widen the
+// element; int8 pools dequantize it, rounded to T (QTensor.dequantize into
+// q's dtype) before widening.  `s` indexes the (position, head) scale.
+template <typename T>
+__device__ __forceinline__ float kv_value(const T* pool, const float*,
+                                          long long g, long long) {
+  return to_f32(pool[g]);
+}
+template <typename T>
+__device__ __forceinline__ float kv_value(const signed char* pool,
+                                          const float* scale, long long g,
+                                          long long s) {
+  return to_f32(from_f32<T>(static_cast<float>(pool[g]) * scale[s]));
+}
+
 // jnp.mod is floor modulo: the result takes the divisor's sign.  C's %
 // truncates, and q - slot is negative for slots past the query.
 __device__ __forceinline__ int floor_mod(int a, int r) {
@@ -81,10 +108,13 @@ __device__ __forceinline__ int floor_mod(int a, int r) {
   return m < 0 ? m + r : m;
 }
 
-template <typename T>
+// KT is the pools' element type: T (K1) or signed char (K1q, with the
+// k_scale/v_scale pools; nullptr for K1).
+template <typename T, typename KT>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const T* __restrict__ q, const KT* __restrict__ k_pool,
+    const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ table,
     const int* __restrict__ pos, T* __restrict__ out, int L, int G, int KV,
     int D, int bs, int n_slots, long long sq_b, long long sq_l,
     long long sq_h, long long so_b, long long so_l, long long so_h,
@@ -146,9 +176,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const long long blk = static_cast<long long>(block_id) * bs;
     for (int i = tid; i < bs * D; i += kThreads) {
       const int o = i / D, d = i % D;
-      const long long g = ((blk + o) * KV + j) * D + d;
-      ks[o * dp + d] = to_f32(k_pool[g]);
-      vs[o * dp + d] = to_f32(v_pool[g]);
+      const long long sidx = (blk + o) * KV + j;  // (position, head)
+      const long long g = sidx * D + d;
+      ks[o * dp + d] = kv_value<T>(k_pool, k_scale, g, sidx);
+      vs[o * dp + d] = kv_value<T>(v_pool, v_scale, g, sidx);
     }
     __syncthreads();
 
@@ -232,14 +263,15 @@ size_t smem_bytes(int D, int bs) {
           static_cast<size_t>(kRows) * bs + 3ull * kRows);
 }
 
-template <typename T>
+template <typename T, typename KT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, const int* pos, void* out, int B, int L, int H,
-           int KV, int D, int bs, int n_slots, long long sq_b, long long sq_l,
+           const float* k_scale, const float* v_scale, const int* table,
+           const int* pos, void* out, int B, int L, int H, int KV, int D,
+           int bs, int n_slots, long long sq_b, long long sq_l,
            long long sq_h, long long so_b, long long so_l, long long so_h,
            int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, bs);
-  auto kernel = paged_attention_kernel<T>;
+  auto kernel = paged_attention_kernel<T, KT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -249,10 +281,45 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const int G = H / KV;
   const dim3 grid((L * G + kRows - 1) / kRows, KV, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, pos, static_cast<T*>(out), L, G,
-      KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b, so_l, so_h, window, scale);
+      static_cast<const T*>(q), static_cast<const KT*>(k_pool),
+      static_cast<const KT*>(v_pool), k_scale, v_scale, table, pos,
+      static_cast<T*>(out), L, G, KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
+      so_l, so_h, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both entry points: payload type KT (T for K1, signed char for K1q),
+// q/out type chosen by dtype (0 = float32, 1 = bfloat16).
+template <bool kInt8>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* table,
+             const void* pos, void* out, int B, int L, int H, int KV, int D,
+             int bs, int n_slots, long long sq_b, long long sq_l,
+             long long sq_h, long long so_b, long long so_l, long long so_h,
+             int window, float scale, int dtype, void* stream) {
+  if (D > kThreads * kColsPerThread || H % KV != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* tbl = static_cast<const int*>(table);
+  const auto* ps = static_cast<const int*>(pos);
+  const auto* ksc = static_cast<const float*>(k_scale);
+  const auto* vsc = static_cast<const float*>(v_scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    using KT = typename std::conditional<kInt8, signed char, float>::type;
+    return launch<float, KT>(q, k_pool, v_pool, ksc, vsc, tbl, ps, out, B,
+                             L, H, KV, D, bs, n_slots, sq_b, sq_l, sq_h,
+                             so_b, so_l, so_h, window, scale, st);
+  }
+  if (dtype == 1) {
+    using KT =
+        typename std::conditional<kInt8, signed char, __nv_bfloat16>::type;
+    return launch<__nv_bfloat16, KT>(q, k_pool, v_pool, ksc, vsc, tbl, ps,
+                                     out, B, L, H, KV, D, bs, n_slots, sq_b,
+                                     sq_l, sq_h, so_b, so_l, so_h, window,
+                                     scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -267,7 +334,7 @@ long long paged_attention_smem_bytes(int D, int bs) {
   return static_cast<long long>(smem_bytes(D, bs));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means full causal.
+// K1.  dtype: 0 = float32, 1 = bfloat16.  window <= 0 means full causal.
 // Strides are in elements; q and out have unit stride on the last dim,
 // the pools are contiguous [N+1, bs, KV, D], table [B, n_slots] and
 // pos [B] are contiguous int32.  Returns the launch's cudaError_t.
@@ -278,23 +345,25 @@ int paged_attention_launch(const void* q, const void* k_pool,
                            long long sq_b, long long sq_l, long long sq_h,
                            long long so_b, long long so_l, long long so_h,
                            int window, float scale, int dtype, void* stream) {
-  if (D > kThreads * kColsPerThread || H % KV != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* tbl = static_cast<const int*>(table);
-  const auto* ps = static_cast<const int*>(pos);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(q, k_pool, v_pool, tbl, ps, out, B, L, H, KV, D, bs,
-                         n_slots, sq_b, sq_l, sq_h, so_b, so_l, so_h, window,
-                         scale, st);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tbl, ps, out, B, L, H,
-                                 KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
-                                 so_l, so_h, window, scale, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, table, pos, out,
+                         B, L, H, KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
+                         so_l, so_h, window, scale, dtype, stream);
+}
+
+// K1q: as K1, with int8 payload pools [N+1, bs, KV, D] and contiguous f32
+// scale pools [N+1, bs, KV, 1]; dtype is q's and out's.
+int paged_attention_int8_launch(const void* q, const void* k_pool,
+                                const void* v_pool, const void* k_scale,
+                                const void* v_scale, const void* table,
+                                const void* pos, void* out, int B, int L,
+                                int H, int KV, int D, int bs, int n_slots,
+                                long long sq_b, long long sq_l,
+                                long long sq_h, long long so_b,
+                                long long so_l, long long so_h, int window,
+                                float scale, int dtype, void* stream) {
+  return dispatch<true>(q, k_pool, v_pool, k_scale, v_scale, table, pos, out,
+                        B, L, H, KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
+                        so_l, so_h, window, scale, dtype, stream);
 }
 
 const char* paged_attention_error_string(int code) {

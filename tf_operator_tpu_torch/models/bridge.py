@@ -10,7 +10,11 @@ its f32 kernel to that before each product, so casting once gives the
 same bits), f32 for the RMSNorm scales and the lm_head (flax runs it as
 an f32 Dense).  For training (`train=True`): every parameter in f32, the
 master weights flax's `model.init` holds.  A tied tree
-(cfg.tie_embeddings) has no lm_head: the head is the embedding.
+(cfg.tie_embeddings) has no lm_head: the head is the embedding.  A
+quantized tree (the JAX package's quant.quantize_params: leaves that
+carry an int8 `q` and an f32 `scale`) bridges to models/quant.QTensor
+values with both carried across byte for byte; Llama.from_params builds
+an int8-weight model from it.
 
 `init_params(cfg, seed, device)` draws the same state dict on the device
 with flax's default initializers — truncated-normal lecun (variance
@@ -25,10 +29,12 @@ from __future__ import annotations
 import math
 from typing import Dict, Mapping, Union
 
+import numpy as np
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.llama import Llama, LlamaConfig
+from tf_operator_tpu_torch.models.quant import QTensor
 
 # flax's truncated_normal divides the std by this so that the truncated
 # distribution (bounds +-2) keeps the requested variance
@@ -42,6 +48,9 @@ def params_from_jax(cfg: LlamaConfig, tree: Mapping,
     Raises KeyError naming the missing flax path for trees the port does
     not take (MoE blocks)."""
     def t(a, dtype):
+        if hasattr(a, "q") and hasattr(a, "scale"):  # a quantized leaf
+            return QTensor(q=torch.tensor(np.asarray(a.q)),
+                           scale=torch.tensor(np.asarray(a.scale)))
         return torch.tensor(a).to(dtype)  # a copy: flax arrays are read-only
 
     f32 = torch.float32

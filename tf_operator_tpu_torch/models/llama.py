@@ -36,6 +36,7 @@ from torch import nn
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import paged_attention as _pa
 from tf_operator_tpu_torch.models import paging
+from tf_operator_tpu_torch.models.quant import QTensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
 
 
@@ -205,7 +206,12 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q_pos is [L] or [B, L].  Scores and softmax in f32 (bf16 inputs are
     upcast, as preferred_element_type=f32 does); p is rounded to V's
     dtype before the PV product.  An all-masked row averages uniformly
-    (only frozen lanes produce one; their tokens are discarded)."""
+    (only frozen lanes produce one; their tokens are discarded).  int8
+    caches (QTensor) are dequantized to q's dtype first, as the JAX
+    read does."""
+    if isinstance(k_cache, QTensor):
+        k_cache = k_cache.dequantize(q.dtype)
+        v_cache = v_cache.dequantize(q.dtype)
     b, l, h, d = q.shape
     kv_heads = k_cache.shape[2]
     group = h // kv_heads
@@ -241,6 +247,17 @@ def _weight(*shape: int, dtype: torch.dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
 
 
+def _dense(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Weight `name` of `module` in `dtype` for one product: the stored
+    weight cast (flax's DenseGeneral(dtype=...)), or an int8 weight
+    dequantized as QTensor.dequantize does, (f32 payload * scale) rounded
+    to dtype.  The dequantized copy lives only for this use."""
+    w = getattr(module, name)
+    if w.dtype == torch.int8:
+        return QTensor(w, getattr(module, name + "_scale")).dequantize(dtype)
+    return w.to(dtype)
+
+
 class RMSNorm(nn.Module):
     """flax nn.RMSNorm as the JAX package uses it: mean of x² in f32,
     x · (rsqrt(var + eps) · scale) in f32, cast to dtype.  The scale is
@@ -271,8 +288,10 @@ class SwiGlu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e, _, f = self.wi.shape
-        h = (x @ self.wi.to(self.dtype).view(e, 2 * f)).unflatten(-1, (2, f))
-        return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ self.wo.to(self.dtype)
+        h = (x @ _dense(self, "wi", self.dtype).view(e, 2 * f)).unflatten(
+            -1, (2, f))
+        return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ _dense(self, "wo",
+                                                              self.dtype)
 
 
 class GqaAttention(nn.Module):
@@ -303,8 +322,9 @@ class GqaAttention(nn.Module):
         dt = cfg.dtype
         b, l, e = x.shape
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ self.wq.to(dt).view(e, h * d)).view(b, l, h, d)
-        kvp = (x @ self.wkv.to(dt).view(e, 2 * kv * d)).view(b, l, 2, kv, d)
+        q = (x @ _dense(self, "wq", dt).view(e, h * d)).view(b, l, h, d)
+        kvp = (x @ _dense(self, "wkv", dt).view(e, 2 * kv * d)).view(
+            b, l, 2, kv, d)
         q = _rotate(q, cos, sin)
         k = _rotate(kvp[:, :, 0], cos, sin)
         v = kvp[:, :, 1]
@@ -323,7 +343,8 @@ class GqaAttention(nn.Module):
             if cfg.sliding_window is not None:
                 kw["window"] = cfg.sliding_window
             out = attn(q, k, v, True, **kw)
-        return out.reshape(b, l, h * d) @ self.out.to(dt).view(h * d, e)
+        return out.reshape(b, l, h * d) @ _dense(self, "out", dt).view(h * d,
+                                                                      e)
 
 
 class LlamaBlock(nn.Module):
@@ -361,7 +382,10 @@ class Llama(nn.Module):
 
     Parameters are stored in cfg.dtype for serving (f32 for the norm
     scales and the untied lm_head), or all in f32 (`train=True`): the
-    master weights training updates, cast to cfg.dtype at each use."""
+    master weights training updates, cast to cfg.dtype at each use.  A
+    model built from a quantized state dict (models/quant) serves int8
+    weights: each keeps its int8 payload and an f32 `<name>_scale`
+    buffer, and is dequantized to cfg.dtype at each use."""
 
     def __init__(self, cfg: LlamaConfig, train: bool = False) -> None:
         super().__init__()
@@ -385,20 +409,41 @@ class Llama(nn.Module):
         in the port's layouts) on `device` (default "cuda").  Tensors
         already on the device in the right dtype are used as they are,
         not copied.  train=True keeps every parameter in f32 with
-        requires_grad and puts the model in training mode."""
+        requires_grad and puts the model in training mode.  QTensor
+        values (quant.quantize_params) stay int8 on the device, beside
+        their f32 scales; they serve only (train=False)."""
         dev = resolve_device(device)
         with torch.device("meta"):
             model = cls(cfg, train=train)
-        want = {k: v.dtype for k, v in model.state_dict().items()}
+        want = model.state_dict()
         missing = set(want) - set(params)
         extra = set(params) - set(want)
         if missing or extra:
             raise ValueError(
                 f"params do not match the config: missing "
                 f"{sorted(missing)[:5]}, unexpected {sorted(extra)[:5]}")
+        int8 = sorted(k for k, v in params.items() if isinstance(v, QTensor))
+        if int8 and train:
+            raise ValueError("int8 weights serve only: train=True takes "
+                             "float params")
+        for k in int8:
+            qt = params[k]
+            if (qt.q.dtype != torch.int8 or qt.shape != want[k].shape
+                    or torch.broadcast_shapes(qt.scale.shape,
+                                              qt.shape) != qt.shape):
+                raise ValueError(
+                    f"{k}: QTensor {qt.q.dtype} {tuple(qt.shape)} with "
+                    f"scale {tuple(qt.scale.shape)} does not fit "
+                    f"{tuple(want[k].shape)}")
+            mod_name, _, attr = k.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            setattr(mod, attr, nn.Parameter(qt.q.to(dev), requires_grad=False))
+            mod.register_buffer(attr + "_scale",
+                                qt.scale.to(device=dev, dtype=torch.float32))
         model.load_state_dict(
-            {k: params[k].to(device=dev, dtype=want[k]) for k in want},
-            assign=True)
+            {k: params[k].to(device=dev, dtype=want[k].dtype)
+             for k in want if k not in int8},
+            strict=not int8, assign=True)
         for p in model.parameters():
             p.requires_grad_(train)
         return model.train(train)
@@ -414,16 +459,26 @@ class Llama(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """f32 logits of final-norm hidden states."""
+        dt = self.cfg.dtype
         if self.cfg.tie_embeddings:
             # flax Embed.attend promotes both operands to cfg.dtype
-            dt = self.cfg.dtype
-            return (h.to(dt) @ self.embed.to(dt).t()).float()
+            return (h.to(dt) @ _dense(self, "embed", dt).t()).float()
+        if self.lm_head.dtype == torch.int8:
+            # the JAX dequantizer rounds the kernel to cfg.dtype, and
+            # flax's f32 Dense then promotes it
+            return h.float() @ _dense(self, "lm_head", dt).float()
         return h.float() @ self.lm_head
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # flax Embed(dtype=...) looks up in cfg.dtype: cast after the
-        # gather, which gives the same bits as casting the table first
-        return F.embedding(tokens.to(torch.long), self.embed).to(self.cfg.dtype)
+        # gather, which gives the same bits as casting the table first;
+        # an int8 table gathers its rows and their scales, then
+        # dequantizes them
+        idx = tokens.to(torch.long)
+        if self.embed.dtype == torch.int8:
+            return QTensor(self.embed[idx], self.embed_scale[idx]).dequantize(
+                self.cfg.dtype)
+        return F.embedding(idx, self.embed).to(self.cfg.dtype)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,

@@ -16,6 +16,13 @@ a linear K/V view on the card.
     the tests hold against the JAX kernel, and what the kernel is held
     against on the card.
 
+int8 pools (models/quant.QTensor: int8 payload, f32 scale per (position,
+head)) take the same call.  On the card they launch K1q, the same kernel
+reading the int8 payload and dequantizing each block inside it; each
+launch adds one to `launches_int8`.  On the CPU they run
+`paged_attention_int8_plain`: gather, dequantize to q's dtype, then
+cached_attention.
+
 The two agree on every live row.  A row with no visible position (a
 frozen lane, whose table is all scratch) finalizes to 0 in the kernel,
 as on the TPU, while the plain version averages it uniformly; the serve
@@ -31,9 +38,12 @@ import torch
 
 from tf_operator_tpu_torch import kernels
 from tf_operator_tpu_torch.models import paging
+from tf_operator_tpu_torch.models.quant import QTensor
 
-# kernel launches since the last reset (plain-version calls not counted)
+# kernel launches since the last reset (plain-version calls not counted):
+# K1 on float pools, K1q on int8 pools
 launches = 0
+launches_int8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
@@ -41,8 +51,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_int8
     launches = 0
+    launches_int8 = 0
 
 
 def _positions(pos, b: int, device: torch.device) -> torch.Tensor:
@@ -57,13 +68,30 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           *, window: Optional[int] = None) -> torch.Tensor:
     """The plain version: gather each lane's linear view and run the
     ring-visibility attention over it (llama.cached_attention)."""
+    return _attend_linear(q, paging.gather_blocks(k_pool, table),
+                          paging.gather_blocks(v_pool, table), pos, window)
+
+
+def paged_attention_int8_plain(q: torch.Tensor, k_pool: QTensor,
+                               v_pool: QTensor, table: torch.Tensor, pos,
+                               *, window: Optional[int] = None
+                               ) -> torch.Tensor:
+    """K1q's plain version: gather each lane's int8 blocks and their
+    scales, dequantize them to q's dtype ((f32 payload * scale) rounded,
+    QTensor.dequantize), and attend over the linear view."""
+    if not (isinstance(k_pool, QTensor) and isinstance(v_pool, QTensor)):
+        raise TypeError("paged_attention_int8_plain takes QTensor pools")
+    return _attend_linear(
+        q, paging.gather_blocks(k_pool, table).dequantize(q.dtype),
+        paging.gather_blocks(v_pool, table).dequantize(q.dtype), pos, window)
+
+
+def _attend_linear(q, k_lin, v_lin, pos, window) -> torch.Tensor:
     from tf_operator_tpu_torch.models.llama import cached_attention
 
     b, l = q.shape[:2]
     q_pos = (_positions(pos, b, q.device).to(torch.long)[:, None]
              + torch.arange(l, device=q.device))
-    k_lin = paging.gather_blocks(k_pool, table)
-    v_lin = paging.gather_blocks(v_pool, table)
     return cached_attention(q, k_lin, v_lin, q_pos, k_lin.shape[1],
                             window=window)
 
@@ -77,6 +105,10 @@ def _load() -> ctypes.CDLL:
             [ptr] * 6 + [i32] * 7 + [i64] * 6
             + [i32, ctypes.c_float, i32, ptr])
         lib.paged_attention_launch.restype = i32
+        lib.paged_attention_int8_launch.argtypes = (
+            [ptr] * 8 + [i32] * 7 + [i64] * 6
+            + [i32, ctypes.c_float, i32, ptr])
+        lib.paged_attention_int8_launch.restype = i32
         lib.paged_attention_max_head_dim.argtypes = []
         lib.paged_attention_max_head_dim.restype = i32
         lib.paged_attention_smem_bytes.argtypes = [i32, i32]
@@ -88,25 +120,44 @@ def _load() -> ctypes.CDLL:
 
 
 def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
-    global launches
+    """Check the operands and launch K1 (float pools) or K1q (QTensor
+    pools) on q's stream; returns the output [B, L, H, D] in q's dtype."""
+    global launches, launches_int8
+    int8 = isinstance(k_pool, QTensor)
+    if int8 != isinstance(v_pool, QTensor):
+        raise TypeError("k_pool and v_pool must both be QTensor or neither")
     b, l, h, d = q.shape
-    n1, bs, kv, d_pool = k_pool.shape
+    payload = (k_pool.q, v_pool.q) if int8 else (k_pool, v_pool)
+    n1, bs, kv, d_pool = payload[0].shape
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("table", table)):
+    named = [("k_pool", payload[0]), ("v_pool", payload[1]),
+             ("table", table)]
+    if int8:
+        named += [("k_pool.scale", k_pool.scale),
+                  ("v_pool.scale", v_pool.scale)]
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         f"bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"pools ({k_pool.dtype}, {v_pool.dtype}) must "
-                        f"match q ({q.dtype})")
-    if v_pool.shape != k_pool.shape or d_pool != d or h % kv:
+    want = torch.int8 if int8 else q.dtype
+    if payload[0].dtype != want or payload[1].dtype != want:
+        raise TypeError(f"pools ({payload[0].dtype}, {payload[1].dtype}) "
+                        f"must match q ({q.dtype}), or be int8 QTensors")
+    if payload[1].shape != payload[0].shape or d_pool != d or h % kv:
         raise ValueError(f"shapes q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+                         f"{tuple(payload[0].shape)}/"
+                         f"{tuple(payload[1].shape)}")
+    if not (payload[0].is_contiguous() and payload[1].is_contiguous()):
         raise ValueError("the pools must be contiguous")
+    if int8:
+        for sc in (k_pool.scale, v_pool.scale):
+            if (sc.dtype != torch.float32 or sc.shape != (n1, bs, kv, 1)
+                    or not sc.is_contiguous()):
+                raise ValueError(
+                    f"int8 pool scales must be contiguous float32 "
+                    f"{(n1, bs, kv, 1)}, got {sc.dtype} {tuple(sc.shape)}")
     if q.stride(-1) != 1:
         raise ValueError("q must have unit stride on its last dim")
     if (table.dtype != torch.int32 or table.dim() != 2
@@ -127,10 +178,14 @@ def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
     pos_t = _positions(pos, b, dev).contiguous()
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), pos_t.data_ptr(), out.data_ptr(),
-        b, l, h, kv, d, bs, table.shape[1],
+    pools = [payload[0].data_ptr(), payload[1].data_ptr()]
+    if int8:
+        pools += [k_pool.scale.data_ptr(), v_pool.scale.data_ptr()]
+    fn = (lib.paged_attention_int8_launch if int8
+          else lib.paged_attention_launch)
+    err = fn(
+        q.data_ptr(), *pools, table.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), b, l, h, kv, d, bs, table.shape[1],
         q.stride(0), q.stride(1), q.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         -1 if window is None else int(window), 1.0 / math.sqrt(d),
@@ -139,7 +194,10 @@ def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
         raise RuntimeError(
             f"paged_attention kernel launch failed: "
             f"{lib.paged_attention_error_string(err).decode()} ({err})")
-    launches += 1
+    if int8:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -150,7 +208,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Block-indexed paged attention.
 
     q:             [B, L, H, D] post-RoPE queries (L new positions).
-    k_pool/v_pool: [N+1, bs, KV, D] block pools (id 0 = scratch).
+    k_pool/v_pool: [N+1, bs, KV, D] block pools (id 0 = scratch), or
+                   QTensor pools (int8 payload, f32 scales [N+1, bs, KV,
+                   1]).
     table:         [B, T] int32 block tables (position p in block
                    table[p // bs]; the ring formula k = q - mod(q - slot,
                    T*bs) also covers modular tables).
@@ -159,10 +219,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     window:        sliding-window width; None = full causal.
 
     Returns [B, L, H, D] in q's dtype.  CUDA tensors go through the CUDA
-    kernel (or raise); CPU tensors through paged_attention_plain."""
+    kernel, K1 or K1q (or raise); CPU tensors through
+    paged_attention_plain or paged_attention_int8_plain."""
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, table, pos,
-                                     window=window)
+        plain = (paged_attention_int8_plain if isinstance(k_pool, QTensor)
+                 else paged_attention_plain)
+        return plain(q, k_pool, v_pool, table, pos, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, got "
                          f"{q.device}")

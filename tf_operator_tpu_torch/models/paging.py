@@ -9,10 +9,16 @@ it, so their writes can never land in a block another lane owns, and
 every read masks it.
 
 Host side (copied, since importing the JAX package would load jax):
-`SCRATCH_BLOCK`, `blocks_for`, `BlockPool`, `build_table`, `plan_request`.
+`SCRATCH_BLOCK`, `blocks_for`, `BlockPool`, `build_table`, `plan_request`,
+and the continuous scheduler's `blocks_to_cover` and `step_gate`.
 Device side: `init_block_pool`, the table-routed write (`block_write_index`
 + `write_blocks`, or `paged_cache_write` for one call) and the linear-view
 gather `gather_blocks` that the plain attention reads through.
+
+int8 KV (`kv_quant=True`): each pool is a models/quant.QTensor, an int8
+payload [N+1, bs, KV, D] and f32 scales [N+1, bs, KV, 1], one per
+(position, head).  Writes quantize over head_dim and store payload and
+scale through the same index; the gather keeps the QTensor.
 
 Writes are IN PLACE on the pool tensors (the JAX package returned new
 pools; here the caller's pools are updated and returned).
@@ -24,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 
 # block id 0: reserved scratch target for frozen lanes and table padding
 SCRATCH_BLOCK = 0
@@ -140,15 +147,50 @@ def plan_request(prompt_len: int, max_new_tokens: int, headroom: int,
     return total, shared, total - shared, cow
 
 
+def blocks_to_cover(upto_tokens: int, covered_blocks: int,
+                    block_size: int) -> int:
+    """Marginal blocks a lane's linear table needs to cover positions
+    [0, upto_tokens), given `covered_blocks` entries already allocated:
+    the continuous scheduler grows coverage lazily, per prefill segment
+    and per decode block, instead of reserving the worst case."""
+    return max(0, blocks_for(upto_tokens, block_size) - covered_blocks)
+
+
+def step_gate(free_blocks: int, need_now: int, in_flight_lanes: int,
+              ladder_per_lane: int = 1) -> bool:
+    """The blocks-per-step admission gate: admit a newcomer when the
+    pool covers its first prefill segment's blocks (`need_now`) plus a
+    ladder of `ladder_per_lane` blocks for every request in flight, so a
+    newcomer cannot take the block an admitted lane needs to cross its
+    next block boundary.  Deeper shortfalls preempt, they do not
+    refuse."""
+    return free_blocks >= need_now + ladder_per_lane * in_flight_lanes
+
+
 def init_block_pool(cfg, num_blocks: int, block_size: int,
                     dtype: Optional[torch.dtype] = None,
-                    device: Union[str, torch.device, None] = None
-                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                    device: Union[str, torch.device, None] = None,
+                    kv_quant: bool = False) -> list:
     """Per-layer (k, v) block pools [num_blocks + 1, block_size, KV, D]
     (+1: the scratch block at id 0), zeroed, in `dtype` (default
-    cfg.dtype) on `device` (default "cuda")."""
+    cfg.dtype) on `device` (default "cuda").  kv_quant=True makes each
+    pool a QTensor: int8 zeros and f32 ones scales [N+1, bs, KV, 1]; it
+    takes no dtype."""
     dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+    if kv_quant:
+        if dtype is not None:
+            raise ValueError(
+                "kv_quant and dtype are mutually exclusive: the int8 "
+                "pool's layout is fixed (int8 payload + f32 scales)")
+
+        def leaf() -> QTensor:
+            return QTensor(
+                q=torch.zeros(shape, dtype=torch.int8, device=dev),
+                scale=torch.ones(shape[:3] + (1,), dtype=torch.float32,
+                                 device=dev))
+
+        return [(leaf(), leaf()) for _ in range(cfg.n_layers)]
     dt = dtype or cfg.dtype
     return [(torch.zeros(shape, dtype=dt, device=dev),
              torch.zeros(shape, dtype=dt, device=dev))
@@ -180,30 +222,40 @@ def block_write_index(pos, table: torch.Tensor, length: int,
     return bidx, p % block_size
 
 
-def write_blocks(pool: torch.Tensor, val: torch.Tensor,
-                 index: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+def write_blocks(pool, val: torch.Tensor,
+                 index: Tuple[torch.Tensor, torch.Tensor]):
     """Scatter val [B, L, KV, D] into pool [N+1, bs, KV, D] at `index`
     (block_write_index), in place.  Indices are NOT unique: every frozen
     lane's table is all scratch, so several rows may write block 0 —
-    last-writer-wins garbage in a block no read ever shows."""
+    last-writer-wins garbage in a block no read ever shows.  An int8
+    pool (QTensor) takes quantize_tensor(val, axes=(3,)): payload and
+    per-(position, head) scale through the same index."""
     bidx, off = index
+    if isinstance(pool, QTensor):
+        qv = quantize_tensor(val, axes=(3,))
+        pool.q[bidx, off] = qv.q
+        pool.scale[bidx, off] = qv.scale
+        return pool
     pool[bidx, off] = val.to(pool.dtype)
     return pool
 
 
-def paged_cache_write(pool: torch.Tensor, val: torch.Tensor, pos,
-                      table: torch.Tensor) -> torch.Tensor:
+def paged_cache_write(pool, val: torch.Tensor, pos, table: torch.Tensor):
     """One K or V block-pool write through a linear table, in place
     (the JAX package's `_block_write` with modular=False)."""
     return write_blocks(pool, val, block_write_index(
         pos, table, val.shape[1], pool.shape[1]))
 
 
-def gather_blocks(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def gather_blocks(pool, table: torch.Tensor):
     """[B, T*bs, KV, D] linear view of each lane's blocks: gather
     pool[table] and fold (block, offset) into one position axis.  Tables
     are position-ordered, so index p of the view IS position p — the
-    position-masked attention consumes it with no paging awareness."""
+    position-masked attention consumes it with no paging awareness.  An
+    int8 pool gathers payload and scales and stays a QTensor."""
+    if isinstance(pool, QTensor):
+        return QTensor(q=gather_blocks(pool.q, table),
+                       scale=gather_blocks(pool.scale, table))
     g = pool[table.to(torch.long)]  # [B, T, bs, KV, D]
     b, t, bs = g.shape[:3]
     return g.reshape(b, t * bs, *g.shape[3:])

@@ -1,31 +1,56 @@
-"""Slot-scheduled paged serving loop.
+"""Paged serving loop: the slot scheduler and the continuous scheduler.
 
-The port of tf_operator_tpu/models/serving.serve_loop's paged slot path.
-A fixed batch of `slots` decode lanes shares one KV block pool; requests
-wait in a FIFO queue and are admitted into free lanes when the pool
-covers their worst case (prompt + max_new_tokens blocks — the memory
-gate, which never lets a smaller request overtake the head).  An
-admitted prompt prefills straight into its lane's blocks, segment by
-segment (`prefill_chunk`); the last segment's logits give the first
-token, and the lane goes live.  Every `steps_per_sync` decode steps run
-as one block for all lanes, each at its own position, before the host
-reads the tokens back, detects EOS and budgets, frees finished lanes'
-blocks and admits more.  Frozen lanes (free, or finished) keep stepping
-with their position pinned and their table all scratch, so their writes
-land in the scratch block; a lane that finishes mid-block computes to
+The port of tf_operator_tpu/models/serve_loop's paged paths.  A fixed
+batch of `slots` decode lanes shares one KV block pool; requests wait in
+a FIFO queue and stream their prompts straight into their lanes' blocks,
+segment by segment (`prefill_chunk`); the last segment's logits give the
+first token, and the lane goes live.  Decode steps for all lanes run in
+blocks of up to `steps_per_sync`, each lane at its own position, before
+the host reads the tokens back.  Frozen lanes (free, pending or finished)
+keep stepping with their position pinned and their table row all
+scratch, so their writes land in the scratch block.
+
+scheduler="slot" (the oracle): a request is admitted when the pool
+covers its whole worst case (prompt + max_new_tokens blocks — the memory
+gate, which never lets a smaller request overtake the head); every block
+runs `steps_per_sync` steps, a lane that finishes mid-block computes to
 the block edge and the host discards the overshoot.
+`prefill_chunks_per_sync` bounds the segments a pending prompt streams
+per loop turn, with a decode block for the other lanes between.
 
-The host schedule is the JAX package's algorithm step for step, so a
-greedy run gives the same tokens AND the same admitted_at_step,
-finished_at_step, slot and kv_blocks per request.  Every KV read goes
-through models/paged_attention: the CUDA kernel on the card, its plain
-version on the CPU.
+scheduler="continuous" (the JAX package's iteration scheduler,
+`_cb_paged_serve_fns` and its loop):
+  - on-device finish: the decode block carries frozen, the budget left
+    and eos across its steps, so a lane freezes mid-block; one readback
+    per block brings its tokens and live mask;
+  - a block runs min(steps_per_sync, longest remaining budget) steps;
+  - lazy admission through paging.step_gate (the first segment's blocks
+    plus one block per request in flight), coverage grown per segment
+    and per block (paging.blocks_to_cover), oldest request first; when
+    the pool runs dry the youngest request in flight is preempted back
+    to the head of the queue (its blocks freed, its prefill redone on
+    re-admission), and admissions hold until a lane finishes;
+  - fused dispatch: the oldest pending lane's next segment and the
+    decode block for every live lane go to the card together, with no
+    host sync between them.  A final segment selects its first token on
+    the device and sets that lane's tok/pos for the next block.  When
+    nothing is live, prefill streams the slot way.
+
+The host schedule is the JAX package's algorithm step for step under
+either scheduler, so a greedy run gives the same tokens AND the same
+admitted_at_step, finished_at_step, slot and kv_blocks per request.
+Every KV read goes through models/paged_attention: the CUDA kernel on the
+card (K1, or K1q for int8 pools), its plain version on the CPU.
+
+int8: `kv_quant=True` makes the pools int8 QTensors (models/quant); a
+model built from a quantized state dict serves int8 weights as it is.
+`params_transform` takes None or quant.make_dequantizer(cfg.dtype), the
+dequantization such a model already applies at each weight's use.
 
 Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-dense (non-paged) mode, the continuous scheduler, speculative decoding,
-shared prefixes, int8 KV, weight transforms, cache sharding, sliding
-windows, the prefill/decode handoff, prefill_chunks_per_sync and the
-telemetry object.
+dense (non-paged) mode, speculative decoding, shared prefixes, cache
+sharding, sliding windows, the prefill/decode handoff and the telemetry
+object.
 """
 from __future__ import annotations
 
@@ -33,13 +58,13 @@ import dataclasses
 import numbers
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import llama as _llama
-from tf_operator_tpu_torch.models import paging
+from tf_operator_tpu_torch.models import paging, quant
 
 
 @dataclasses.dataclass
@@ -58,11 +83,14 @@ class ServeResult:
 @dataclasses.dataclass
 class ServeStats:
     """Aggregate of one serve_loop run: the subset of the JAX package's
-    ServeStats (models/telemetry.py) that the slot loop fills.  Times
-    are host wall-clock in seconds; a decode block's time ends at its
-    token readback and a request's first token at its readback, both
-    device barriers.  TTFT runs from lane admission to the first token,
-    queue wait from the loop's start to admission."""
+    ServeStats (models/telemetry.py) that the port fills.  Times are
+    host wall-clock in seconds; a decode block's time ends at its token
+    readback and a request's first token at its readback, both device
+    barriers.  TTFT runs from lane admission to the first token, queue
+    wait from the loop's start to admission (a preempted request's
+    count from its last admission).  prefill_time_s covers the segments
+    that ran on their own; segments fused into a decode block count in
+    decode_time_s."""
 
     requests: int = 0
     slots: int = 0
@@ -75,6 +103,10 @@ class ServeStats:
     admissions_blocked_on_memory: int = 0
     # lane-steps computed past a finish, up to the block edge
     wasted_lane_steps: int = 0
+    # continuous: prompt tokens that rode a decode block's dispatch, and
+    # lanes sent back to the queue when the pool ran dry
+    fused_prefill_tokens: int = 0
+    preemptions: int = 0
     total_tokens: int = 0
     wall_time_s: float = 0.0
     tokens_per_sec: float = 0.0
@@ -92,21 +124,45 @@ def _refuse(name: str, item: str) -> None:
         f"serve_loop: {name} is not ported yet (ROADMAP Queue 1: {item})")
 
 
+# ------------------------------------------------------------ device steps
+def cb_decode_block(model: _llama.Llama, cache, tok: torch.Tensor,
+                    pos: torch.Tensor, frozen: torch.Tensor,
+                    left: torch.Tensor, eos: int, table: torch.Tensor,
+                    n_steps: int, select):
+    """The continuous scheduler's block: n_steps single-token decode
+    steps for every lane, each at its own position, with the finish on
+    the device.  Frozen lanes emit their token unchanged and do not
+    advance; a live lane that emits `eos` or spends its budget (`left`)
+    freezes inside the block.  Returns (tok, pos, tokens [n_steps, B],
+    live [n_steps, B]) on the device; live marks the real tokens."""
+    toks, lives = [], []
+    for _ in range(n_steps):
+        logits = model(tok[:, None], cache, pos, table)
+        nxt = torch.where(frozen, tok, select(logits[:, 0]))
+        live = ~frozen
+        done = live & ((nxt == eos) | (left <= 1))
+        pos = torch.where(frozen, pos, pos + 1)
+        left = torch.where(frozen, left, left - 1)
+        frozen = frozen | done
+        tok = nxt
+        toks.append(nxt)
+        lives.append(live)
+    return tok, pos, torch.stack(toks), torch.stack(lives)
+
+
 def decode_block(model: _llama.Llama, cache, tok: torch.Tensor,
                  pos: torch.Tensor, frozen: torch.Tensor,
                  table: torch.Tensor, n_steps: int, select
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """n_steps single-token decode steps for every lane, each at its own
-    position.  Frozen lanes emit their token unchanged and do not
-    advance.  Returns (tok, pos, tokens [n_steps, B]) on the device."""
-    toks = []
-    for _ in range(n_steps):
-        logits = model(tok[:, None], cache, pos, table)
-        nxt = torch.where(frozen, tok, select(logits[:, 0]))
-        pos = torch.where(frozen, pos, pos + 1)
-        tok = nxt
-        toks.append(nxt)
-    return tok, pos, torch.stack(toks)
+    """The slot loop's block: n_steps single-token decode steps for every
+    lane, each at its own position, no lane finishing inside the block
+    (cb_decode_block with no eos and a budget past its edge).  Frozen
+    lanes emit their token unchanged and do not advance.  Returns (tok,
+    pos, tokens [n_steps, B]) on the device."""
+    left = torch.full_like(pos, n_steps + 1)
+    tok, pos, toks, _ = cb_decode_block(model, cache, tok, pos, frozen, left,
+                                        -1, table, n_steps, select)
+    return tok, pos, toks
 
 
 def chunk_fill(model: _llama.Llama, cache, segment: torch.Tensor,
@@ -123,6 +179,68 @@ def chunk_write(model: _llama.Llama, cache, segment: torch.Tensor,
     model(segment, cache, start, table, return_hidden=True)
 
 
+def fused_fill(model: _llama.Llama, cache, tok, pos, frozen, left, eos: int,
+               table, segment: torch.Tensor, seg_pos: int,
+               seg_table: torch.Tensor, lane: int, n_steps: int, select):
+    """One dispatch of a pending lane's FINAL segment and the decode block
+    for every live lane.  The segment writes through its own [1, T] table
+    (the lane's batch row is still all scratch), so the two touch
+    disjoint blocks.  The first token is selected on the device and set,
+    with the prompt-end position, into the lane's row for the next
+    block.  Returns (tok, pos, tokens, live, first)."""
+    seg_logits = chunk_fill(model, cache, segment, seg_pos, seg_table)
+    tok, pos, toks, lives = cb_decode_block(model, cache, tok, pos, frozen,
+                                            left, eos, table, n_steps,
+                                            select)
+    first = select(seg_logits)[0]
+    tok[lane] = first
+    pos[lane] = seg_pos + segment.shape[1]
+    return tok, pos, toks, lives, first
+
+
+def fused_write(model: _llama.Llama, cache, tok, pos, frozen, left,
+                eos: int, table, segment: torch.Tensor, seg_pos: int,
+                seg_table: torch.Tensor, n_steps: int, select):
+    """fused_fill's twin for a non-final segment (no lm_head, no first
+    token)."""
+    chunk_write(model, cache, segment, seg_pos, seg_table)
+    return cb_decode_block(model, cache, tok, pos, frozen, left, eos, table,
+                           n_steps, select)
+
+
+def _readback(toks: torch.Tensor, lives: torch.Tensor,
+              first: Optional[torch.Tensor] = None):
+    """One device-to-host transfer of a block's tokens [n, B], live mask
+    [n, B] and, after a fused fill, the newcomer's first token."""
+    n, b = toks.shape
+    parts = [toks.reshape(-1), lives.reshape(-1).to(toks.dtype)]
+    if first is not None:
+        parts.append(first.reshape(1).to(toks.dtype))
+    flat = torch.cat(parts).tolist()  # device sync
+    rows = [flat[i * b:(i + 1) * b] for i in range(2 * n)]
+    return rows[:n], rows[n:], (flat[-1] if first is not None else None)
+
+
+# ---------------------------------------------------------------- the loop
+@dataclasses.dataclass
+class _Setup:
+    """What _run needs from serve_loop's validation."""
+
+    slots: int
+    eos: int
+    prefill_chunk: Optional[int]
+    chunks_per_sync: Optional[int]
+    steps_per_sync: int
+    block_size: int
+    pool_blocks: int
+    t_blocks: int
+    plans: list
+    kv_quant: bool
+    continuous: bool
+    select: Callable[[torch.Tensor], torch.Tensor]
+    dev: torch.device
+
+
 def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                slots: int = 4, max_new_tokens: Union[int, Sequence[int]] = 64,
                eos_id: Optional[int] = None,
@@ -130,16 +248,15 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                generator: Optional[torch.Generator] = None,
                prefill_chunk: Optional[int] = None,
                steps_per_sync: int = 8,
+               prefill_chunks_per_sync: Optional[int] = None,
                paged: bool = True, block_size: int = 64,
                pool_blocks: Optional[int] = None,
                scheduler: str = "slot",
+               kv_quant: bool = False, params_transform=None,
                return_stats: bool = False,
                device: Union[str, torch.device, None] = None,
-               draft=None, shared_prefix=None, kv_quant: bool = False,
-               params_transform=None, cache_sharding=None,
-               prefill_only: bool = False, adopt=None,
-               prefill_chunks_per_sync: Optional[int] = None,
-               telemetry=None):
+               draft=None, shared_prefix=None, cache_sharding=None,
+               prefill_only: bool = False, adopt=None, telemetry=None):
     """Serve `requests` (1-D token sequences) through `slots` lanes over
     a paged KV pool; returns a ServeResult per request, in request order
     (with return_stats, (results, ServeStats)).
@@ -151,40 +268,45 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     prefill_chunk: prefill in segments of this many tokens (a multiple
     of block_size); None = one segment per prompt.
     steps_per_sync: decode steps per block between host syncs.
+    prefill_chunks_per_sync: at most this many segments of a pending
+    prompt per loop turn when prefill streams on its own (needs
+    prefill_chunk); None = the whole prompt.
     block_size / pool_blocks: the pool's block size and usable blocks
     (default: every lane can hold the largest worst case at once —
     shrink it to engage the memory gate).
+    scheduler: "slot" or "continuous" (module docstring).
+    kv_quant: int8 KV pools, read through K1q on the card.
+    params_transform: None, or quant.make_dequantizer(cfg.dtype).
     device: where the model lives and the loop runs (default "cuda").
 
     The remaining keywords are the JAX serve_loop's options this port
     does not take yet; each raises NotImplementedError."""
     if not paged:
         _refuse("dense mode (paged=False)", "dense decode and generate")
-    if scheduler == "continuous":
-        _refuse("scheduler='continuous'", "continuous scheduler")
-    if scheduler != "slot":
+    if scheduler not in ("slot", "continuous"):
         raise ValueError(f"scheduler must be 'slot' or 'continuous', got "
                          f"{scheduler!r}")
     if draft is not None:
         _refuse("draft (speculative decoding)", "speculative decoding")
     if shared_prefix is not None:
         _refuse("shared_prefix", "shared-prefix blocks")
-    if kv_quant:
-        _refuse("kv_quant", "int8 KV and kernel K1q")
-    if params_transform is not None:
-        _refuse("params_transform", "int8 weights")
     if cache_sharding is not None:
         _refuse("cache_sharding", "distributed")
     if model.cfg.sliding_window is not None:
         _refuse("a sliding_window config", "sliding-window paged tables")
     if prefill_only or adopt is not None:
         _refuse("prefill_only / adopt", "disaggregated handoff")
-    if prefill_chunks_per_sync is not None:
-        _refuse("prefill_chunks_per_sync", "continuous scheduler")
     if telemetry is not None:
         _refuse("telemetry", "serving telemetry")
 
     cfg = model.cfg
+    if (params_transform is not None
+            and params_transform is not quant.make_dequantizer(cfg.dtype)):
+        raise ValueError(
+            "params_transform takes None or quant.make_dequantizer("
+            "cfg.dtype): the port's model applies its weights as they are "
+            "stored (int8 ones dequantized to cfg.dtype at each use), and "
+            "runs no other transform of them")
     dev = resolve_device(device)
     p_dev = model.embed.device
     if p_dev.type != dev.type or (dev.index is not None
@@ -208,6 +330,16 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         raise ValueError(f"slots must be >= 1, got {slots}")
     if steps_per_sync < 1:
         raise ValueError(f"steps_per_sync must be >= 1, got {steps_per_sync}")
+    if prefill_chunks_per_sync is not None:
+        if prefill_chunks_per_sync < 1:
+            raise ValueError(
+                f"prefill_chunks_per_sync must be >= 1 (or None for "
+                f"unbounded), got {prefill_chunks_per_sync}")
+        if prefill_chunk is None:
+            raise ValueError(
+                "prefill_chunks_per_sync needs prefill_chunk: an "
+                "unchunked prompt prefills in one segment, so the "
+                "admission-stall bound cannot apply")
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
     if prefill_chunk is not None:
@@ -234,7 +366,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                 f"request {i}: prompt {r.shape[0]} + new {budgets[i]} "
                 f"exceeds max_len {cfg.max_len}")
     if not reqs:
-        stats = ServeStats(slots=slots)
+        stats = ServeStats(slots=slots, scheduler=scheduler)
         return ([], stats) if return_stats else []
 
     # block math: the table covers the largest worst case; each plan is
@@ -260,21 +392,28 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         return _llama._select_token(logits, temperature, generator, top_k,
                                     top_p)
 
+    setup = _Setup(slots=slots, eos=eos, prefill_chunk=prefill_chunk,
+                   chunks_per_sync=prefill_chunks_per_sync,
+                   steps_per_sync=steps_per_sync, block_size=block_size,
+                   pool_blocks=pool_blocks, t_blocks=t_blocks, plans=plans,
+                   kv_quant=kv_quant, continuous=scheduler == "continuous",
+                   select=select, dev=dev)
     with torch.inference_mode():
-        return _run(model, reqs, budgets, slots, eos, prefill_chunk,
-                    steps_per_sync, block_size, pool_blocks, t_blocks,
-                    plans, select, dev, return_stats)
+        results, stats = _run(model, reqs, budgets, setup)
+    return (results, stats) if return_stats else results
 
 
-def _run(model, reqs, budgets, slots, eos, prefill_chunk, steps_per_sync,
-         block_size, pool_blocks, t_blocks, plans, select, dev,
-         return_stats):
+def _run(model, reqs, budgets, o: _Setup):
     cfg = model.cfg
+    dev, slots, eos, select = o.dev, o.slots, o.eos, o.select
     t_start = time.perf_counter()
-    pool = paging.BlockPool(pool_blocks, block_size)
-    cache = paging.init_block_pool(cfg, pool_blocks, block_size,
-                                   device=dev)
-    table = torch.zeros((slots, t_blocks), dtype=torch.int32, device=dev)
+    pool = paging.BlockPool(o.pool_blocks, o.block_size)
+    cache = paging.init_block_pool(cfg, o.pool_blocks, o.block_size,
+                                   device=dev, kv_quant=o.kv_quant)
+    # block tables live on the host, as the JAX continuous loop keeps
+    # them: every edit is a host write, and each dispatch uploads its
+    # tables once
+    table = torch.zeros((slots, o.t_blocks), dtype=torch.int32)
     tok = torch.zeros((slots,), dtype=torch.long, device=dev)
     pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
     frozen_py = [True] * slots
@@ -287,14 +426,36 @@ def _run(model, reqs, budgets, slots, eos, prefill_chunk, steps_per_sync,
     queue = deque(range(len(reqs)))
     pending: Dict[int, dict] = {}
     n_step = 0
+    # continuous: admissions wait after a preemption until a lane finishes
+    hold = False
     # host clock marks per request: admitted, first token, finished
     t_admit = [0.0] * len(reqs)
     t_first = [0.0] * len(reqs)
     t_done = [0.0] * len(reqs)
-    counts = {"blocked": 0, "wasted": 0, "peak": 0}
+    counts = {"blocked": 0, "wasted": 0, "peak": 0, "fused": 0,
+              "preempted": 0}
     seconds = {"prefill": 0.0, "decode": 0.0}
 
+    def segments_of(ridx: int):
+        return _llama.prefill_segments(int(reqs[ridx].shape[0]),
+                                       o.prefill_chunk)
+
+    def sample_peak() -> None:
+        counts["peak"] = max(counts["peak"], pool.used)
+
+    def release(s: int) -> None:
+        """Free lane s's blocks; its table row goes back to all-scratch
+        so the frozen lane's pinned writes can never land in a block the
+        allocator hands to someone else."""
+        if lane_own[s]:
+            pool.decref(lane_own[s])
+        lane_own[s] = []
+        lane_nblocks[s] = 0
+        table[s] = 0
+
     def finish(s: int) -> None:
+        nonlocal hold
+        hold = False
         frozen_py[s] = True
         ridx = owner[s]
         results[ridx] = ServeResult(
@@ -302,106 +463,279 @@ def _run(model, reqs, budgets, slots, eos, prefill_chunk, steps_per_sync,
             finished_at_step=n_step, slot=s, kv_blocks=lane_nblocks[s])
         t_done[ridx] = time.perf_counter()
         owner[s] = None
-        # free the lane's blocks; its table row goes back to all-scratch
-        # so the frozen lane's pinned writes can never land in a block
-        # the allocator hands to someone else
-        if lane_own[s]:
-            pool.decref(lane_own[s])
-        lane_own[s] = []
-        lane_nblocks[s] = 0
-        table[s] = 0
+        release(s)
 
-    def activate_lane(s: int, first: int) -> None:
+    def admit(s: int, ridx: int, n_blocks: int) -> None:
+        """Lane s takes the queue head with n_blocks fresh blocks; its
+        prompt streams through its own row table, and its batch row stays
+        all scratch until activation."""
+        queue.popleft()
+        own = pool.alloc(n_blocks)
+        lane_own[s] = own
+        lane_nblocks[s] = n_blocks
+        pending[s] = {"ridx": ridx, "next": 0,
+                      "row_tbl": paging.build_table(own, o.t_blocks)[None]}
+        t_admit[ridx] = time.perf_counter()
+        sample_peak()
+
+    def activate_lane(s: int, first: int, dev_done: bool = False) -> None:
         """The lane goes live with its first token; its table row becomes
-        real only now (it was scratch while pending)."""
+        real only now.  dev_done: a fused fill already set tok/pos."""
         st = pending.pop(s)
         ridx = st["ridx"]
         table[s] = st["row_tbl"][0]
         owner[s] = ridx
         admitted_step[s] = n_step
         emitted[s] = [first]
-        tok[s] = first
-        pos[s] = int(reqs[ridx].shape[0])
+        if not dev_done:
+            tok[s] = first
+            pos[s] = int(reqs[ridx].shape[0])
         frozen_py[s] = False
         t_first[ridx] = time.perf_counter()
         if first == eos or budgets[ridx] == 1:
             finish(s)
 
     def advance_prefill(s: int) -> None:
-        """Stream slot s's pending prompt into its blocks; the final
-        segment's logits give the first token and activate the lane."""
+        """Stream up to prefill_chunks_per_sync segments of slot s's
+        pending prompt into its blocks; the final segment's logits give
+        the first token and activate the lane.  The continuous scheduler
+        first grows the lane's coverage for each segment (and stops if
+        that preempted the lane itself)."""
         st = pending[s]
         prompt = reqs[st["ridx"]]
-        segments = _llama.prefill_segments(int(prompt.shape[0]),
-                                           prefill_chunk)
-        for start, end, is_last in segments[st["next"]:]:
+        segments = segments_of(st["ridx"])
+        budget = o.chunks_per_sync or len(segments)
+        for start, end, is_last in segments[st["next"]:st["next"] + budget]:
+            if o.continuous and not grow_or_preempt(s, end):
+                return
             piece = prompt[None, start:end].to(dev)
+            row = st["row_tbl"].to(dev)
             st["next"] += 1
             t0 = time.perf_counter()
             if is_last:
-                last_logits = chunk_fill(model, cache, piece, start,
-                                         st["row_tbl"])
-                first = int(select(last_logits)[0])  # device sync
+                first = int(select(chunk_fill(model, cache, piece, start,
+                                              row))[0])  # device sync
                 seconds["prefill"] += time.perf_counter() - t0
                 activate_lane(s, first)
                 return
-            chunk_write(model, cache, piece, start, st["row_tbl"])
+            chunk_write(model, cache, piece, start, row)
             seconds["prefill"] += time.perf_counter() - t0
 
-    while queue or pending or any(o is not None for o in owner):
-        # admission: every free lane reserves the queue head's worst case
-        # of blocks, FIFO — the head waits until the pool covers it
+    # ---------------------------------------- continuous-only bookkeeping
+    def in_flight() -> List[int]:
+        return [s for s in range(slots)
+                if owner[s] is not None or s in pending]
+
+    def lane_ridx(s: int) -> int:
+        return pending[s]["ridx"] if s in pending else owner[s]
+
+    def live_lanes() -> List[int]:
+        return [s for s in range(slots)
+                if owner[s] is not None and not frozen_py[s]]
+
+    def ensure_cover(s: int, upto: int) -> bool:
+        """Grow lane s's coverage to positions [0, upto); False (nothing
+        changed) when the pool cannot supply the blocks."""
+        covered = len(lane_own[s])
+        need = paging.blocks_to_cover(upto, covered, o.block_size)
+        if need == 0:
+            return True
+        if not pool.can_alloc(need):
+            return False
+        new_ids = pool.alloc(need)
+        row = pending[s]["row_tbl"][0] if s in pending else table[s]
+        row[covered:covered + need] = torch.tensor(new_ids,
+                                                   dtype=torch.int32)
+        lane_own[s].extend(new_ids)
+        lane_nblocks[s] += need
+        sample_peak()
+        return True
+
+    def preempt(s: int) -> None:
+        """Back to the head of the queue: the lane's blocks are freed
+        (its prefill is redone on re-admission) and admissions hold until
+        a finish frees real capacity."""
+        nonlocal hold
+        ridx = lane_ridx(s)
+        if s in pending:
+            del pending[s]
+        else:
+            owner[s] = None
+        frozen_py[s] = True
+        release(s)
+        emitted[s] = []
+        queue.appendleft(ridx)
+        hold = True
+        counts["preempted"] += 1
+
+    def grow_or_preempt(s: int, upto: int) -> bool:
+        """ensure_cover, preempting the youngest request in flight until
+        it fits.  False iff s itself was the youngest."""
+        while not ensure_cover(s, upto):
+            victim = max(in_flight(), key=lane_ridx)
+            preempt(victim)
+            if victim == s:
+                return False
+        return True
+
+    def admit_free_lanes() -> None:
+        """Lazy admission: the queue head needs only its first segment's
+        blocks now, plus one block per request in flight (step_gate)."""
         for s in range(slots):
-            if owner[s] is None and s not in pending and queue:
-                ridx = queue[0]
-                private_i = plans[ridx][2]
-                if not pool.can_alloc(private_i):
-                    counts["blocked"] += 1
-                    break
-                queue.popleft()
-                own = pool.alloc(private_i)
-                lane_own[s] = own
-                lane_nblocks[s] = private_i
-                pending[s] = {
-                    "ridx": ridx, "next": 0,
-                    "row_tbl": paging.build_table(
-                        own, t_blocks)[None, :].to(dev),
-                }
-                t_admit[ridx] = time.perf_counter()
-                counts["peak"] = max(counts["peak"], pool.used)
-        for s in list(pending):
-            advance_prefill(s)
-        if all(o is None for o in owner):
-            continue  # nothing decoding yet; keep prefilling/admitting
-        counts["peak"] = max(counts["peak"], pool.used)
-        t0 = time.perf_counter()
-        frozen = torch.tensor(frozen_py, device=dev)
-        tok, pos, toks = decode_block(model, cache, tok, pos, frozen,
-                                      table, steps_per_sync, select)
-        block = toks.cpu().tolist()  # [steps_per_sync][B]; device sync
-        seconds["decode"] += time.perf_counter() - t0
-        for i in range(steps_per_sync):
-            n_step += 1
-            for s in range(slots):
-                if owner[s] is None or frozen_py[s]:
+            if not queue:
+                return
+            if owner[s] is not None or s in pending:
+                continue
+            ridx = queue[0]
+            if hold:
+                return
+            first_end = segments_of(ridx)[0][1]
+            need_now = paging.blocks_to_cover(first_end, 0, o.block_size)
+            if not paging.step_gate(pool.free_blocks, need_now,
+                                    len(in_flight())):
+                counts["blocked"] += 1
+                return
+            admit(s, ridx, need_now)
+
+    def run_continuous() -> None:
+        nonlocal tok, pos, n_step, hold
+        while queue or pending or any(w is not None for w in owner):
+            if hold and not in_flight():
+                hold = False  # the pool drained; retry
+            admit_free_lanes()
+            live = live_lanes()
+            if not live:
+                # nothing to fuse with: stream pending prompts the slot
+                # way, oldest request first
+                for s in sorted(pending, key=lambda s: pending[s]["ridx"]):
+                    if s in pending:  # a peer's growth may evict it
+                        advance_prefill(s)
+                live = live_lanes()
+                if not live:
                     continue
-                t = block[i][s]
-                emitted[s].append(t)
-                if t == eos or len(emitted[s]) >= budgets[owner[s]]:
-                    finish(s)  # later in-block tokens are overshoot
-                    counts["wasted"] += steps_per_sync - 1 - i
-    if not return_stats:
-        return results
+            n = min(o.steps_per_sync,
+                    max(budgets[owner[s]] - len(emitted[s]) for s in live))
+            seg_plan = None
+            if pending:
+                # fuse the OLDEST pending lane's next segment
+                s_pre = min(pending, key=lambda s: pending[s]["ridx"])
+                st = pending[s_pre]
+                start, end, is_last = segments_of(st["ridx"])[st["next"]]
+                if grow_or_preempt(s_pre, end):
+                    seg_plan = (s_pre, start, end, is_last)
+            # grow every live lane for this block's writes, oldest request
+            # first (a young lane under pressure preempts itself)
+            for s in sorted(live, key=lambda s: owner[s]
+                            if owner[s] is not None else slots):
+                if owner[s] is None or frozen_py[s]:
+                    continue  # preempted by a senior's growth
+                r = owner[s]
+                p_len = int(reqs[r].shape[0])
+                grow_or_preempt(s, min(p_len + len(emitted[s]) - 1 + n,
+                                       p_len + budgets[r]))
+            live = live_lanes()
+            if seg_plan is not None and seg_plan[0] not in pending:
+                seg_plan = None  # the pending lane lost its blocks
+            if not live:
+                continue
+            n = min(n, max(budgets[owner[s]] - len(emitted[s])
+                           for s in live))
+            live_set = set(live)
+            left = torch.tensor([budgets[owner[s]] - len(emitted[s])
+                                 if s in live_set else 0
+                                 for s in range(slots)],
+                                dtype=torch.int32).to(dev)
+            frozen = torch.tensor(frozen_py).to(dev)
+            table_d = table.to(dev)
+            sample_peak()
+            t0 = time.perf_counter()
+            first_dev = None
+            if seg_plan is not None:
+                s_pre, start, end, is_last = seg_plan
+                st = pending[s_pre]
+                piece = reqs[st["ridx"]][None, start:end].to(dev)
+                row = st["row_tbl"].to(dev)
+                if is_last:
+                    tok, pos, toks, lives, first_dev = fused_fill(
+                        model, cache, tok, pos, frozen, left, eos, table_d,
+                        piece, start, row, s_pre, n, select)
+                else:
+                    tok, pos, toks, lives = fused_write(
+                        model, cache, tok, pos, frozen, left, eos, table_d,
+                        piece, start, row, n, select)
+                st["next"] += 1
+                counts["fused"] += end - start
+            else:
+                tok, pos, toks, lives = cb_decode_block(
+                    model, cache, tok, pos, frozen, left, eos, table_d, n,
+                    select)
+            toks_h, lives_h, first = _readback(toks, lives, first_dev)
+            seconds["decode"] += time.perf_counter() - t0
+            for i in range(n):
+                n_step += 1
+                for s in range(slots):
+                    if owner[s] is None or frozen_py[s] or not lives_h[i][s]:
+                        continue
+                    t = toks_h[i][s]
+                    emitted[s].append(t)
+                    if t == eos or len(emitted[s]) >= budgets[owner[s]]:
+                        finish(s)
+                        # the device froze the lane; its remaining rows
+                        # still computed (masked) to the block edge
+                        counts["wasted"] += n - 1 - i
+            if seg_plan is not None and seg_plan[3]:
+                activate_lane(seg_plan[0], first, dev_done=True)
+
+    def run_slot() -> None:
+        nonlocal tok, pos, n_step
+        while queue or pending or any(w is not None for w in owner):
+            # admission: every free lane reserves the queue head's worst
+            # case of blocks, FIFO — the head waits until the pool covers
+            for s in range(slots):
+                if owner[s] is None and s not in pending and queue:
+                    ridx = queue[0]
+                    private_i = o.plans[ridx][2]
+                    if not pool.can_alloc(private_i):
+                        counts["blocked"] += 1
+                        break
+                    admit(s, ridx, private_i)
+            for s in list(pending):
+                advance_prefill(s)
+            if all(w is None for w in owner):
+                continue  # nothing decoding yet; keep prefilling/admitting
+            sample_peak()
+            t0 = time.perf_counter()
+            frozen = torch.tensor(frozen_py).to(dev)
+            tok, pos, toks = decode_block(model, cache, tok, pos, frozen,
+                                          table.to(dev), o.steps_per_sync,
+                                          select)
+            block = toks.cpu().tolist()  # [steps_per_sync][B]; device sync
+            seconds["decode"] += time.perf_counter() - t0
+            for i in range(o.steps_per_sync):
+                n_step += 1
+                for s in range(slots):
+                    if owner[s] is None or frozen_py[s]:
+                        continue
+                    t = block[i][s]
+                    emitted[s].append(t)
+                    if t == eos or len(emitted[s]) >= budgets[owner[s]]:
+                        finish(s)  # later in-block tokens are overshoot
+                        counts["wasted"] += o.steps_per_sync - 1 - i
+
+    (run_continuous if o.continuous else run_slot)()
     wall = time.perf_counter() - t_start
     total = sum(len(r.tokens) for r in results)
     ttft = [t_first[i] - t_admit[i] for i in range(len(reqs))]
     stats = ServeStats(
-        requests=len(reqs), slots=slots, scheduler="slot",
+        requests=len(reqs), slots=slots,
+        scheduler="continuous" if o.continuous else "slot",
         paged_kernel="cuda" if dev.type == "cuda" else "plain",
-        kv_block_size=block_size, kv_blocks_total=pool_blocks,
+        kv_block_size=o.block_size, kv_blocks_total=o.pool_blocks,
         kv_blocks_peak_used=counts["peak"],
         admissions_blocked_on_memory=counts["blocked"],
-        wasted_lane_steps=counts["wasted"], total_tokens=total,
+        wasted_lane_steps=counts["wasted"],
+        fused_prefill_tokens=counts["fused"],
+        preemptions=counts["preempted"], total_tokens=total,
         wall_time_s=wall, tokens_per_sec=total / wall if wall > 0 else 0.0,
         queue_wait_mean_s=sum(t_admit[i] - t_start
                               for i in range(len(reqs))) / len(reqs),
