@@ -58,6 +58,29 @@ Phases, in order, none of them caught:
               KV, prefill_chunk set: greedy tokens and schedule of the
               continuous scheduler on the card equal those on the CPU,
               and the card's continuous tokens equal its slot tokens.
+ 12. kernel3: the ring flash attention step kernels (csrc/ring_flash.cu:
+              K3f forward step, K3q dQ, K3kv dK/dV) against their plain
+              versions at the ring-train shapes (B=1, S_l=512, H=32, KV=8,
+              D=128, a ring of 4), bf16 and f32: a diagonal, a past and a
+              future step, zigzag offsets, window 512, a carry-in with rows
+              that saw no key, and S_l=200 (tiles straddle the zigzag
+              halves); two launches give the same bits; then the time of
+              the last member's launches over its ring beside the plain
+              versions, the bound and SDPA of that member's q against the
+              whole sequence.
+ 13. ring-train: the train phase's model, tokens and recipe with
+              attention_fn = ring flash attention over LocalRing(4)
+              (contiguous, batch 1 x 2048, S_l = 512), 4 steps: every loss
+              finite, the first equal to the train phase's; K2 launched
+              never, K3f/K3q/K3kv exactly as the ring schedule's live
+              (member, step) pairs say (K3f twice: forward and remat).
+ 14. ring-parity: full width, 2 layers, f32 (TF32 off), batch 1 x 256,
+              LocalRing(4), zigzag with positions: the loss and every
+              gradient norm equal across the ring on the card (K3), the
+              ring on the CPU (plain versions) and the one-device flash
+              attention on the card (K2).
+ 15. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
+              card: its ring of one member launches K3.
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
@@ -67,7 +90,7 @@ Prints the kernel table as one JSON line, then the device line, and last
 instead builds the kernels and prints where the time goes at full width
 (device time by kernel under torch.profiler, and the device's idle share)
 for one decode block and one prefill segment (bf16, then int8 weights and
-KV) and one training step.
+KV), one training step and one ring training step.
 """
 from __future__ import annotations
 
@@ -608,8 +631,8 @@ def llama3_train_cfg(**kw):
     from tf_operator_tpu_torch.models import llama
     from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 
-    return llama.llama3_8b(tie_embeddings=True, remat=True,
-                           attention_fn=flash_attention, **kw)
+    kw.setdefault("attention_fn", flash_attention)
+    return llama.llama3_8b(tie_embeddings=True, remat=True, **kw)
 
 
 def train_phase() -> dict:
@@ -675,7 +698,7 @@ def train_phase() -> dict:
         f"2-{TRAIN_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
         f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
         f"kernel_launches {json.dumps(launches)}")
-    return dict(launches=launches)
+    return dict(launches=launches, losses=losses)
 
 
 def train_parity_phase() -> None:
@@ -871,6 +894,429 @@ def parity_int8_phase() -> None:
 
 
 
+# --------------------------------------------------------- kernel-3 phase
+# the ring of the ring-train phase: llama3_8b's 2048 training positions
+# over 4 members
+RING_N, RING_SL = 4, TS // 4
+RING = ("ring_fwd", "ring_dq", "ring_dkv")
+
+
+def ring_case(dtype, s_l: int, seed: int, carry: str):
+    """One (member, step) of the ring at the training widths: q and dO
+    [B, S_l, H, D], k and v as the halves of a fused [B, S_l, 2, KV, D]
+    projection, the forward carry (m, l [B, H, S_l], acc [B, S_l, H, D]:
+    "fresh" as the ring starts it, "mid" as after earlier steps, "masked"
+    with a third of the rows having seen no key), and lse, delta for the
+    backward with a few rows at lse = POS_INF."""
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g)
+    q, do = rn(TB, s_l, TH, TD), rn(TB, s_l, TH, TD)
+    kv = rn(TB, s_l, 2, TKV, TD)
+    m, l, acc = rn(TB, TH, s_l), rn(TB, TH, s_l).abs() + 1, rn(TB, s_l, TH, TD)
+    if carry == "fresh":
+        m.fill_(rf.NEG_INF)
+        l.zero_()
+        acc.zero_()
+    if carry == "masked":
+        m[:, :, :s_l // 3] = rf.NEG_INF
+        l[:, :, :s_l // 3] = 0.0
+        acc[:, :s_l // 3] = 0.0
+    lse, delta = rn(TB, TH, s_l) + 3, rn(TB, TH, s_l)
+    lse[:, 0, :8] = rf.POS_INF
+    q, do, kv = (t.to("cuda", dtype) for t in (q, do, kv))
+    state = [t.cuda() for t in (m, l, acc, lse, delta)]
+    return (q, kv[:, :, 0], kv[:, :, 1], do), state
+
+
+def ring_launch_bound(which: str, dtype, s_l: int, pairs: int) -> tuple:
+    """(bytes, flops) of one K3 launch over `pairs` visible (query, key)
+    pairs: each input read once and each output written once, the f32
+    carry or accumulators both read and written (they are updated in
+    place); products 2 flops per multiply-add for 2 matmuls (forward:
+    QKᵀ, PV), 3 (dQ: QKᵀ, dO·Vᵀ, dS·K) or 4 (dK/dV: QKᵀ, dO·Vᵀ, Pᵀ·dO,
+    dSᵀ·Q)."""
+    esz = torch.finfo(dtype).bits // 8
+    qo = TB * s_l * TH * TD * esz
+    kv = TB * s_l * TKV * TD * esz
+    stat = TB * TH * s_l * 4
+    acc_q = TB * s_l * TH * TD * 4
+    acc_kv = TB * s_l * TKV * TD * 4
+    nbytes = {"ring_fwd": qo + 2 * kv + 4 * stat + 2 * acc_q,
+              "ring_dq": 2 * qo + 2 * kv + 2 * stat + 2 * acc_q,
+              "ring_dkv": 2 * qo + 2 * kv + 2 * stat + 4 * acc_kv}[which]
+    mm = {"ring_fwd": 2, "ring_dq": 3, "ring_dkv": 4}[which]
+    return nbytes, mm * 2 * TB * TH * pairs * TD
+
+
+def bound_of(launches: list, dtype) -> tuple:
+    """The least time for a list of (bytes, flops): the larger of all the
+    bytes over HBM bandwidth and all the products over the peak."""
+    t_bytes = sum(b for b, _ in launches) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(f for _, f in launches) / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def visible_pairs(q_off, k_off, s_l: int, window=None) -> int:
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    return int(rf._mask(q_off, k_off, s_l, True, window, "cpu").sum())
+
+
+def kernel3_phase() -> dict:
+    """K3f, K3q and K3kv against their plain versions on one (member,
+    step) each of the cases below, bf16 and f32; two launches must give
+    the same bits.  Then, in bf16, the last member's launches over its
+    ring (3 past steps and its diagonal: the most work of any member)
+    timed beside the same plain calls, their bound, and SDPA of that
+    member's q against the whole sequence's k/v under the global causal
+    mask (forward, and backward through autograd)."""
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # f32: 64-wide tiles folded by online softmax against whole-shard
+    # einsums (~1e-6 on O(1) values).  bf16: p and dS rounded to bf16
+    # (2^-8 relative), at a running instead of the final maximum.  The
+    # forward's acc is an unnormalized sum of up to S_l terms p·v, so its
+    # rounding error grows with l: it is held as acc / l, the output the
+    # finish step forms (l == 0 -> 1), beside m and l themselves.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+    def as_out(m, l, acc):
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        return m, l, acc / l_safe.transpose(1, 2)[..., None]
+
+    errs = {name: 0.0 for name in RING}
+    # (S_l, layout, member, resident shard's member, window, carry)
+    cases = [(RING_SL, "contiguous", 2, 2, None, "fresh"),
+             (RING_SL, "contiguous", 2, 1, None, "mid"),
+             (RING_SL, "contiguous", 1, 2, None, "mid"),
+             (RING_SL, "zigzag", 1, 2, None, "mid"),
+             (RING_SL, "zigzag", 2, 2, None, "fresh"),
+             (RING_SL, "contiguous", 3, 2, 512, "mid"),
+             (RING_SL, "contiguous", 3, 3, None, "masked"),
+             (200, "zigzag", 1, 3, None, "mid")]
+    for i, (s_l, layout, my, src, w, carry) in enumerate(cases):
+        for dt in (torch.bfloat16, torch.float32):
+            (q, k, v, do), (m, l, acc, lse, delta) = ring_case(
+                dt, s_l, SEED + 40 + i, carry)
+            offs = (rf.offsets(my, RING_N, s_l, layout),
+                    rf.offsets(src, RING_N, s_l, layout), True, w)
+            bwd = (q, k, v, do, lse, delta)
+            want = {"ring_fwd": as_out(*rf.carry_fwd_plain(q, k, v, m, l,
+                                                           acc, *offs)),
+                    "ring_dq": (rf.ring_dq_plain(*bwd, *offs),),
+                    "ring_dkv": rf.ring_dkv_plain(*bwd, *offs)}
+            runs = []
+            for _ in range(2):
+                st = [t.clone() for t in (m, l, acc)]
+                rf.ring_fwd(q, k, v, *st, *offs)
+                dq = torch.zeros(q.shape, device="cuda")
+                dk = torch.zeros(k.shape, device="cuda")
+                dv = torch.zeros(k.shape, device="cuda")
+                rf.ring_dq(*bwd, dq, *offs)
+                rf.ring_dkv(*bwd, dk, dv, *offs)
+                runs.append({"ring_fwd": st, "ring_dq": (dq,),
+                             "ring_dkv": (dk, dv)})
+            torch.cuda.synchronize()
+            line = []
+            for name in RING:
+                same = all(torch.equal(a, b)
+                           for a, b in zip(runs[0][name], runs[1][name]))
+                err, ok = 0.0, same
+                got_all = runs[0][name]
+                if name == "ring_fwd":
+                    got_all = as_out(*got_all)
+                for got, ref in zip(got_all, want[name]):
+                    diff = (got - ref).abs()
+                    err = max(err, float(diff.max()))
+                    ok &= bool(torch.isfinite(got).all())
+                    ok &= bool((diff <= tol[dt] * (1 + ref.abs())).all())
+                if name == "ring_fwd" and src > my and layout == "contiguous":
+                    # a dead step leaves the carry as it was
+                    ok &= all(torch.equal(a, b)
+                              for a, b in zip(runs[0][name], (m, l, acc)))
+                if dt == torch.bfloat16:
+                    errs[name] = max(errs[name], err)
+                line.append(f"{name} err={err:.3e} repeat={same}")
+                if not ok:
+                    raise AssertionError(
+                        f"[kernel3] {name} disagrees with its plain version "
+                        f"or does not repeat: dtype={dt} S_l={s_l} "
+                        f"layout={layout} member={my} resident={src} "
+                        f"window={w} carry={carry} err={err} "
+                        f"bit_identical={same}")
+            log(f"[kernel3] {str(dt)[6:]:8s} S_l={s_l} {layout} member={my} "
+                f"resident={src} window={w} carry={carry} "
+                f"(atol=rtol={tol[dt]}): " + ", ".join(line))
+            del runs, want, bwd
+
+    # the last member's ring: q shard 3 against kv shards 3 (diagonal),
+    # 2, 1 and 0 (past), as K3f meets them in the causal contiguous ring
+    dt, my = torch.bfloat16, RING_N - 1
+    (q, _, _, do), (m, l, acc, lse, delta) = ring_case(dt, RING_SL, SEED + 60,
+                                                       "fresh")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 61)
+    kv_all = torch.randn((TB, TS, 2, TKV, TD), generator=g).to("cuda", dt)
+    shard = lambda i, j: kv_all[:, i * RING_SL:(i + 1) * RING_SL, j]
+    q_off = rf.offsets(my, RING_N, RING_SL, "contiguous")
+    steps = [(shard(src, 0), shard(src, 1),
+              rf.offsets(src, RING_N, RING_SL, "contiguous"))
+             for src in range(my, -1, -1)]
+    dq = torch.zeros(q.shape, device="cuda")
+    dk = torch.zeros(steps[0][0].shape, device="cuda")
+    dv = torch.zeros_like(dk)
+
+    def unit(which, plain: bool):
+        def run():
+            for k, v, k_off in steps:
+                offs = (q_off, k_off, True, None)
+                if which == "ring_fwd":
+                    if plain:
+                        rf.carry_fwd_plain(q, k, v, m, l, acc, *offs)
+                    else:
+                        rf.ring_fwd(q, k, v, m, l, acc, *offs)
+                elif which == "ring_dq":
+                    if plain:
+                        rf.ring_dq_plain(q, k, v, do, lse, delta, *offs)
+                    else:
+                        rf.ring_dq(q, k, v, do, lse, delta, dq, *offs)
+                elif plain:
+                    rf.ring_dkv_plain(q, k, v, do, lse, delta, *offs)
+                else:
+                    rf.ring_dkv(q, k, v, do, lse, delta, dk, dv, *offs)
+        return run
+
+    # the yardstick: SDPA of q shard 3 over the whole sequence with the
+    # global causal mask (forward, and backward through autograd yielding
+    # dq, dk and dv together); the port never calls it
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).detach()
+    kt, vt = (kv_all[:, :, j].transpose(1, 2).detach() for j in (0, 1))
+    q_ids = my * RING_SL + torch.arange(RING_SL, device="cuda")
+    mask = torch.arange(TS, device="cuda")[None, :] <= q_ids[:, None]
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    o_s = sdpa(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
+                                                  retain_graph=True))
+    timings = {}
+    for name in RING:
+        p1 = time_ms(unit(name, True))
+        k1 = time_ms(unit(name, False))
+        k2 = time_ms(unit(name, False))
+        p2 = time_ms(unit(name, True))
+        bnd, by = bound_of([ring_launch_bound(
+            name, dt, RING_SL, visible_pairs(q_off, k_off, RING_SL))
+            for _, _, k_off in steps], dt)
+        lib = lib_fwd if name == "ring_fwd" else lib_bwd
+        timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                             library_ms=lib, bound_ms=bnd, bound_by=by)
+        log(f"[kernel3] timing {name} bf16, member {my} of {RING_N} over its "
+            f"{len(steps)} live steps (B={TB} S_l={RING_SL} H={TH} KV={TKV} "
+            f"D={TD}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+            f"ms, sdpa {'fwd' if name == 'ring_fwd' else 'bwd'} of the "
+            f"member's q over S={TS} {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    # one launch each at a past (full) step and at the diagonal
+    for label, (k, v, k_off) in (("past step", steps[1]),
+                                 ("diagonal", steps[0])):
+        offs = (q_off, k_off, True, None)
+        one = {"ring_fwd": lambda: rf.ring_fwd(q, k, v, m, l, acc, *offs),
+               "ring_dq": lambda: rf.ring_dq(q, k, v, do, lse, delta, dq,
+                                             *offs),
+               "ring_dkv": lambda: rf.ring_dkv(q, k, v, do, lse, delta, dk,
+                                               dv, *offs)}
+        for name, fn in one.items():
+            t = time_ms(fn)
+            bnd, by = bound_of([ring_launch_bound(
+                name, dt, RING_SL, visible_pairs(q_off, k_off, RING_SL))], dt)
+            log(f"[kernel3] one {name} launch, {label}: {t:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+    return dict(errs=errs, timings=timings)
+
+
+# --------------------------------------------------------- ring-train phase
+def ring_live_pairs(n: int, s_l: int, layout: str, window=None) -> int:
+    """(member, step) pairs of a causal ring with any visible pair: the
+    launches of each K3 kernel per attention call."""
+    from tf_operator_tpu_torch.ops import zigzag
+
+    return sum(zigzag.pair_live(my, src, n, s_l, layout, window)
+               for my in range(n) for src in range(n))
+
+
+def ring_train_phase(first_loss: float) -> dict:
+    """The train phase's run with attention through the ring: same seed
+    weights, tokens and recipe."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models.llama import params_flops_per_token
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+    from tf_operator_tpu_torch.parallel.ring import LocalRing
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ring = LocalRing(RING_N)
+    cfg = llama3_train_cfg(attention_fn=rf.make_ring_flash_attention_fn(ring))
+    model, state, step = train_model(cfg)
+    torch.cuda.synchronize()
+    log(f"[ring-train] llama3_8b tied, remat, ring flash attention over "
+        f"{ring} (contiguous, S_l={TS // RING_N}), {cfg.n_layers} layers; "
+        f"batch {TB} x {TS}")
+    losses, times = [], []
+
+    def timed_step(state, tokens):
+        t = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 4,
+                                     device="cuda")
+    fa.reset_launches()
+    rf.reset_launches()
+    res = run_training(state, timed_step, batches, num_steps=TRAIN_STEPS,
+                       profiler=Profiler(batch_size=TB), log_interval_steps=1,
+                       metrics_sink=lambda line: log(f"[ring-train] metrics "
+                                                     f"{line}"))
+    torch.cuda.synchronize()
+    launches, k2 = dict(rf.launches), dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, res
+    torch.cuda.empty_cache()
+
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[ring-train] losses {losses}")
+    # bf16 compute: attention's rounding points differ (p and dS rounded
+    # per ring step instead of per flash tile), nothing else does
+    if abs(losses[0] - first_loss) > 2e-2:
+        raise AssertionError(f"[ring-train] first loss {losses[0]} differs "
+                             f"from the train phase's {first_loss} by more "
+                             f"than 2e-2")
+    live = ring_live_pairs(RING_N, TS // RING_N, "contiguous")
+    want = {"ring_fwd": 2 * live * cfg.n_layers * TRAIN_STEPS,
+            "ring_dq": live * cfg.n_layers * TRAIN_STEPS,
+            "ring_dkv": live * cfg.n_layers * TRAIN_STEPS}
+    if launches != want or any(k2.values()):
+        raise AssertionError(f"[ring-train] K3 launches {launches}, expected "
+                             f"{want} ({live} live pairs per layer); K2 "
+                             f"launches {k2}, expected none")
+    steady = sorted(times[1:])
+    step_s = steady[len(steady) // 2]
+    tokens_per_s = TB * TS / step_s
+    mfu = tokens_per_s * params_flops_per_token(cfg) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    log(f"[ring-train] losses {[round(x, 4) for x in losses]} (train "
+        f"phase's first {first_loss:.4f}); step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{TRAIN_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
+        f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
+        f"kernel_launches {json.dumps(launches)} ({live} live pairs per "
+        f"layer), k2_launches {json.dumps(k2)}")
+    return dict(launches=launches)
+
+
+def ring_parity_phase() -> None:
+    """2 layers at full width, f32: one step's loss and gradient norms
+    through the zigzag ring on the card, the same ring on the CPU, and
+    the one-device flash attention on the card."""
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+    from tf_operator_tpu_torch.ops import zigzag
+    from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
+    from tf_operator_tpu_torch.parallel.ring import LocalRing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq = 256
+    ring_fn = rf.make_ring_flash_attention_fn(LocalRing(RING_N),
+                                              layout="zigzag")
+    perm = torch.from_numpy(zigzag.storage_perm(RING_N, seq))
+    params = bridge.init_params(llama3_train_cfg(n_layers=2,
+                                                 dtype=torch.float32),
+                                SEED + 8, device="cuda", train=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    runs = {}
+    fa.reset_launches()
+    rf.reset_launches()
+    for label, dev, attn in (("ring cuda", "cuda", ring_fn),
+                             ("ring cpu", "cpu", ring_fn),
+                             ("flash cuda", "cuda", fa.flash_attention)):
+        cfg = llama3_train_cfg(n_layers=2, dtype=torch.float32,
+                               attention_fn=attn)
+        model = llama.Llama.from_params(
+            cfg, {k: v.to(dev) for k, v in params.items()}, device=dev,
+            train=True)
+        if not runs:
+            tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=g)
+        loss = lm_blocked_loss(model, tokens.to(dev),
+                               perm=perm if attn is ring_fn else None)
+        loss.backward()
+        runs[label] = (loss.item(), {
+            k: torch.linalg.vector_norm(p.grad, dtype=torch.float64).item()
+            for k, p in model.named_parameters()})
+        del model
+    k3, k2 = dict(rf.launches), dict(fa.launches)
+    del params
+    torch.cuda.empty_cache()
+    l_ref, n_ref = runs["ring cuda"]
+    worst_all = 0.0
+    for label in ("ring cpu", "flash cuda"):
+        l_o, n_o = runs[label]
+        loss_rel = abs(l_ref - l_o) / abs(l_o)
+        norm_rel = {k: abs(n_ref[k] - n_o[k]) / max(n_o[k], 1e-30)
+                    for k in n_o}
+        worst = max(norm_rel, key=norm_rel.get)
+        worst_all = max(worst_all, norm_rel[worst])
+        log(f"[ring-parity] 2 layers f32, batch 1 x {seq}, zigzag ring of "
+            f"{RING_N}: loss ring cuda {l_ref:.7f} vs {label} {l_o:.7f} (rel "
+            f"{loss_rel:.2e}, limit 1e-5); {len(norm_rel)} gradient norms, "
+            f"worst rel {norm_rel[worst]:.2e} ({worst}, limit 1e-4)")
+        if not (math.isfinite(l_ref) and loss_rel <= 1e-5
+                and norm_rel[worst] <= 1e-4):
+            raise AssertionError(f"[ring-parity] the ring on the card and "
+                                 f"{label} disagree")
+    live = ring_live_pairs(RING_N, seq // RING_N, "zigzag")
+    # remat: the forward runs again in the backward pass
+    want_k3 = {"ring_fwd": 2 * 2 * live, "ring_dq": 2 * live,
+               "ring_dkv": 2 * live}
+    if k3 != want_k3 or k2 != {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}:
+        raise AssertionError(f"[ring-parity] launches K3 {k3} (expected "
+                             f"{want_k3}), K2 {k2}")
+    log(f"[ring-parity] launches K3 {json.dumps(k3)}, K2 {json.dumps(k2)}")
+
+
+def ring_entry_phase() -> None:
+    """train_llama's --ring entry point on the card: a ring of one member
+    (one process, --tp 1), every attention through K3."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    fa.reset_launches()
+    rf.reset_launches()
+    rc = train_llama.main(["--smoke", "--ring", "--steps", "2"])
+    torch.cuda.synchronize()
+    k3, k2 = dict(rf.launches), dict(fa.launches)
+    # tiny: 2 layers, no remat, a ring of one member: one pair per layer
+    want = {"ring_fwd": 4, "ring_dq": 4, "ring_dkv": 4}
+    log(f"[entry] train_llama --smoke --ring --steps 2: exit {rc}, K3 "
+        f"launches {json.dumps(k3)}, K2 {json.dumps(k2)}")
+    if rc != 0 or k3 != want or any(k2.values()):
+        raise AssertionError(f"[entry] exit {rc}, K3 {k3} (expected {want}), "
+                             f"K2 {k2}")
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if "paged_attention" in name:
@@ -878,7 +1324,10 @@ def _kernel_class(name: str) -> str:
                 else "paged_attention (K1)")
     for kernel, label in (("flash_fwd", "flash fwd (K2f)"),
                           ("flash_dq", "flash dq (K2q)"),
-                          ("flash_dkv", "flash dkv (K2kv)")):
+                          ("flash_dkv", "flash dkv (K2kv)"),
+                          ("ring_fwd", "ring fwd (K3f)"),
+                          ("ring_dq", "ring dq (K3q)"),
+                          ("ring_dkv", "ring dkv (K3kv)")):
         if kernel in name:
             return label
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -959,16 +1408,26 @@ def profile_phase(int8: bool = False) -> None:
                  f"{tag}prefill 1 lane x {ctx} tokens", 1)
 
 
-def profile_train_phase() -> None:
+def profile_train_phase(ring: bool = False) -> None:
     """Where a training step's time goes at full width: one llama3_8b
-    step (batch 1 x 2048) under torch.profiler."""
+    step (batch 1 x 2048) under torch.profiler, with the one-device flash
+    attention or (ring) ring flash attention over LocalRing(4)."""
     from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+    from tf_operator_tpu_torch.parallel.ring import LocalRing
 
-    cfg = llama3_train_cfg()
+    kw = {}
+    if ring:
+        kw["attention_fn"] = rf.make_ring_flash_attention_fn(
+            LocalRing(RING_N))
+    cfg = llama3_train_cfg(**kw)
     model, state, step = train_model(cfg)
     tokens = next(train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 4,
                                          device="cuda"))[0]
-    _profile(lambda: step(state, tokens), f"train step {TB} x {TS}", 1)
+    label = f"ring train step (LocalRing({RING_N}))" if ring else "train step"
+    _profile(lambda: step(state, tokens), f"{label} {TB} x {TS}", 1)
+    del model, state, step
+    torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- main
@@ -990,6 +1449,7 @@ def main() -> int:
         profile_phase(int8=True)
         torch.cuda.empty_cache()
         profile_train_phase()
+        profile_train_phase(ring=True)
         return 0
     kern = kernel_phase()
     serve = serve_phase()
@@ -1000,6 +1460,10 @@ def main() -> int:
     kern1q = kernel_phase(int8=True)
     serve_int8 = serve_int8_phase()
     parity_int8_phase()
+    kern3 = kernel3_phase()
+    ring_train = ring_train_phase(train["losses"][0])
+    ring_parity_phase()
+    ring_entry_phase()
 
     t = kern["timings"]["decode"]
     row = {"name": "paged_attention", "route": "cuda",
@@ -1035,6 +1499,19 @@ def main() -> int:
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"],
                     "library_ms": t["library_ms"]})
+    # each row replaces the Pallas kernel body (_carry_fwd_kernel,
+    # _dq_ring_kernel, _dkv_ring_kernel)
+    for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):
+        t = kern3["timings"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tf_operator_tpu_torch/csrc/ring_flash.cu",
+                     "replaces": f"tf_operator_tpu/ops/ring_flash.py:{line}",
+                     "launches": ring_train["launches"][name],
+                     "max_abs_err": kern3["errs"][name],
+                     "ms": t["ms"], "kernel_ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

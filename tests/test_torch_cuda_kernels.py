@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions:
-K1 (paged attention), K1q (paged attention over int8 pools) and
-K2f/K2q/K2kv (flash attention forward, dQ and dK/dV).
+K1 (paged attention), K1q (paged attention over int8 pools),
+K2f/K2q/K2kv (flash attention forward, dQ and dK/dV) and K3f/K3q/K3kv
+(the ring flash attention steps).
 
 Needs a CUDA card and nvcc; every test here carries the `cuda` marker and
 skips without a card.  The file imports nothing of JAX, so it also runs
@@ -22,6 +23,9 @@ from tf_operator_tpu_torch.models import llama, paged_attention as tpa
 from tf_operator_tpu_torch.models import bridge, quant
 from tf_operator_tpu_torch.models.serving import serve_loop
 from tf_operator_tpu_torch.ops import flash_attention as tfa
+from tf_operator_tpu_torch.ops import ring_flash as trf
+from tf_operator_tpu_torch.ops import zigzag
+from tf_operator_tpu_torch.parallel.ring import LocalRing
 
 pytestmark = pytest.mark.cuda
 
@@ -312,3 +316,113 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="unit"):
         tfa.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                       True)
+
+
+# ------------------------------------------------------ ring flash steps
+# f32: 64-wide tiles folded by online softmax against whole-shard einsums
+# (~1e-6 on O(1) values).  bf16: p and dS rounded to bf16 (2^-8 relative)
+# at a running instead of the final maximum.
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ring_step_case(seed, *, s, h, kv, d, dtype, carry):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    q, do = f(2, s, h, d).to("cuda", dtype), f(2, s, h, d).to("cuda", dtype)
+    kvp = f(2, s, 2, kv, d).to("cuda", dtype)  # strided, as the model's
+    m, l, acc = f(2, h, s), f(2, h, s).abs() + 1, f(2, s, h, d)
+    if carry == "masked":
+        m[:, :, :s // 3] = trf.NEG_INF
+        l[:, :, :s // 3] = 0.0
+        acc[:, :s // 3] = 0.0
+    lse, delta = f(2, h, s) + 3, f(2, h, s)
+    lse[:, 0, :5] = trf.POS_INF
+    state = [t.cuda() for t in (m, l, acc, lse, delta)]
+    return (q, kvp[:, :, 0], kvp[:, :, 1], do), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kv,d,layout,my,src,window,carry", [
+    (128, 4, 2, 32, "contiguous", 2, 2, None, "masked"),
+    (128, 4, 1, 64, "contiguous", 2, 1, None, "mid"),
+    (128, 4, 4, 32, "contiguous", 1, 2, None, "mid"),
+    (128, 8, 2, 128, "zigzag", 1, 2, None, "masked"),
+    (200, 4, 2, 32, "contiguous", 3, 2, 37, "mid"),
+    (90, 2, 2, 16, "zigzag", 0, 3, None, "mid")])
+def test_ring_step_kernels_match_plain(dtype, s, h, kv, d, layout, my, src,
+                                       window, carry):
+    """K3f, K3q and K3kv against their plain versions on one (member,
+    step) of a ring of 4: diagonal, past and future steps, zigzag
+    offsets with tiles straddling the halves (S_l = 90), a window, rows
+    that saw no key, and lse = POS_INF rows; two launches give the same
+    bits and each counts one launch."""
+    (q, k, v, do), (m, l, acc, lse, delta) = _ring_step_case(
+        s + d, s=s, h=h, kv=kv, d=d, dtype=dtype, carry=carry)
+    offs = (trf.offsets(my, 4, s, layout), trf.offsets(src, 4, s, layout),
+            True, window)
+    bwd = (q, k, v, do, lse, delta)
+    want = (*trf.carry_fwd_plain(q, k, v, m, l, acc, *offs),
+            trf.ring_dq_plain(*bwd, *offs), *trf.ring_dkv_plain(*bwd, *offs))
+    before = dict(trf.launches)
+    runs = []
+    for _ in range(2):
+        st = [t.clone() for t in (m, l, acc)]
+        trf.ring_fwd(q, k, v, *st, *offs)
+        dq = torch.zeros((2, s, h, d), device="cuda")
+        dk = torch.zeros((2, s, kv, d), device="cuda")
+        dv = torch.zeros((2, s, kv, d), device="cuda")
+        trf.ring_dq(*bwd, dq, *offs)
+        trf.ring_dkv(*bwd, dk, dv, *offs)
+        runs.append((*st, dq, dk, dv))
+    torch.cuda.synchronize()
+    assert {n: trf.launches[n] - before[n] for n in before} == \
+        {"ring_fwd": 2, "ring_dq": 2, "ring_dkv": 2}
+    tol = RING_TOL[dtype]
+    for name, a, b, ref in zip(["m", "l", "acc", "dq", "dk", "dv"], *runs,
+                               want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, ref, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("layout,window", [("contiguous", None),
+                                           ("zigzag", 40)])
+def test_ring_function_on_card_matches_cpu(layout, window):
+    """The ring on LocalRing(4), CUDA tensors (kernels) against CPU
+    tensors (plain versions), f32, with a strided v as the model hands
+    it over; the launches equal the schedule's live pairs."""
+    (q, k, v, do), _ = _ring_step_case(9, s=4 * 48, h=4, kv=2, d=32,
+                                       dtype=torch.float32, carry="mid")
+    fn = trf.make_ring_flash_attention_fn(LocalRing(4), layout=layout)
+    outs = []
+    trf.reset_launches()
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, True, window=window)
+        out.backward(do.to(dev))
+        outs.append([t.detach().cpu() for t in
+                     (out, *(x.grad for x in leaves))])
+    live = sum(zigzag.pair_live(my, src, 4, 48, layout, window)
+               for my in range(4) for src in range(4))
+    assert live == 10 if layout == "contiguous" else live < 16
+    assert trf.launches == {"ring_fwd": live, "ring_dq": live,
+                            "ring_dkv": live}
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_ring_kernels_refuse_what_they_do_not_take():
+    (q, k, v, do), (m, l, acc, lse, delta) = _ring_step_case(
+        6, s=16, h=2, kv=1, d=8, dtype=torch.float32, carry="mid")
+    offs = ((0, 8), (0, 8), True, None)
+    with pytest.raises(TypeError, match="must match"):
+        trf.ring_fwd(q, k.bfloat16(), v, m, l, acc, *offs)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        trf.ring_fwd(q, k, v, m.double(), l, acc, *offs)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        trf.ring_dq(q, k, v, do, lse, delta, acc.transpose(1, 2), *offs)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros((1, 4, 1, 256), device="cuda")
+        st = torch.zeros((1, 1, 4), device="cuda")
+        trf.ring_fwd(big, big, big, st, st.clone(), big.clone(), *offs)
+

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
     names = _modules()
     for name in ("models.serving", "models.quant", "ops.flash_attention",
                  "ops.blocked_ce", "runtime.optim", "runtime.train",
-                 "runtime.loop", "runtime.profiler", "train_llama"):
+                 "runtime.loop", "runtime.profiler", "train_llama",
+                 "ops.zigzag", "ops.ring_attention", "ops.ring_flash",
+                 "parallel.ring", "parallel.mesh"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"
@@ -108,14 +110,23 @@ def test_training_entry_points_raise_without_a_card(no_card):
     from tf_operator_tpu_torch import train_llama
     from tf_operator_tpu_torch.models import bridge, llama
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+    from tf_operator_tpu_torch.parallel.ring import LocalRing
 
     with pytest.raises(RuntimeError, match="cuda"):
         train_llama.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_llama.main(["--smoke", "--ring", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        next(train_llama.lm_batches(1, 8, 16, seed=0))
     with pytest.raises(RuntimeError, match="cuda"):
         bridge.init_params(llama.tiny(n_layers=1), seed=0, train=True)
     meta = torch.empty((1, 8, 2, 4), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(meta, meta, meta, True)
+    ring_fn = rf.make_ring_flash_attention_fn(LocalRing(2))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ring_fn(meta, meta, meta, True)
 
 
 def test_flash_kernels_need_nvcc(no_card, tmp_path, monkeypatch):
@@ -140,3 +151,29 @@ def test_flash_kernels_need_nvcc(no_card, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         fa._launch_dkv(q, k, k, q, lse, lse, True, None)
     assert fa.launches == before
+
+
+def test_ring_kernels_need_nvcc(no_card, tmp_path, monkeypatch):
+    """The kernel path of each K3 wrapper raises when nvcc is missing,
+    instead of running the plain version."""
+    from tf_operator_tpu_torch import kernels
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is on PATH")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(rf, "_lib", None)
+    monkeypatch.setattr(rf, "_on", lambda x: "cuda")
+    q = torch.zeros((1, 8, 2, 4))
+    k = torch.zeros((1, 8, 1, 4))
+    stat = torch.zeros((1, 2, 8))
+    offs = ((0, 4), (0, 4), True, None)
+    before = dict(rf.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rf.ring_fwd(q, k, k, stat, stat.clone(), q.clone(), *offs)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rf.ring_dq(q, k, k, q, stat, stat, q.clone(), *offs)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rf.ring_dkv(q, k, k, q, stat, stat, k.clone(), k.clone(), *offs)
+    assert rf.launches == before

@@ -414,7 +414,8 @@ def test_train_llama_smoke_on_cpu(capsys):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--ep", "2"], ["--ring"],
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--ep", "2"],
+                                  ["--ring", "--tp", "2"],
                                   ["--ckpt-dir", "x"], ["--data-dir", "x"],
                                   ["--model", "mistral"],
                                   ["--model", "mixtral"]])

@@ -7,8 +7,8 @@ JAX package (the block allocator, the segment schedule) are copied here,
 and `tests/test_torch_*.py` hold each copy against its original.
 
 What is ported so far is the Llama family's paged serving path (slot and
-continuous schedulers, bf16 or int8 weights and KV) and its one-device
-training step:
+continuous schedulers, bf16 or int8 weights and KV) and its training step,
+with attention on one device or split over a sequence ring:
 
   - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
                               attention, the decoder (paged decode and
@@ -31,6 +31,15 @@ training step:
                               hand-written CUDA kernels
                               (csrc/flash_attention.cu) behind an autograd
                               Function, plain versions on the CPU
+  - ops/ring_flash.py         sequence-parallel ring flash attention:
+                              three hand-written CUDA kernels for the
+                              ring's steps (csrc/ring_flash.cu) behind an
+                              autograd Function, plain versions on the CPU
+  - ops/ring_attention.py     the einsum ring (the ring's plain reference)
+  - ops/zigzag.py             the load-balanced sequence layout
+  - parallel/ring.py          the rings: LocalRing (members in one
+                              process) and ProcessRing (torch.distributed)
+  - parallel/mesh.py          mesh sizing
   - ops/blocked_ce.py         cross-entropy fused with the (tied) head
   - runtime/                  adafactor, train state and step, the
                               training loop, the profiler

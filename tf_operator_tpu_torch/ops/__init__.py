@@ -1,1 +1,2 @@
-"""Fused operators of the port: flash attention and blocked cross-entropy."""
+"""Fused operators of the port: flash and ring flash attention, and
+blocked cross-entropy."""

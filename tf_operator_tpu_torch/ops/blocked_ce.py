@@ -116,16 +116,27 @@ def blocked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
 
 
 def lm_blocked_loss(model, tokens: torch.Tensor,
-                    chunk: Optional[int] = None) -> torch.Tensor:
+                    chunk: Optional[int] = None,
+                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The causal-LM loss of a tied-embedding Llama with the head fused
     into the loss: the body without the logits projection, then the
     blocked CE of hidden[:, :-1] against tokens[:, 1:] over the f32
     embedding matrix.  The port has no MoE blocks yet, so the
-    load-balancing aux term the JAX loss adds is 0."""
+    load-balancing aux term the JAX loss adds is 0.
+
+    perm ([S] ids, e.g. ops/zigzag.storage_perm): the model runs on the
+    tokens in storage order tokens[:, perm] with positions=perm, and its
+    hidden states are put back in logical order before the next-token
+    shift, which is taken on the logical `tokens`."""
     cfg = model.cfg
     if not cfg.tie_embeddings:
         raise ValueError("lm_blocked_loss requires tie_embeddings=True")
-    hidden = model(tokens, return_hidden=True)
+    if perm is None:
+        hidden = model(tokens, return_hidden=True)
+    else:
+        perm = torch.as_tensor(perm, device=tokens.device).long()
+        hidden = model(tokens[:, perm], return_hidden=True, positions=perm)
+        hidden = hidden[:, torch.argsort(perm)]
     aux = hidden.new_zeros((), dtype=torch.float32)
     x = hidden[:, :-1].reshape(-1, cfg.d_model)
     labels = tokens[:, 1:].reshape(-1)

@@ -8,8 +8,14 @@ tied embedding, adafactor(1e-3), and runtime/loop.run_training with a
 SIGTERM guard.  Weights come from a seed (models/bridge.init_params) and
 tokens from a seeded torch.Generator.
 
+`--ring` runs attention as sequence-parallel ring flash attention
+(ops/ring_flash: the CUDA kernels K3f/K3q/K3kv on the card) over a ring
+of local_mesh_axes(world size, prefer_tp=--tp)["tp"] members, as the JAX
+script sizes its ring over tp: one member in one process.
+
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
     python -m tf_operator_tpu_torch.train_llama --steps 100 --per-host-batch 1 --seq-len 2048
+    python -m tf_operator_tpu_torch.train_llama --smoke --ring --steps 2
 
 The JAX script's multi-device and data options are not ported yet; each
 raises NotImplementedError naming its ROADMAP item.
@@ -18,10 +24,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from typing import Iterator, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import bridge
@@ -29,6 +37,9 @@ from tf_operator_tpu_torch.models.llama import Llama, llama3_8b, llama31_8b, tin
 from tf_operator_tpu_torch.models.transformer import lm_loss
 from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+from tf_operator_tpu_torch.ops.ring_flash import make_ring_flash_attention_fn
+from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes
+from tf_operator_tpu_torch.parallel.ring import LocalRing
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
@@ -37,7 +48,8 @@ from tf_operator_tpu_torch.runtime.train import TrainState
 _NOT_PORTED = {
     "tp": "ROADMAP Queue 1 item 11 (tensor parallelism)",
     "ep": "ROADMAP Queue 1 item 11 (expert parallelism)",
-    "ring": "ROADMAP Queue 1 item 11 (ring flash attention, K3)",
+    "world": "ROADMAP Queue 1 item 11 (a training step split across "
+             "processes)",
     "ckpt_dir": "ROADMAP Queue 1 item 9 (Checkpointer)",
     "data_dir": "ROADMAP Queue 1 item 9 (pre-tokenized record shards)",
     "mistral": "ROADMAP Queue 1 item 10 (mistral/mixtral presets)",
@@ -46,9 +58,10 @@ _NOT_PORTED = {
 
 
 def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
-               device="cpu") -> Iterator[Tuple[torch.Tensor]]:
+               device=None) -> Iterator[Tuple[torch.Tensor]]:
     """Synthetic [batch, seq_len] token batches, uniform over the vocab,
-    from a generator seeded with `seed` on `device`."""
+    from a generator seeded with `seed` on `device` (default the card)."""
+    device = resolve_device(device)
     print("data: synthetic")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -72,6 +85,14 @@ def make_lm_step(model: Llama):
     return step
 
 
+def world_size() -> int:
+    """Processes of this job: the default process group's size, else the
+    launcher's WORLD_SIZE (1 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200_000)
@@ -90,8 +111,9 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    world = world_size()
     for flag, on in (("tp", args.tp > 1), ("ep", args.ep > 1),
-                     ("ring", args.ring), ("ckpt_dir", bool(args.ckpt_dir)),
+                     ("world", world > 1), ("ckpt_dir", bool(args.ckpt_dir)),
                      ("data_dir", bool(args.data_dir)),
                      (args.model, args.model in _NOT_PORTED)):
         if on:
@@ -99,12 +121,17 @@ def main(argv=None) -> int:
                 f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
     dev = resolve_device(args.device)
 
+    attention_fn = flash_attention
+    if args.ring:
+        ring = LocalRing(local_mesh_axes(world, prefer_tp=args.tp)["tp"])
+        attention_fn = make_ring_flash_attention_fn(ring)
+        print(f"ring attention over {ring}")
     presets = {"llama3": llama3_8b, "llama31": llama31_8b}
     if args.smoke:
-        cfg = tiny(tie_embeddings=True, attention_fn=flash_attention)
+        cfg = tiny(tie_embeddings=True, attention_fn=attention_fn)
     else:
         cfg = presets[args.model](tie_embeddings=True, remat=True,
-                                  attention_fn=flash_attention)
+                                  attention_fn=attention_fn)
         if args.seq_len > cfg.max_len:
             # extend the RoPE table rather than clamp positions
             cfg = dataclasses.replace(cfg, max_len=args.seq_len)
