@@ -13,30 +13,38 @@ Phases, in order, none of them caught:
               its plain PyTorch version on the card at the serving shapes
               of llama3_8b (H=32, KV=8, D=128, bs=16, 8 lanes up to ~1k
               positions, scratch padding, a frozen lane, a modular ring
-              table), L=1 and L=512, bf16 and f32, with and without a
-              window; two launches give the same bits; then its time
-              beside the plain version's, an SDPA yardstick and the card's
-              bound.
+              table), L=1 and L=512, bf16 (the tensor-core design, split
+              over the table at decode) and f32 (the scalar design), with
+              and without a window; the split's edges (contexts ending
+              inside the first chunk, on chunk boundaries and inside
+              chunks, a window that empties whole chunks, L*G = 12, 16 and
+              17 rows), L=974 and bs=64; two launches give the same bits;
+              then its time beside the plain version's, an SDPA yardstick
+              and the card's bound, and the kernel's and SDPA's device
+              time alone.
   4. serve:   llama3_8b at full width and depth (bf16, random weights from
               a seed) serves 16 requests through serve_loop on a paged
               pool; every KV read goes through the kernel, whose launch
-              count must equal layers x model calls.
+              count must equal layers x model calls, every one of them
+              through the tensor-core design.
   5. parity:  full width, 2 layers, f32 (TF32 off): serve_loop's greedy
               tokens on the card (kernel) equal those on the CPU (plain).
   6. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
               forward, K2q dQ, K2kv dK/dV) against their plain versions at
               the llama3_8b training shapes (B=1, S=2048, H=32, KV=8,
-              D=128), bf16 and f32: causal, non-causal, window 512, and
-              S=1000 (no 128-aligned tiling); two launches give the same
-              bits; then each kernel's time beside its plain version, SDPA
-              and the card's bound.
+              D=128), bf16 (K2f on the tensor cores) and f32: causal,
+              non-causal, window 512, and S=1000 (no 128-aligned tiling);
+              then at D=64: S=1000, S=64, window 512 and non-causal; two
+              launches give the same bits; then each kernel's time beside
+              its plain version, SDPA and the card's bound.
   7. train:   llama3_8b at full width and depth as train_llama builds it
               (tied embeddings, remat, flash attention, blocked CE,
               adafactor), f32 master weights from a seed, bf16 compute,
               batch 1 x 2048 (train_llama's 8 x 8192 cut to fit one card),
               4 steps through run_training; every loss finite, the first
               near ln(vocab); K2f launched 2 x 32 times a step (forward and
-              remat recompute), K2q and K2kv 32 times.
+              remat recompute), every launch on the tensor cores, K2q and
+              K2kv 32 times.
   8. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
@@ -53,7 +61,8 @@ Phases, in order, none of them caught:
               of 240 blocks (the slot loop's default is 520): the step
               gate blocks, lanes are preempted, prompt segments ride the
               decode dispatches; every read goes through K1q, whose launch
-              count must equal layers x model calls, and none through K1.
+              count must equal layers x model calls, every one of them
+              through the tensor-core design, and none through K1.
  11. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
               KV, prefill_chunk set: greedy tokens and schedule of the
               continuous scheduler on the card equal those on the CPU,
@@ -143,12 +152,14 @@ B, H, KV, D, BS = 8, 32, 8, 128, 16
 MAX_CTX, MAX_NEW = 1024, 64
 
 
-def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS):
+def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS,
+              ctx=None, h: int = H):
     """Pools, tables, positions and q for one kernel case.  Lanes 0..6
-    are live at ragged positions; lane 7 is frozen (all-scratch table).
-    The scratch block is poisoned, so a masking fault shows.  ring=True
-    gives every live lane a full modular table with positions past
-    T*bs (the sliding-window table discipline)."""
+    are live at ragged positions (or at the contexts `ctx` gives); lane 7
+    is frozen (all-scratch table).  The scratch block is poisoned, so a
+    masking fault shows.  ring=True gives every live lane a full modular
+    table with positions past T*bs (the sliding-window table
+    discipline).  h: query heads over the KV = 8 kv heads."""
     from tf_operator_tpu_torch.models.paging import blocks_for
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -159,9 +170,10 @@ def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS):
             n_slots * bs + l, 2 * n_slots * bs, (B - 1,), generator=g)]
         need = [n_slots] * (B - 1)
     else:
-        ctx = [int(c) for c in torch.randint(
-            max(l, 8) + 8, MAX_CTX + 1, (B - 1,), generator=g)]
-        ctx[0] = MAX_CTX  # the longest lane sits at the serve phase's cap
+        if ctx is None:
+            ctx = [int(c) for c in torch.randint(
+                max(l, 8) + 8, MAX_CTX + 1, (B - 1,), generator=g)]
+            ctx[0] = MAX_CTX  # the longest lane sits at the serve phase's cap
         need = [blocks_for(c, bs) for c in ctx]
     n_blocks = sum(need)
     ids = (torch.randperm(n_blocks, generator=g) + 1).tolist()
@@ -176,7 +188,7 @@ def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS):
     v_pool = torch.randn(shape, generator=g)
     k_pool[0] = 1e4
     v_pool[0] = 1e4
-    q = torch.randn((B, l, H, D), generator=g)
+    q = torch.randn((B, l, h, D), generator=g)
     return dict(q=q.to(dev, dtype), k=k_pool.to(dev, dtype),
                 v=v_pool.to(dev, dtype), table=table.to(dev),
                 pos=pos.to(dev), window=window, ctx=ctx)
@@ -208,16 +220,23 @@ def bound_ms(case, dtype, int8: bool = False) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() over reps launches, each after an L2
-    flush (the serving caller finds the pool cold: 31 other layers'
-    weights pass through L2 between two reads of one layer's pool)."""
+def time_ms(fn, reps: int = 20, queued: bool = False) -> float:
+    """Mean time of fn() over reps launches between two CUDA events, each
+    after an L2 flush (the serving caller finds the pool cold: 31 other
+    layers' weights pass through L2 between two reads of one layer's
+    pool).  The events bracket the host's call too, so a wrapper's Python
+    time counts where the card would wait for it.  queued=True first
+    holds the card for about half a millisecond (torch.cuda._sleep), so
+    the call is enqueued before the start event fires and only device
+    time is read."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        if queued:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -262,16 +281,35 @@ def sdpa_inputs(case):
 PAGED_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
 
 
+# the decode split's edges at the kernel phase's table (68 slots of 16,
+# 64 (kv head, lane) pairs: chunks of 8 slots, 128 keys): contexts that
+# end inside the first chunk (100), on chunk boundaries (128, 512, 1024)
+# and inside chunks; lane 7 is frozen, so all its chunks are scratch
+EDGE_CTX = [1024, 100, 128, 512, 600, 1000, 700]
+
+
 def paged_cases() -> list:
-    """(dtype, L, window, ring, block size) of the kernel phases."""
-    cases = [(dt, l, w, False, BS)
-             for dt in (torch.bfloat16, torch.float32)
-             for l in (1, 512) for w in (None, 256)]
-    cases += [(dt, 1, 512, True, BS)
-              for dt in (torch.bfloat16, torch.float32)]
-    # serve_loop's default block size, 64: past 48 KB of shared memory
-    cases += [(dt, 1, None, False, 64) for dt in (torch.bfloat16,
-                                                  torch.float32)]
+    """The kernel phases' cases: dicts of make_case's arguments (dtype,
+    L, window, ring; optionally bs, ctx, h)."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [dict(dtype=dt, l=l, window=w, ring=False)
+                  for l in (1, 512) for w in (None, 256)]
+        cases.append(dict(dtype=dt, l=1, window=512, ring=True))
+        # serve_loop's default block size, 64: past 48 KB of shared memory
+        cases.append(dict(dtype=dt, l=1, window=None, ring=False, bs=64))
+        # the split's edges, and a window that empties whole chunks
+        cases += [dict(dtype=dt, l=1, window=w, ring=False, ctx=EDGE_CTX)
+                  for w in (None, 300)]
+        # L*G = 12 and 16 rows (split, G = 4), 16 and 17 rows at G = 1
+        # (H = KV = 8: the largest split and the smallest direct call)
+        cases += [dict(dtype=dt, l=l, window=None, ring=False)
+                  for l in (3, 4)]
+        cases += [dict(dtype=dt, l=l, window=None, ring=False, h=KV)
+                  for l in (16, 17)]
+        # the serve phase's longest prompt; block size 64 at prefill
+        cases.append(dict(dtype=dt, l=974, window=None, ring=False))
+        cases.append(dict(dtype=dt, l=512, window=None, ring=False, bs=64))
     return cases
 
 
@@ -310,8 +348,9 @@ def kernel_phase(int8: bool = False) -> dict:
         return (case["q"], k, v, case["table"], case["pos"])
 
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for i, (dt, l, w, ring, bs) in enumerate(paged_cases()):
-        case = make_case(dt, l, w, ring, SEED + i, bs)
+    for i, kw in enumerate(paged_cases()):
+        dt, l, w = kw["dtype"], kw["l"], kw["window"]
+        case = make_case(seed=SEED + i, **kw)
         args = inputs(case)
         got = pa.paged_attention(*args, window=w)
         again = pa.paged_attention(*args, window=w)
@@ -325,14 +364,17 @@ def kernel_phase(int8: bool = False) -> dict:
         frozen_zero = bool((got[B - 1] == 0).all())
         err = float(diff.max())
         errs[dt] = max(errs[dt], err)
-        log(f"{tag} {str(dt)[6:]:8s} L={l:<4d} bs={bs} window={w} "
-            f"ring={ring} max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
+        bs, h = kw.get("bs", BS), kw.get("h", H)
+        chunk = (pa.split_slots(l * h // KV, case["table"].shape[1], bs,
+                                KV * B) if dt == torch.bfloat16 else 0)
+        log(f"{tag} {str(dt)[6:]:8s} L={l:<4d} H={h} bs={bs} window={w} "
+            f"ring={kw['ring']} ctx={case['ctx']} split_slots={chunk} "
+            f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
             f"frozen_lane_zero={frozen_zero} repeat={same}")
         if not (ok and same and frozen_zero and torch.isfinite(got).all()):
             raise AssertionError(
                 f"{tag} the kernel disagrees with its plain version or does "
-                f"not repeat: dtype={dt} L={l} bs={bs} window={w} "
-                f"ring={ring} err={err} bit_identical={same}")
+                f"not repeat: {kw} err={err} bit_identical={same}")
 
     timings = {}
     for name, l in (("decode", 1), ("prefill", 512)):
@@ -340,20 +382,25 @@ def kernel_phase(int8: bool = False) -> dict:
         args = inputs(case)
         sq, sk, sv, mask = sdpa_inputs(dict(case, k=args[1], v=args[2]))
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_fn = lambda: sdpa(sq, sk, sv, attn_mask=mask, enable_gqa=True)
         # plain, kernel, kernel, plain: one card, in turns
         p1 = time_ms(lambda: plain(*args))
         k1 = time_ms(lambda: pa.paged_attention(*args))
         k2 = time_ms(lambda: pa.paged_attention(*args))
         p2 = time_ms(lambda: plain(*args))
-        lib = time_ms(lambda: sdpa(sq, sk, sv, attn_mask=mask,
-                                   enable_gqa=True))
+        lib = time_ms(lib_fn)
+        # device time alone: the launches queued behind a wait on the card
+        kq = time_ms(lambda: pa.paged_attention(*args), queued=True)
+        libq = time_ms(lib_fn, queued=True)
         bnd, by = bound_ms(case, torch.bfloat16, int8=int8)
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             library_ms=lib, bound_ms=bnd, bound_by=by)
+                             library_ms=lib, bound_ms=bnd, bound_by=by,
+                             device_ms=kq, library_device_ms=libq)
         log(f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
             f"B={B} L={l} H={H} KV={KV} D={D} bs={BS} ctx={case['ctx']}: "
             f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time alone: "
+            f"kernel {kq:.4f} ms, sdpa {libq:.4f} ms")
     return dict(errs=errs, timings=timings)
 
 
@@ -364,14 +411,14 @@ TB, TS, TH, TKV, TD = 1, 2048, 32, 8, 128
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
-def flash_case(dtype, s: int, seed: int):
+def flash_case(dtype, s: int, seed: int, d: int = TD):
     """q [B, S, H, D], and k, v as the two halves of one fused
     [B, S, 2, KV, D] projection (strided views, as the model hands them
     over), and dO."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((TB, s, TH, TD), generator=g)
-    kv = torch.randn((TB, s, 2, TKV, TD), generator=g)
-    do = torch.randn((TB, s, TH, TD), generator=g)
+    q = torch.randn((TB, s, TH, d), generator=g)
+    kv = torch.randn((TB, s, 2, TKV, d), generator=g)
+    do = torch.randn((TB, s, TH, d), generator=g)
     q, kv, do = (t.to("cuda", dtype) for t in (q, kv, do))
     return q, kv[:, :, 0], kv[:, :, 1], do
 
@@ -423,12 +470,18 @@ def kernel2_phase() -> dict:
     # relative), at a running instead of the final maximum in the forward.
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     errs = {name: 0.0 for name in FLASH}
-    cases = [(dt, s, causal, w)
-             for (s, causal, w) in ((TS, True, None), (TS, False, None),
-                                    (TS, True, 512), (1000, True, None))
+    # the training shapes, then the tensor-core K2f's edges at D = 64: a
+    # tail tile (S = 1000), one tile (S = 64), a window that starts the
+    # kv run past tile 0, and no mask at all
+    cases = [(dt, s, causal, w, d)
+             for (s, causal, w, d) in (
+                 (TS, True, None, TD), (TS, False, None, TD),
+                 (TS, True, 512, TD), (1000, True, None, TD),
+                 (1000, True, None, 64), (64, True, None, 64),
+                 (1000, True, 512, 64), (1000, False, None, 64))
              for dt in (torch.bfloat16, torch.float32)]
-    for i, (dt, s, causal, w) in enumerate(cases):
-        q, k, v, do = flash_case(dt, s, SEED + 10 + i)
+    for i, (dt, s, causal, w, d) in enumerate(cases):
+        q, k, v, do = flash_case(dt, s, SEED + 10 + i, d)
         out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, w)
         delta = flash_delta(out_p, do)
         bwd = (q, k, v, do, lse_p, delta, causal, w)
@@ -456,10 +509,11 @@ def kernel2_phase() -> dict:
             if not ok:
                 raise AssertionError(
                     f"[kernel2] {name} disagrees with its plain version or "
-                    f"does not repeat: dtype={dt} S={s} causal={causal} "
-                    f"window={w} err={err} bit_identical={same}")
-        log(f"[kernel2] {str(dt)[6:]:8s} S={s} causal={causal} window={w} "
-            f"(atol=rtol={tol[dt]}): " + ", ".join(line))
+                    f"does not repeat: dtype={dt} S={s} D={d} "
+                    f"causal={causal} window={w} err={err} "
+                    f"bit_identical={same}")
+        log(f"[kernel2] {str(dt)[6:]:8s} S={s} D={d} causal={causal} "
+            f"window={w} (atol=rtol={tol[dt]}): " + ", ".join(line))
         del runs, want, bwd
 
     q, k, v, do = flash_case(torch.bfloat16, TS, SEED + 30)
@@ -476,9 +530,10 @@ def kernel2_phase() -> dict:
     # which yields dq, dk and dv together); the port never calls it
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach() for x in (q, k, v))
+    sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
     with torch.no_grad():
-        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True))
+        lib_fwd = time_ms(sdpa_fwd)
+        lib_fwd_q = time_ms(sdpa_fwd, queued=True)
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
     o_s = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2)
@@ -494,10 +549,17 @@ def kernel2_phase() -> dict:
         lib = lib_fwd if name == "flash_fwd" else lib_bwd
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                              library_ms=lib, bound_ms=bnd, bound_by=by)
+        extra = ""
+        if name == "flash_fwd":
+            # device time alone: the launch queued behind a wait on the card
+            kq = time_ms(kern, queued=True)
+            timings[name].update(device_ms=kq, library_device_ms=lib_fwd_q)
+            extra = (f"; device time alone: kernel {kq:.4f} ms, sdpa fwd "
+                     f"{lib_fwd_q:.4f} ms")
         log(f"[kernel2] timing {name} bf16 causal B={TB} S={TS} H={TH} "
             f"KV={TKV} D={TD}: kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})" + extra)
     return dict(errs=errs, timings=timings)
 
 
@@ -537,7 +599,7 @@ def serve_phase() -> dict:
     results, stats = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
                                 return_stats=True, **kw)
     torch.cuda.synchronize()
-    launches = pa.launches
+    launches, mma = pa.launches, pa.launches_mma
     hook.remove()
     peak = torch.cuda.max_memory_allocated()
 
@@ -551,6 +613,9 @@ def serve_phase() -> dict:
         raise AssertionError(
             f"paged_attention launched {launches} times for {calls[0]} "
             f"model calls x {cfg.n_layers} layers")
+    if mma != launches:
+        raise AssertionError(f"[serve] {mma} of {launches} bf16-query K1 "
+                             f"calls took the tensor-core design")
     ttft = sorted(r["ttft_s"] for r in stats.per_request)
     pct = lambda p: ttft[min(len(ttft) - 1, math.ceil(p * len(ttft)) - 1)]
     e2e = [r["e2e_latency_s"] for r in stats.per_request]
@@ -561,7 +626,7 @@ def serve_phase() -> dict:
         f"ttft_p50_s={pct(0.5):.4f} ttft_p99_s={pct(0.99):.4f} "
         f"e2e_max_s={max(e2e):.4f} prefill_s={stats.prefill_time_s:.4f} "
         f"decode_s={stats.decode_time_s:.4f} model_calls={calls[0]} "
-        f"kernel_launches={launches} "
+        f"kernel_launches={launches} tensor_core_launches={mma} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
     del model
     torch.cuda.empty_cache()
@@ -681,7 +746,9 @@ def train_phase() -> dict:
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
         raise AssertionError(f"[train] first loss {losses[0]} is not within "
                              f"1.5 of ln({cfg.vocab_size})")
+    # bf16 compute: every forward launch takes the tensor-core K2f
     want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_fwd_mma": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_dq": cfg.n_layers * TRAIN_STEPS,
             "flash_dkv": cfg.n_layers * TRAIN_STEPS}
     if launches != want:
@@ -744,7 +811,9 @@ def train_parity_phase() -> None:
     if not (math.isfinite(l_gpu) and loss_rel <= 1e-5
             and norm_rel[worst] <= 1e-4):
         raise AssertionError("[train-parity] the card and the CPU disagree")
-    if launches != {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}:
+    # f32: the scalar K2f, never the tensor cores (TF32)
+    if launches != {"flash_fwd": 4, "flash_fwd_mma": 0, "flash_dq": 2,
+                    "flash_dkv": 2}:
         raise AssertionError(f"[train-parity] launches {launches}")
 
 
@@ -807,6 +876,7 @@ def serve_int8_phase() -> dict:
                                 **kw)
     torch.cuda.synchronize()
     launches, k1_launches = pa.launches_int8, pa.launches
+    mma = pa.launches_int8_mma
     hook.remove()
     peak = torch.cuda.max_memory_allocated()
 
@@ -822,6 +892,9 @@ def serve_int8_phase() -> dict:
             f"[serve-int8] K1q launched {launches} times and K1 "
             f"{k1_launches} times for {calls[0]} model calls x "
             f"{cfg.n_layers} layers")
+    if mma != launches:
+        raise AssertionError(f"[serve-int8] {mma} of {launches} bf16-query "
+                             f"K1q calls took the tensor-core design")
     if not (stats.fused_prefill_tokens > 0
             and stats.admissions_blocked_on_memory > 0
             and stats.kv_blocks_peak_used <= INT8_POOL):
@@ -844,6 +917,7 @@ def serve_int8_phase() -> dict:
         f"admissions_blocked_on_memory={stats.admissions_blocked_on_memory} "
         f"kv_blocks_peak_used={stats.kv_blocks_peak_used} "
         f"model_calls={calls[0]} k1q_launches={launches} "
+        f"k1q_tensor_core_launches={mma} "
         f"k1_launches={k1_launches} quantized_bytes={qbytes} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
     del model
@@ -1290,7 +1364,8 @@ def ring_parity_phase() -> None:
     # remat: the forward runs again in the backward pass
     want_k3 = {"ring_fwd": 2 * 2 * live, "ring_dq": 2 * live,
                "ring_dkv": 2 * live}
-    if k3 != want_k3 or k2 != {"flash_fwd": 4, "flash_dq": 2, "flash_dkv": 2}:
+    if k3 != want_k3 or k2 != {"flash_fwd": 4, "flash_fwd_mma": 0,
+                               "flash_dq": 2, "flash_dkv": 2}:
         raise AssertionError(f"[ring-parity] launches K3 {k3} (expected "
                              f"{want_k3}), K2 {k2}")
     log(f"[ring-parity] launches K3 {json.dumps(k3)}, K2 {json.dumps(k2)}")
@@ -1319,7 +1394,8 @@ def ring_entry_phase() -> None:
 
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
-    if "paged_attention" in name:
+    if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
+        # the merge of the decode split is K1's or K1q's second pass
         return ("paged_attention int8 (K1q)" if "signed char" in name
                 else "paged_attention (K1)")
     for kernel, label in (("flash_fwd", "flash fwd (K2f)"),
@@ -1465,16 +1541,27 @@ def main() -> int:
     ring_parity_phase()
     ring_entry_phase()
 
-    t = kern["timings"]["decode"]
-    row = {"name": "paged_attention", "route": "cuda",
-           "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
-           "replaces": "tf_operator_tpu/models/paged_attention.py:96",
-           "launches": serve["launches"],
-           "max_abs_err": kern["errs"][torch.bfloat16],
-           "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-           "library_ms": t["library_ms"]}
-    rows = [row]
+    def paged_row(name, line, kern, launches):
+        """K1's or K1q's row: decode times, prefill times beside them."""
+        t, pre = kern["timings"]["decode"], kern["timings"]["prefill"]
+        return {"name": name, "route": "cuda",
+                "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
+                "replaces": f"tf_operator_tpu/models/paged_attention.py:{line}",
+                "launches": launches,
+                "max_abs_err": kern["errs"][torch.bfloat16],
+                "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "prefill_ms": pre["ms"], "prefill_plain_ms": pre["plain_ms"],
+                "prefill_bound_ms": pre["bound_ms"],
+                "prefill_library_ms": pre["library_ms"],
+                "prefill_device_ms": pre["device_ms"],
+                "prefill_library_device_ms": pre["library_device_ms"]}
+
+    rows = [paged_row("paged_attention", 96, kern, serve["launches"]),
+            paged_row("paged_attention_int8", 259, kern1q,
+                      serve_int8["launches"])]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
     # _dkv_kernel)
     for name, line in (("flash_fwd", 112), ("flash_dq", 217),
@@ -1489,16 +1576,8 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    t = kern1q["timings"]["decode"]
-    rows.insert(1, {"name": "paged_attention_int8", "route": "cuda",
-                    "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
-                    "replaces": "tf_operator_tpu/models/paged_attention.py:259",
-                    "launches": serve_int8["launches"],
-                    "max_abs_err": kern1q["errs"][torch.bfloat16],
-                    "ms": t["ms"], "kernel_ms": t["ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"],
-                    "library_ms": t["library_ms"]})
+        rows[-1].update({k: t[k] for k in ("device_ms", "library_device_ms")
+                         if k in t})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel)
     for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):

@@ -91,6 +91,87 @@ def test_kernel_long_prefill_modular_ring_and_frozen_lane(dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# the decode split's edges: with 8 lanes x 2 kv heads over 12 slots of 16
+# (192 keys) the rule takes chunks of 8 slots (128 keys), so lane 1 ends
+# inside the first chunk, lane 2 on the chunk boundary, lane 3 inside the
+# second chunk and lane 4 at the table's end; lane 5 is frozen (every
+# chunk scratch)
+SPLIT_EDGE = dict(
+    table=[[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12],
+           [13, 14, 15, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+           [16, 17, 18, 19, 20, 21, 22, 23, 0, 0, 0, 0],
+           [24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 0, 0],
+           [34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45],
+           [0] * 12],
+    pos=[150, 40, 127, 150, 191, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,g,window", [(1, 4, None), (1, 4, 100),
+                                        (4, 4, None), (16, 1, None),
+                                        (17, 1, None), (16, 1, 30)])
+def test_kernel_split_edges(dtype, l, g, window):
+    """Contexts ending inside the first chunk, on a chunk boundary and
+    inside a chunk, a frozen lane whose chunks are all scratch (it
+    finalizes to 0), a window that empties whole chunks, and L*G = 4, 16
+    (the largest split) and 17 rows (direct); two launches give the same
+    bits and count one call each, on the tensor cores in bf16."""
+    pos = [max(p - l + 1, 0) for p in SPLIT_EDGE["pos"]]
+    args = _case(10 + l, l=l, g=g, d=128, bs=16, dtype=dtype,
+                 table=SPLIT_EDGE["table"], pos=pos)
+    rows = l * g
+    if dtype == torch.bfloat16:
+        assert (tpa.split_slots(rows, 12, 16, 2 * 6) == 8) == (rows <= 16)
+    before = (tpa.launches, tpa.launches_mma)
+    got = tpa.paged_attention(*args, window=window)
+    again = tpa.paged_attention(*args, window=window)
+    torch.cuda.synchronize()
+    mma = 2 if dtype == torch.bfloat16 else 0
+    assert (tpa.launches, tpa.launches_mma) == (before[0] + 2,
+                                                before[1] + mma)
+    assert torch.equal(got, again)
+    assert bool((got[5] == 0).all())
+    want = tpa.paged_attention_plain(*args, window=window)
+    live = [0, 1, 2, 3, 4]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 40])
+def test_kernel_block_size_64(dtype, l):
+    """serve_loop's default block size: one pool block is one key tile."""
+    table = [[1, 2, 3, 0], [4, 5, 6, 7], [8, 0, 0, 0]]
+    args = _case(20 + l, l=l, g=4, d=128, bs=64, dtype=dtype, table=table,
+                 pos=[150 - l, 250 - l, 60 - l])
+    got = tpa.paged_attention(*args)
+    assert torch.equal(got, tpa.paged_attention(*args))
+    want = tpa.paged_attention_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_split_edges(dtype):
+    """K1q on the split's edges (as test_kernel_split_edges), int8 pools
+    with the scratch block poisoned; the bf16 call counts on the tensor
+    cores."""
+    q, k_pool, v_pool, table, pos = _case(
+        30, l=1, g=4, d=128, bs=16, dtype=dtype, **SPLIT_EDGE)
+    kq, vq = _int8_pools(k_pool, v_pool)
+    before = tpa.launches_int8_mma
+    got = tpa.paged_attention(q, kq, vq, table, pos, window=100)
+    assert torch.equal(got, tpa.paged_attention(q, kq, vq, table, pos,
+                                                window=100))
+    torch.cuda.synchronize()
+    assert tpa.launches_int8_mma == before + (
+        2 if dtype == torch.bfloat16 else 0)
+    assert bool((got[5] == 0).all())
+    want = tpa.paged_attention_int8_plain(q, kq, vq, table, pos, window=100)
+    torch.testing.assert_close(got[:5].float(), want[:5].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_kernel_reads_strided_queries():
     """q and out are indexed from their strides: a q sliced out of a
     wider tensor gives the same result as its contiguous copy."""
@@ -262,11 +343,15 @@ def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
 @pytest.mark.parametrize("s,h,kv,d,causal,window", [
     (64, 4, 4, 32, True, None), (100, 4, 2, 64, True, None),
     (200, 4, 1, 128, False, None), (200, 8, 2, 128, True, 37),
-    (130, 2, 2, 16, True, 1)])
+    (130, 2, 2, 16, True, 1), (1000, 8, 2, 64, True, None),
+    (1000, 8, 2, 64, True, 512), (1000, 4, 1, 64, False, None),
+    (300, 6, 2, 128, True, 100), (77, 8, 1, 8, True, None)])
 def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     """Each kernel against its plain version on the same inputs (the
     backward kernels take the plain forward's lse and delta), with
-    ragged S, GQA groups 1-4 and bit-identical repeats."""
+    ragged S, GQA groups 1-8 (G = 3: a block's units span two q tiles),
+    D = 8 to 128, windows and bit-identical repeats; bf16 forwards count
+    on the tensor cores."""
     q, k, v, do = _flash_case(s + d, s=s, h=h, kv=kv, d=d, dtype=dtype)
     out_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, window)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -277,7 +362,8 @@ def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
              *tfa.flash_dkv(*bwd)) for _ in range(2)]
     torch.cuda.synchronize()
     assert {n: tfa.launches[n] - before[n] for n in before} == \
-        {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2}
+        {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
+         "flash_fwd_mma": 2 if dtype == torch.bfloat16 else 0}
     tol = FLASH_TOL[dtype]
     for name, a, b, ref in zip(["out", "lse", "dq", "dk", "dv"], *runs, want):
         assert torch.equal(a, b), name

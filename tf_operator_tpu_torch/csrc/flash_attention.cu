@@ -44,11 +44,39 @@
 //
 // What bounds it on this card: at the training shapes (S = 2048, D = 128,
 // causal) the work is S^2 D products per head, far above the bytes, so it
-// is bound by operations: 989 TFLOP/s in the tensor cores.  This kernel
-// does its products as scalar f32 FMAs (67 TFLOP/s peak) out of shared
-// memory, with no overlap of the tile loads and compute; tensor-core
-// (mma/wgmma) products, bf16 tiles in shared memory and cp.async/TMA
-// double buffering are the later work.  The numbers are in PERF.md.
+// is bound by operations: 989 TFLOP/s in the tensor cores.  The kernels
+// above do their products as scalar f32 FMAs (67 TFLOP/s peak) out of
+// shared memory, with no overlap of the tile loads and compute.  The
+// numbers are in PERF.md.
+//
+// K2f on bf16 inputs takes the tensor-core design instead
+// (flash_fwd_wgmma_kernel, helpers in mma_tiles.cuh):
+//   - a block of 4 warpgroups (512 threads) per (64-row q tile, kv head,
+//     batch) when G = 4: each warpgroup owns 64 rows of one query head of
+//     the kv head's group, so every K and V tile is staged once for 256
+//     rows (other G take consecutive (q tile, head) units).  Blocks start
+//     heaviest first across all kv heads, so the causal tail is short;
+//   - Q, and K and V tiles of 64 rows, are staged as bf16 by 16-byte
+//     cp.async copies in the no-swizzle core-matrix layouts wgmma reads
+//     (Q, K K-major; V MN-major, read transposed); K/V sit in a 3-stage
+//     ring, tile t + 1 in flight while tile t is used, one barrier a tile;
+//   - S = Q K^T by wgmma.m64n64k16 (both operands in shared memory),
+//     O += P V by wgmma.m64n{D}k16 with p in registers (bf16 in, f32
+//     accumulators).  wgmma rather than mma.sync: an mma.sync version of
+//     this kernel ran at about the same time whatever its tile shape,
+//     bound by its tile loads and barriers; wgmma needs no ldmatrix and
+//     128 registers a thread, so 16 warps share an SM and a tile serves
+//     four heads;
+//   - the online softmax runs on the S accumulators (each warp's 16 rows
+//     are m16n8 C fragments): row max and sum over the 4 lanes of a row by
+//     shuffles in a fixed order, no atomics, so repeats are bit-identical;
+//     p is rounded to bf16 in registers as the PV operand;
+//   - visibility is tested per element only on tiles that straddle the
+//     diagonal, the window's edge or S; interior tiles skip it.  A masked
+//     score is -inf, so its p is exactly 0 while m is still the -1e30
+//     seed.  Any D up to 128 is zero-padded to 16, 32, 64 or 128.
+// f32 inputs keep the scalar kernel: the tensor cores would round them to
+// TF32, and the f32 parity checks hold the training step to full f32.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
@@ -57,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -284,6 +314,251 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
           m[i] + logf(l_safe);
     }
   }
+}
+
+// ------------------------------------------------ K2f, warpgroup products
+// A block holds kWgGroups warpgroups; each owns one unit of 64 q rows of
+// one query head.  The units of a kv head's group are numbered
+// u = (q tile) * G + (head in group), and a block takes kWgGroups
+// consecutive units: with G = 4 that is the four query heads of one q
+// tile, which read the same K and V tiles, so each tile is staged once
+// for 256 rows.  Q and K sit K-major, V MN-major, in the no-swizzle
+// core-matrix layout (mma_tiles.cuh); S = Q K^T is wgmma m64n64k16 with
+// both operands in shared memory, O += P V is wgmma m64n{D}k16 with p in
+// registers.  512 threads at up to 128 registers keep 16 warps on an SM.
+constexpr int kWgGroups = 4;
+constexpr int kWgThreads = 128 * kWgGroups;
+constexpr int kWgKeys = 64;  // kv rows per tile
+// K/V tiles in the ring: tile t + 1 loads while tile t is used, and the
+// buffer a load refills was read two tiles before, behind a barrier that
+// every thread has passed since: one barrier a tile
+constexpr int kWgStages = 3;
+
+// Whether any (query, key) pair of q rows q0 .. q_hi and the kv tile at k0
+// is visible (tile_live for a q span other than kTile rows and kv tiles of
+// kWgKeys).
+__device__ __forceinline__ bool span_live(int q0, int q_hi, int k0,
+                                          const Args& a) {
+  if (a.causal && k0 > q_hi) return false;
+  return a.window <= 0 || k0 + kWgKeys - 1 > q0 - a.window;
+}
+
+// Whether every pair of q rows q0 .. q_hi and the kv tile at k0 is
+// visible, so the per-element test can be skipped.
+__device__ __forceinline__ bool span_full(int q0, int q_hi, int k0,
+                                          const Args& a) {
+  if (k0 + kWgKeys > a.S) return false;
+  if (!a.causal) return true;
+  if (k0 + kWgKeys - 1 > q0) return false;
+  return a.window <= 0 || k0 > q_hi - a.window;
+}
+
+// byte offset of 16-byte piece c of row r in a K-major tile of kD columns
+template <int kD>
+__device__ __forceinline__ int kmajor_at(int r, int c) {
+  return (r >> 3) * (kD / 8) * 128 + c * 128 + (r & 7) * 16;
+}
+
+// byte offset of 16-byte piece c (n chunk) of row r (k) in an MN-major
+// tile of kWgKeys rows
+__device__ __forceinline__ int mnmajor_at(int r, int c) {
+  return c * (kWgKeys / 8) * 128 + (r >> 3) * 128 + (r & 7) * 16;
+}
+
+// kRowsT rows from row0 of one head into a core-matrix tile at dst, by
+// kThr threads from thread tid: zero past S and past D.  The i-th thread
+// writes the i-th 16 bytes of the tile, so a warp's copies land in
+// contiguous shared memory.
+template <int kD, int kRowsT, bool kMN, int kThr>
+__device__ __forceinline__ void stage_cm(unsigned char* dst,
+                                        const __nv_bfloat16* base,
+                                        long long ss, int row0, int S, int D,
+                                        bool vec, int tid) {
+  constexpr int kPieces = kD / 8;
+  for (int i = tid; i < kRowsT * kPieces; i += kThr) {
+    int r, c;
+    if (kMN) {
+      r = i % kRowsT;
+      c = i / kRowsT;
+    } else {
+      r = (i / (8 * kPieces)) * 8 + i % 8;
+      c = (i / 8) % kPieces;
+    }
+    const int row = row0 + r;
+    unsigned char* at = dst + (kMN ? mnmajor_at(r, c) : kmajor_at<kD>(r, c));
+    if (vec) {
+      const bool live = row < S && c * 8 < D;
+      mma_tiles::cp_async_16(at, live ? base + row * ss + c * 8 : base,
+                             live ? 16 : 0);
+    } else {
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(at);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int d = c * 8 + k;
+        e[k] = (row < S && d < D) ? base[row * ss + d] : __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void pv_wgmma(float (&o)[kD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (kD == 16) mma_tiles::wgmma_m64n16k16_rs<1>(o, a, desc, 1);
+  if constexpr (kD == 32) mma_tiles::wgmma_m64n32k16_rs<1>(o, a, desc, 1);
+  if constexpr (kD == 64) mma_tiles::wgmma_m64n64k16_rs<1>(o, a, desc, 1);
+  if constexpr (kD == 128) mma_tiles::wgmma_m64n128k16_rs<1>(o, a, desc, 1);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kTileBytes = kWgKeys * kD * 2;
+  constexpr int kQBytes = 64 * kD * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw;                  // [kWgGroups][64 x kD]
+  unsigned char* ks = qs + kWgGroups * kQBytes;  // [kWgStages][kWgKeys x kD]
+  unsigned char* vs = ks + kWgStages * kTileBytes;  // the same, MN-major
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int n_qt = (a.S + 63) / 64;
+  const int n_units = n_qt * a.G;
+  // blockIdx.x runs over (unit block, kv head), kv head fastest, unit
+  // blocks from the last (the heaviest under a causal mask): the first
+  // blocks to start are the longest, across every kv head
+  const int hk = blockIdx.x % a.KV, b = blockIdx.z;
+  const int u0 = (gridDim.x / a.KV - 1 - blockIdx.x / a.KV) * kWgGroups;
+  const int u = u0 + wg;
+  const bool unit_live = u < n_units;
+  const int w0 = (u / a.G) * 64;  // the warpgroup's rows w0 .. w0 + 63
+  const int h = hk * a.G + u % a.G;
+  // the block's rows span the q tiles of its first and last live unit
+  const int q0 = (u0 / a.G) * 64;
+  const int q_hi = (min(u0 + kWgGroups, n_units) - 1) / a.G * 64 + 63;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+
+  // the kv tiles any unit of the block sees form one run t_lo .. t_hi
+  const int n_kv = (a.S + kWgKeys - 1) / kWgKeys;
+  const int t_hi = a.causal ? min(n_kv - 1, q_hi / kWgKeys) : n_kv - 1;
+  int t_lo = 0;
+  while (t_lo <= t_hi && !span_live(q0, q_hi, t_lo * kWgKeys, a)) ++t_lo;
+
+  if (unit_live) {
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    stage_cm<kD, 64, false, 128>(qs + wg * kQBytes, qb, a.q_s, w0, a.S, a.D,
+                                 vec, threadIdx.x % 128);
+  }
+  if (t_lo <= t_hi) {
+    stage_cm<kD, kWgKeys, false, kWgThreads>(ks, kb, a.k_s, t_lo * kWgKeys,
+                                             a.S, a.D, vec, threadIdx.x);
+    stage_cm<kD, kWgKeys, true, kWgThreads>(vs, vb, a.v_s, t_lo * kWgKeys,
+                                            a.S, a.D, vec, threadIdx.x);
+  }
+  mma_tiles::cp_async_commit();
+
+  // descriptor strides: K-major rows of kD / 8 core matrices, MN-major
+  // columns of kWgKeys / 8
+  constexpr uint32_t kSboK = (kD / 8) * 128, kSboV = (kWgKeys / 8) * 128;
+  const int r_a = w0 + warp * 16 + g, r_b = r_a + 8;
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float(&o_flat)[kD / 2] = reinterpret_cast<float(&)[kD / 2]>(o);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int st = (t - t_lo) % kWgStages;
+    if (t < t_hi) {
+      const int nx = (t + 1 - t_lo) % kWgStages;
+      stage_cm<kD, kWgKeys, false, kWgThreads>(
+          ks + nx * kTileBytes, kb, a.k_s, (t + 1) * kWgKeys, a.S, a.D, vec,
+          threadIdx.x);
+      stage_cm<kD, kWgKeys, true, kWgThreads>(
+          vs + nx * kTileBytes, vb, a.v_s, (t + 1) * kWgKeys, a.S, a.D, vec,
+          threadIdx.x);
+    }
+    mma_tiles::cp_async_commit();
+    mma_tiles::cp_async_wait<1>();  // all but tile t + 1 have landed
+    mma_tiles::fence_proxy_async();
+    __syncthreads();
+
+    // a warpgroup none of whose rows sees the tile leaves m, l and o as
+    // they are; it only keeps the block's barriers
+    const int k0 = t * kWgKeys;
+    if (unit_live && span_live(w0, w0 + 63, k0, a)) {
+      float s[kWgKeys / 8][4];
+      float(&s_flat)[kWgKeys / 2] = reinterpret_cast<float(&)[kWgKeys / 2]>(s);
+      mma_tiles::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        mma_tiles::wgmma_m64n64k16_ss(
+            s_flat,
+            mma_tiles::smem_desc(qs + wg * kQBytes + kk * 256, 128, kSboK),
+            mma_tiles::smem_desc(ks + st * kTileBytes + kk * 256, 128, kSboK),
+            kk > 0);
+      }
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(s_flat);
+
+      const bool full = span_full(w0 + warp * 16, w0 + warp * 16 + 15, k0, a);
+#pragma unroll
+      for (int n = 0; n < kWgKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = e < 2 ? r_a : r_b;
+          const int ki = k0 + n * 8 + 2 * tq + (e & 1);
+          s[n][e] = (full || visible(qi, ki, a)) ? s[n][e] * a.scale
+                                                  : -INFINITY;
+        }
+      }
+      uint32_t p[kWgKeys / 16][4];
+      mma_tiles::softmax_step<kD, kWgKeys / 8>(s, m, l, o, p);
+      mma_tiles::fence_regs(o_flat);
+      mma_tiles::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        pv_wgmma<kD>(o_flat, p[kk],
+                     mma_tiles::smem_desc(vs + st * kTileBytes + kk * 256,
+                                          128, kSboV));
+      }
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(o_flat);
+    }
+  }
+
+  if (!unit_live) return;
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i == 0 ? r_a : r_b;
+    if (row >= a.S) continue;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const long long base =
+        ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * tq + e;
+        if (d < a.D) out[base + d] = __float2bfloat16(o[n][2 * i + e] / l_safe);
+      }
+    }
+    if (tq == 0) {
+      a.lse_out[(static_cast<long long>(b) * a.H + h) * a.S + row] =
+          m[i] + logf(l_safe);
+    }
+  }
+}
+
+size_t wgmma_smem_bytes(int Dp) {
+  return 2 * static_cast<size_t>(Dp) *
+         (64 * kWgGroups + 2 * kWgStages * kWgKeys);
 }
 
 // Scores and dO . V^T of one (q tile, kv tile) pair, for the thread's
@@ -530,6 +805,20 @@ int launch(Kernel kernel, const Args& a, dim3 grid, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
+int launch_wgmma(const Args& a, bool vec, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_wgmma_kernel<kD>;
+  const size_t smem = wgmma_smem_bytes(kD);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (((a.S + 63) / 64) * a.G + kWgGroups - 1) / kWgGroups;
+  kernel<<<dim3(blocks * a.KV, 1, B), kWgThreads, smem, stream>>>(a,
+                                                                  vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const long long* st, int S, int H, int KV, int D, int causal,
                int window, float scale) {
@@ -587,7 +876,17 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch(flash_fwd_kernel<float>, a, grid, smem_bytes(0, D), st);
   if (dtype == 1) {
-    return launch(flash_fwd_kernel<__nv_bfloat16>, a, grid, smem_bytes(0, D), st);
+    // 16-byte copies need D and every (batch, position, head) stride in
+    // whole 8-element pieces and 16-byte aligned bases
+    bool vec = D % 8 == 0;
+    for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 8 == 0;
+    vec = vec && (reinterpret_cast<uintptr_t>(q) |
+                  reinterpret_cast<uintptr_t>(k) |
+                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    if (D <= 16) return launch_wgmma<16>(a, vec, B, st);
+    if (D <= 32) return launch_wgmma<32>(a, vec, B, st);
+    if (D <= 64) return launch_wgmma<64>(a, vec, B, st);
+    return launch_wgmma<128>(a, vec, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

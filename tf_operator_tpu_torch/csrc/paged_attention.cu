@@ -18,7 +18,11 @@
 // then widened for the QK and PV products.  Everything else is K1's; the
 // payload type is a template parameter of the one kernel.
 //
-// Design (simple and right first):
+// Two designs, chosen by q's dtype in dispatch():
+//
+// f32 queries: the scalar kernel (paged_attention_kernel), exact in f32
+// (the tensor cores would round to TF32, and the f32 parity checks hold
+// serving to full f32):
 //   - one thread block per (tile of kRows query rows, kv head, lane).  The
 //     rows of a kv head's group are r = l*G + g, so q and out are indexed
 //     [B, L, H, D] straight from their strides, head = j*G + r%G — no
@@ -29,27 +33,42 @@
 //   - each [bs, D] K and V block is staged in shared memory as f32; m, l
 //     and the per-row correction live in shared memory, the accumulator
 //     in registers (each thread owns columns tid and tid + kThreads).
-//   - query rows are tiled over the grid, so no bound on L*G exists here.
-//     The TPU kernel's _MAX_Q_ROWS bound was its VMEM budget (q, the
-//     accumulator and a score tile for the whole group in one program),
-//     not a property of the function; here a block holds only kRows rows
-//     and every read of a CUDA pool, prefill included, goes through this
-//     kernel.
+//   - query rows are tiled over the grid, so no bound on L*G exists here
+//     (the TPU kernel's _MAX_Q_ROWS bound was its VMEM budget).
 //   - a table slot is skipped outright when it is scratch, or when every
 //     row of the tile is within one turn of the ring and the slot's
-//     positions lie after the tile's last query or before its window:
-//     such a slot would contribute only masked scores, which leave m, l
-//     and the accumulator unchanged.
+//     positions lie after the tile's last query or before its window.
+//
+// bf16 queries: the tensor-core kernel (paged_mma_kernel, fragment helpers
+// in mma_tiles.cuh):
+//   - a block holds 16 query rows per warp (r = l*G + g, as above); a key
+//     tile gathers the 64 keys of as many pool blocks as hold them (4 at
+//     bs = 16, 1 at bs = 64, 16 at bs = 4).  Each lane resolves the table
+//     entries of two keys and shuffles the pool rows around, so no copy
+//     waits on a table load of its own;
+//   - K and V tiles are staged as bf16 in a 2-stage shared-memory ring by
+//     16-byte cp.async copies, tile t + 1 in flight while tile t is used.
+//     int8 pools copy payload and scales raw by cp.async a tile ahead (it
+//     cannot transform), and the block dequantizes each tile in shared
+//     memory with K1q's bits, (float)q * scale rounded to bf16;
+//   - S = Q K^T and O += P V by mma.sync.m16n8k16 (bf16 in, f32
+//     accumulators); the online softmax runs on the S fragments and p
+//     enters PV from registers, rounded to bf16 (mma.sync rather than
+//     wgmma: a decode block has 16 rows, and wgmma takes 64);
+//   - decode (at most 16 rows per (kv head, lane)) splits the table into
+//     chunks of split_slots (models/paged_attention.py) slots, one block
+//     each, writing a partial (m, l, unnormalized acc) to f32 scratch; a
+//     second kernel merges each row's chunks in chunk order.  An empty
+//     chunk (scratch, past the query, before the window) holds m = -1e30,
+//     l = 0; a row whose chunks are all empty finalizes to 0;
+//   - prefill blocks of 8 warps hold 128 rows, and start heaviest first
+//     (the last rows see the most keys) across every kv head.
 //
 // What bounds it on this card: decode (L = 1) is memory-bound — the bytes
 // of the visible K/V blocks, read once, dominate; q and out are small.
-// K1q reads a quarter (f32) or half (bf16) of those bytes, plus 4 bytes
-// of scale per (position, head), one byte per element loaded at a time.
-// This design leaves on the table: cp.async/TMA double-buffering of the
-// next block while the current one is used, 16-byte vector loads,
-// tensor-core (mma/wgmma) score and PV products, split-K across the table
-// for long contexts at small batch, and keeping K/V in bf16 in shared
-// memory.  Those are later work; the numbers are in PERF.md.
+// K1q reads half (bf16) of those bytes, plus 4 bytes of scale per
+// (position, head).  Prefill at L = 512 is bound by operations.  The
+// numbers are in PERF.md.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
@@ -58,8 +77,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -263,6 +285,418 @@ size_t smem_bytes(int D, int bs) {
           static_cast<size_t>(kRows) * bs + 3ull * kRows);
 }
 
+// ----------------------------------------------- K1/K1q, tensor cores
+constexpr int kKeys = 64;       // keys per tile
+constexpr int kSplitRows = 16;  // at most this many rows per (kv head,
+                                // lane) may split the table into chunks
+// above kSplitRows rows: blocks of kPrefillWarps warps of 16 rows, 128
+// rows a block, so each key tile is staged, and dequantized, once for 128
+// rows.  (Four warps of 32 rows hold as many but spill: measured slower,
+// K1q most.)
+constexpr int kPrefillWarps = 8;
+
+struct MmaArgs {
+  const __nv_bfloat16* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;  // int8 pools only
+  const float* v_scale;
+  const int* table;
+  const int* pos;
+  __nv_bfloat16* out;
+  // split: per (lane, kv head, chunk) p and row r < R = L*G, the partial
+  // m at part[p*R + r], l at part[P*R + p*R + r] and the unnormalized
+  // acc at part[2*P*R + (p*R + r)*D + d], P = B*KV*n_chunks
+  float* part;
+  int B, L, G, KV, D, bs, n_slots;
+  long long sq_b, sq_l, sq_h, so_b, so_l, so_h;
+  int window;
+  float scale;
+  int chunk_slots;  // table slots per chunk; n_slots when not split
+  int n_chunks;     // 1 when not split
+  int split;
+  int vec;  // 16-byte copies: D, the q strides and the bases line up
+  int raw;  // int8 payload staged raw by cp.async, then dequantized
+};
+
+// Blocks of kWarps warps of 16 rows.
+template <int kD, int kWarps>
+struct PagedSmem {
+  static constexpr int kLd = kD + 8;
+  static constexpr int kRowsB = 16 * kWarps;
+  // q [kRowsB][kLd], K and V [2][kKeys][kLd] bf16; key positions
+  // [2][kKeys]; int8: raw K and V [2][kKeys][kD] and scales [2][kKeys]
+  static constexpr size_t kTiles =
+      sizeof(__nv_bfloat16) * (kRowsB + 4 * kKeys) * kLd +
+      sizeof(int) * 2 * kKeys;
+  static constexpr size_t kRaw = 4 * kKeys * kD + sizeof(float) * 4 * kKeys;
+  static size_t bytes(bool raw) { return kTiles + (raw ? kRaw : 0); }
+};
+
+// Stage the key tile at k0 of the block's (lane b, kv head j) into
+// buffer st: each key's pool row (masked: block id 0, or past key_hi) and
+// its position (-1 when masked).  Each lane of a warp resolves the table
+// entries of keys lane and lane + 32 (two loads in flight together) and
+// hands the pool rows around by shuffles, so no copy waits on a table
+// load of its own.  bf16 pools copy by cp.async; int8 pools copy payload
+// and scale raw (dequantized by dequant_tile) or, without raw, are
+// dequantized element by element here; vec off: element loads.
+template <typename KT, int kD, int kThr>
+__device__ __forceinline__ void stage_keys(const MmaArgs& a, int b, int j,
+                                           int k0, int key_hi, int st,
+                                           __nv_bfloat16* ks,
+                                           __nv_bfloat16* vs, int* kpos,
+                                           signed char* kraw,
+                                           signed char* vraw, float* ksc,
+                                           float* vsc) {
+  using bf16 = __nv_bfloat16;
+  constexpr int ld = kD + 8;
+  constexpr bool kInt8 = std::is_same<KT, signed char>::value;
+  static_assert(kKeys == 64, "two keys per lane");
+  const KT* kp = static_cast<const KT*>(a.k_pool);
+  const KT* vp = static_cast<const KT*>(a.v_pool);
+  const int* tbl = a.table + static_cast<long long>(b) * a.n_slots;
+  const int lane = threadIdx.x % 32;
+  // the key's pool row (position, head), or -1
+  auto row_of = [&](int r) -> long long {
+    const int kidx = k0 + r;
+    if (kidx >= key_hi) return -1;
+    const int blk = tbl[kidx / a.bs];
+    if (blk == 0) return -1;
+    return (static_cast<long long>(blk) * a.bs + kidx % a.bs) * a.KV + j;
+  };
+  const long long row_lo = row_of(lane), row_hi = row_of(lane + 32);
+  // every lane of a warp runs the same iterations (the trip counts are
+  // multiples of 32), so the shuffles see the whole warp
+  auto row_at = [&](int r) -> long long {
+    const long long lo = __shfl_sync(0xffffffffu, row_lo, r & 31);
+    const long long hi = __shfl_sync(0xffffffffu, row_hi, r & 31);
+    return r < 32 ? lo : hi;
+  };
+  bf16* kt = ks + st * kKeys * ld;
+  bf16* vt = vs + st * kKeys * ld;
+  if (a.vec && (!kInt8 || a.raw)) {
+    constexpr int kPiece = 16 / sizeof(KT);  // elements per 16 bytes
+    constexpr int kPieces = kD / kPiece;
+    for (int i = threadIdx.x; i < kKeys * kPieces; i += kThr) {
+      const int r = i / kPieces, c = i % kPieces;
+      const long long row = row_at(r);
+      const bool live = row >= 0 && c * kPiece < a.D;
+      const long long off = live ? row * a.D + c * kPiece : 0;
+      const int n = live ? 16 : 0;
+      if constexpr (kInt8) {
+        const int at = (st * kKeys + r) * kD + c * kPiece;
+        mma_tiles::cp_async_16(kraw + at, kp + off, n);
+        mma_tiles::cp_async_16(vraw + at, vp + off, n);
+        if (c == 0) {
+          const long long sr = row < 0 ? 0 : row;
+          mma_tiles::cp_async_4(ksc + st * kKeys + r, a.k_scale + sr, n / 4);
+          mma_tiles::cp_async_4(vsc + st * kKeys + r, a.v_scale + sr, n / 4);
+        }
+      } else {
+        mma_tiles::cp_async_16(kt + r * ld + c * kPiece, kp + off, n);
+        mma_tiles::cp_async_16(vt + r * ld + c * kPiece, vp + off, n);
+      }
+      if (c == 0) kpos[st * kKeys + r] = row < 0 ? -1 : k0 + r;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kKeys * kD; i += kThr) {
+      const int r = i / kD, d = i % kD;
+      const long long row = row_at(r);
+      float kx = 0.f, vx = 0.f;
+      if (row >= 0 && d < a.D) {
+        kx = kv_value<bf16>(kp, a.k_scale, row * a.D + d, row);
+        vx = kv_value<bf16>(vp, a.v_scale, row * a.D + d, row);
+      }
+      kt[r * ld + d] = __float2bfloat16(kx);  // exact: already bf16 values
+      vt[r * ld + d] = __float2bfloat16(vx);
+      if (d == 0) kpos[st * kKeys + r] = row < 0 ? -1 : k0 + r;
+    }
+  }
+}
+
+// int8 raw stage st -> bf16 K and V tiles st: (float)q * scale rounded to
+// bf16, K1q's dequantization bits.  Masked keys were zero-filled (payload
+// and scale), so they become 0.
+template <int kD, int kThr>
+__device__ __forceinline__ void dequant_tile(int st, __nv_bfloat16* ks,
+                                             __nv_bfloat16* vs,
+                                             const signed char* kraw,
+                                             const signed char* vraw,
+                                             const float* ksc,
+                                             const float* vsc) {
+  constexpr int ld = kD + 8;
+  for (int i = threadIdx.x; i < kKeys * kD / 4; i += kThr) {
+    const int r = i / (kD / 4), d = (i % (kD / 4)) * 4;
+    const int at = (st * kKeys + r) * kD + d;
+    const char4 kq = *reinterpret_cast<const char4*>(kraw + at);
+    const char4 vq = *reinterpret_cast<const char4*>(vraw + at);
+    const float kscale = ksc[st * kKeys + r], vscale = vsc[st * kKeys + r];
+    __nv_bfloat162* kd = reinterpret_cast<__nv_bfloat162*>(
+        ks + (st * kKeys + r) * ld + d);
+    __nv_bfloat162* vd = reinterpret_cast<__nv_bfloat162*>(
+        vs + (st * kKeys + r) * ld + d);
+    kd[0] = __floats2bfloat162_rn(static_cast<float>(kq.x) * kscale,
+                                  static_cast<float>(kq.y) * kscale);
+    kd[1] = __floats2bfloat162_rn(static_cast<float>(kq.z) * kscale,
+                                  static_cast<float>(kq.w) * kscale);
+    vd[0] = __floats2bfloat162_rn(static_cast<float>(vq.x) * vscale,
+                                  static_cast<float>(vq.y) * vscale);
+    vd[1] = __floats2bfloat162_rn(static_cast<float>(vq.z) * vscale,
+                                  static_cast<float>(vq.w) * vscale);
+  }
+}
+
+// One block per (row tile, chunk, kv head) and lane; kWarps warps of 16
+// rows r = l*G + g each.  The block walks the key tiles of its chunk that
+// can hold a visible key, tile t + 1 in flight while tile t is used.
+template <typename KT, int kD, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps) paged_mma_kernel(MmaArgs a) {
+  using bf16 = __nv_bfloat16;
+  using Smem = PagedSmem<kD, kWarps>;
+  constexpr int kThr = 32 * kWarps, kRowsB = Smem::kRowsB, ld = Smem::kLd;
+  constexpr bool kInt8 = std::is_same<KT, signed char>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRowsB][ld]
+  bf16* ks = qs + kRowsB * ld;                    // [2][kKeys][ld]
+  bf16* vs = ks + 2 * kKeys * ld;                 // [2][kKeys][ld]
+  int* kpos = reinterpret_cast<int*>(vs + 2 * kKeys * ld);  // [2][kKeys]
+  signed char* kraw = reinterpret_cast<signed char*>(kpos + 2 * kKeys);
+  signed char* vraw = kraw + 2 * kKeys * kD;                // [2][kKeys][kD]
+  float* ksc = reinterpret_cast<float*>(vraw + 2 * kKeys * kD);  // [2][kKeys]
+  float* vsc = ksc + 2 * kKeys;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // blockIdx.x runs over (row tile, chunk, kv head), kv head fastest, row
+  // tiles from the last: the last rows see the most keys, so the longest
+  // blocks start first, across every kv head
+  const int R = a.L * a.G, n_tiles = (R + kRowsB - 1) / kRowsB;
+  const int j = blockIdx.x % a.KV, b = blockIdx.z;
+  const int chunk = (blockIdx.x / a.KV) % a.n_chunks;
+  const int r0 = (n_tiles - 1 - blockIdx.x / (a.KV * a.n_chunks)) * kRowsB;
+  const int rows = min(kRowsB, R - r0);
+  const int base = a.pos[b], ring = a.n_slots * a.bs;
+  const int key_lo = chunk * a.chunk_slots * a.bs;
+  const int key_hi = min(key_lo + a.chunk_slots * a.bs, ring);
+  const int q_lo = base + r0 / a.G, q_hi = base + (r0 + rows - 1) / a.G;
+  // every query within one turn of the ring: key position p (its linear
+  // slot) is visible to q exactly when q - window < p <= q
+  const bool within = q_hi < ring;
+  int lo = key_lo, hi = key_hi;
+  if (within) {
+    hi = min(hi, q_hi + 1);
+    if (a.window > 0) lo = max(lo, q_lo - a.window + 1);
+  }
+  const int t_first = lo < hi ? (lo - key_lo) / kKeys : 0;
+  const int n_t = lo < hi ? (hi - 1 - key_lo) / kKeys - t_first + 1 : 0;
+  const int k_first = key_lo + t_first * kKeys;
+
+  // the block's query rows as bf16, zero past R and past D
+  for (int i = threadIdx.x; i < kRowsB * (kD / 8); i += kThr) {
+    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8, row = r0 + r;
+    const bool live = r < rows && c < a.D;
+    const bf16* src = a.q + b * a.sq_b + (row / a.G) * a.sq_l +
+                      (j * a.G + row % a.G) * a.sq_h + c;
+    if (a.vec) {
+      mma_tiles::cp_async_16(qs + r * ld + c, live ? src : a.q, live ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        qs[r * ld + c + e] = (live && c + e < a.D) ? src[e]
+                                                   : __float2bfloat16(0.f);
+      }
+    }
+  }
+  if (n_t > 0) {
+    stage_keys<KT, kD, kThr>(a, b, j, k_first, key_hi, 0, ks, vs, kpos, kraw,
+                             vraw, ksc, vsc);
+  }
+  mma_tiles::cp_async_commit();
+
+  const int g = lane / 4, tq = lane % 4;
+  const int wr = r0 + warp * 16;  // the warp's first row
+  const bool warp_rows = wr < R;
+  const int wq_lo = base + wr / a.G;
+  const int wq_hi = base + min(wr + 15, R - 1) / a.G;
+  // query positions of the thread's rows g and g + 8
+  const int qp[2] = {base + (wr + g) / a.G, base + (wr + g + 8) / a.G};
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_t; ++i) {
+    const int st = i & 1, k0 = k_first + i * kKeys;
+    if (i + 1 < n_t) {
+      stage_keys<KT, kD, kThr>(a, b, j, k0 + kKeys, key_hi, st ^ 1, ks, vs,
+                               kpos, kraw, vraw, ksc, vsc);
+    }
+    mma_tiles::cp_async_commit();
+    mma_tiles::cp_async_wait<1>();  // all but tile i + 1 have landed
+    __syncthreads();
+    if (kInt8 && a.raw) {
+      dequant_tile<kD, kThr>(st, ks, vs, kraw, vraw, ksc, vsc);
+      __syncthreads();
+    }
+
+    // a warp whose rows see none of the tile keeps m, l and o as they are
+    bool live = warp_rows;
+    if (within) {
+      live = live && k0 <= wq_hi &&
+             (a.window <= 0 || k0 + kKeys - 1 > wq_lo - a.window);
+    }
+    if (live) {
+      float s[kKeys / 8][4];
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      mma_tiles::qk_tile<kD, kKeys / 8>(s, qs + warp * 16 * ld, ld,
+                                        ks + st * kKeys * ld, ld, lane);
+      const int* kp = kpos + st * kKeys;
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pk = kp[n * 8 + 2 * tq + (e & 1)];
+          const int q = qp[e >> 1];
+          bool vis;
+          if (within) {
+            vis = pk >= 0 && pk <= q && (a.window <= 0 || pk > q - a.window);
+          } else {
+            const int kg = q - floor_mod(q - pk, ring);
+            vis = pk >= 0 && kg >= 0 && (a.window <= 0 || kg > q - a.window);
+          }
+          s[n][e] = vis ? s[n][e] * a.scale : -INFINITY;
+        }
+      }
+      uint32_t p[kKeys / 16][4];
+      mma_tiles::softmax_step<kD, kKeys / 8>(s, m, l, o, p);
+      mma_tiles::pv_tile<kD, kKeys / 16>(o, p, vs + st * kKeys * ld, ld, lane);
+    }
+    __syncthreads();  // buffer st is refilled in the next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + g + 8 * i;
+    if (row >= R) continue;
+    if (a.split) {
+      const long long P = static_cast<long long>(a.B) * a.KV * a.n_chunks;
+      const long long pr =
+          ((static_cast<long long>(b) * a.KV + j) * a.n_chunks + chunk) * R +
+          row;
+      if (tq == 0) {
+        a.part[pr] = m[i];
+        a.part[P * R + pr] = l[i];
+      }
+      float* acc = a.part + 2 * P * R + pr * a.D;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * tq + e;
+          if (d < a.D) acc[d] = o[n][2 * i + e];
+        }
+      }
+    } else {
+      // an all-masked row (frozen lane) has l == 0 and finalizes to 0
+      const float l_safe = l[i] == 0.f ? 1.f : l[i];
+      bf16* dst = a.out + b * a.so_b + (row / a.G) * a.so_l +
+                  (j * a.G + row % a.G) * a.so_h;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + 2 * tq + e;
+          if (d < a.D) dst[d] = __float2bfloat16(o[n][2 * i + e] / l_safe);
+        }
+      }
+    }
+  }
+}
+
+// The decode split's second pass: each row's chunk partials merged in
+// chunk order (fixed, so repeats are bit-identical).  A chunk with no
+// visible key holds m = -1e30, l = 0, acc = 0 and adds nothing; a row
+// whose chunks are all empty finalizes to 0.  KT (the pools' payload)
+// only names the kernel after its first pass, K1's or K1q's.
+template <typename KT>
+__global__ void __launch_bounds__(128) paged_merge_kernel(MmaArgs a) {
+  const int j = blockIdx.x, b = blockIdx.y, R = a.L * a.G, C = a.n_chunks;
+  const long long P = static_cast<long long>(a.B) * a.KV * C;
+  const long long p0 = (static_cast<long long>(b) * a.KV + j) * C;
+  const float* pm = a.part;
+  const float* pl = a.part + P * R;
+  const float* pa = a.part + 2 * P * R;
+  for (int i = threadIdx.x; i < R * a.D; i += blockDim.x) {
+    const int r = i / a.D, d = i % a.D;
+    float mx = kNegInf;
+    for (int c = 0; c < C; ++c) mx = fmaxf(mx, pm[(p0 + c) * R + r]);
+    float lsum = 0.f, acc = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const long long pr = (p0 + c) * R + r;
+      const float w = expf(pm[pr] - mx);
+      lsum += pl[pr] * w;
+      acc += pa[pr * a.D + d] * w;
+    }
+    a.out[b * a.so_b + (r / a.G) * a.so_l + (j * a.G + r % a.G) * a.so_h +
+          d] = __float2bfloat16(acc / (lsum == 0.f ? 1.f : lsum));
+  }
+}
+
+template <typename KT, int kD, int kWarps>
+int launch_mma_k(MmaArgs a, cudaStream_t stream) {
+  using Smem = PagedSmem<kD, kWarps>;
+  constexpr bool kInt8 = std::is_same<KT, signed char>::value;
+  // raw staging: whole 16-byte pieces of payload, and room for them
+  a.raw = kInt8 && a.vec && a.D % 16 == 0 && kD <= 128 ? 1 : 0;
+  const size_t smem = Smem::bytes(a.raw);
+  auto kernel = paged_mma_kernel<KT, kD, kWarps>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int R = a.L * a.G;
+  const dim3 grid(((R + Smem::kRowsB - 1) / Smem::kRowsB) * a.n_chunks * a.KV,
+                  1, a.B);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !a.split) return static_cast<int>(e);
+  paged_merge_kernel<KT><<<dim3(a.KV, a.B), 128, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT, int kWarps>
+int launch_mma_w(const MmaArgs& a, cudaStream_t stream) {
+  if (a.D <= 16) return launch_mma_k<KT, 16, kWarps>(a, stream);
+  if (a.D <= 32) return launch_mma_k<KT, 32, kWarps>(a, stream);
+  if (a.D <= 64) return launch_mma_k<KT, 64, kWarps>(a, stream);
+  if (a.D <= 128) return launch_mma_k<KT, 128, kWarps>(a, stream);
+  return launch_mma_k<KT, 256, kWarps>(a, stream);
+}
+
+// bf16 queries: one warp of 16 rows per block when a (kv head, lane) has
+// at most kSplitRows rows (decode, split over the table when chunk_slots
+// > 0); above that, kPrefillWarps warps.
+template <typename KT>
+int launch_mma(MmaArgs a, cudaStream_t stream) {
+  const int R = a.L * a.G;
+  if (a.chunk_slots > 0) {
+    if (R > kSplitRows || a.part == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.split = 1;
+    a.n_chunks = (a.n_slots + a.chunk_slots - 1) / a.chunk_slots;
+  } else {
+    a.split = 0;
+    a.n_chunks = 1;
+    a.chunk_slots = a.n_slots;
+  }
+  if (R <= kSplitRows) return launch_mma_w<KT, 1>(a, stream);
+  return launch_mma_w<KT, kPrefillWarps>(a, stream);
+}
+
 template <typename T, typename KT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const float* k_scale, const float* v_scale, const int* table,
@@ -289,14 +723,17 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 }
 
 // Both entry points: payload type KT (T for K1, signed char for K1q),
-// q/out type chosen by dtype (0 = float32, 1 = bfloat16).
+// q/out type chosen by dtype (0 = float32: the scalar kernel above; 1 =
+// bfloat16: the tensor-core kernel, split over the table in chunks of
+// chunk_slots slots when chunk_slots > 0, with part its f32 scratch).
 template <bool kInt8>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* k_scale, const void* v_scale, const void* table,
-             const void* pos, void* out, int B, int L, int H, int KV, int D,
-             int bs, int n_slots, long long sq_b, long long sq_l,
-             long long sq_h, long long so_b, long long so_l, long long so_h,
-             int window, float scale, int dtype, void* stream) {
+             const void* pos, void* out, void* part, int B, int L, int H,
+             int KV, int D, int bs, int n_slots, int chunk_slots,
+             long long sq_b, long long sq_l, long long sq_h, long long so_b,
+             long long so_l, long long so_h, int window, float scale,
+             int dtype, void* stream) {
   if (D > kThreads * kColsPerThread || H % KV != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -312,12 +749,36 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                              so_b, so_l, so_h, window, scale, st);
   }
   if (dtype == 1) {
-    using KT =
-        typename std::conditional<kInt8, signed char, __nv_bfloat16>::type;
-    return launch<__nv_bfloat16, KT>(q, k_pool, v_pool, ksc, vsc, tbl, ps,
-                                     out, B, L, H, KV, D, bs, n_slots, sq_b,
-                                     sq_l, sq_h, so_b, so_l, so_h, window,
-                                     scale, st);
+    MmaArgs a = {};
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k_pool = k_pool;
+    a.v_pool = v_pool;
+    a.k_scale = ksc;
+    a.v_scale = vsc;
+    a.table = tbl;
+    a.pos = ps;
+    a.out = static_cast<__nv_bfloat16*>(out);
+    a.part = static_cast<float*>(part);
+    a.B = B;
+    a.L = L;
+    a.G = H / KV;
+    a.KV = KV;
+    a.D = D;
+    a.bs = bs;
+    a.n_slots = n_slots;
+    a.sq_b = sq_b; a.sq_l = sq_l; a.sq_h = sq_h;
+    a.so_b = so_b; a.so_l = so_l; a.so_h = so_h;
+    a.window = window;
+    a.scale = scale;
+    a.chunk_slots = chunk_slots;
+    // 16-byte copies: D and q's strides in whole 8-element pieces, bases
+    // 16-byte aligned (pool rows are then aligned too)
+    a.vec = D % 8 == 0 && sq_b % 8 == 0 && sq_l % 8 == 0 && sq_h % 8 == 0 &&
+            (reinterpret_cast<uintptr_t>(q) |
+             reinterpret_cast<uintptr_t>(k_pool) |
+             reinterpret_cast<uintptr_t>(v_pool)) % 16 == 0;
+    if (kInt8) return launch_mma<signed char>(a, st);
+    return launch_mma<__nv_bfloat16>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -340,14 +801,16 @@ long long paged_attention_smem_bytes(int D, int bs) {
 // pos [B] are contiguous int32.  Returns the launch's cudaError_t.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* table,
-                           const void* pos, void* out, int B, int L, int H,
-                           int KV, int D, int bs, int n_slots,
-                           long long sq_b, long long sq_l, long long sq_h,
-                           long long so_b, long long so_l, long long so_h,
-                           int window, float scale, int dtype, void* stream) {
+                           const void* pos, void* out, void* part, int B,
+                           int L, int H, int KV, int D, int bs, int n_slots,
+                           int chunk_slots, long long sq_b, long long sq_l,
+                           long long sq_h, long long so_b, long long so_l,
+                           long long so_h, int window, float scale,
+                           int dtype, void* stream) {
   return dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, table, pos, out,
-                         B, L, H, KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
-                         so_l, so_h, window, scale, dtype, stream);
+                         part, B, L, H, KV, D, bs, n_slots, chunk_slots, sq_b,
+                         sq_l, sq_h, so_b, so_l, so_h, window, scale, dtype,
+                         stream);
 }
 
 // K1q: as K1, with int8 payload pools [N+1, bs, KV, D] and contiguous f32
@@ -355,15 +818,17 @@ int paged_attention_launch(const void* q, const void* k_pool,
 int paged_attention_int8_launch(const void* q, const void* k_pool,
                                 const void* v_pool, const void* k_scale,
                                 const void* v_scale, const void* table,
-                                const void* pos, void* out, int B, int L,
-                                int H, int KV, int D, int bs, int n_slots,
-                                long long sq_b, long long sq_l,
-                                long long sq_h, long long so_b,
-                                long long so_l, long long so_h, int window,
-                                float scale, int dtype, void* stream) {
+                                const void* pos, void* out, void* part,
+                                int B, int L, int H, int KV, int D, int bs,
+                                int n_slots, int chunk_slots, long long sq_b,
+                                long long sq_l, long long sq_h,
+                                long long so_b, long long so_l,
+                                long long so_h, int window, float scale,
+                                int dtype, void* stream) {
   return dispatch<true>(q, k_pool, v_pool, k_scale, v_scale, table, pos, out,
-                        B, L, H, KV, D, bs, n_slots, sq_b, sq_l, sq_h, so_b,
-                        so_l, so_h, window, scale, dtype, stream);
+                        part, B, L, H, KV, D, bs, n_slots, chunk_slots, sq_b,
+                        sq_l, sq_h, so_b, so_l, so_h, window, scale, dtype,
+                        stream);
 }
 
 const char* paged_attention_error_string(int code) {

@@ -4,8 +4,9 @@ Each source under csrc/ has a plain C interface and is compiled by `nvcc`
 into its own shared library, loaded with ctypes.  Builds happen at first
 use, on the machine with the card (nothing here runs `nvcc` at import),
 into `_build/` beside this file — a directory .gitignore lists — under a
-name keyed by the hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused.  `build_all` starts one `nvcc`
+name keyed by the hash of the source, of every shared header under csrc/
+(`*.cuh`) and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  `build_all` starts one `nvcc`
 per source at once and waits for them together.
 """
 from __future__ import annotations
@@ -46,10 +47,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:

@@ -10,7 +10,13 @@ a linear K/V view on the card.
 
   - CUDA tensors launch csrc/paged_attention.cu (built by kernels.py at
     first use) or raise; nothing on the card reaches the plain version.
-    Each launch adds one to `launches`.
+    Each call adds one to `launches`.  bf16 queries take the tensor-core
+    design (mma.sync tiles, a cp.async ring; csrc/mma_tiles.cuh) and also
+    add one to `launches_mma`; with at most 16 rows per (kv head, lane)
+    (decode) it splits the table into chunks (`split_slots`, a host-side
+    rule) and merges their partials in a second small kernel, the two
+    counted as one call.  f32 queries keep the scalar design, which stays
+    exact in f32 (the tensor cores would round to TF32).
   - CPU tensors run `paged_attention_plain`: gather_blocks followed by
     llama.cached_attention, the JAX package's gather oracle.  It is what
     the tests hold against the JAX kernel, and what the kernel is held
@@ -19,7 +25,9 @@ a linear K/V view on the card.
 int8 pools (models/quant.QTensor: int8 payload, f32 scale per (position,
 head)) take the same call.  On the card they launch K1q, the same kernel
 reading the int8 payload and dequantizing each block inside it; each
-launch adds one to `launches_int8`.  On the CPU they run
+launch adds one to `launches_int8` (and, for bf16 queries, to
+`launches_int8_mma`: the payload is staged raw by cp.async and each tile
+dequantized to bf16 in shared memory, with K1q's bits).  On the CPU they run
 `paged_attention_int8_plain`: gather, dequantize to q's dtype, then
 cached_attention.
 
@@ -41,9 +49,19 @@ from tf_operator_tpu_torch.models import paging
 from tf_operator_tpu_torch.models.quant import QTensor
 
 # kernel launches since the last reset (plain-version calls not counted):
-# K1 on float pools, K1q on int8 pools
+# K1 on float pools, K1q on int8 pools; the _mma counts are the calls among
+# them that took the tensor-core design (bf16 queries)
 launches = 0
 launches_int8 = 0
+launches_mma = 0
+launches_int8_mma = 0
+
+# the decode split: calls with at most SPLIT_MAX_ROWS query rows per (kv
+# head, lane) cut the table into chunks, each its own block, so that about
+# SPLIT_TARGET_BLOCKS blocks (4 per SM of an H100's 132) stream the pool
+SPLIT_MAX_ROWS = 16
+SPLIT_TARGET_BLOCKS = 4 * 132
+SPLIT_MIN_KEYS = 128  # two 64-key tiles: the copy of one overlaps the other
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
@@ -51,9 +69,88 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    global launches, launches_int8
+    global launches, launches_int8, launches_mma, launches_int8_mma
     launches = 0
     launches_int8 = 0
+    launches_mma = 0
+    launches_int8_mma = 0
+
+
+def split_slots(rows: int, n_slots: int, bs: int, programs: int) -> int:
+    """Table slots per chunk of the decode split, or 0 for no split.
+
+    rows: query rows per (kv head, lane), L * G; programs: (kv head, lane)
+    pairs, KV * B.  A chunk starts at SPLIT_MIN_KEYS keys and doubles while
+    chunks twice as long would still give SPLIT_TARGET_BLOCKS blocks and
+    one chunk does not yet cover the table."""
+    if rows > SPLIT_MAX_ROWS:
+        return 0
+    n_keys = n_slots * bs
+    keys = SPLIT_MIN_KEYS
+    while (keys < n_keys and programs * -(-n_keys // (2 * keys))
+           >= SPLIT_TARGET_BLOCKS):
+        keys *= 2
+    return -(-keys // bs)
+
+
+def chunk_bounds(n_slots: int, slots_per_chunk: int) -> list:
+    """[lo, hi) table slots of each chunk, in the order the merge takes
+    them (the kernel's chunk c is slots c * slots_per_chunk onwards)."""
+    return [(lo, min(lo + slots_per_chunk, n_slots))
+            for lo in range(0, n_slots, slots_per_chunk)]
+
+
+def paged_attention_split_plain(q: torch.Tensor, k_pool, v_pool,
+                                table: torch.Tensor, pos, *,
+                                slots_per_chunk: int,
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """The decode split written plainly: per chunk of table slots, the
+    partial (m, l, unnormalized acc) over the keys visible in it (ring
+    visibility, window, scratch blocks masked; p rounded to q's dtype for
+    PV), then the partials merged in chunk order.  An empty chunk holds
+    m = -1e30, l = 0, acc = 0 and adds nothing; a row with no visible key
+    finalizes to 0, as the kernel's.  Float or QTensor pools."""
+    b, n_q, h, d = q.shape
+    if isinstance(k_pool, QTensor):
+        k_lin = paging.gather_blocks(k_pool, table).dequantize(q.dtype)
+        v_lin = paging.gather_blocks(v_pool, table).dequantize(q.dtype)
+    else:
+        k_lin = paging.gather_blocks(k_pool, table)
+        v_lin = paging.gather_blocks(v_pool, table)
+    n_slots = table.shape[1]
+    c, kvh = k_lin.shape[1], k_lin.shape[2]
+    bs = c // n_slots
+    qp = (_positions(pos, b, q.device).to(torch.long)[:, None]
+          + torch.arange(n_q, device=q.device))                # [B, L]
+    slot = torch.arange(c, device=q.device)
+    kg = qp[..., None] - torch.remainder(qp[..., None] - slot, c)
+    vis = kg >= 0
+    if window is not None:
+        vis &= kg > qp[..., None] - window
+    vis &= (table != 0).repeat_interleave(bs, dim=1)[:, None, :]
+    qg = q.float().reshape(b, n_q, kvh, h // kvh, d)
+    sc = torch.einsum("bljgd,bcjd->bjlgc", qg, k_lin.float()) / math.sqrt(d)
+    vis = vis[:, None, :, None, :]                             # [B,1,L,1,C]
+    parts = []
+    for lo, hi in chunk_bounds(n_slots, slots_per_chunk):
+        keys = (slot >= lo * bs) & (slot < hi * bs)
+        s_c = torch.where(vis & keys, sc, -math.inf)
+        m_c = s_c.amax(dim=-1, keepdim=True).clamp(min=-1e30)
+        p = torch.exp(s_c - m_c)                               # masked: 0
+        acc = torch.einsum("bjlgc,bcjd->bjlgd", p.to(q.dtype).float(),
+                           v_lin.float())
+        parts.append((m_c, p.sum(dim=-1, keepdim=True), acc))
+    mx = parts[0][0]
+    for m_c, _, _ in parts[1:]:
+        mx = torch.maximum(mx, m_c)
+    l_sum, acc_sum = 0.0, 0.0
+    for m_c, l_c, acc in parts:
+        w = torch.exp(m_c - mx)
+        l_sum = l_sum + l_c * w
+        acc_sum = acc_sum + acc * w
+    out = acc_sum / torch.where(l_sum == 0.0, 1.0, l_sum)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, n_q, h, d).to(q.dtype)
 
 
 def _positions(pos, b: int, device: torch.device) -> torch.Tensor:
@@ -102,11 +199,11 @@ def _load() -> ctypes.CDLL:
         lib = kernels.load("paged_attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.paged_attention_launch.argtypes = (
-            [ptr] * 6 + [i32] * 7 + [i64] * 6
+            [ptr] * 7 + [i32] * 8 + [i64] * 6
             + [i32, ctypes.c_float, i32, ptr])
         lib.paged_attention_launch.restype = i32
         lib.paged_attention_int8_launch.argtypes = (
-            [ptr] * 8 + [i32] * 7 + [i64] * 6
+            [ptr] * 9 + [i32] * 8 + [i64] * 6
             + [i32, ctypes.c_float, i32, ptr])
         lib.paged_attention_int8_launch.restype = i32
         lib.paged_attention_max_head_dim.argtypes = []
@@ -122,7 +219,7 @@ def _load() -> ctypes.CDLL:
 def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
     """Check the operands and launch K1 (float pools) or K1q (QTensor
     pools) on q's stream; returns the output [B, L, H, D] in q's dtype."""
-    global launches, launches_int8
+    global launches, launches_int8, launches_mma, launches_int8_mma
     int8 = isinstance(k_pool, QTensor)
     if int8 != isinstance(v_pool, QTensor):
         raise TypeError("k_pool and v_pool must both be QTensor or neither")
@@ -177,6 +274,16 @@ def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
                          f"shared memory than one block can have")
     pos_t = _positions(pos, b, dev).contiguous()
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=dev)
+    n_slots = table.shape[1]
+    mma = q.dtype == torch.bfloat16
+    rows = l * (h // kv)
+    chunk = split_slots(rows, n_slots, bs, kv * b) if mma else 0
+    part = None
+    if chunk:
+        # per (lane, kv head, chunk, row): m, l and the f32 acc [D]
+        n_chunks = -(-n_slots // chunk)
+        part = torch.empty(b * kv * n_chunks * rows * (2 + d),
+                           dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     pools = [payload[0].data_ptr(), payload[1].data_ptr()]
     if int8:
@@ -185,8 +292,8 @@ def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
           else lib.paged_attention_launch)
     err = fn(
         q.data_ptr(), *pools, table.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), b, l, h, kv, d, bs, table.shape[1],
-        q.stride(0), q.stride(1), q.stride(2),
+        out.data_ptr(), None if part is None else part.data_ptr(), b, l, h,
+        kv, d, bs, n_slots, chunk, q.stride(0), q.stride(1), q.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         -1 if window is None else int(window), 1.0 / math.sqrt(d),
         _DTYPES[q.dtype], stream)
@@ -196,8 +303,10 @@ def _launch(q, k_pool, v_pool, table, pos, window) -> torch.Tensor:
             f"{lib.paged_attention_error_string(err).decode()} ({err})")
     if int8:
         launches_int8 += 1
+        launches_int8_mma += mma
     else:
         launches += 1
+        launches_mma += mma
     return out
 
 

@@ -11,7 +11,10 @@ softmax(q kᵀ / sqrt(D)) v in q's dtype; it is differentiable.
   - CUDA tensors launch csrc/flash_attention.cu (built by kernels.py at
     first use) or raise: K2f (`flash_fwd`) forward, K2q (`flash_dq`) and
     K2kv (`flash_dkv`) backward.  Each wrapper adds one to its count in
-    `launches` per launch.
+    `launches` per launch.  bf16 forwards take K2f's tensor-core design
+    (mma.sync tiles, cp.async ring; csrc/mma_tiles.cuh) and also count in
+    `launches["flash_fwd_mma"]`; f32 forwards and both backward kernels
+    run the scalar f32 design, which keeps f32 exact (no TF32).
   - CPU tensors run the plain versions `flash_fwd_plain`,
     `flash_dq_plain` and `flash_dkv_plain`: the same arithmetic as the
     kernels in whole-sequence tensor ops.  The tests hold them against
@@ -40,8 +43,10 @@ from tf_operator_tpu_torch import kernels
 NEG_INF = -1e30
 
 # kernel launches since the last reset, per kernel (plain-version calls
-# are not counted)
-launches: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# are not counted); flash_fwd_mma: the bf16 forwards among flash_fwd, which
+# ran on the tensor cores
+launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_mma": 0,
+                            "flash_dq": 0, "flash_dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
@@ -259,6 +264,8 @@ def _launch_fwd(q, k, v, causal, window):
         lse.data_ptr(), _strides(q, k, v), *_shape_args(q, k, causal, window))
     _raise_on(err, lib, "flash_fwd")
     launches["flash_fwd"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["flash_fwd_mma"] += 1
     return out, lse
 
 
