@@ -32,19 +32,21 @@ Phases, in order, none of them caught:
   6. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
               forward, K2q dQ, K2kv dK/dV) against their plain versions at
               the llama3_8b training shapes (B=1, S=2048, H=32, KV=8,
-              D=128), bf16 (K2f on the tensor cores) and f32: causal,
-              non-causal, window 512, and S=1000 (no 128-aligned tiling);
-              then at D=64: S=1000, S=64, window 512 and non-causal; two
+              D=128), bf16 (all three on the tensor cores) and f32:
+              causal, non-causal, window 512, and S=1000 (no 128-aligned
+              tiling); then at D=64: S=1000, S=64, window 512 and
+              non-causal; at D=128: S=129 and S=192 non-causal; two
               launches give the same bits; then each kernel's time beside
-              its plain version, SDPA and the card's bound.
+              its plain version, SDPA and the card's bound, and each
+              kernel's and SDPA's device time alone.
   7. train:   llama3_8b at full width and depth as train_llama builds it
               (tied embeddings, remat, flash attention, blocked CE,
               adafactor), f32 master weights from a seed, bf16 compute,
               batch 1 x 2048 (train_llama's 8 x 8192 cut to fit one card),
               4 steps through run_training; every loss finite, the first
               near ln(vocab); K2f launched 2 x 32 times a step (forward and
-              remat recompute), every launch on the tensor cores, K2q and
-              K2kv 32 times.
+              remat recompute), K2q and K2kv 32 times, every launch on the
+              tensor cores.
   8. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
@@ -76,7 +78,7 @@ Phases, in order, none of them caught:
               halves); two launches give the same bits; then the time of
               the last member's launches over its ring beside the plain
               versions, the bound and SDPA of that member's q against the
-              whole sequence.
+              whole sequence, and their device time alone.
  13. ring-train: the train phase's model, tokens and recipe with
               attention_fn = ring flash attention over LocalRing(4)
               (contiguous, batch 1 x 2048, S_l = 512), 4 steps: every loss
@@ -226,24 +228,39 @@ def time_ms(fn, reps: int = 20, queued: bool = False) -> float:
     layers' weights pass through L2 between two reads of one layer's
     pool).  The events bracket the host's call too, so a wrapper's Python
     time counts where the card would wait for it.  queued=True first
-    holds the card for about half a millisecond (torch.cuda._sleep), so
-    the call is enqueued before the start event fires and only device
-    time is read."""
+    holds the card (torch.cuda._sleep, 1e6 cycles: about half a
+    millisecond), so the call is enqueued before the start event fires
+    and only device time is read.  Whether the hold covered the host's
+    enqueue is checked on every launch: if the start event has already
+    fired when the host is done, the card waited for the host, and the
+    launch is taken again with the hold doubled (a ring member's four
+    wrapper calls and SDPA's autograd backward are the longest enqueues
+    timed here)."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(reps):
+    total, done, hold = 0.0, 0, 1_000_000
+    while done < reps:
         flush.zero_()
         if queued:
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(hold)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
+        late = queued and start.query()
         torch.cuda.synchronize()
+        if late:
+            if hold >= 2 ** 26:
+                raise RuntimeError("a hold of 2^26 cycles did not cover "
+                                   "the host's enqueue")
+            hold *= 2
+            log(f"[time] the hold did not cover the enqueue: now {hold} "
+                f"cycles")
+            continue
         total += start.elapsed_time(end)
+        done += 1
     return total / reps
 
 
@@ -470,15 +487,17 @@ def kernel2_phase() -> dict:
     # relative), at a running instead of the final maximum in the forward.
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     errs = {name: 0.0 for name in FLASH}
-    # the training shapes, then the tensor-core K2f's edges at D = 64: a
-    # tail tile (S = 1000), one tile (S = 64), a window that starts the
-    # kv run past tile 0, and no mask at all
+    # the training shapes, then the tensor-core kernels' edges: at D = 64
+    # a tail tile (S = 1000), one tile (S = 64), a window that starts the
+    # kv run past tile 0, and no mask at all; at D = 128 a lone row past
+    # a whole tile (S = 129) and three tiles unmasked (S = 192)
     cases = [(dt, s, causal, w, d)
              for (s, causal, w, d) in (
                  (TS, True, None, TD), (TS, False, None, TD),
                  (TS, True, 512, TD), (1000, True, None, TD),
                  (1000, True, None, 64), (64, True, None, 64),
-                 (1000, True, 512, 64), (1000, False, None, 64))
+                 (1000, True, 512, 64), (1000, False, None, 64),
+                 (129, True, None, TD), (192, False, None, TD))
              for dt in (torch.bfloat16, torch.float32)]
     for i, (dt, s, causal, w, d) in enumerate(cases):
         q, k, v, do = flash_case(dt, s, SEED + 10 + i, d)
@@ -537,29 +556,34 @@ def kernel2_phase() -> dict:
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
     o_s = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
-                                                  retain_graph=True))
+    sdpa_bwd = lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
+                                           retain_graph=True)
+    lib_bwd = time_ms(sdpa_bwd)
+    lib_bwd_q = time_ms(sdpa_bwd, queued=True)
     timings = {}
     for name, (kern, plain) in fns.items():
         p1 = time_ms(plain)
         k1 = time_ms(kern)
         k2 = time_ms(kern)
         p2 = time_ms(plain)
+        # device time alone: the launch queued behind a wait on the card
+        kq = time_ms(kern, queued=True)
         bnd, by = flash_bound_ms(name, torch.bfloat16, TS, True, None)
-        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        fwd = name == "flash_fwd"
+        lib, lib_q = (lib_fwd, lib_fwd_q) if fwd else (lib_bwd, lib_bwd_q)
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             library_ms=lib, bound_ms=bnd, bound_by=by)
-        extra = ""
-        if name == "flash_fwd":
-            # device time alone: the launch queued behind a wait on the card
-            kq = time_ms(kern, queued=True)
-            timings[name].update(device_ms=kq, library_device_ms=lib_fwd_q)
-            extra = (f"; device time alone: kernel {kq:.4f} ms, sdpa fwd "
-                     f"{lib_fwd_q:.4f} ms")
+                             library_ms=lib, bound_ms=bnd, bound_by=by,
+                             device_ms=kq, library_device_ms=lib_q)
         log(f"[kernel2] timing {name} bf16 causal B={TB} S={TS} H={TH} "
             f"KV={TKV} D={TD}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by})" + extra)
+            f"{p1:.4f}/{p2:.4f} ms, sdpa {'fwd' if fwd else 'bwd'} "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time alone: "
+            f"kernel {kq:.4f} ms, sdpa {lib_q:.4f} ms")
+    # SDPA's backward yields dq, dk and dv together: its function is the
+    # pair's
+    pair = timings["flash_dq"]["device_ms"] + timings["flash_dkv"]["device_ms"]
+    log(f"[kernel2] K2q + K2kv, device time alone: {pair:.4f} ms against "
+        f"sdpa bwd {lib_bwd_q:.4f} ms ({pair / lib_bwd_q:.2f}x)")
     return dict(errs=errs, timings=timings)
 
 
@@ -746,11 +770,13 @@ def train_phase() -> dict:
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
         raise AssertionError(f"[train] first loss {losses[0]} is not within "
                              f"1.5 of ln({cfg.vocab_size})")
-    # bf16 compute: every forward launch takes the tensor-core K2f
+    # bf16 compute: every launch takes a tensor-core kernel
     want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_fwd_mma": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_dq": cfg.n_layers * TRAIN_STEPS,
-            "flash_dkv": cfg.n_layers * TRAIN_STEPS}
+            "flash_dq_mma": cfg.n_layers * TRAIN_STEPS,
+            "flash_dkv": cfg.n_layers * TRAIN_STEPS,
+            "flash_dkv_mma": cfg.n_layers * TRAIN_STEPS}
     if launches != want:
         raise AssertionError(f"[train] kernel launches {launches}, "
                              f"expected {want}")
@@ -766,6 +792,11 @@ def train_phase() -> dict:
         f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
         f"kernel_launches {json.dumps(launches)}")
     return dict(launches=launches, losses=losses)
+
+
+# K2 launches of one f32 step of 2 layers with remat: the scalar kernels
+F32_K2_LAUNCHES = {"flash_fwd": 4, "flash_fwd_mma": 0, "flash_dq": 2,
+                   "flash_dq_mma": 0, "flash_dkv": 2, "flash_dkv_mma": 0}
 
 
 def train_parity_phase() -> None:
@@ -811,9 +842,8 @@ def train_parity_phase() -> None:
     if not (math.isfinite(l_gpu) and loss_rel <= 1e-5
             and norm_rel[worst] <= 1e-4):
         raise AssertionError("[train-parity] the card and the CPU disagree")
-    # f32: the scalar K2f, never the tensor cores (TF32)
-    if launches != {"flash_fwd": 4, "flash_fwd_mma": 0, "flash_dq": 2,
-                    "flash_dkv": 2}:
+    # f32: the scalar kernels, never the tensor cores (TF32)
+    if launches != F32_K2_LAUNCHES:
         raise AssertionError(f"[train-parity] launches {launches}")
 
 
@@ -1171,31 +1201,42 @@ def kernel3_phase() -> dict:
     kt, vt = (kv_all[:, :, j].transpose(1, 2).detach() for j in (0, 1))
     q_ids = my * RING_SL + torch.arange(RING_SL, device="cuda")
     mask = torch.arange(TS, device="cuda")[None, :] <= q_ids[:, None]
+    sdpa_fwd = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     with torch.no_grad():
-        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                       enable_gqa=True))
+        lib_fwd = time_ms(sdpa_fwd)
+        lib_fwd_q = time_ms(sdpa_fwd, queued=True)
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
     o_s = sdpa(qg, kg, vg, attn_mask=mask, enable_gqa=True)
     dot = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
-                                                  retain_graph=True))
+    sdpa_bwd = lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
+                                           retain_graph=True)
+    lib_bwd = time_ms(sdpa_bwd)
+    lib_bwd_q = time_ms(sdpa_bwd, queued=True)
     timings = {}
     for name in RING:
         p1 = time_ms(unit(name, True))
         k1 = time_ms(unit(name, False))
         k2 = time_ms(unit(name, False))
         p2 = time_ms(unit(name, True))
+        # device time alone of the member's 4 launches, queued together
+        kq = time_ms(unit(name, False), queued=True)
         bnd, by = bound_of([ring_launch_bound(
             name, dt, RING_SL, visible_pairs(q_off, k_off, RING_SL))
             for _, _, k_off in steps], dt)
-        lib = lib_fwd if name == "ring_fwd" else lib_bwd
+        fwd = name == "ring_fwd"
+        lib, lib_q = (lib_fwd, lib_fwd_q) if fwd else (lib_bwd, lib_bwd_q)
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             library_ms=lib, bound_ms=bnd, bound_by=by)
+                             library_ms=lib, bound_ms=bnd, bound_by=by,
+                             device_ms=kq, library_device_ms=lib_q)
         log(f"[kernel3] timing {name} bf16, member {my} of {RING_N} over its "
             f"{len(steps)} live steps (B={TB} S_l={RING_SL} H={TH} KV={TKV} "
             f"D={TD}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
-            f"ms, sdpa {'fwd' if name == 'ring_fwd' else 'bwd'} of the "
-            f"member's q over S={TS} {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+            f"ms, sdpa {'fwd' if fwd else 'bwd'} of the member's q over "
+            f"S={TS} {lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time "
+            f"alone: kernel {kq:.4f} ms, sdpa {lib_q:.4f} ms")
+    pair = timings["ring_dq"]["device_ms"] + timings["ring_dkv"]["device_ms"]
+    log(f"[kernel3] K3q + K3kv, device time alone: {pair:.4f} ms against "
+        f"sdpa bwd {lib_bwd_q:.4f} ms ({pair / lib_bwd_q:.2f}x)")
     # one launch each at a past (full) step and at the diagonal
     for label, (k, v, k_off) in (("past step", steps[1]),
                                  ("diagonal", steps[0])):
@@ -1364,8 +1405,7 @@ def ring_parity_phase() -> None:
     # remat: the forward runs again in the backward pass
     want_k3 = {"ring_fwd": 2 * 2 * live, "ring_dq": 2 * live,
                "ring_dkv": 2 * live}
-    if k3 != want_k3 or k2 != {"flash_fwd": 4, "flash_fwd_mma": 0,
-                               "flash_dq": 2, "flash_dkv": 2}:
+    if k3 != want_k3 or k2 != F32_K2_LAUNCHES:
         raise AssertionError(f"[ring-parity] launches K3 {k3} (expected "
                              f"{want_k3}), K2 {k2}")
     log(f"[ring-parity] launches K3 {json.dumps(k3)}, K2 {json.dumps(k2)}")
@@ -1575,9 +1615,9 @@ def main() -> int:
                      "ms": t["ms"], "kernel_ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
-        rows[-1].update({k: t[k] for k in ("device_ms", "library_device_ms")
-                         if k in t})
+                     "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"],
+                     "library_device_ms": t["library_device_ms"]})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel)
     for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):
@@ -1590,7 +1630,9 @@ def main() -> int:
                      "ms": t["ms"], "kernel_ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"],
+                     "library_device_ms": t["library_device_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -345,13 +345,18 @@ def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
     (200, 4, 1, 128, False, None), (200, 8, 2, 128, True, 37),
     (130, 2, 2, 16, True, 1), (1000, 8, 2, 64, True, None),
     (1000, 8, 2, 64, True, 512), (1000, 4, 1, 64, False, None),
-    (300, 6, 2, 128, True, 100), (77, 8, 1, 8, True, None)])
+    (300, 6, 2, 128, True, 100), (77, 8, 1, 8, True, None),
+    (127, 4, 2, 128, True, None), (129, 8, 1, 128, True, None),
+    (192, 4, 2, 128, False, None), (256, 8, 1, 128, True, 64)])
 def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     """Each kernel against its plain version on the same inputs (the
     backward kernels take the plain forward's lse and delta), with
     ragged S, GQA groups 1-8 (G = 3: a block's units span two q tiles),
-    D = 8 to 128, windows and bit-identical repeats; bf16 forwards count
-    on the tensor cores."""
+    D = 8 to 128, windows and bit-identical repeats; S = 127, 129 and
+    192 put the tail inside, just past and on the 32-row halves of the
+    backward's 64-row tiles, and G = 8 at D = 128 deals eight heads'
+    units to K2kv's two warpgroups.  Every bf16 launch counts on the
+    tensor cores, no f32 one."""
     q, k, v, do = _flash_case(s + d, s=s, h=h, kv=kv, d=d, dtype=dtype)
     out_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, window)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -361,9 +366,10 @@ def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     runs = [(*tfa.flash_fwd(q, k, v, causal, window), tfa.flash_dq(*bwd),
              *tfa.flash_dkv(*bwd)) for _ in range(2)]
     torch.cuda.synchronize()
+    mma = 2 if dtype == torch.bfloat16 else 0
     assert {n: tfa.launches[n] - before[n] for n in before} == \
         {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
-         "flash_fwd_mma": 2 if dtype == torch.bfloat16 else 0}
+         "flash_fwd_mma": mma, "flash_dq_mma": mma, "flash_dkv_mma": mma}
     tol = FLASH_TOL[dtype]
     for name, a, b, ref in zip(["out", "lse", "dq", "dk", "dv"], *runs, want):
         assert torch.equal(a, b), name

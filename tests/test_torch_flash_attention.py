@@ -95,6 +95,28 @@ def test_matches_pallas_bf16(s, kv, causal, window):
            "bf16")
 
 
+@pytest.mark.parametrize("window", [None, 64])
+def test_matches_pallas_bf16_llama_widths(window):
+    """bf16 at the training path's head width and GQA group (D = 128,
+    H = 8 over KV = 2, S = 256, causal): the plain versions the card's
+    kernels are held to equal the Pallas kernels here, so the kernels'
+    yardstick is the reference's arithmetic at the widths they run."""
+    args = _inputs(11, 256, 2, h=8, b=1, d=128) + (True, window)
+    _close(_port(*args, "bf16"), _jax(*args, "bf16", blk_q=128, blk_k=128),
+           "bf16")
+
+
+def test_cpu_tensors_count_no_launch():
+    """The plain path on CPU tensors, forward and backward, in both dtypes,
+    leaves every launch count at 0, the tensor-core counts too."""
+    tfa.reset_launches()
+    for dt in ("f32", "bf16"):
+        _port(*_inputs(1, 64, 2), True, None, dt)
+    assert tfa.launches == {"flash_fwd": 0, "flash_fwd_mma": 0,
+                            "flash_dq": 0, "flash_dq_mma": 0,
+                            "flash_dkv": 0, "flash_dkv_mma": 0}
+
+
 def test_lse_matches_pallas_forward():
     """The saved logsumexp equals the Pallas forward's, [B, H, S] against
     its [B*H, S]."""

@@ -30,7 +30,7 @@
 // Any S works: rows and columns past S are masked (the TPU wrapper needs a
 // 128-aligned tiling of S and otherwise falls back to an einsum path).
 //
-// Design (simple and right first): one block of 256 threads per
+// The scalar design (f32 inputs): one block of 256 threads per
 // (64-row tile, head, batch); each tile of Q, K, V, dO is staged in shared
 // memory as f32 (row stride D + 1, so the column reads of the score
 // products hit distinct banks).  Thread (ty, tx) of the 16 x 16 grid owns
@@ -44,12 +44,12 @@
 //
 // What bounds it on this card: at the training shapes (S = 2048, D = 128,
 // causal) the work is S^2 D products per head, far above the bytes, so it
-// is bound by operations: 989 TFLOP/s in the tensor cores.  The kernels
-// above do their products as scalar f32 FMAs (67 TFLOP/s peak) out of
-// shared memory, with no overlap of the tile loads and compute.  The
-// numbers are in PERF.md.
+// is bound by operations: 989 TFLOP/s in the tensor cores.  The scalar
+// kernels do their products as f32 FMAs (67 TFLOP/s peak) out of shared
+// memory, with no overlap of the tile loads and compute; bf16 inputs take
+// the tensor-core kernels below.  The numbers are in PERF.md.
 //
-// K2f on bf16 inputs takes the tensor-core design instead
+// K2f on bf16 inputs takes the tensor-core design
 // (flash_fwd_wgmma_kernel, helpers in mma_tiles.cuh):
 //   - a block of 4 warpgroups (512 threads) per (64-row q tile, kv head,
 //     batch) when G = 4: each warpgroup owns 64 rows of one query head of
@@ -75,8 +75,34 @@
 //     diagonal, the window's edge or S; interior tiles skip it.  A masked
 //     score is -inf, so its p is exactly 0 while m is still the -1e30
 //     seed.  Any D up to 128 is zero-padded to 16, 32, 64 or 128.
-// f32 inputs keep the scalar kernel: the tensor cores would round them to
-// TF32, and the f32 parity checks hold the training step to full f32.
+// K2q and K2kv on bf16 inputs take wgmma designs of their own
+// (flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel):
+//   - both recompute p = exp(S scale - lse) and dS = p (dP - delta) in
+//     registers from two products over D, S and dP, 32 columns at a time
+//     in K2q and 64 in K2kv (wgmma.m64n{32,64}k16, both operands in
+//     shared memory), and add the gradient product with the rounded p or
+//     dS as the A operand in registers;
+//   - the gradient products read a tile already staged for the score
+//     products: a K-major core-matrix tile over D is, with its
+//     descriptor's strides swapped, the MN-major B of a product over its
+//     rows.  So K serves S = Q K^T and dQ += dS K, and Q and dO serve
+//     S^T = K Q^T, dP^T = V dO^T, dV += p^T dO and dK += dS^T Q, each
+//     from one copy, and nothing is transposed through shared memory;
+//   - K2q is K2f's block: 4 warpgroups of 64 q rows of the heads of one
+//     GQA group, K and V tiles staged once for all in a 3-stage ring,
+//     heaviest blocks first; dQ, S and dP fit 128 registers a thread;
+//   - K2kv makes the kv rows the M dimension: a block of 2 warpgroups per
+//     (64-row kv tile, kv head) keeps K and V in shared memory, deals the
+//     units (query head of the group, live q tile) to its warpgroups in
+//     turn, each streaming its Q, dO, lse and delta through its own
+//     2-stage ring under its own named barrier, and sums the two
+//     warpgroups' dK and dV partials through shared memory in a fixed
+//     order at the end.  dK and dV take 128 registers a thread (245 in
+//     all), so one block of 8 warps an SM; the first kv tiles, the
+//     heaviest under a causal mask, start first;
+//   - no atomics in either: repeats are bit-identical.
+// f32 inputs keep the scalar kernels: the tensor cores would round them
+// to TF32, and the f32 parity checks hold the training step to full f32.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
@@ -781,7 +807,454 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   }
 }
 
-// shared memory of each kernel, in bytes (0 = fwd, 1 = dq, 2 = dkv)
+// ------------------------------------------ K2q and K2kv, warpgroup products
+// bf16 inputs.  Both kernels recompute p from lse and form dS in registers
+// from two score products over D (S = A1 B1^T and dP = A2 B2^T, wgmma
+// m64nCk16 with both operands K-major in shared memory), then add a
+// gradient product whose A operand is the packed p or dS (the C fragments
+// of a score product are the A fragments of the next one) and whose B
+// operand is a tile already staged for the score products, read MN-major:
+// a K-major core-matrix tile over D is the MN-major B of a product over
+// its rows, N = D; only the descriptor's strides change roles.  Score
+// products take kC columns at a time (kDqCols, kDkvCols), so a thread's
+// accumulators fit its registers beside the gradient's.
+
+// Whether any pair of q rows q_lo .. q_hi and keys k_lo .. k_hi is
+// visible (rows and keys past S are dead), and whether every pair is, so
+// the per-element test can be skipped.  Unlike the forward, a q row past
+// S would feed dK and dV, so `full` needs it inside S.
+__device__ __forceinline__ bool pairs_live(int q_lo, int q_hi, int k_lo,
+                                           int k_hi, const Args& a) {
+  if (q_lo >= a.S || k_lo >= a.S) return false;
+  if (!a.causal) return true;
+  if (k_lo > q_hi) return false;
+  return a.window <= 0 || k_hi > q_lo - a.window;
+}
+
+__device__ __forceinline__ bool pairs_full(int q_lo, int q_hi, int k_lo,
+                                           int k_hi, const Args& a) {
+  if (q_hi >= a.S || k_hi >= a.S) return false;
+  if (!a.causal) return true;
+  if (k_hi > q_lo) return false;
+  return a.window <= 0 || k_lo > q_hi - a.window;
+}
+
+
+// descriptor of k16 slice kk of rows row0 .. of a K-major tile of kD
+// columns (row0 a multiple of 8): an operand of a product over D
+template <int kD>
+__device__ __forceinline__ uint64_t desc_over_d(const unsigned char* tile,
+                                                int row0, int kk) {
+  return mma_tiles::smem_desc(tile + (row0 / 8) * (kD / 8) * 128 + kk * 256,
+                              128, (kD / 8) * 128);
+}
+
+// the same tile from row row0 as the MN-major B [16 rows x kD] of a
+// product over its rows: LBO steps 8 rows, SBO 8 columns
+template <int kD>
+__device__ __forceinline__ uint64_t desc_over_rows(const unsigned char* tile,
+                                                   int row0) {
+  return mma_tiles::smem_desc(tile + (row0 / 8) * (kD / 8) * 128,
+                              (kD / 8) * 128, 128);
+}
+
+// d (+)= a[64 x 16] b[16 x kC], both K-major in shared memory
+template <int kC>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kC / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (kC == 32) mma_tiles::wgmma_m64n32k16_ss(d, a, b, scale_d);
+  if constexpr (kC == 64) mma_tiles::wgmma_m64n64k16_ss(d, a, b, scale_d);
+}
+
+// s = A1 B1^T and dp = A2 B2^T for 64 rows of A and the kC rows of B from
+// b_row, over kD; the warpgroup waits for both
+template <int kD, int kC>
+__device__ __forceinline__ void score_products(
+    float (&s)[kC / 2], float (&dp)[kC / 2],
+    const unsigned char* a1, const unsigned char* b1,
+    const unsigned char* a2, const unsigned char* b2, int b_row) {
+  mma_tiles::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    wgmma_ss<kC>(s, desc_over_d<kD>(a1, 0, kk),
+                 desc_over_d<kD>(b1, b_row, kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    wgmma_ss<kC>(dp, desc_over_d<kD>(a2, 0, kk),
+                 desc_over_d<kD>(b2, b_row, kk), kk > 0);
+  }
+  mma_tiles::wgmma_commit();
+  mma_tiles::wgmma_wait<0>();
+  mma_tiles::fence_regs(s);
+  mma_tiles::fence_regs(dp);
+}
+
+// a score tile's C fragments, rounded to bf16, as the A fragments of its
+// k16 slices
+template <int kC>
+__device__ __forceinline__ void pack_a(uint32_t (&x)[kC / 16][4],
+                                       const float (&c)[kC / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kC / 16; ++kk) {
+    const float* lo = c + 8 * kk;
+    x[kk][0] = mma_tiles::pack_bf16x2(lo[0], lo[1]);
+    x[kk][1] = mma_tiles::pack_bf16x2(lo[2], lo[3]);
+    x[kk][2] = mma_tiles::pack_bf16x2(lo[4], lo[5]);
+    x[kk][3] = mma_tiles::pack_bf16x2(lo[6], lo[7]);
+  }
+}
+
+// acc[64 x kD] += x[64 x kC] T[rows row0 .., kD]; the caller fences,
+// commits and waits
+template <int kD, int kC>
+__device__ __forceinline__ void grad_product(float (&acc)[kD / 2],
+                                             const uint32_t (&x)[kC / 16][4],
+                                             const unsigned char* t,
+                                             int row0) {
+#pragma unroll
+  for (int kk = 0; kk < kC / 16; ++kk) {
+    pv_wgmma<kD>(acc, x[kk], desc_over_rows<kD>(t, row0 + 16 * kk));
+  }
+}
+
+// rows r_a and r_b = r_a + 8 of a warpgroup's [64 x kD] accumulator,
+// times mul, into head h of a contiguous [B, S, heads, D] bf16 tensor
+template <int kD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[kD / 2],
+                                           float mul, int r_a, int b, int h,
+                                           int heads, int tq, const Args& a) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_a + 8 * i;
+    if (row >= a.S) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.S + row) * heads + h) * a.D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * tq + e;
+        if (d < a.D) out[base + d] = __float2bfloat16(mul * acc[4 * n + 2 * i + e]);
+      }
+    }
+  }
+}
+
+// K2q: as K2f's block, kDqGroups warpgroups of 64 q rows of one query
+// head each (consecutive units of the kv head's group), K and V tiles of
+// 64 keys staged once for the block in a kWgStages ring, one barrier a
+// tile.  Per warpgroup, kDqCols keys at a time: S = Q K^T and
+// dP = dO V^T, p = exp(S scale - lse), dS = p (dP - delta) rounded to
+// bf16, and dQ += dS K with K read MN-major.  Registers: dQ (kD / 2), S
+// and dP (16 each) a thread, so 4 warpgroups fit 128 registers (64 keys
+// at 2 or 3 warpgroups a block ran no faster on the H100).
+constexpr int kDqGroups = 4;
+constexpr int kDqThreads = 128 * kDqGroups;
+constexpr int kDqCols = 32;
+
+template <int kD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_dq_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kTileBytes = 64 * kD * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw;                      // [kDqGroups][64 x kD]
+  unsigned char* dos = qs + kDqGroups * kTileBytes;  // the same, dO
+  unsigned char* ks = dos + kDqGroups * kTileBytes;  // [kWgStages][64 x kD]
+  unsigned char* vs = ks + kWgStages * kTileBytes;   // the same, V
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int n_units = ((a.S + 63) / 64) * a.G;
+  // blockIdx.x runs over (unit block, kv head), kv head fastest, unit
+  // blocks from the last: the heaviest start first, as in K2f
+  const int hk = blockIdx.x % a.KV, b = blockIdx.z;
+  const int u0 = (gridDim.x / a.KV - 1 - blockIdx.x / a.KV) * kDqGroups;
+  const int u = u0 + wg;
+  const bool unit_live = u < n_units;
+  const int w0 = (u / a.G) * 64;
+  const int h = hk * a.G + u % a.G;
+  const int q0 = (u0 / a.G) * 64;
+  const int q_hi = (min(u0 + kDqGroups, n_units) - 1) / a.G * 64 + 63;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+
+  const int n_kv = (a.S + 63) / 64;
+  const int t_hi = a.causal ? min(n_kv - 1, q_hi / 64) : n_kv - 1;
+  int t_lo = 0;
+  while (t_lo <= t_hi && !pairs_live(q0, q_hi, 64 * t_lo, 64 * t_lo + 63, a))
+    ++t_lo;
+
+  const int r_a = w0 + warp * 16 + g;
+  float lse[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  if (unit_live) {
+    const int tid = threadIdx.x % 128;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_b + h * a.o_h;
+    stage_cm<kD, 64, false, 128>(qs + wg * kTileBytes, qb, a.q_s, w0, a.S,
+                                 a.D, vec, tid);
+    stage_cm<kD, 64, false, 128>(dos + wg * kTileBytes, ob, a.o_s, w0, a.S,
+                                 a.D, vec, tid);
+    const long long st = (static_cast<long long>(b) * a.H + h) * a.S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (r_a + 8 * i < a.S) {
+        lse[i] = a.lse[st + r_a + 8 * i];
+        dlt[i] = a.delta[st + r_a + 8 * i];
+      }
+    }
+  }
+  if (t_lo <= t_hi) {
+    stage_cm<kD, 64, false, kDqThreads>(ks, kb, a.k_s, 64 * t_lo, a.S, a.D,
+                                        vec, threadIdx.x);
+    stage_cm<kD, 64, false, kDqThreads>(vs, vb, a.v_s, 64 * t_lo, a.S, a.D,
+                                        vec, threadIdx.x);
+  }
+  mma_tiles::cp_async_commit();
+
+  float dq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int st = (t - t_lo) % kWgStages;
+    if (t < t_hi) {
+      const int nx = (t + 1 - t_lo) % kWgStages;
+      stage_cm<kD, 64, false, kDqThreads>(ks + nx * kTileBytes, kb, a.k_s,
+                                          64 * (t + 1), a.S, a.D, vec,
+                                          threadIdx.x);
+      stage_cm<kD, 64, false, kDqThreads>(vs + nx * kTileBytes, vb, a.v_s,
+                                          64 * (t + 1), a.S, a.D, vec,
+                                          threadIdx.x);
+    }
+    mma_tiles::cp_async_commit();
+    mma_tiles::cp_async_wait<1>();  // all but tile t + 1 have landed
+    mma_tiles::fence_proxy_async();
+    __syncthreads();
+    if (!unit_live) continue;  // keeps the block's barriers only
+
+    const unsigned char* kt = ks + st * kTileBytes;
+    const unsigned char* vt = vs + st * kTileBytes;
+#pragma unroll 1
+    for (int half = 0; half < 64 / kDqCols; ++half) {
+      const int kh = 64 * t + kDqCols * half;
+      if (!pairs_live(w0, w0 + 63, kh, kh + kDqCols - 1, a)) continue;
+      float s[kDqCols / 2], dp[kDqCols / 2];
+      score_products<kD, kDqCols>(s, dp, qs + wg * kTileBytes, kt,
+                                  dos + wg * kTileBytes, vt, kDqCols * half);
+      const bool full = pairs_full(w0 + warp * 16, w0 + warp * 16 + 15, kh,
+                                   kh + kDqCols - 1, a);
+#pragma unroll
+      for (int j = 0; j < kDqCols / 2; ++j) {
+        const int i = (j >> 1) & 1;
+        const int ki = kh + (j >> 2) * 8 + 2 * tq + (j & 1);
+        const float p = (full || visible(r_a + 8 * i, ki, a))
+                            ? __expf(s[j] * a.scale - lse[i])
+                            : 0.f;
+        s[j] = p * (dp[j] - dlt[i]);
+      }
+      uint32_t x[kDqCols / 16][4];
+      pack_a<kDqCols>(x, s);
+      mma_tiles::fence_regs(dq);
+      mma_tiles::wgmma_fence();
+      grad_product<kD, kDqCols>(dq, x, kt, kDqCols * half);
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(dq);
+    }
+  }
+  mma_tiles::cp_async_wait<0>();
+  if (unit_live) {
+    store_rows<kD>(static_cast<bf16*>(a.dq), dq, a.scale, r_a, b, h, a.H, tq,
+                   a);
+  }
+}
+
+// K2kv: a block of kDkvGroups warpgroups per (64-row kv tile, kv head),
+// kv rows the M dimension, so nothing is transposed through shared
+// memory.  K and V stay in shared memory; the units (query head of the
+// group, live q tile) are dealt to the warpgroups in turn, each streaming
+// its own Q, dO, lse and delta through a kDkvStages ring under its own
+// barrier.  Per unit, kDkvCols q rows at a time: S^T = K Q^T and
+// dP^T = V dO^T, p^T = exp(S^T scale - lse[col]), dS^T = p^T (dP^T -
+// delta[col]), then dV += round(p^T) dO and dK += dS^T Q with dO and Q
+// read MN-major.  At the end each warpgroup hands the other its partial
+// of the gradient the other writes, summed in a fixed order: no atomics.
+// Registers: dK and dV (kD / 2 each), S and dP (kDkvCols / 2 each; 64
+// columns ran about 4 % faster on the H100 than 32), so 2 warpgroups a
+// block, one block an SM; blocks start from the first kv tile, the
+// heaviest under a causal mask.
+constexpr int kDkvGroups = 2;
+constexpr int kDkvThreads = 128 * kDkvGroups;
+constexpr int kDkvStages = 2;
+constexpr int kDkvCols = 64;
+
+// bytes of one stage of a warpgroup's ring: Q, dO, lse, delta
+__host__ __device__ constexpr int dkv_stage_bytes(int d) {
+  return 2 * 64 * d * 2 + 2 * 64 * 4;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_dkv_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kTileBytes = 64 * kD * 2;
+  constexpr int kStageBytes = dkv_stage_bytes(kD);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ks = smem_raw;          // [64 x kD]
+  unsigned char* vs = ks + kTileBytes;   // [64 x kD]
+  unsigned char* rings = vs + kTileBytes;  // [kDkvGroups][kDkvStages]
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int tid = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int hk = blockIdx.x % a.KV, b = blockIdx.z;
+  const int k0 = (blockIdx.x / a.KV) * 64;
+  unsigned char* ring = rings + wg * kDkvStages * kStageBytes;
+
+  // the live q tiles of this kv tile form one run qt_lo .. qt_hi
+  const int n_q = (a.S + 63) / 64;
+  int qt_lo = a.causal ? k0 / 64 : 0, qt_hi = n_q - 1;
+  while (qt_hi >= qt_lo && !pairs_live(64 * qt_hi, 64 * qt_hi + 63, k0,
+                                       k0 + 63, a))
+    --qt_hi;
+  while (qt_lo <= qt_hi && !pairs_live(64 * qt_lo, 64 * qt_lo + 63, k0,
+                                       k0 + 63, a))
+    ++qt_lo;
+  const int n_live = qt_hi - qt_lo + 1;  // >= 1: key k0 sees query k0
+  // unit u = (head in group) * n_live + (q tile - qt_lo); this warpgroup
+  // takes u = wg, wg + kDkvGroups, ...
+  const int n_my = (a.G * n_live - wg + kDkvGroups - 1) / kDkvGroups;
+
+  auto stage_unit = [&](int i, int buf) {
+    const int u = wg + kDkvGroups * i;
+    const int h = hk * a.G + u / n_live;
+    const int q0 = 64 * (qt_lo + u % n_live);
+    unsigned char* dst = ring + buf * kStageBytes;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_b + h * a.o_h;
+    stage_cm<kD, 64, false, 128>(dst, qb, a.q_s, q0, a.S, a.D, vec, tid);
+    stage_cm<kD, 64, false, 128>(dst + kTileBytes, ob, a.o_s, q0, a.S, a.D,
+                                 vec, tid);
+    // lse by threads 0-63, delta by 64-127; 0 past S
+    const int row = q0 + tid % 64;
+    const float* src = (tid < 64 ? a.lse : a.delta) +
+                       (static_cast<long long>(b) * a.H + h) * a.S;
+    float* stat = reinterpret_cast<float*>(dst + 2 * kTileBytes) + tid;
+    mma_tiles::cp_async_4(stat, row < a.S ? src + row : src,
+                          row < a.S ? 4 : 0);
+  };
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+  stage_cm<kD, 64, false, kDkvThreads>(ks, kb, a.k_s, k0, a.S, a.D, vec,
+                                       threadIdx.x);
+  stage_cm<kD, 64, false, kDkvThreads>(vs, vb, a.v_s, k0, a.S, a.D, vec,
+                                       threadIdx.x);
+  if (n_my > 0) stage_unit(0, 0);
+  mma_tiles::cp_async_commit();
+  mma_tiles::cp_async_wait<0>();
+  mma_tiles::fence_proxy_async();
+  __syncthreads();
+
+  float dk[kD / 2], dv[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const int kr_a = k0 + warp * 16 + g;
+
+  for (int i = 0; i < n_my; ++i) {
+    const int buf = i & 1;
+    // the other buffer was last read in unit i - 1, behind the barrier
+    // that closed it
+    if (i + 1 < n_my) stage_unit(i + 1, buf ^ 1);
+    mma_tiles::cp_async_commit();
+    if (i > 0) {
+      mma_tiles::cp_async_wait<1>();  // all but unit i + 1 have landed
+      mma_tiles::fence_proxy_async();
+      mma_tiles::named_barrier(1 + wg, 128);
+    }
+    const int q0 = 64 * (qt_lo + (wg + kDkvGroups * i) % n_live);
+    const unsigned char* qt = ring + buf * kStageBytes;
+    const unsigned char* dot = qt + kTileBytes;
+    const float* ls = reinterpret_cast<const float*>(dot + kTileBytes);
+    const float* dl = ls + 64;
+#pragma unroll 1
+    for (int half = 0; half < 64 / kDkvCols; ++half) {
+      const int qh = q0 + kDkvCols * half;
+      if (!pairs_live(qh, qh + kDkvCols - 1, k0, k0 + 63, a)) continue;
+      float s[kDkvCols / 2], dp[kDkvCols / 2];
+      score_products<kD, kDkvCols>(s, dp, ks, qt, vs, dot, kDkvCols * half);
+      const bool full = pairs_full(qh, qh + kDkvCols - 1, k0 + warp * 16,
+                                   k0 + warp * 16 + 15, a);
+#pragma unroll
+      for (int j = 0; j < kDkvCols / 2; ++j) {
+        const int kr = kr_a + 8 * ((j >> 1) & 1);
+        const int c = kDkvCols * half + (j >> 2) * 8 + 2 * tq + (j & 1);
+        const float p = (full || visible(q0 + c, kr, a))
+                            ? __expf(s[j] * a.scale - ls[c])
+                            : 0.f;
+        s[j] = p;
+        dp[j] = p * (dp[j] - dl[c]);
+      }
+      uint32_t pb[kDkvCols / 16][4], xb[kDkvCols / 16][4];
+      pack_a<kDkvCols>(pb, s);
+      pack_a<kDkvCols>(xb, dp);
+      mma_tiles::fence_regs(dv);
+      mma_tiles::fence_regs(dk);
+      mma_tiles::wgmma_fence();
+      grad_product<kD, kDkvCols>(dv, pb, dot, kDkvCols * half);
+      grad_product<kD, kDkvCols>(dk, xb, qt, kDkvCols * half);
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(dv);
+      mma_tiles::fence_regs(dk);
+    }
+    mma_tiles::named_barrier(1 + wg, 128);  // buffer buf is free
+  }
+  mma_tiles::cp_async_wait<0>();
+
+  // warpgroup 0 writes dK, warpgroup 1 dV; each first hands the other its
+  // partial through its own ring (free since its last barrier).  The
+  // threads of the same index in the two warpgroups hold the same
+  // elements, so the exchange is in fragment order.
+  float* mine = reinterpret_cast<float*>(ring);
+  const float* other = reinterpret_cast<const float*>(
+      rings + (1 - wg) * kDkvStages * kStageBytes);
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) mine[128 * j + tid] = dv[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) mine[128 * j + tid] = dk[j];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) dk[j] += other[128 * j + tid];
+    store_rows<kD>(static_cast<bf16*>(a.dk), dk, a.scale, kr_a, b, hk, a.KV,
+                   tq, a);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) dv[j] = other[128 * j + tid] + dv[j];
+    store_rows<kD>(static_cast<bf16*>(a.dv), dv, 1.f, kr_a, b, hk, a.KV, tq,
+                   a);
+  }
+}
+
+size_t dq_wgmma_smem_bytes(int Dp) {
+  return static_cast<size_t>(64) * Dp * 2 * (2 * kDqGroups + 2 * kWgStages);
+}
+
+size_t dkv_wgmma_smem_bytes(int Dp) {
+  return static_cast<size_t>(64) * Dp * 2 * 2 +
+         static_cast<size_t>(kDkvGroups) * kDkvStages * dkv_stage_bytes(Dp);
+}
+
+// shared memory of each scalar kernel, in bytes (0 = fwd, 1 = dq,
+// 2 = dkv); the tensor-core kernels' ((dq_, dkv_)wgmma_smem_bytes)
+// stay under one block's 232448 at every D up to kMaxD
 size_t smem_bytes(int which, int D) {
   const size_t tile = static_cast<size_t>(kTile) * (D + 1);
   const size_t ptile = static_cast<size_t>(kTile) * kLdP;
@@ -805,18 +1278,48 @@ int launch(Kernel kernel, const Args& a, dim3 grid, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// which: 0 = K2f, 1 = K2q, 2 = K2kv, each on the tensor cores
 template <int kD>
-int launch_wgmma(const Args& a, bool vec, int B, cudaStream_t stream) {
-  auto kernel = flash_fwd_wgmma_kernel<kD>;
-  const size_t smem = wgmma_smem_bytes(kD);
+int launch_wgmma(int which, const Args& a, bool vec, int B,
+                 cudaStream_t stream) {
+  void (*kernel)(Args, int) =
+      which == 0 ? flash_fwd_wgmma_kernel<kD>
+                 : (which == 1 ? flash_dq_wgmma_kernel<kD>
+                               : flash_dkv_wgmma_kernel<kD>);
+  const size_t smem = which == 0 ? wgmma_smem_bytes(kD)
+                                 : (which == 1 ? dq_wgmma_smem_bytes(kD)
+                                               : dkv_wgmma_smem_bytes(kD));
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (((a.S + 63) / 64) * a.G + kWgGroups - 1) / kWgGroups;
-  kernel<<<dim3(blocks * a.KV, 1, B), kWgThreads, smem, stream>>>(a,
-                                                                  vec ? 1 : 0);
+  const int n_qt = (a.S + 63) / 64;
+  const int groups = which == 0 ? kWgGroups : kDqGroups;
+  // K2f, K2q: blocks of `groups` (q tile, head) units per kv head; K2kv:
+  // one block per (kv tile, kv head)
+  const int blocks = which == 2 ? n_qt : (n_qt * a.G + groups - 1) / groups;
+  const int threads = which == 0 ? kWgThreads
+                                 : (which == 1 ? kDqThreads : kDkvThreads);
+  kernel<<<dim3(blocks * a.KV, 1, B), threads, smem, stream>>>(a,
+                                                               vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a tensor-core kernel at D zero-padded to 16, 32, 64 or 128.  16-byte
+// copies need D and every (batch, position, head) stride of the n_in
+// bf16 inputs in whole 8-element pieces and 16-byte aligned bases
+int launch_wgmma_padded(int which, const Args& a, const void* const* in,
+                        int n_in, const long long* strides, int B,
+                        cudaStream_t st) {
+  bool vec = a.D % 8 == 0;
+  for (int i = 0; i < 3 * n_in; ++i) vec = vec && strides[i] % 8 == 0;
+  for (int i = 0; i < n_in; ++i) {
+    vec = vec && reinterpret_cast<uintptr_t>(in[i]) % 16 == 0;
+  }
+  if (a.D <= 16) return launch_wgmma<16>(which, a, vec, B, st);
+  if (a.D <= 32) return launch_wgmma<32>(which, a, vec, B, st);
+  if (a.D <= 64) return launch_wgmma<64>(which, a, vec, B, st);
+  return launch_wgmma<128>(which, a, vec, B, st);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -853,7 +1356,8 @@ bool bad_shape(int B, int S, int H, int KV, int D) {
 
 extern "C" {
 
-// Largest head_dim the kernels take, and each kernel's shared memory.
+// Largest head_dim the kernels take, and each scalar kernel's shared
+// memory.
 int flash_max_head_dim() { return kMaxD; }
 
 long long flash_smem_bytes(int which, int D) {
@@ -876,17 +1380,8 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch(flash_fwd_kernel<float>, a, grid, smem_bytes(0, D), st);
   if (dtype == 1) {
-    // 16-byte copies need D and every (batch, position, head) stride in
-    // whole 8-element pieces and 16-byte aligned bases
-    bool vec = D % 8 == 0;
-    for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 8 == 0;
-    vec = vec && (reinterpret_cast<uintptr_t>(q) |
-                  reinterpret_cast<uintptr_t>(k) |
-                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-    if (D <= 16) return launch_wgmma<16>(a, vec, B, st);
-    if (D <= 32) return launch_wgmma<32>(a, vec, B, st);
-    if (D <= 64) return launch_wgmma<64>(a, vec, B, st);
-    return launch_wgmma<128>(a, vec, B, st);
+    const void* in[] = {q, k, v};
+    return launch_wgmma_padded(0, a, in, 3, strides, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -906,7 +1401,8 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch(flash_dq_kernel<float>, a, grid, smem_bytes(1, D), st);
   if (dtype == 1) {
-    return launch(flash_dq_kernel<__nv_bfloat16>, a, grid, smem_bytes(1, D), st);
+    const void* in[] = {q, k, v, dout};
+    return launch_wgmma_padded(1, a, in, 4, strides, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -927,7 +1423,8 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch(flash_dkv_kernel<float>, a, grid, smem_bytes(2, D), st);
   if (dtype == 1) {
-    return launch(flash_dkv_kernel<__nv_bfloat16>, a, grid, smem_bytes(2, D), st);
+    const void* in[] = {q, k, v, dout};
+    return launch_wgmma_padded(2, a, in, 4, strides, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
 // Tile helpers shared by the tensor-core attention kernels (sm_90a): the
-// paged kernel (csrc/paged_attention.cu, mma.sync) and K2f
+// paged kernel (csrc/paged_attention.cu, mma.sync) and K2f, K2q and K2kv
 // (csrc/flash_attention.cu, wgmma).  16-byte cp.async copies into shared
 // memory, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 and
 // wgmma.m64nNk16 products with f32 accumulators, and the online-softmax
@@ -281,6 +281,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= a[64 x 16] b[16 x 32], both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t a_desc,
+                                                   uint64_t b_desc,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over the `threads` threads
+// (a multiple of 32) that name it: one warpgroup's own barrier
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // d[64 x 16] (+)= a[64 x 16] b[16 x 16]: a in registers (the warp's 16

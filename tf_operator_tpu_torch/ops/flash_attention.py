@@ -11,10 +11,11 @@ softmax(q kᵀ / sqrt(D)) v in q's dtype; it is differentiable.
   - CUDA tensors launch csrc/flash_attention.cu (built by kernels.py at
     first use) or raise: K2f (`flash_fwd`) forward, K2q (`flash_dq`) and
     K2kv (`flash_dkv`) backward.  Each wrapper adds one to its count in
-    `launches` per launch.  bf16 forwards take K2f's tensor-core design
-    (mma.sync tiles, cp.async ring; csrc/mma_tiles.cuh) and also count in
-    `launches["flash_fwd_mma"]`; f32 forwards and both backward kernels
-    run the scalar f32 design, which keeps f32 exact (no TF32).
+    `launches` per launch.  bf16 inputs take the tensor-core designs
+    (wgmma tiles, cp.async rings; csrc/mma_tiles.cuh) and also count in
+    `launches["flash_fwd_mma"]`, `["flash_dq_mma"]` and
+    `["flash_dkv_mma"]`; f32 inputs run the scalar f32 designs, which
+    keep f32 exact (no TF32).
   - CPU tensors run the plain versions `flash_fwd_plain`,
     `flash_dq_plain` and `flash_dkv_plain`: the same arithmetic as the
     kernels in whole-sequence tensor ops.  The tests hold them against
@@ -43,10 +44,11 @@ from tf_operator_tpu_torch import kernels
 NEG_INF = -1e30
 
 # kernel launches since the last reset, per kernel (plain-version calls
-# are not counted); flash_fwd_mma: the bf16 forwards among flash_fwd, which
+# are not counted); the *_mma counts: the bf16 launches among them, which
 # ran on the tensor cores
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_mma": 0,
-                            "flash_dq": 0, "flash_dkv": 0}
+                            "flash_dq": 0, "flash_dq_mma": 0,
+                            "flash_dkv": 0, "flash_dkv_mma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
@@ -279,6 +281,8 @@ def _launch_dq(q, k, v, do, lse, delta, causal, window):
         _strides(q, k, v, do), *_shape_args(q, k, causal, window))
     _raise_on(err, lib, "flash_dq")
     launches["flash_dq"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["flash_dq_mma"] += 1
     return dq
 
 
@@ -293,6 +297,8 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, window):
         _strides(q, k, v, do), *_shape_args(q, k, causal, window))
     _raise_on(err, lib, "flash_dkv")
     launches["flash_dkv"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["flash_dkv_mma"] += 1
     return dk, dv
 
 
