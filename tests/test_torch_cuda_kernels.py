@@ -445,10 +445,12 @@ def _ring_step_case(seed, *, s, h, kv, d, dtype, carry):
 def test_ring_step_kernels_match_plain(dtype, s, h, kv, d, layout, my, src,
                                        window, carry):
     """K3f, K3q and K3kv against their plain versions on one (member,
-    step) of a ring of 4: diagonal, past and future steps, zigzag
-    offsets with tiles straddling the halves (S_l = 90), a window, rows
-    that saw no key, and lse = POS_INF rows; two launches give the same
-    bits and each counts one launch."""
+    step) of a ring of 4: diagonal, past and future steps (a future one
+    leaves every accumulator as it was), zigzag offsets with tiles
+    straddling the halves (S_l = 90), a window, rows that saw no key,
+    and lse = POS_INF rows; two launches give the same bits and each
+    counts one launch, every bf16 K3q and K3kv launch on the tensor
+    cores and no f32 one."""
     (q, k, v, do), (m, l, acc, lse, delta) = _ring_step_case(
         s + d, s=s, h=h, kv=kv, d=d, dtype=dtype, carry=carry)
     offs = (trf.offsets(my, 4, s, layout), trf.offsets(src, 4, s, layout),
@@ -468,13 +470,91 @@ def test_ring_step_kernels_match_plain(dtype, s, h, kv, d, layout, my, src,
         trf.ring_dkv(*bwd, dk, dv, *offs)
         runs.append((*st, dq, dk, dv))
     torch.cuda.synchronize()
+    mma = 2 if dtype == torch.bfloat16 else 0
     assert {n: trf.launches[n] - before[n] for n in before} == \
-        {"ring_fwd": 2, "ring_dq": 2, "ring_dkv": 2}
+        {"ring_fwd": 2, "ring_dq": 2, "ring_dq_mma": mma, "ring_dkv": 2,
+         "ring_dkv_mma": mma}
     tol = RING_TOL[dtype]
+    dead = layout == "contiguous" and src > my
+    for name, a, b, ref, was in zip(["m", "l", "acc", "dq", "dk", "dv"],
+                                    *runs, want, (m, l, acc, 0, 0, 0)):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, ref, rtol=tol, atol=tol, msg=name)
+        if dead:
+            assert torch.equal(a, was if torch.is_tensor(was)
+                               else torch.zeros_like(a)), name
+
+
+def _forward_lse(lse, q, k, q_off, k_off, causal, window):
+    """lse as the forward leaves it: the step's own logsumexp of the
+    scaled visible scores added to `lse` (the ring's other steps; POS_INF
+    rows stay), so p <= 1 as in every real backward step."""
+    b, s, h, _ = q.shape
+    sc = trf._scores(q, k, trf._mask(q_off, k_off, s, causal, window,
+                                     q.device))
+    step = torch.logsumexp(sc, dim=-1).reshape(b, h, s)
+    return torch.logaddexp(lse, step)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kv,d,layout,my,src,causal,window,carry", [
+    (200, 8, 2, 128, "zigzag", 1, 3, True, None, "mid"),
+    (512, 8, 2, 128, "contiguous", 3, 2, True, 512, "mid"),
+    (512, 8, 2, 128, "contiguous", 2, 3, True, None, "mid"),
+    (256, 4, 1, 64, "zigzag", 2, 1, True, 64, "masked"),
+    (192, 6, 2, 20, "contiguous", 2, 2, True, None, "masked"),
+    (128, 4, 2, 48, "contiguous", 3, 1, True, None, "mid"),
+    (128, 4, 2, 32, "zigzag", 3, 3, True, 40, "mid"),
+    (200, 4, 2, 64, "zigzag", 1, 3, False, None, "mid")])
+def test_ring_backward_kernels_match_plain(dtype, s, h, kv, d, layout, my,
+                                           src, causal, window, carry):
+    """The ring step's kernels at the shapes the tensor-core K3q and K3kv
+    must handle, with lse as the forward leaves it: k and v the strided
+    halves of a fused projection, D = 128, 64 and 32, D = 20 and 48
+    zero-padded (20: element copies), G = 1 to 4, S_l = 200 zigzag (a
+    tile straddles the half), windows of 40, 64 and 512, no mask, a
+    future (dead) step that leaves every accumulator as it was, lse = POS_INF
+    rows; two launches give the same bits; every bf16 K3q and K3kv
+    launch on the tensor cores and no f32 one.  K3f's carry is held as
+    (m, l, acc / l), the output the finish forms: acc is an unnormalized
+    sum whose bf16 rounding grows with l."""
+    (q, k, v, do), (m, l, acc, lse, delta) = _ring_step_case(
+        s + d + 1, s=s, h=h, kv=kv, d=d, dtype=dtype, carry=carry)
+    offs = (trf.offsets(my, 4, s, layout), trf.offsets(src, 4, s, layout),
+            causal, window)
+    lse = _forward_lse(lse, q, k, *offs)
+    bwd = (q, k, v, do, lse, delta)
+    as_out = lambda m, l, acc: (m, l, acc / torch.where(
+        l == 0.0, 1.0, l).transpose(1, 2)[..., None])
+    want = (*as_out(*trf.carry_fwd_plain(q, k, v, m, l, acc, *offs)),
+            trf.ring_dq_plain(*bwd, *offs), *trf.ring_dkv_plain(*bwd, *offs))
+    before = dict(trf.launches)
+    runs = []
+    for _ in range(2):
+        st = [t.clone() for t in (m, l, acc)]
+        trf.ring_fwd(q, k, v, *st, *offs)
+        dq = torch.zeros((2, s, h, d), device="cuda")
+        dk = torch.zeros((2, s, kv, d), device="cuda")
+        dv = torch.zeros((2, s, kv, d), device="cuda")
+        trf.ring_dq(*bwd, dq, *offs)
+        trf.ring_dkv(*bwd, dk, dv, *offs)
+        runs.append((*as_out(*st), dq, dk, dv))
+    torch.cuda.synchronize()
+    mma = 2 if dtype == torch.bfloat16 else 0
+    assert {n: trf.launches[n] - before[n] for n in before} == \
+        {"ring_fwd": 2, "ring_dq": 2, "ring_dq_mma": mma, "ring_dkv": 2,
+         "ring_dkv_mma": mma}
+    tol = RING_TOL[dtype]
+    dead = causal and layout == "contiguous" and src > my
     for name, a, b, ref in zip(["m", "l", "acc", "dq", "dk", "dv"], *runs,
                                want):
         assert torch.equal(a, b), name
         torch.testing.assert_close(a, ref, rtol=tol, atol=tol, msg=name)
+        if dead and name in ("dq", "dk", "dv"):
+            assert not a.any(), name
+    if dead:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][:3],
+                                                     as_out(m, l, acc)))
 
 
 @pytest.mark.parametrize("layout,window", [("contiguous", None),
@@ -498,7 +578,8 @@ def test_ring_function_on_card_matches_cpu(layout, window):
                for my in range(4) for src in range(4))
     assert live == 10 if layout == "contiguous" else live < 16
     assert trf.launches == {"ring_fwd": live, "ring_dq": live,
-                            "ring_dkv": live}
+                            "ring_dq_mma": 0, "ring_dkv": live,
+                            "ring_dkv_mma": 0}
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 

@@ -65,10 +65,10 @@ def test_build_all_reuses_a_library_under_the_current_key(csrc):
 
 
 def test_the_port_sources_include_the_shared_header():
-    """The two sources with tensor-core kernels include mma_tiles.cuh, so
-    its edits must rebuild them: it is under csrc/ and ends in .cuh."""
+    """The three sources with tensor-core kernels include mma_tiles.cuh,
+    so its edits must rebuild them: it is under csrc/ and ends in .cuh."""
     header = kernels.CSRC / "mma_tiles.cuh"
     assert header.exists()
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "ring_flash"):
         assert '#include "mma_tiles.cuh"' in (
             kernels.CSRC / f"{name}.cu").read_text()

@@ -1,0 +1,93 @@
+"""The rule by which the ring's kernels skip tiles and drop the
+per-element mask (`span_live`, `span_full` in csrc/ring_flash.cu, mirrored
+in ops/ring_flash.py), held against the mask itself (`_mask`) for every
+(member, resident shard) of rings of 2 and 4, both layouts, windows
+None/64/512 and S_l in {512, 256, 200, 192}: S_l = 200 puts the half
+(100) inside a 64-row tile, and 192 puts it on a 32-row edge.
+
+The spans are the ones the kernels test: 64 x 64 (the scalar kernels'
+tiles, K3q's blocks and K3kv's units), 64 q rows x 32 keys (K3q's
+score products), 16 q rows x 32 keys (K3q's `full`, per warp) and 64 q
+rows x 16 kv rows (K3kv's `full`, per warp).  No span holding a visible
+pair may be skipped, and no span taken as full may hold a hidden pair;
+spans inside one half-chunk are judged exactly, so no work is wasted
+there either.
+"""
+import numpy as np
+import pytest
+
+from tf_operator_tpu_torch.ops import ring_flash as trf
+
+SPANS = [(64, 64), (64, 32), (16, 32), (64, 16)]
+
+
+def _straddles(lo, hi, s):
+    return lo < s // 2 <= min(hi, s - 1)
+
+
+@pytest.mark.parametrize("s", [512, 256, 200, 192])
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_span_rule_matches_the_mask(n, layout, s):
+    checked = exact = 0
+    for window in (None, 64, 512):
+        for my in range(n):
+            for src in range(n):
+                q_off = trf.offsets(my, n, s, layout)
+                k_off = trf.offsets(src, n, s, layout)
+                mask = trf._mask(q_off, k_off, s, True, window,
+                                 "cpu").numpy()
+                for tq, tk in SPANS:
+                    for q_lo in range(0, s, tq):
+                        for k_lo in range(0, s, tk):
+                            q_hi, k_hi = q_lo + tq - 1, k_lo + tk - 1
+                            sub = mask[q_lo:q_hi + 1, k_lo:k_hi + 1]
+                            args = (q_lo, q_hi, k_lo, k_hi, q_off, k_off, s,
+                                    True, window)
+                            live = trf.span_live(*args)
+                            full = trf.span_full(*args)
+                            where = (f"ring {n} {layout} S_l={s} "
+                                     f"window={window} member={my} "
+                                     f"resident={src} q {q_lo}..{q_hi} "
+                                     f"k {k_lo}..{k_hi}")
+                            assert live or not sub.any(), where
+                            assert not full or (
+                                sub.shape == (tq, tk) and sub.all()), where
+                            checked += 1
+                            if not (_straddles(q_lo, q_hi, s)
+                                    or _straddles(k_lo, k_hi, s)):
+                                assert live == bool(sub.any()), where
+                                inside = q_hi < s and k_hi < s
+                                assert full == (inside and bool(sub.all())), \
+                                    where
+                                exact += 1
+    # spans straddle the half exactly where it is not on a 64-row edge
+    assert exact > 0 and (checked > exact) == ((s // 2) % 64 != 0)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_span_rule_without_a_mask(layout):
+    """Non-causal: every span inside S is live and full; a span past S
+    is dead, and one reaching past it is never full."""
+    s = 200
+    off = trf.offsets(1, 4, s, layout)
+    for q_lo in range(0, s + 64, 64):
+        for k_lo in range(0, s + 32, 32):
+            args = (q_lo, q_lo + 63, k_lo, k_lo + 31, off, off, s, False)
+            assert trf.span_live(*args) == (q_lo < s and k_lo < s)
+            assert trf.span_full(*args) == (q_lo + 63 < s and k_lo + 31 < s)
+
+
+def test_contiguous_diagonal_skips_the_future_tiles():
+    """The causal diagonal of S_l = 512: the 28 tiles of 64 x 64 above
+    it are skipped, the 28 below it run without the per-element mask,
+    and the 8 on it take the mask."""
+    s = 512
+    off = trf.offsets(2, 4, s, "contiguous")
+    tiles = [(qt, kt) for qt in range(8) for kt in range(8)]
+    args = lambda qt, kt: (64 * qt, 64 * qt + 63, 64 * kt, 64 * kt + 63,
+                           off, off, s, True)
+    live = np.array([trf.span_live(*args(*t)) for t in tiles]).reshape(8, 8)
+    full = np.array([trf.span_full(*args(*t)) for t in tiles]).reshape(8, 8)
+    assert (live == np.tril(np.ones((8, 8), bool))).all()
+    assert (full == np.tril(np.ones((8, 8), bool), -1)).all()

@@ -116,6 +116,13 @@
 
 namespace {
 
+using mma_tiles::desc_over_rows;
+using mma_tiles::grad_product;
+using mma_tiles::pack_a;
+using mma_tiles::pv_wgmma;
+using mma_tiles::score_products;
+using mma_tiles::stage_cm;
+
 constexpr int kTile = 64;               // q rows and kv rows per tile
 constexpr int kTx = 16;                 // threads per score row
 constexpr int kThreads = kTx * kTx;     // 256
@@ -377,64 +384,6 @@ __device__ __forceinline__ bool span_full(int q0, int q_hi, int k0,
   if (!a.causal) return true;
   if (k0 + kWgKeys - 1 > q0) return false;
   return a.window <= 0 || k0 > q_hi - a.window;
-}
-
-// byte offset of 16-byte piece c of row r in a K-major tile of kD columns
-template <int kD>
-__device__ __forceinline__ int kmajor_at(int r, int c) {
-  return (r >> 3) * (kD / 8) * 128 + c * 128 + (r & 7) * 16;
-}
-
-// byte offset of 16-byte piece c (n chunk) of row r (k) in an MN-major
-// tile of kWgKeys rows
-__device__ __forceinline__ int mnmajor_at(int r, int c) {
-  return c * (kWgKeys / 8) * 128 + (r >> 3) * 128 + (r & 7) * 16;
-}
-
-// kRowsT rows from row0 of one head into a core-matrix tile at dst, by
-// kThr threads from thread tid: zero past S and past D.  The i-th thread
-// writes the i-th 16 bytes of the tile, so a warp's copies land in
-// contiguous shared memory.
-template <int kD, int kRowsT, bool kMN, int kThr>
-__device__ __forceinline__ void stage_cm(unsigned char* dst,
-                                        const __nv_bfloat16* base,
-                                        long long ss, int row0, int S, int D,
-                                        bool vec, int tid) {
-  constexpr int kPieces = kD / 8;
-  for (int i = tid; i < kRowsT * kPieces; i += kThr) {
-    int r, c;
-    if (kMN) {
-      r = i % kRowsT;
-      c = i / kRowsT;
-    } else {
-      r = (i / (8 * kPieces)) * 8 + i % 8;
-      c = (i / 8) % kPieces;
-    }
-    const int row = row0 + r;
-    unsigned char* at = dst + (kMN ? mnmajor_at(r, c) : kmajor_at<kD>(r, c));
-    if (vec) {
-      const bool live = row < S && c * 8 < D;
-      mma_tiles::cp_async_16(at, live ? base + row * ss + c * 8 : base,
-                             live ? 16 : 0);
-    } else {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(at);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int d = c * 8 + k;
-        e[k] = (row < S && d < D) ? base[row * ss + d] : __float2bfloat16(0.f);
-      }
-    }
-  }
-}
-
-template <int kD>
-__device__ __forceinline__ void pv_wgmma(float (&o)[kD / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (kD == 16) mma_tiles::wgmma_m64n16k16_rs<1>(o, a, desc, 1);
-  if constexpr (kD == 32) mma_tiles::wgmma_m64n32k16_rs<1>(o, a, desc, 1);
-  if constexpr (kD == 64) mma_tiles::wgmma_m64n64k16_rs<1>(o, a, desc, 1);
-  if constexpr (kD == 128) mma_tiles::wgmma_m64n128k16_rs<1>(o, a, desc, 1);
 }
 
 template <int kD>
@@ -839,85 +788,6 @@ __device__ __forceinline__ bool pairs_full(int q_lo, int q_hi, int k_lo,
   return a.window <= 0 || k_lo > q_hi - a.window;
 }
 
-
-// descriptor of k16 slice kk of rows row0 .. of a K-major tile of kD
-// columns (row0 a multiple of 8): an operand of a product over D
-template <int kD>
-__device__ __forceinline__ uint64_t desc_over_d(const unsigned char* tile,
-                                                int row0, int kk) {
-  return mma_tiles::smem_desc(tile + (row0 / 8) * (kD / 8) * 128 + kk * 256,
-                              128, (kD / 8) * 128);
-}
-
-// the same tile from row row0 as the MN-major B [16 rows x kD] of a
-// product over its rows: LBO steps 8 rows, SBO 8 columns
-template <int kD>
-__device__ __forceinline__ uint64_t desc_over_rows(const unsigned char* tile,
-                                                   int row0) {
-  return mma_tiles::smem_desc(tile + (row0 / 8) * (kD / 8) * 128,
-                              (kD / 8) * 128, 128);
-}
-
-// d (+)= a[64 x 16] b[16 x kC], both K-major in shared memory
-template <int kC>
-__device__ __forceinline__ void wgmma_ss(float (&d)[kC / 2], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  if constexpr (kC == 32) mma_tiles::wgmma_m64n32k16_ss(d, a, b, scale_d);
-  if constexpr (kC == 64) mma_tiles::wgmma_m64n64k16_ss(d, a, b, scale_d);
-}
-
-// s = A1 B1^T and dp = A2 B2^T for 64 rows of A and the kC rows of B from
-// b_row, over kD; the warpgroup waits for both
-template <int kD, int kC>
-__device__ __forceinline__ void score_products(
-    float (&s)[kC / 2], float (&dp)[kC / 2],
-    const unsigned char* a1, const unsigned char* b1,
-    const unsigned char* a2, const unsigned char* b2, int b_row) {
-  mma_tiles::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    wgmma_ss<kC>(s, desc_over_d<kD>(a1, 0, kk),
-                 desc_over_d<kD>(b1, b_row, kk), kk > 0);
-  }
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    wgmma_ss<kC>(dp, desc_over_d<kD>(a2, 0, kk),
-                 desc_over_d<kD>(b2, b_row, kk), kk > 0);
-  }
-  mma_tiles::wgmma_commit();
-  mma_tiles::wgmma_wait<0>();
-  mma_tiles::fence_regs(s);
-  mma_tiles::fence_regs(dp);
-}
-
-// a score tile's C fragments, rounded to bf16, as the A fragments of its
-// k16 slices
-template <int kC>
-__device__ __forceinline__ void pack_a(uint32_t (&x)[kC / 16][4],
-                                       const float (&c)[kC / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kC / 16; ++kk) {
-    const float* lo = c + 8 * kk;
-    x[kk][0] = mma_tiles::pack_bf16x2(lo[0], lo[1]);
-    x[kk][1] = mma_tiles::pack_bf16x2(lo[2], lo[3]);
-    x[kk][2] = mma_tiles::pack_bf16x2(lo[4], lo[5]);
-    x[kk][3] = mma_tiles::pack_bf16x2(lo[6], lo[7]);
-  }
-}
-
-// acc[64 x kD] += x[64 x kC] T[rows row0 .., kD]; the caller fences,
-// commits and waits
-template <int kD, int kC>
-__device__ __forceinline__ void grad_product(float (&acc)[kD / 2],
-                                             const uint32_t (&x)[kC / 16][4],
-                                             const unsigned char* t,
-                                             int row0) {
-#pragma unroll
-  for (int kk = 0; kk < kC / 16; ++kk) {
-    pv_wgmma<kD>(acc, x[kk], desc_over_rows<kD>(t, row0 + 16 * kk));
-  }
-}
-
 // rows r_a and r_b = r_a + 8 of a warpgroup's [64 x kD] accumulator,
 // times mul, into head h of a contiguous [B, S, heads, D] bf16 tensor
 template <int kD>
@@ -1305,21 +1175,18 @@ int launch_wgmma(int which, const Args& a, bool vec, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a tensor-core kernel at D zero-padded to 16, 32, 64 or 128.  16-byte
-// copies need D and every (batch, position, head) stride of the n_in
-// bf16 inputs in whole 8-element pieces and 16-byte aligned bases
+// a tensor-core kernel at D zero-padded to 16, 32, 64 or 128, with
+// 16-byte copies where the n_in bf16 inputs allow them
 int launch_wgmma_padded(int which, const Args& a, const void* const* in,
                         int n_in, const long long* strides, int B,
                         cudaStream_t st) {
-  bool vec = a.D % 8 == 0;
-  for (int i = 0; i < 3 * n_in; ++i) vec = vec && strides[i] % 8 == 0;
-  for (int i = 0; i < n_in; ++i) {
-    vec = vec && reinterpret_cast<uintptr_t>(in[i]) % 16 == 0;
+  const bool vec = mma_tiles::vec_copies(a.D, in, n_in, strides);
+  switch (mma_tiles::padded_d(a.D)) {
+    case 16: return launch_wgmma<16>(which, a, vec, B, st);
+    case 32: return launch_wgmma<32>(which, a, vec, B, st);
+    case 64: return launch_wgmma<64>(which, a, vec, B, st);
+    default: return launch_wgmma<128>(which, a, vec, B, st);
   }
-  if (a.D <= 16) return launch_wgmma<16>(which, a, vec, B, st);
-  if (a.D <= 32) return launch_wgmma<32>(which, a, vec, B, st);
-  if (a.D <= 64) return launch_wgmma<64>(which, a, vec, B, st);
-  return launch_wgmma<128>(which, a, vec, B, st);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,

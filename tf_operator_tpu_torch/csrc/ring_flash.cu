@@ -10,9 +10,8 @@
 //          scale * sum dS K with P = exp(s - lse), dS = P * (dO V^T - delta),
 //          added in place to the member's f32 dq;
 //   - K3kv `_dkv_ring_kernel`: one step's dK/dV contribution to the resident
-//          shard, added in place to its f32 dk/dv.  Each kv tile of each kv
-//          head is owned by one block that streams every (query head of its
-//          GQA group x q tile), so the group's sum is taken here: the TPU's
+//          shard, added in place to its f32 dk/dv.  The kernel reads kv head
+//          h / G and sums each kv head's GQA group itself, so the TPU's
 //          repeat of kv to H heads before the step (`_expand_kv`) and its
 //          fold of dk/dv after it (`_fold_dkv`) do not exist.
 //
@@ -33,42 +32,87 @@
 //   - backward: p = exp(s - lse) (0 for lse = POS_INF, the finish of a row
 //     that saw no key); dS rounded to K's type for dQ and to Q's type for dK;
 //     dV += round(p)^T dO; all contributions are f32 and added to f32
-//     accumulators;
-//   - tiles that cannot hold a live pair are skipped (`_tile_live`), with a
-//     conservative test for tiles that straddle the halves.
+//     accumulators.
+//
+// Which tiles run: one rule for every kernel, `span_live` and `span_full`
+// below (mirrored in ops/ring_flash.py and checked there against the mask
+// for rings of 2 and 4, both layouts and windows).  A span of rows maps to
+// the hull [lo, hi] of its rows' global ids; a (q span, key span) pair is
+// skipped only when no key id of the hull can be visible from any q id of
+// it, and is taken as full (no per-element test) only when both spans lie
+// inside S and inside one half-chunk and every pair of the hulls is
+// visible.  No kernel assumes that the live tiles form one run: under
+// zigzag shards and windows they need not, so each tile is tested.
 //
 // Layout: q, dO [B, S, H, D] and compact k/v [B, S, KV, D] are read from
 // their strides (unit stride on D), head h reading kv head h / (H / KV).  The
 // state is contiguous f32: m, l, lse, delta [B, H, S]; acc, dq [B, S, H, D];
 // dk, dv [B, S, KV, D].  Rows and keys past S are masked.
 //
-// Design (simple and right first; K2's, csrc/flash_attention.cu): one block
-// of 256 threads per (64-row tile, head, batch); each tile of Q, K, V, dO is
-// staged in shared memory as f32 (row stride D + 1 against bank conflicts).
-// Thread (ty, tx) of the 16 x 16 grid owns score rows ty + 16 i and columns
-// tx + 16 j (i, j < 4) and accumulator rows ty + 16 i, columns tx + 16 j.
-// Row statistics are reduced across a row's 16 lanes with warp shuffles;
-// every lane gets the same bits, no atomics, no cross-block sums, so a launch
-// repeats bit for bit.
+// The scalar design (f32 inputs, and K3f): one block of 256 threads per
+// (64-row tile, head, batch); each tile of Q, K, V, dO is staged in shared
+// memory as f32 (row stride D + 1 against bank conflicts).  Thread (ty, tx)
+// of the 16 x 16 grid owns score rows ty + 16 i and columns tx + 16 j
+// (i, j < 4) and accumulator rows ty + 16 i, columns tx + 16 j.  Row
+// statistics are reduced across a row's 16 lanes with warp shuffles.  f32
+// inputs keep it: the tensor cores would round them to TF32, and the f32
+// parity checks hold the ring to full f32.
+//
+// K3q and K3kv on bf16 inputs take the tensor-core designs of K2q and K2kv
+// (csrc/flash_attention.cu; tiles, descriptors and products shared through
+// mma_tiles.cuh):
+//   - p = exp(S scale - lse) and dS = p (dP - delta) are formed in registers
+//     from two wgmma score products over D and become, rounded to bf16, the
+//     A operand of the gradient product, whose B is a tile already staged for
+//     the score products read MN-major (the descriptor's LBO and SBO
+//     swapped): Q, K, V and dO are each staged once, as bf16, by 16-byte
+//     cp.async copies (element copies where a stride or D forbids them;
+//     D zero-padded to 16, 32, 64 or 128);
+//   - K3q (ring_dq_wgmma_kernel) is K2q's block with kRqGroups = 2
+//     warpgroups, each 64 q rows of one query head, 64 keys at a time: K
+//     and V tiles are staged once for both in a 3-stage ring, the tiles no
+//     unit of the block sees are skipped, and blocks start heaviest first.
+//     Two warpgroups, not K2q's four: at the ring's S_l = 512 (8 q tiles x
+//     4 heads x 8 kv heads) that is 128 blocks that hold work, not 64;
+//   - K3kv (ring_dkv_wgmma_kernel) makes the kv rows M, as K2kv: K and V
+//     stay in shared memory, dK and dV are f32 registers (kD / 2 each), and
+//     the units (query head of the group, live q tile) stream through a
+//     2-stage ring.  K2kv's one block per (kv tile, kv head) would be 64
+//     blocks for 132 SMs at S_l = 512, so each (kv tile, kv head) is a
+//     cluster of kRkvCluster = 2 blocks of one warpgroup (128 blocks at
+//     S_l = 512; up to two an SM): block rank c takes units c, c + 2, ...
+//     The partials meet through distributed shared memory and are summed
+//     in rank order, each rank summing half of the elements and adding it
+//     to dk or dv.  On the H100 clusters of 2 ran faster than of 4, and
+//     far faster than single blocks (PERF.md);
+//   - p = exp(S scale - lse) is taken as 2^(S scale log2 e - lse log2 e) by
+//     ex2.approx (a few ulp, as K2's __expf; well below the bf16 rounding of
+//     p and dS);
+//   - in place: each element of dq, dk and dv is read, added to and written
+//     back once per launch, by one thread.  No atomics, so repeats are
+//     bit-identical.
 //
 // What bounds it on this card: at the ring-train shapes (S_l = 512, H = 32,
-// KV = 8, D = 128, bf16) one full K3f step moves about 23 MB (the f32 acc read
-// and written is 16.8 MB of it: 7.0 us at 3.35 TB/s) against 4.3 GFLOP of
-// products (4.3 us at 989 TFLOP/s): bound by bytes.  K3q and K3kv read no
-// f32 carry but add 8.4 MB and 4.2 MB of f32 accumulators in place against 3
-// and 4 products: bound by operations.  This kernel does its products as
-// scalar f32 FMAs (67 TFLOP/s peak) out of shared memory, so it is far from
-// either bound; tensor-core products and double-buffered loads are later
-// work.  The numbers are in PERF.md.
+// KV = 8, D = 128, bf16) one full K3f step moves about 23 MB (the f32 acc
+// read and written is 16.8 MB of it: 7.0 us at 3.35 TB/s) against 4.3
+// GFLOP of products (4.3 us at 989 TFLOP/s): bound by bytes.  K3q and K3kv
+// read no f32 carry but add 8.4 MB and 4.2 MB of f32 accumulators in place
+// against 3 and 4 products.  The scalar kernels do their products as
+// f32 FMAs (67 TFLOP/s peak) out of shared memory, far from either bound.
+// The numbers are in PERF.md.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
 // and called through ctypes (tf_operator_tpu_torch/kernels.py).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -162,34 +206,56 @@ __device__ __forceinline__ bool visible(int r, int c, const Args& a) {
   return true;
 }
 
-// [lo, hi] of the global ids of rows r0 .. r0 + kTile - 1 (within S).
-__device__ __forceinline__ void id_range(int r0, int off0, int off1,
-                                         const Args& a, int& lo, int& hi) {
-  const int r1 = min(r0 + kTile, a.S) - 1;
+// [lo, hi]: the hull of the global ids of local rows r_lo .. r_hi (r_hi
+// within S) of a shard with half-chunk starts off0, off1.
+__device__ __forceinline__ void id_hull(int r_lo, int r_hi, int off0,
+                                        int off1, const Args& a, int& lo,
+                                        int& hi) {
   lo = INT_MAX;
   hi = INT_MIN;
-  if (r0 < a.half) {
-    lo = off0 + r0;
-    hi = off0 + min(r1, a.half - 1);
+  if (r_lo < a.half) {
+    lo = off0 + r_lo;
+    hi = off0 + min(r_hi, a.half - 1);
   }
-  if (r1 >= a.half) {
-    lo = min(lo, off1 + max(r0, a.half) - a.half);
-    hi = max(hi, off1 + r1 - a.half);
+  if (r_hi >= a.half) {
+    lo = min(lo, off1 + max(r_lo, a.half) - a.half);
+    hi = max(hi, off1 + r_hi - a.half);
   }
 }
 
-// `_tile_live`: can the q tile at q0 and the kv tile at k0 hold any live
-// pair?  Conservative over the tiles' id ranges (exact unless a tile
-// straddles the halves); uniform across the block, so a skipped tile skips
-// its barriers.
-__device__ __forceinline__ bool tile_live(int q0, int k0, const Args& a) {
+// `_tile_live`: can q rows q_lo .. q_hi and keys k_lo .. k_hi (local)
+// hold a visible pair?  Conservative over the id hulls (exact unless a
+// span straddles the halves).  Uniform across whoever tests it, so a
+// skipped tile skips its barriers.  ops/ring_flash.span_live mirrors it.
+__device__ __forceinline__ bool span_live(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, const Args& a) {
+  if (q_lo >= a.S || k_lo >= a.S) return false;
   if (!a.causal) return true;
-  int qlo, qhi, klo, khi;
-  id_range(q0, a.q_off0, a.q_off1, a, qlo, qhi);
-  id_range(k0, a.k_off0, a.k_off1, a, klo, khi);
-  bool live = klo <= qhi;
-  if (a.window > 0) live = live && (khi > qlo - a.window);
-  return live;
+  int qa, qb, ka, kb;
+  id_hull(q_lo, min(q_hi, a.S - 1), a.q_off0, a.q_off1, a, qa, qb);
+  id_hull(k_lo, min(k_hi, a.S - 1), a.k_off0, a.k_off1, a, ka, kb);
+  return ka <= qb && (a.window <= 0 || kb > qa - a.window);
+}
+
+// Whether every pair of the spans is visible, so the per-element test can
+// be skipped: both inside S (a q row past S would feed dK and dV) and
+// inside one half-chunk (a span that straddles the halves always takes the
+// per-element path).  ops/ring_flash.span_full mirrors it.
+__device__ __forceinline__ bool span_full(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, const Args& a) {
+  if (q_hi >= a.S || k_hi >= a.S) return false;
+  if (!a.causal) return true;
+  if ((q_lo < a.half && q_hi >= a.half) || (k_lo < a.half && k_hi >= a.half))
+    return false;
+  int qa, qb, ka, kb;
+  id_hull(q_lo, q_hi, a.q_off0, a.q_off1, a, qa, qb);
+  id_hull(k_lo, k_hi, a.k_off0, a.k_off1, a, ka, kb);
+  return kb <= qa && (a.window <= 0 || ka > qb - a.window);
+}
+
+// the (kTile x kTile) tiles of the scalar kernels
+__device__ __forceinline__ bool tile_live(int q0, int k0, const Args& a) {
+  return span_live(q0, q0 + kTile - 1, k0, k0 + kTile - 1, a);
 }
 
 // Stage rows row0 .. row0 + kTile - 1 of head h of a [B, S, Hx, D] tensor
@@ -380,7 +446,8 @@ __device__ __forceinline__ void score_and_dp(const float* qs, const float* dos,
 }
 
 // ---------------------------------------------------------------- K3q
-template <typename T>
+// The scalar K3q and K3kv take f32 inputs only (bf16 runs on the tensor
+// cores), so p and dS need no rounding here.
 __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
   extern __shared__ float smem[];
   const int D = a.D, ld = D + 1;
@@ -388,15 +455,15 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
   float* dos = qs + kTile * ld;     // [kTile][ld]
   float* ks = dos + kTile * ld;     // [kTile][ld]
   float* vs = ks + kTile * ld;      // [kTile][ld]
-  float* dss = vs + kTile * ld;     // [kTile][kLdP] dS rounded to K's type
+  float* dss = vs + kTile * ld;     // [kTile][kLdP] dS
   float* lse_s = dss + kTile * kLdP;
   float* delta_s = lse_s + kTile;
 
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.G;
-  load_tile<T>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
-  load_tile<T>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
+  load_tile<float>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
+  load_tile<float>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
   load_stat(lse_s, a.lse, b, h, q0, a);
   load_stat(delta_s, a.delta, b, h, q0, a);
 
@@ -412,8 +479,8 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
     const int k0 = t * kTile;
     if (!tile_live(q0, k0, a)) continue;
     __syncthreads();
-    load_tile<T>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
-    load_tile<T>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
+    load_tile<float>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
+    load_tile<float>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
     __syncthreads();
 
     float s[kRows][kRows], dp[kRows][kRows];
@@ -427,7 +494,7 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
         const float p = visible(q0 + r, k0 + c, a)
                             ? expf(s[i][j] * a.scale - lse_s[r])
                             : 0.f;
-        dss[r * kLdP + c] = round_to<T>(p * (dp[i][j] - delta_s[r]));
+        dss[r * kLdP + c] = p * (dp[i][j] - delta_s[r]);
       }
     }
     __syncthreads();
@@ -463,7 +530,6 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- K3kv
-template <typename T>
 __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
   extern __shared__ float smem[];
   const int D = a.D, ld = D + 1;
@@ -471,15 +537,15 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
   float* vs = ks + kTile * ld;      // [kTile][ld]
   float* qs = vs + kTile * ld;      // [kTile][ld]
   float* dos = qs + kTile * ld;     // [kTile][ld]
-  float* ps = dos + kTile * ld;     // [kTile q][kLdP] p rounded to dO's type
-  float* dss = ps + kTile * kLdP;   // [kTile q][kLdP] dS rounded to Q's type
+  float* ps = dos + kTile * ld;     // [kTile q][kLdP] p
+  float* dss = ps + kTile * kLdP;   // [kTile q][kLdP] dS
   float* lse_s = dss + kTile * kLdP;
   float* delta_s = lse_s + kTile;
 
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  load_tile<T>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
-  load_tile<T>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
+  load_tile<float>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
+  load_tile<float>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
 
   // the thread's kv rows are ty + 16 i, its columns tx + 16 j
   float dk[kRows][kDCols], dv[kRows][kDCols];
@@ -499,8 +565,8 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
       const int q0 = qt * kTile;
       if (!tile_live(q0, k0, a)) continue;
       __syncthreads();
-      load_tile<T>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
-      load_tile<T>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
+      load_tile<float>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
+      load_tile<float>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
       load_stat(lse_s, a.lse, b, h, q0, a);
       load_stat(delta_s, a.delta, b, h, q0, a);
       __syncthreads();
@@ -517,8 +583,8 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
           const float p = visible(q0 + r, k0 + c, a)
                               ? expf(s[i][j] * a.scale - lse_s[r])
                               : 0.f;
-          ps[r * kLdP + c] = round_to<T>(p);
-          dss[r * kLdP + c] = round_to<T>(p * (dp[i][j] - delta_s[r]));
+          ps[r * kLdP + c] = p;
+          dss[r * kLdP + c] = p * (dp[i][j] - delta_s[r]);
         }
       }
       __syncthreads();
@@ -561,7 +627,398 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
   }
 }
 
-// shared memory of each kernel, in bytes (0 = fwd, 1 = dq, 2 = dkv)
+// ------------------------------------------ K3q and K3kv, warpgroup products
+using mma_tiles::grad_product;
+using mma_tiles::pack_a;
+using mma_tiles::score_products;
+using mma_tiles::stage_cm;
+
+// K3q: kRqGroups warpgroups of 64 q rows of one query head each
+// (consecutive units u = (q tile) G + (head in group) of one kv head), K
+// and V tiles of 64 keys staged once for the block in a kRqStages ring,
+// one barrier a tile.  Per warpgroup, kRqCols keys at a time: S = Q K^T
+// and dP = dO V^T, p = exp(S scale - lse), dS = p (dP - delta) rounded to
+// bf16, and dQ += dS K with K read MN-major.  Registers: dQ (kD / 2), S and
+// dP (kRqCols / 2 each) a thread.  In probe builds on the H100 at the
+// ring-train shapes, 64 keys at a time ran faster than 32, and 1 or 4
+// warpgroups a block slower than 2 (PERF.md).
+constexpr int kRqGroups = 2;
+constexpr int kRqThreads = 128 * kRqGroups;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (ex2.approx: a few ulp, far below the
+// bf16 rounding of p and dS).  p = exp(s scale - lse) is taken as
+// 2^(s (scale log2 e) - lse log2 e): one FMA and one ex2 an element, which
+// ran faster on the H100 than __expf of s scale - lse.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kRqCols = 64;
+constexpr int kRqStages = 3;
+
+template <int kD>
+__global__ void __launch_bounds__(kRqThreads, 1)
+    ring_dq_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kTileBytes = 64 * kD * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw;                      // [kRqGroups][64 x kD]
+  unsigned char* dos = qs + kRqGroups * kTileBytes;  // the same, dO
+  unsigned char* ks = dos + kRqGroups * kTileBytes;  // [kRqStages][64 x kD]
+  unsigned char* vs = ks + kRqStages * kTileBytes;   // the same, V
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int n_t = (a.S + 63) / 64;
+  const int n_units = n_t * a.G;
+  // blockIdx.x runs over (unit block, kv head), kv head fastest, unit
+  // blocks from the last: under a causal mask the heaviest start first
+  const int hk = blockIdx.x % a.KV, b = blockIdx.z;
+  const int u0 = (gridDim.x / a.KV - 1 - blockIdx.x / a.KV) * kRqGroups;
+  const int u = u0 + wg;
+  const bool unit_live = u < n_units;
+  const int w0 = (u / a.G) * 64;  // the warpgroup's rows w0 .. w0 + 63
+  const int h = hk * a.G + u % a.G;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+
+  // the first kv tile from t that some unit of the block sees (n_t: none)
+  auto next_tile = [&](int t) {
+    for (; t < n_t; ++t) {
+      for (int i = 0; i < kRqGroups && u0 + i < n_units; ++i) {
+        const int r0 = ((u0 + i) / a.G) * 64;
+        if (span_live(r0, r0 + 63, 64 * t, 64 * t + 63, a)) return t;
+      }
+    }
+    return n_t;
+  };
+
+  const int r_a = w0 + warp * 16 + g;
+  const float scale2 = a.scale * kLog2e;
+  float lse[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // lse in log2 units
+  if (unit_live) {
+    const int tid = threadIdx.x % 128;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_b + h * a.o_h;
+    stage_cm<kD, 64, false, 128>(qs + wg * kTileBytes, qb, a.q_s, w0, a.S,
+                                 a.D, vec, tid);
+    stage_cm<kD, 64, false, 128>(dos + wg * kTileBytes, ob, a.o_s, w0, a.S,
+                                 a.D, vec, tid);
+    const long long st = (static_cast<long long>(b) * a.H + h) * a.S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (r_a + 8 * i < a.S) {
+        lse[i] = a.lse[st + r_a + 8 * i] * kLog2e;
+        dlt[i] = a.delta[st + r_a + 8 * i];
+      }
+    }
+  }
+  int t = next_tile(0);
+  if (t < n_t) {
+    stage_cm<kD, 64, false, kRqThreads>(ks, kb, a.k_s, 64 * t, a.S, a.D, vec,
+                                        threadIdx.x);
+    stage_cm<kD, 64, false, kRqThreads>(vs, vb, a.v_s, 64 * t, a.S, a.D, vec,
+                                        threadIdx.x);
+  }
+  mma_tiles::cp_async_commit();
+
+  float dq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
+
+  // the i-th tile seen sits in buffer i % kRqStages; the buffer a load
+  // refills was read two tiles before, behind a barrier every thread has
+  // passed since
+  for (int i = 0; t < n_t; ++i) {
+    const int nx = next_tile(t + 1);
+    if (nx < n_t) {
+      const int buf = (i + 1) % kRqStages;
+      stage_cm<kD, 64, false, kRqThreads>(ks + buf * kTileBytes, kb, a.k_s,
+                                          64 * nx, a.S, a.D, vec,
+                                          threadIdx.x);
+      stage_cm<kD, 64, false, kRqThreads>(vs + buf * kTileBytes, vb, a.v_s,
+                                          64 * nx, a.S, a.D, vec,
+                                          threadIdx.x);
+    }
+    mma_tiles::cp_async_commit();
+    mma_tiles::cp_async_wait<1>();  // all but tile nx have landed
+    mma_tiles::fence_proxy_async();
+    __syncthreads();
+
+    const unsigned char* kt = ks + (i % kRqStages) * kTileBytes;
+    const unsigned char* vt = vs + (i % kRqStages) * kTileBytes;
+    // a warpgroup whose rows see none of the tile keeps the barriers only
+#pragma unroll 1
+    for (int part = 0; unit_live && part < 64 / kRqCols; ++part) {
+      const int kh = 64 * t + kRqCols * part;
+      if (!span_live(w0, w0 + 63, kh, kh + kRqCols - 1, a)) continue;
+      float s[kRqCols / 2], dp[kRqCols / 2];
+      score_products<kD, kRqCols>(s, dp, qs + wg * kTileBytes, kt,
+                                  dos + wg * kTileBytes, vt, kRqCols * part);
+      const bool full = span_full(w0 + warp * 16, w0 + warp * 16 + 15, kh,
+                                  kh + kRqCols - 1, a);
+#pragma unroll
+      for (int j = 0; j < kRqCols / 2; ++j) {
+        const int r = (j >> 1) & 1;
+        const int ki = kh + (j >> 2) * 8 + 2 * tq + (j & 1);
+        const float p = (full || visible(r_a + 8 * r, ki, a))
+                            ? ex2(fmaf(s[j], scale2, -lse[r]))
+                            : 0.f;
+        s[j] = p * (dp[j] - dlt[r]);
+      }
+      uint32_t x[kRqCols / 16][4];
+      pack_a<kRqCols>(x, s);
+      mma_tiles::fence_regs(dq);
+      mma_tiles::wgmma_fence();
+      grad_product<kD, kRqCols>(dq, x, kt, kRqCols * part);
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(dq);
+    }
+    t = nx;
+  }
+  mma_tiles::cp_async_wait<0>();
+  if (!unit_live) return;
+
+  // dq += scale * this step's sum: each element by its one owner
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_a + 8 * i;
+    if (row >= a.S) continue;
+    float* out =
+        a.dq + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * tq + e;
+        if (d < a.D) out[d] += a.scale * dq[4 * n + 2 * i + e];
+      }
+    }
+  }
+}
+
+// K3kv: a cluster of kRkvCluster blocks, one warpgroup each, per (64-row kv
+// tile, kv head), kv rows the M dimension.  Each block keeps K and V in
+// shared memory and streams its share of the units (query head of the
+// group, live q tile): rank c takes units c, c + kRkvCluster, ..., each
+// unit's Q, dO, lse and delta through a kRkvStages ring.  Per unit, all 64
+// q rows at once: S^T = K Q^T and dP^T = V dO^T, p^T = exp(S^T scale -
+// lse[col]), dS^T = p^T (dP^T - delta[col]), then dV += round(p^T) dO and
+// dK += dS^T Q with dO and Q read MN-major.  Registers: dK and dV (kD / 2
+// each), S and dP (32 each) a thread: 128 threads at up to 255 registers,
+// two blocks an SM.
+constexpr int kRkvCluster = 2;
+constexpr int kRkvThreads = 128;
+constexpr int kRkvStages = 2;
+
+// bytes of one stage of the ring: Q, dO, lse, delta
+__host__ __device__ constexpr int rkv_stage_bytes(int d) {
+  return 2 * 64 * d * 2 + 2 * 64 * 4;
+}
+
+template <int kD>
+__global__ void __cluster_dims__(kRkvCluster, 1, 1)
+    __launch_bounds__(kRkvThreads, 2) ring_dkv_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  constexpr int kTileBytes = 64 * kD * 2;
+  constexpr int kStageBytes = rkv_stage_bytes(kD);
+  // the partials of the end (kD / 2 float2 a thread) reuse the ring
+  static_assert(kD * 512 <= kRkvStages * kStageBytes, "partials fit");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ks = smem_raw;            // [64 x kD]
+  unsigned char* vs = ks + kTileBytes;     // [64 x kD]
+  unsigned char* ring = vs + kTileBytes;   // [kRkvStages][kStageBytes]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int lane = tid % 32, g = lane / 4, tq = lane % 4;
+  // clusters run over (kv tile, kv head), kv head fastest, from the first
+  // kv tile: under a causal mask the heaviest start first
+  const int pair = blockIdx.x / kRkvCluster;
+  const int hk = pair % a.KV, b = blockIdx.z;
+  const int k0 = (pair / a.KV) * 64;
+
+  // the q tiles that see this kv tile, tested one by one; where they
+  // form one run lo .. hi (they need not), the j-th is lo + j
+  const int n_q = (a.S + 63) / 64;
+  auto q_live = [&](int qt) {
+    return span_live(64 * qt, 64 * qt + 63, k0, k0 + 63, a);
+  };
+  int n_live = 0, lo = 0, hi = -1;
+  for (int qt = 0; qt < n_q; ++qt) {
+    if (q_live(qt)) {
+      lo = n_live++ == 0 ? qt : lo;
+      hi = qt;
+    }
+  }
+  const bool run = hi - lo + 1 == n_live;
+  auto live_tile = [&](int j) {  // the j-th of them
+    if (run) return lo + j;
+    int qt = 0;
+    for (;; ++qt) {
+      if (q_live(qt) && j-- == 0) break;
+    }
+    return qt;
+  };
+  // unit v = (head in group) n_live + (index of its live q tile); this
+  // block takes v = rank + kRkvCluster i
+  const int n_my =
+      (a.G * n_live - rank + kRkvCluster - 1) / kRkvCluster;
+
+  auto stage_unit = [&](int i, int buf) {
+    const int v = rank + kRkvCluster * i;
+    const int h = hk * a.G + v / n_live;
+    const int q0 = 64 * live_tile(v % n_live);
+    unsigned char* dst = ring + buf * kStageBytes;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_b + h * a.o_h;
+    stage_cm<kD, 64, false, kRkvThreads>(dst, qb, a.q_s, q0, a.S, a.D, vec,
+                                         tid);
+    stage_cm<kD, 64, false, kRkvThreads>(dst + kTileBytes, ob, a.o_s, q0,
+                                         a.S, a.D, vec, tid);
+    // lse by threads 0-63, delta by 64-127; 0 past S
+    const int row = q0 + tid % 64;
+    const float* src = (tid < 64 ? a.lse : a.delta) +
+                       (static_cast<long long>(b) * a.H + h) * a.S;
+    float* stat = reinterpret_cast<float*>(dst + 2 * kTileBytes) + tid;
+    mma_tiles::cp_async_4(stat, row < a.S ? src + row : src,
+                          row < a.S ? 4 : 0);
+  };
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+  stage_cm<kD, 64, false, kRkvThreads>(ks, kb, a.k_s, k0, a.S, a.D, vec,
+                                       tid);
+  stage_cm<kD, 64, false, kRkvThreads>(vs, vb, a.v_s, k0, a.S, a.D, vec,
+                                       tid);
+  if (n_my > 0) stage_unit(0, 0);
+  mma_tiles::cp_async_commit();
+  mma_tiles::cp_async_wait<0>();
+  mma_tiles::fence_proxy_async();
+  __syncthreads();
+
+  float dk[kD / 2], dv[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const int kr_a = k0 + warp * 16 + g;
+  const float scale2 = a.scale * kLog2e;
+
+  for (int i = 0; i < n_my; ++i) {
+    const int buf = i & 1;
+    // the other buffer was last read in unit i - 1, behind the barrier
+    // that closed it
+    if (i + 1 < n_my) stage_unit(i + 1, buf ^ 1);
+    mma_tiles::cp_async_commit();
+    if (i > 0) {
+      mma_tiles::cp_async_wait<1>();  // all but unit i + 1 have landed
+      mma_tiles::fence_proxy_async();
+      __syncthreads();
+    }
+    const int q0 = 64 * live_tile((rank + kRkvCluster * i) % n_live);
+    const unsigned char* qt = ring + buf * kStageBytes;
+    const unsigned char* dot = qt + kTileBytes;
+    // lse (in log2 units) and delta of the thread's 16 columns 8 n + 2 tq
+    // (+ 1), read into registers while the score products run
+    const float2* ls = reinterpret_cast<const float2*>(dot + kTileBytes);
+    float2 lsv[8], dlv[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      lsv[n] = ls[4 * n + tq];
+      lsv[n].x *= kLog2e;
+      lsv[n].y *= kLog2e;
+      dlv[n] = ls[32 + 4 * n + tq];
+    }
+    float s[32], dp[32];
+    score_products<kD, 64>(s, dp, ks, qt, vs, dot, 0);
+    const bool full = span_full(q0, q0 + 63, k0 + warp * 16,
+                                k0 + warp * 16 + 15, a);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int kr = kr_a + 8 * ((j >> 1) & 1);
+      const int c = (j >> 2) * 8 + 2 * tq + (j & 1);
+      const float l_c = (j & 1) ? lsv[j >> 2].y : lsv[j >> 2].x;
+      const float d_c = (j & 1) ? dlv[j >> 2].y : dlv[j >> 2].x;
+      const float p = (full || visible(q0 + c, kr, a))
+                          ? ex2(fmaf(s[j], scale2, -l_c))
+                          : 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - d_c);
+    }
+    uint32_t pb[4][4], xb[4][4];
+    pack_a<64>(pb, s);
+    pack_a<64>(xb, dp);
+    mma_tiles::fence_regs(dv);
+    mma_tiles::fence_regs(dk);
+    mma_tiles::wgmma_fence();
+    grad_product<kD, 64>(dv, pb, dot, 0);
+    grad_product<kD, 64>(dk, xb, qt, 0);
+    mma_tiles::wgmma_commit();
+    mma_tiles::wgmma_wait<0>();
+    mma_tiles::fence_regs(dv);
+    mma_tiles::fence_regs(dk);
+    __syncthreads();  // buffer buf is free
+  }
+  mma_tiles::cp_async_wait<0>();
+
+  // the partials of the cluster's blocks: each block's threads hold the
+  // same elements in the same fragment order, so partial j of thread tid
+  // sits at [j][tid] in every block (dK's kD / 4 float2 pairs, then dV's)
+  constexpr int kPairs = kD / 2;
+  float2* mine = reinterpret_cast<float2*>(ring);
+#pragma unroll
+  for (int j = 0; j < kPairs / 2; ++j) {
+    mine[j * kRkvThreads + tid] = make_float2(dk[2 * j], dk[2 * j + 1]);
+    mine[(kPairs / 2 + j) * kRkvThreads + tid] =
+        make_float2(dv[2 * j], dv[2 * j + 1]);
+  }
+  cluster.sync();
+  // rank c sums pairs c kSlice .. of the cluster's partials in rank order
+  // and adds the sum to dk or dv
+  constexpr int kSlice = kPairs / kRkvCluster;
+  static_assert(kSlice * kRkvCluster == kPairs, "whole slices");
+  const float2* part[kRkvCluster];
+#pragma unroll
+  for (int r = 0; r < kRkvCluster; ++r) part[r] = cluster.map_shared_rank(mine, r);
+#pragma unroll
+  for (int jj = 0; jj < kSlice; ++jj) {
+    const int j = rank * kSlice + jj;
+    float2 sum = part[0][j * kRkvThreads + tid];
+#pragma unroll
+    for (int r = 1; r < kRkvCluster; ++r) {
+      const float2 x = part[r][j * kRkvThreads + tid];
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    // pair jl holds fragment entries 2 jl, 2 jl + 1: n-tile jl / 2, row
+    // half jl % 2
+    const bool is_v = j >= kPairs / 2;
+    const int jl = is_v ? j - kPairs / 2 : j;
+    const int row = kr_a + 8 * (jl & 1);
+    const int d = (jl >> 1) * 8 + 2 * tq;
+    if (row >= a.S) continue;
+    float* out = (is_v ? a.dv : a.dk) +
+                 ((static_cast<long long>(b) * a.S + row) * a.KV + hk) * a.D;
+    const float mul = is_v ? 1.f : a.scale;
+    if (d < a.D) out[d] += mul * sum.x;
+    if (d + 1 < a.D) out[d + 1] += mul * sum.y;
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+size_t wgmma_smem_bytes(int which, int Dp) {
+  if (which == 1) {
+    return static_cast<size_t>(64) * Dp * 2 * (2 * kRqGroups + 2 * kRqStages);
+  }
+  return static_cast<size_t>(64) * Dp * 2 * 2 +
+         static_cast<size_t>(kRkvStages) * rkv_stage_bytes(Dp);
+}
+
+// shared memory of each scalar kernel, in bytes (0 = fwd, 1 = dq, 2 = dkv)
 size_t smem_bytes(int which, int D) {
   const size_t tile = static_cast<size_t>(kTile) * (D + 1);
   const size_t ptile = static_cast<size_t>(kTile) * kLdP;
@@ -583,6 +1040,42 @@ int launch(Kernel kernel, const Args& a, dim3 grid, size_t smem,
   }
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// which: 1 = K3q, 2 = K3kv, on the tensor cores
+template <int kD>
+int launch_wgmma(int which, const Args& a, bool vec, int B,
+                 cudaStream_t stream) {
+  void (*kernel)(Args, int) =
+      which == 1 ? ring_dq_wgmma_kernel<kD> : ring_dkv_wgmma_kernel<kD>;
+  const size_t smem = wgmma_smem_bytes(which, kD);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_t = (a.S + 63) / 64;
+  // K3q: blocks of kRqGroups (q tile, head) units per kv head; K3kv: a
+  // cluster of kRkvCluster blocks per (kv tile, kv head)
+  const int blocks = which == 1
+                         ? (n_t * a.G + kRqGroups - 1) / kRqGroups * a.KV
+                         : n_t * a.KV * kRkvCluster;
+  const int threads = which == 1 ? kRqThreads : kRkvThreads;
+  kernel<<<dim3(blocks, 1, B), threads, smem, stream>>>(a, vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3q or K3kv on bf16 inputs q, k, v, dout: D zero-padded to 16, 32, 64 or
+// 128, 16-byte copies where the inputs allow them
+int launch_wgmma_padded(int which, const Args& a, const long long* strides,
+                        int B, cudaStream_t st) {
+  const void* in[] = {a.q, a.k, a.v, a.dout};
+  const bool vec = mma_tiles::vec_copies(a.D, in, 4, strides);
+  switch (mma_tiles::padded_d(a.D)) {
+    case 16: return launch_wgmma<16>(which, a, vec, B, st);
+    case 32: return launch_wgmma<32>(which, a, vec, B, st);
+    case 64: return launch_wgmma<64>(which, a, vec, B, st);
+    default: return launch_wgmma<128>(which, a, vec, B, st);
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -625,10 +1118,16 @@ bool bad_shape(int B, int S, int H, int KV, int D) {
 
 extern "C" {
 
-// Largest head_dim the kernels take, and each kernel's shared memory.
+// Largest head_dim the kernels take, and the shared memory of the kernel
+// that `which` (0 = K3f, 1 = K3q, 2 = K3kv) launches on inputs of `dtype`
+// (bf16 K3q and K3kv: the tensor-core kernels at D padded).
 int ring_max_head_dim() { return kMaxD; }
 
-long long ring_smem_bytes(int which, int D) {
+long long ring_smem_bytes(int which, int D, int dtype) {
+  if (dtype == 1 && which > 0) {
+    return static_cast<long long>(
+        wgmma_smem_bytes(which, mma_tiles::padded_d(D)));
+  }
   return static_cast<long long>(smem_bytes(which, D));
 }
 
@@ -636,7 +1135,8 @@ long long ring_smem_bytes(int which, int D) {
 // (and for the backward dout) as (batch, position, head) element strides;
 // unit stride on D.  q_off*/k_off*: global starts of the two half-chunks of
 // the q shard and of the resident kv shard.  window <= 0: none.  Each
-// returns the launch's cudaError_t.
+// returns the launch's cudaError_t.  bf16 K3q and K3kv launch the
+// tensor-core kernels, and a launch they refuse returns its error.
 int ring_fwd_launch(const void* q, const void* k, const void* v, float* m,
                     float* l, float* acc, const long long* strides, int B,
                     int S, int H, int KV, int D, int q_off0, int q_off1,
@@ -671,10 +1171,8 @@ int ring_dq_launch(const void* q, const void* k, const void* v,
   a.dq = dq;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch(ring_dq_kernel<float>, a, grid, smem_bytes(1, D), st);
-  if (dtype == 1) {
-    return launch(ring_dq_kernel<__nv_bfloat16>, a, grid, smem_bytes(1, D), st);
-  }
+  if (dtype == 0) return launch(ring_dq_kernel, a, grid, smem_bytes(1, D), st);
+  if (dtype == 1) return launch_wgmma_padded(1, a, strides, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -693,10 +1191,8 @@ int ring_dkv_launch(const void* q, const void* k, const void* v,
   a.dv = dv;
   const dim3 grid((S + kTile - 1) / kTile, KV, B);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch(ring_dkv_kernel<float>, a, grid, smem_bytes(2, D), st);
-  if (dtype == 1) {
-    return launch(ring_dkv_kernel<__nv_bfloat16>, a, grid, smem_bytes(2, D), st);
-  }
+  if (dtype == 0) return launch(ring_dkv_kernel, a, grid, smem_bytes(2, D), st);
+  if (dtype == 1) return launch_wgmma_padded(2, a, strides, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

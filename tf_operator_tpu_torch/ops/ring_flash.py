@@ -19,9 +19,14 @@ kernel launch:
 
 CUDA tensors launch csrc/ring_flash.cu (built by kernels.py at first use)
 or raise; each wrapper adds one to its count in `launches` per launch.
+bf16 K3q and K3kv take the tensor-core designs (`wgmma`, cp.async rings;
+K3kv a cluster of 2 blocks per kv tile whose partials meet in
+distributed shared memory) and also count in `launches["ring_dq_mma"]`
+and `["ring_dkv_mma"]`; f32 inputs, and K3f, run the scalar f32 designs.
 CPU tensors run the plain versions `carry_fwd_plain`, `ring_dq_plain` and
 `ring_dkv_plain`: the kernels' arithmetic on one (member, step) in
-whole-shard tensor ops.
+whole-shard tensor ops.  `span_live` and `span_full` are the rule by which
+the kernels skip tiles and drop the per-element mask.
 
 Masks use global ids: a member's shard is two half-chunks whose global
 starts are `offsets(idx, n, S_l, layout)` (contiguous: adjacent halves;
@@ -57,8 +62,10 @@ NEG_INF = -1e30
 POS_INF = 1e30
 
 # kernel launches since the last reset, per kernel (plain-version calls
-# are not counted)
-launches: Dict[str, int] = {"ring_fwd": 0, "ring_dq": 0, "ring_dkv": 0}
+# are not counted); the *_mma counts: the bf16 launches among them, which
+# ran on the tensor cores
+launches: Dict[str, int] = {"ring_fwd": 0, "ring_dq": 0, "ring_dq_mma": 0,
+                            "ring_dkv": 0, "ring_dkv_mma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
@@ -81,6 +88,54 @@ def offsets(idx: int, n: int, s_local: int, layout: str) -> Offsets:
     if layout == "zigzag":
         return idx * half, (2 * n - 1 - idx) * half
     return idx * s_local, idx * s_local + half
+
+
+# ------------------------------------------------------ which tiles run
+def _id_hull(r_lo: int, r_hi: int, off: Offsets, s: int) -> Tuple[int, int]:
+    """(lo, hi): the hull of the global ids of local rows r_lo ..
+    min(r_hi, s - 1) of a shard with half-chunk starts off."""
+    half, r_hi = s // 2, min(r_hi, s - 1)
+    ids = []
+    if r_lo < half:
+        ids += [off[0] + r_lo, off[0] + min(r_hi, half - 1)]
+    if r_hi >= half:
+        ids += [off[1] + max(r_lo, half) - half, off[1] + r_hi - half]
+    return min(ids), max(ids)
+
+
+def span_live(q_lo: int, q_hi: int, k_lo: int, k_hi: int, q_off: Offsets,
+              k_off: Offsets, s: int, causal: bool,
+              window: Optional[int] = None) -> bool:
+    """The kernels' `span_live` (csrc/ring_flash.cu): whether local q
+    rows q_lo .. q_hi and keys k_lo .. k_hi may hold a visible pair.  A
+    span that the kernels skip is one this returns False for: judged on
+    the hulls of the spans' global ids, so it never drops a visible
+    pair, and errs towards True only for spans straddling the halves."""
+    if q_lo >= s or k_lo >= s:
+        return False
+    if not causal:
+        return True
+    qa, qb = _id_hull(q_lo, q_hi, q_off, s)
+    ka, kb = _id_hull(k_lo, k_hi, k_off, s)
+    return ka <= qb and (window is None or kb > qa - window)
+
+
+def span_full(q_lo: int, q_hi: int, k_lo: int, k_hi: int, q_off: Offsets,
+              k_off: Offsets, s: int, causal: bool,
+              window: Optional[int] = None) -> bool:
+    """The kernels' `span_full`: whether every pair of the spans is
+    visible, so the per-element test is skipped.  Both spans must lie
+    inside S and inside one half-chunk."""
+    if q_hi >= s or k_hi >= s:
+        return False
+    if not causal:
+        return True
+    half = s // 2
+    if q_lo < half <= q_hi or k_lo < half <= k_hi:
+        return False
+    qa, qb = _id_hull(q_lo, q_hi, q_off, s)
+    ka, kb = _id_hull(k_lo, k_hi, k_off, s)
+    return kb <= qa and (window is None or ka > qb - window)
 
 
 # ---------------------------------------------------------- plain versions
@@ -204,7 +259,7 @@ def _load() -> ctypes.CDLL:
             fn.restype = i32
         lib.ring_max_head_dim.argtypes = []
         lib.ring_max_head_dim.restype = i32
-        lib.ring_smem_bytes.argtypes = [i32, i32]
+        lib.ring_smem_bytes.argtypes = [i32, i32, i32]
         lib.ring_smem_bytes.restype = ctypes.c_longlong
         lib.ring_error_string.argtypes = [i32]
         lib.ring_error_string.restype = ctypes.c_char_p
@@ -255,7 +310,7 @@ def _check(which: int, inputs: Dict[str, torch.Tensor],
     if d > lib.ring_max_head_dim():
         raise ValueError(f"head_dim {d} > the kernels' "
                          f"{lib.ring_max_head_dim()}")
-    if lib.ring_smem_bytes(which, d) > _MAX_SMEM:
+    if lib.ring_smem_bytes(which, d, _DTYPES[q.dtype]) > _MAX_SMEM:
         raise ValueError(f"head_dim {d} needs more shared memory than one "
                          f"block can have")
     if b > 65535 or h > 65535:
@@ -325,6 +380,8 @@ def ring_dq(q, k, v, do, lse, delta, dq, q_off: Offsets, k_off: Offsets,
         *_shape_args(q, k, q_off, k_off, causal, window))
     _raise_on(err, lib, "ring_dq")
     launches["ring_dq"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["ring_dq_mma"] += 1
 
 
 def ring_dkv(q, k, v, do, lse, delta, dk, dv, q_off: Offsets,
@@ -347,6 +404,8 @@ def ring_dkv(q, k, v, do, lse, delta, dk, dv, q_off: Offsets,
         *_shape_args(q, k, q_off, k_off, causal, window))
     _raise_on(err, lib, "ring_dkv")
     launches["ring_dkv"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["ring_dkv_mma"] += 1
 
 
 # ------------------------------------------------------------------- ring
