@@ -1095,8 +1095,8 @@ def kernel3_phase() -> dict:
     """K3f, K3q and K3kv against their plain versions on one (member,
     step) each of the cases below, bf16 and f32; two launches must give
     the same bits, a dead step must leave every accumulator as it was,
-    and every bf16 K3q and K3kv launch must run on the tensor cores (no
-    f32 one).  Then, in bf16, the last member's launches over its
+    and every bf16 K3f, K3q and K3kv launch must run on the tensor cores
+    (no f32 one).  Then, in bf16, the last member's launches over its
     ring (3 past steps and its diagonal: the most work of any member)
     timed beside the same plain calls, their bound, and SDPA of that
     member's q against the whole sequence's k/v under the global causal
@@ -1153,11 +1153,14 @@ def kernel3_phase() -> dict:
                 runs.append({"ring_fwd": st, "ring_dq": (dq,),
                              "ring_dkv": (dk, dv)})
             torch.cuda.synchronize()
-            mma = {n: rf.launches[n] - before[n]
-                   for n in ("ring_dq_mma", "ring_dkv_mma")}
-            if mma != dict.fromkeys(mma, 2 if dt == torch.bfloat16 else 0):
-                raise AssertionError(f"[kernel3] {dt} tensor-core launches "
-                                     f"{mma} of 2 each")
+            counts = {n: rf.launches[n] - before[n] for n in rf.launches}
+            mma = {f"{n}_mma": counts[f"{n}_mma"] for n in RING}
+            if any(counts[n] != 2 for n in RING) or mma != {
+                    f"{n}_mma": counts[n] if dt == torch.bfloat16 else 0
+                    for n in RING}:
+                raise AssertionError(f"[kernel3] {dt} launches {counts}: 2 "
+                                     f"of each, all on the tensor cores in "
+                                     f"bf16, none in f32")
             dead = src > my and layout == "contiguous"
             line = []
             for name in RING:
@@ -1377,9 +1380,9 @@ def ring_train_phase(first_loss: float) -> dict:
                              f"than 2e-2")
     live = ring_live_pairs(RING_N, TS // RING_N, "contiguous")
     bwd = live * cfg.n_layers * TRAIN_STEPS
-    # every bf16 K3q and K3kv launch on the tensor cores
-    want = {"ring_fwd": 2 * bwd, "ring_dq": bwd, "ring_dq_mma": bwd,
-            "ring_dkv": bwd, "ring_dkv_mma": bwd}
+    # every bf16 K3f, K3q and K3kv launch on the tensor cores
+    want = {"ring_fwd": 2 * bwd, "ring_fwd_mma": 2 * bwd, "ring_dq": bwd,
+            "ring_dq_mma": bwd, "ring_dkv": bwd, "ring_dkv_mma": bwd}
     if launches != want or any(k2.values()):
         raise AssertionError(f"[ring-train] K3 launches {launches}, expected "
                              f"{want} ({live} live pairs per layer); K2 "
@@ -1462,8 +1465,9 @@ def ring_parity_phase() -> None:
                                  f"{label} disagree")
     live = ring_live_pairs(RING_N, seq // RING_N, "zigzag")
     # remat: the forward runs again in the backward pass
-    want_k3 = {"ring_fwd": 2 * 2 * live, "ring_dq": 2 * live,
-               "ring_dq_mma": 0, "ring_dkv": 2 * live, "ring_dkv_mma": 0}
+    want_k3 = {"ring_fwd": 2 * 2 * live, "ring_fwd_mma": 0,
+               "ring_dq": 2 * live, "ring_dq_mma": 0, "ring_dkv": 2 * live,
+               "ring_dkv_mma": 0}
     if k3 != want_k3 or k2 != F32_K2_LAUNCHES:
         raise AssertionError(f"[ring-parity] launches K3 {k3} (expected "
                              f"{want_k3}), K2 {k2}")
@@ -1483,9 +1487,9 @@ def ring_entry_phase() -> None:
     torch.cuda.synchronize()
     k3, k2 = dict(rf.launches), dict(fa.launches)
     # tiny: 2 layers, no remat, a ring of one member: one pair per layer;
-    # bf16 compute (D = 16), so K3q and K3kv run on the tensor cores
-    want = {"ring_fwd": 4, "ring_dq": 4, "ring_dq_mma": 4, "ring_dkv": 4,
-            "ring_dkv_mma": 4}
+    # bf16 compute (D = 16), so K3f, K3q and K3kv run on the tensor cores
+    want = {"ring_fwd": 4, "ring_fwd_mma": 4, "ring_dq": 4, "ring_dq_mma": 4,
+            "ring_dkv": 4, "ring_dkv_mma": 4}
     log(f"[entry] train_llama --smoke --ring --steps 2: exit {rc}, K3 "
         f"launches {json.dumps(k3)}, K2 {json.dumps(k2)}")
     if rc != 0 or k3 != want or any(k2.values()):

@@ -449,7 +449,7 @@ def test_ring_step_kernels_match_plain(dtype, s, h, kv, d, layout, my, src,
     leaves every accumulator as it was), zigzag offsets with tiles
     straddling the halves (S_l = 90), a window, rows that saw no key,
     and lse = POS_INF rows; two launches give the same bits and each
-    counts one launch, every bf16 K3q and K3kv launch on the tensor
+    counts one launch, every bf16 K3f, K3q and K3kv launch on the tensor
     cores and no f32 one."""
     (q, k, v, do), (m, l, acc, lse, delta) = _ring_step_case(
         s + d, s=s, h=h, kv=kv, d=d, dtype=dtype, carry=carry)
@@ -472,8 +472,8 @@ def test_ring_step_kernels_match_plain(dtype, s, h, kv, d, layout, my, src,
     torch.cuda.synchronize()
     mma = 2 if dtype == torch.bfloat16 else 0
     assert {n: trf.launches[n] - before[n] for n in before} == \
-        {"ring_fwd": 2, "ring_dq": 2, "ring_dq_mma": mma, "ring_dkv": 2,
-         "ring_dkv_mma": mma}
+        {"ring_fwd": 2, "ring_fwd_mma": mma, "ring_dq": 2,
+         "ring_dq_mma": mma, "ring_dkv": 2, "ring_dkv_mma": mma}
     tol = RING_TOL[dtype]
     dead = layout == "contiguous" and src > my
     for name, a, b, ref, was in zip(["m", "l", "acc", "dq", "dk", "dv"],
@@ -514,7 +514,7 @@ def test_ring_backward_kernels_match_plain(dtype, s, h, kv, d, layout, my,
     zero-padded (20: element copies), G = 1 to 4, S_l = 200 zigzag (a
     tile straddles the half), windows of 40, 64 and 512, no mask, a
     future (dead) step that leaves every accumulator as it was, lse = POS_INF
-    rows; two launches give the same bits; every bf16 K3q and K3kv
+    rows; two launches give the same bits; every bf16 K3f, K3q and K3kv
     launch on the tensor cores and no f32 one.  K3f's carry is held as
     (m, l, acc / l), the output the finish forms: acc is an unnormalized
     sum whose bf16 rounding grows with l."""
@@ -542,8 +542,8 @@ def test_ring_backward_kernels_match_plain(dtype, s, h, kv, d, layout, my,
     torch.cuda.synchronize()
     mma = 2 if dtype == torch.bfloat16 else 0
     assert {n: trf.launches[n] - before[n] for n in before} == \
-        {"ring_fwd": 2, "ring_dq": 2, "ring_dq_mma": mma, "ring_dkv": 2,
-         "ring_dkv_mma": mma}
+        {"ring_fwd": 2, "ring_fwd_mma": mma, "ring_dq": 2,
+         "ring_dq_mma": mma, "ring_dkv": 2, "ring_dkv_mma": mma}
     tol = RING_TOL[dtype]
     dead = causal and layout == "contiguous" and src > my
     for name, a, b, ref in zip(["m", "l", "acc", "dq", "dk", "dv"], *runs,
@@ -555,6 +555,52 @@ def test_ring_backward_kernels_match_plain(dtype, s, h, kv, d, layout, my,
     if dead:
         assert all(torch.equal(a, b) for a, b in zip(runs[0][:3],
                                                      as_out(m, l, acc)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kv,d,layout,my,src,window,dead_tiles", [
+    (512, 8, 2, 128, "contiguous", 3, 2, 64, [1, 2, 3, 4, 5, 6, 7]),
+    (256, 4, 2, 64, "contiguous", 1, 0, 64, [1, 2, 3]),
+    (200, 4, 2, 32, "zigzag", 2, 1, 30, [])])
+def test_ring_fwd_rows_that_see_nothing_keep_their_bits(
+        dtype, s, h, kv, d, layout, my, src, window, dead_tiles):
+    """A live step whose window leaves rows with no visible key: q tiles
+    with no live kv tile (their warpgroups read and write none of the
+    carry) and, in live tiles, rows that every key is hidden from (corr =
+    1 and p = 0; the zigzag tiles straddle the half and are all taken as
+    live).  Those rows of m, l and acc keep their bits, those whose carry
+    is the -1e30 seed too; the other rows agree with the plain version;
+    every bf16 launch runs on the tensor cores."""
+    (q, k, v, _), (m, l, acc, _, _) = _ring_step_case(
+        s + d + 2, s=s, h=h, kv=kv, d=d, dtype=dtype, carry="masked")
+    q_off, k_off = (trf.offsets(my, 4, s, layout),
+                    trf.offsets(src, 4, s, layout))
+    offs = (q_off, k_off, True, window)
+    n_t = -(-s // 64)
+    assert dead_tiles == [qt for qt in range(n_t) if not any(
+        trf.span_live(64 * qt, 64 * qt + 63, 64 * kt, 64 * kt + 63, q_off,
+                      k_off, s, True, window) for kt in range(n_t))]
+    blind = ~trf._mask(q_off, k_off, s, True, window, "cuda").any(dim=1)
+    assert blind.any() and not blind.all()
+    assert (m[:, :, blind] == trf.NEG_INF).any()
+    want = trf.carry_fwd_plain(q, k, v, m, l, acc, *offs)
+    st = [t.clone() for t in (m, l, acc)]
+    before = dict(trf.launches)
+    trf.ring_fwd(q, k, v, *st, *offs)
+    torch.cuda.synchronize()
+    assert trf.launches["ring_fwd"] - before["ring_fwd"] == 1
+    assert trf.launches["ring_fwd_mma"] - before["ring_fwd_mma"] == (
+        1 if dtype == torch.bfloat16 else 0)
+    l_safe = lambda x: torch.where(x == 0.0, 1.0, x).transpose(1, 2)[..., None]
+    tol = RING_TOL[dtype]
+    for name, got, was, ref in zip(("m", "l", "acc"), st, (m, l, acc), want):
+        rows = (lambda t, r: t[:, r]) if name == "acc" else (
+            lambda t, r: t[:, :, r])
+        assert torch.equal(rows(got, blind), rows(was, blind)), name
+        if name == "acc":  # held as acc / l, the output the finish forms
+            got, ref = got / l_safe(st[1]), ref / l_safe(want[1])
+        torch.testing.assert_close(rows(got, ~blind), rows(ref, ~blind),
+                                   rtol=tol, atol=tol, msg=name)
 
 
 @pytest.mark.parametrize("layout,window", [("contiguous", None),
@@ -577,9 +623,9 @@ def test_ring_function_on_card_matches_cpu(layout, window):
     live = sum(zigzag.pair_live(my, src, 4, 48, layout, window)
                for my in range(4) for src in range(4))
     assert live == 10 if layout == "contiguous" else live < 16
-    assert trf.launches == {"ring_fwd": live, "ring_dq": live,
-                            "ring_dq_mma": 0, "ring_dkv": live,
-                            "ring_dkv_mma": 0}
+    assert trf.launches == {"ring_fwd": live, "ring_fwd_mma": 0,
+                            "ring_dq": live, "ring_dq_mma": 0,
+                            "ring_dkv": live, "ring_dkv_mma": 0}
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 

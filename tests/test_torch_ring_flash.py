@@ -118,8 +118,8 @@ def test_ring_flash_matches_jax(kv, causal, layout, window, dt):
     assert fn.supports_gqa
     trf.reset_launches()
     _close(_port_ring(fn, x, causal, window, dt), want, dt)
-    assert trf.launches == {"ring_fwd": 0, "ring_dq": 0, "ring_dq_mma": 0,
-                            "ring_dkv": 0, "ring_dkv_mma": 0}
+    assert trf.launches == {"ring_fwd": 0, "ring_fwd_mma": 0, "ring_dq": 0,
+                            "ring_dq_mma": 0, "ring_dkv": 0, "ring_dkv_mma": 0}
 
 
 @pytest.mark.parametrize("kv,causal,layout,window,dt",

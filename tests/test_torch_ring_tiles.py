@@ -12,6 +12,11 @@ rows x 16 kv rows (K3kv's `full`, per warp).  No span holding a visible
 pair may be skipped, and no span taken as full may hold a hidden pair;
 spans inside one half-chunk are judged exactly, so no work is wasted
 there either.
+
+The tensor-core K3f's (and K3q's) map from (block, warpgroup) to (q tile,
+query head), mirrored by `fwd_units`, must cover every (q tile, head) of
+a step exactly once: a unit no warpgroup takes would silently keep its
+carry as it was.
 """
 import numpy as np
 import pytest
@@ -91,3 +96,24 @@ def test_contiguous_diagonal_skips_the_future_tiles():
     full = np.array([trf.span_full(*args(*t)) for t in tiles]).reshape(8, 8)
     assert (live == np.tril(np.ones((8, 8), bool))).all()
     assert (full == np.tril(np.ones((8, 8), bool), -1)).all()
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("h,kv", [(32, 8), (4, 2), (8, 8), (6, 2)])
+@pytest.mark.parametrize("s", [512, 256, 200, 192, 90, 48])
+def test_fwd_units_cover_every_q_tile_and_head_once(s, h, kv, groups):
+    units = trf.fwd_units(s, h, kv, groups)
+    n_t = -(-s // 64)
+    taken = sorted((qt, head) for _, _, qt, head in units)
+    assert taken == [(qt, head) for qt in range(n_t) for head in range(h)]
+    # the launcher's grid: ceil(n_t G / groups) blocks per kv head; each
+    # (block, warpgroup) holds at most one unit, and a block's units share
+    # one kv head, so its K and V tiles serve all of them
+    blocks = -(-(n_t * (h // kv)) // groups) * kv
+    assert {x for x, _, _, _ in units} == set(range(blocks))
+    assert len({(x, wg) for x, wg, _, _ in units}) == len(units)
+    assert all(0 <= wg < groups and head // (h // kv) == x % kv
+               for x, wg, _, head in units)
+    # heaviest first: the q tiles of the blocks in launch order never rise
+    first = [qt for _, wg, qt, _ in units if wg == 0]
+    assert first == sorted(first, reverse=True)

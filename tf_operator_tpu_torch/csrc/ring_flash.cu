@@ -49,7 +49,7 @@
 // state is contiguous f32: m, l, lse, delta [B, H, S]; acc, dq [B, S, H, D];
 // dk, dv [B, S, KV, D].  Rows and keys past S are masked.
 //
-// The scalar design (f32 inputs, and K3f): one block of 256 threads per
+// The scalar design (f32 inputs): one block of 256 threads per
 // (64-row tile, head, batch); each tile of Q, K, V, dO is staged in shared
 // memory as f32 (row stride D + 1 against bank conflicts).  Thread (ty, tx)
 // of the 16 x 16 grid owns score rows ty + 16 i and columns tx + 16 j
@@ -58,9 +58,26 @@
 // inputs keep it: the tensor cores would round them to TF32, and the f32
 // parity checks hold the ring to full f32.
 //
-// K3q and K3kv on bf16 inputs take the tensor-core designs of K2q and K2kv
+// bf16 inputs take the tensor-core designs of K2f, K2q and K2kv
 // (csrc/flash_attention.cu; tiles, descriptors and products shared through
 // mma_tiles.cuh):
+//   - K3f (ring_fwd_wgmma_kernel) is K2f's block with kRfGroups = 2
+//     warpgroups, each 64 q rows of one query head of one GQA group: Q
+//     K-major, K and V tiles of 64 keys staged once for both as bf16 by
+//     16-byte cp.async copies in a 3-stage ring two tiles ahead (V
+//     MN-major), S = Q K^T by wgmma.m64n64k16 from shared memory and O +=
+//     P V by wgmma.m64n{D}k16 with p in registers, in the TPU's order acc
+//     corr + PV per tile; row max and sum as trees over a thread's 16
+//     entries, since at 8 warps an SM the scalar step is latency-bound.  The
+//     carry stays in device memory: m and l of the warpgroup's rows are
+//     read into registers and its 64 x D block of acc straight into the O
+//     accumulator fragments, issued before the first tile is waited for,
+//     so that the f32 read overlaps the first copies and the first S
+//     product; all are written back at the end, acc 8 bytes at a time.  A
+//     warpgroup whose unit sees no tile of the step reads and writes
+//     nothing, and a row a live tile adds nothing to (corr = 1, p = 0)
+//     keeps its bits.  Each tile is tested (span_live), not a run t_lo ..
+//     t_hi as in K2f, and blocks start heaviest first;
 //   - p = exp(S scale - lse) and dS = p (dP - delta) are formed in registers
 //     from two wgmma score products over D and become, rounded to bf16, the
 //     A operand of the gradient product, whose B is a tile already staged for
@@ -69,11 +86,9 @@
 //     cp.async copies (element copies where a stride or D forbids them;
 //     D zero-padded to 16, 32, 64 or 128);
 //   - K3q (ring_dq_wgmma_kernel) is K2q's block with kRqGroups = 2
-//     warpgroups, each 64 q rows of one query head, 64 keys at a time: K
-//     and V tiles are staged once for both in a 3-stage ring, the tiles no
-//     unit of the block sees are skipped, and blocks start heaviest first.
-//     Two warpgroups, not K2q's four: at the ring's S_l = 512 (8 q tiles x
-//     4 heads x 8 kv heads) that is 128 blocks that hold work, not 64;
+//     warpgroups on K3f's unit map, 64 keys at a time: K and V tiles are
+//     staged once for both in a 3-stage ring, the tiles no unit of the
+//     block sees are skipped, and blocks start heaviest first;
 //   - K3kv (ring_dkv_wgmma_kernel) makes the kv rows M, as K2kv: K and V
 //     stay in shared memory, dK and dV are f32 registers (kD / 2 each), and
 //     the units (query head of the group, live q tile) stream through a
@@ -85,21 +100,25 @@
 //     in rank order, each rank summing half of the elements and adding it
 //     to dk or dv.  On the H100 clusters of 2 ran faster than of 4, and
 //     far faster than single blocks (PERF.md);
-//   - p = exp(S scale - lse) is taken as 2^(S scale log2 e - lse log2 e) by
-//     ex2.approx (a few ulp, as K2's __expf; well below the bf16 rounding of
-//     p and dS);
-//   - in place: each element of dq, dk and dv is read, added to and written
-//     back once per launch, by one thread.  No atomics, so repeats are
-//     bit-identical.
+//   - p is taken by ex2.approx as 2^(S scale log2 e - c log2 e), c the row
+//     max m (K3f) or lse (K3q, K3kv): a few ulp, as K2's __expf, well below
+//     the bf16 rounding of p and dS;
+//   - in place: each element of m, l, acc, dq, dk and dv is read and
+//     written back once per launch, by one thread.  No atomics, so repeats
+//     are bit-identical.
+// Two warpgroups a block in K3f and K3q, not K2's four: at the ring's S_l
+// = 512 (8 q tiles x 4 heads x 8 kv heads) that is 128 blocks that hold
+// work, not 64, for 132 SMs.
 //
 // What bounds it on this card: at the ring-train shapes (S_l = 512, H = 32,
 // KV = 8, D = 128, bf16) one full K3f step moves about 23 MB (the f32 acc
 // read and written is 16.8 MB of it: 7.0 us at 3.35 TB/s) against 4.3
-// GFLOP of products (4.3 us at 989 TFLOP/s): bound by bytes.  K3q and K3kv
-// read no f32 carry but add 8.4 MB and 4.2 MB of f32 accumulators in place
-// against 3 and 4 products.  The scalar kernels do their products as
-// f32 FMAs (67 TFLOP/s peak) out of shared memory, far from either bound.
-// The numbers are in PERF.md.
+// GFLOP of products (4.3 us at 989 TFLOP/s): bound by bytes, and by the
+// carry above all, which is why K3f issues the carry's reads first.  K3q
+// and K3kv read no f32 carry but add 8.4 MB and 4.2 MB of f32 accumulators
+// in place against 3 and 4 products.  The scalar kernels do their
+// products as f32 FMAs (67 TFLOP/s peak) out of shared memory, far from
+// either bound.  The numbers are in PERF.md.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC
@@ -124,29 +143,6 @@ constexpr int kMaxD = 128;
 constexpr int kDCols = kMaxD / kTx;     // accumulator columns per thread
 constexpr int kLdP = kTile + 1;         // row stride of the p / dS tiles
 constexpr float kNegInf = -1e30f;       // the TPU kernel's NEG_INF
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-// x rounded to T and back: p and dS enter their products in the input type
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 struct Args {
   const void* q;
@@ -258,19 +254,18 @@ __device__ __forceinline__ bool tile_live(int q0, int k0, const Args& a) {
   return span_live(q0, q0 + kTile - 1, k0, k0 + kTile - 1, a);
 }
 
-// Stage rows row0 .. row0 + kTile - 1 of head h of a [B, S, Hx, D] tensor
-// into dst [kTile][D + 1] as f32; rows past S are zero.
-template <typename T>
+// Stage rows row0 .. row0 + kTile - 1 of head h of a [B, S, Hx, D] f32
+// tensor into dst [kTile][D + 1]; rows past S are zero.
 __device__ __forceinline__ void load_tile(float* dst, const void* src,
                                           long long sb, long long ss,
                                           long long sh, int b, int h,
                                           int row0, const Args& a) {
-  const T* p = static_cast<const T*>(src) + b * sb + h * sh;
+  const float* p = static_cast<const float*>(src) + b * sb + h * sh;
   const int D = a.D, ld = D + 1;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i - (i / D) * D;
     const int row = row0 + r;
-    dst[r * ld + d] = row < a.S ? to_f32(p[row * ss + d]) : 0.f;
+    dst[r * ld + d] = row < a.S ? p[row * ss + d] : 0.f;
   }
 }
 
@@ -287,19 +282,20 @@ __device__ __forceinline__ void load_stat(float* dst, const float* src,
 }
 
 // ---------------------------------------------------------------- K3f
-template <typename T>
+// The scalar kernels take f32 inputs only (bf16 runs on the tensor
+// cores), so p and dS need no rounding here.
 __global__ void __launch_bounds__(kThreads) ring_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   const int D = a.D, ld = D + 1;
   float* qs = smem;              // [kTile][ld]
   float* ks = qs + kTile * ld;   // [kTile][ld]
   float* vs = ks + kTile * ld;   // [kTile][ld]
-  float* ps = vs + kTile * ld;   // [kTile][kLdP] p rounded to V's type
+  float* ps = vs + kTile * ld;   // [kTile][kLdP] p
 
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.G;
-  load_tile<T>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
+  load_tile(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
 
   // the carry in: every lane of a row reads the same m and l
   const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
@@ -324,8 +320,8 @@ __global__ void __launch_bounds__(kThreads) ring_fwd_kernel(Args a) {
     const int k0 = t * kTile;
     if (!tile_live(q0, k0, a)) continue;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
-    load_tile<T>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
+    load_tile(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
+    load_tile(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
     __syncthreads();
 
     float s[kRows][kRows];
@@ -365,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) ring_fwd_kernel(Args a) {
       for (int j = 0; j < kRows; ++j) {
         const float p = vis[j] ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
-        ps[r * kLdP + tx + kTx * j] = round_to<T>(p);
+        ps[r * kLdP + tx + kTx * j] = p;
       }
       corr[i] = expf(fminf(m[i] - m_new, 0.f));
       l[i] = l[i] * corr[i] + warp_sum16(psum);
@@ -446,8 +442,6 @@ __device__ __forceinline__ void score_and_dp(const float* qs, const float* dos,
 }
 
 // ---------------------------------------------------------------- K3q
-// The scalar K3q and K3kv take f32 inputs only (bf16 runs on the tensor
-// cores), so p and dS need no rounding here.
 __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
   extern __shared__ float smem[];
   const int D = a.D, ld = D + 1;
@@ -462,8 +456,8 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / a.G;
-  load_tile<float>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
-  load_tile<float>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
+  load_tile(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
+  load_tile(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
   load_stat(lse_s, a.lse, b, h, q0, a);
   load_stat(delta_s, a.delta, b, h, q0, a);
 
@@ -479,8 +473,8 @@ __global__ void __launch_bounds__(kThreads) ring_dq_kernel(Args a) {
     const int k0 = t * kTile;
     if (!tile_live(q0, k0, a)) continue;
     __syncthreads();
-    load_tile<float>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
-    load_tile<float>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
+    load_tile(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
+    load_tile(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
     __syncthreads();
 
     float s[kRows][kRows], dp[kRows][kRows];
@@ -544,8 +538,8 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
 
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
   const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  load_tile<float>(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
-  load_tile<float>(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
+  load_tile(ks, a.k, a.k_b, a.k_s, a.k_h, b, hk, k0, a);
+  load_tile(vs, a.v, a.v_b, a.v_s, a.v_h, b, hk, k0, a);
 
   // the thread's kv rows are ty + 16 i, its columns tx + 16 j
   float dk[kRows][kDCols], dv[kRows][kDCols];
@@ -565,8 +559,8 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
       const int q0 = qt * kTile;
       if (!tile_live(q0, k0, a)) continue;
       __syncthreads();
-      load_tile<float>(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
-      load_tile<float>(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
+      load_tile(qs, a.q, a.q_b, a.q_s, a.q_h, b, h, q0, a);
+      load_tile(dos, a.dout, a.o_b, a.o_s, a.o_h, b, h, q0, a);
       load_stat(lse_s, a.lse, b, h, q0, a);
       load_stat(delta_s, a.delta, b, h, q0, a);
       __syncthreads();
@@ -627,34 +621,292 @@ __global__ void __launch_bounds__(kThreads) ring_dkv_kernel(Args a) {
   }
 }
 
-// ------------------------------------------ K3q and K3kv, warpgroup products
+// ------------------------------------- K3f, K3q and K3kv, warpgroup products
+using mma_tiles::desc_over_d;
 using mma_tiles::grad_product;
 using mma_tiles::pack_a;
+using mma_tiles::pv_wgmma;
 using mma_tiles::score_products;
 using mma_tiles::stage_cm;
 
-// K3q: kRqGroups warpgroups of 64 q rows of one query head each
-// (consecutive units u = (q tile) G + (head in group) of one kv head), K
-// and V tiles of 64 keys staged once for the block in a kRqStages ring,
-// one barrier a tile.  Per warpgroup, kRqCols keys at a time: S = Q K^T
-// and dP = dO V^T, p = exp(S scale - lse), dS = p (dP - delta) rounded to
-// bf16, and dQ += dS K with K read MN-major.  Registers: dQ (kD / 2), S and
-// dP (kRqCols / 2 each) a thread.  In probe builds on the H100 at the
-// ring-train shapes, 64 keys at a time ran faster than 32, and 1 or 4
-// warpgroups a block slower than 2 (PERF.md).
-constexpr int kRqGroups = 2;
-constexpr int kRqThreads = 128 * kRqGroups;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x by the special-function unit (ex2.approx: a few ulp, far below the
-// bf16 rounding of p and dS).  p = exp(s scale - lse) is taken as
-// 2^(s (scale log2 e) - lse log2 e): one FMA and one ex2 an element, which
-// ran faster on the H100 than __expf of s scale - lse.
+// bf16 rounding of p and dS).  exp(x) is taken as 2^(x log2 e) with log2 e
+// folded into the scale: p = exp(s scale - c) is 2^(s (scale log2 e) -
+// c log2 e), one FMA and one ex2 an element, which ran faster on the H100
+// than __expf of s scale - c.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// The unit map of K3f and K3q: the units of a kv head's group are
+// u = (q tile) G + (head in group), 64 q rows of one query head each, and
+// a block of `groups` warpgroups takes `groups` consecutive units.
+// blockIdx.x runs over (unit block, kv head), kv head fastest, unit
+// blocks from the last: under a causal mask the heaviest start first.
+// Returns the block's first unit.  ops/ring_flash.fwd_units mirrors it.
+__device__ __forceinline__ int first_unit(int groups, const Args& a) {
+  return (gridDim.x / a.KV - 1 - blockIdx.x / a.KV) * groups;
+}
+
+// The first kv tile from t that any of units u0 .. u0 + groups - 1 (those
+// that exist) sees; n_t: none.  Each tile is tested: under zigzag shards
+// and windows the live tiles need not form one run.
+__device__ __forceinline__ int next_live_tile(int t, int u0, int groups,
+                                              int n_t, const Args& a) {
+  for (; t < n_t; ++t) {
+    for (int i = 0; i < groups && u0 + i < n_t * a.G; ++i) {
+      const int r0 = ((u0 + i) / a.G) * 64;
+      if (span_live(r0, r0 + 63, 64 * t, 64 * t + 63, a)) return t;
+    }
+  }
+  return n_t;
+}
+
+// K3f: kRfGroups warpgroups of 64 q rows of one query head each (the
+// units of first_unit), K and V tiles of 64 keys staged once for the
+// block in a kRfStages ring (K K-major, V MN-major), loaded two tiles
+// ahead, one barrier a tile.  Per warpgroup and live tile: S = Q K^T by
+// wgmma.m64n64k16 from shared memory, the online-softmax step on its
+// accumulators (row max and sum as trees), and O += P V by
+// wgmma.m64n{kD}k16 with p in registers, in the TPU's order acc corr +
+// PV.  The carry is read into registers (acc straight into the O
+// accumulator fragments) while the first tiles load, and written back
+// at the end, 8 bytes at a time where D and acc's alignment allow.
+// Registers: O (kD / 2) and S (32) a thread, 256 threads at up to 255.
+constexpr int kRfGroups = 2;
+constexpr int kRfThreads = 128 * kRfGroups;
+constexpr int kRfStages = 3;
+
+__device__ __forceinline__ float fmax2(float x, float y) { return fmaxf(x, y); }
+__device__ __forceinline__ float fsum(float x, float y) { return x + y; }
+
+// op over the thread's 16 entries of fragment row r (0: g, 1: g + 8) of
+// a 64-column score tile, as a tree: with 8 warps an SM the serial chain
+// of 16 was latency-bound (PERF.md)
+template <float (*op)(float, float)>
+__device__ __forceinline__ float row_tree(const float (&s)[32], int r) {
+  float x[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) x[n] = op(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1) {
+#pragma unroll
+    for (int n = 0; n < w; ++n) x[n] = op(x[n], x[n + w]);
+  }
+  return x[0];
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kRfThreads, 1)
+    ring_fwd_wgmma_kernel(Args a, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kTileBytes = 64 * kD * 2;
+  // MN-major V: 8 columns of D span 64 / 8 core matrices
+  constexpr uint32_t kSboV = (64 / 8) * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw;                     // [kRfGroups][64 x kD]
+  unsigned char* ks = qs + kRfGroups * kTileBytes;  // [kRfStages][64 x kD]
+  unsigned char* vs = ks + kRfStages * kTileBytes;  // the same, MN-major
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int n_t = (a.S + 63) / 64;
+  const int hk = blockIdx.x % a.KV, b = blockIdx.z;
+  const int u0 = first_unit(kRfGroups, a);
+  const int u = u0 + wg;
+  const int w0 = (u / a.G) * 64;  // the warpgroup's rows w0 .. w0 + 63
+  const int h = hk * a.G + u % a.G;
+  // a warpgroup whose unit sees no tile of this step reads and writes
+  // none of the carry
+  const bool active = u < n_t * a.G && next_live_tile(0, u, 1, n_t, a) < n_t;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
+
+  if (active) {
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_b + h * a.q_h;
+    stage_cm<kD, 64, false, 128>(qs + wg * kTileBytes, qb, a.q_s, w0, a.S,
+                                 a.D, vec, threadIdx.x % 128);
+  }
+  // K and V tile t into ring buffer buf; a commit group per tile, even
+  // when there is no tile, so that wait<1> always means "all but the
+  // newest"
+  auto stage_kv = [&](int t, int buf) {
+    if (t < n_t) {
+      stage_cm<kD, 64, false, kRfThreads>(ks + buf * kTileBytes, kb, a.k_s,
+                                          64 * t, a.S, a.D, vec, threadIdx.x);
+      stage_cm<kD, 64, true, kRfThreads>(vs + buf * kTileBytes, vb, a.v_s,
+                                         64 * t, a.S, a.D, vec, threadIdx.x);
+    }
+    mma_tiles::cp_async_commit();
+  };
+  // the block's first two tiles in flight at once (Q rides with the first)
+  int t = next_live_tile(0, u0, kRfGroups, n_t, a);
+  int t_nx = next_live_tile(t + 1, u0, kRfGroups, n_t, a);
+  stage_kv(t, 0);
+  stage_kv(t_nx, 1);
+
+  // the carry in, issued before the first tile is waited for: m and l of
+  // rows r_a and r_a + 8 (every lane of a quad reads the same), and acc
+  // as the O fragments, o[4 n + 2 i + e] = (row r_a + 8 i, column
+  // 8 n + 2 tq + e): each element read by its one owner
+  const int r_a = w0 + warp * 16 + g;
+  const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
+  const bool pairs =
+      a.D % 2 == 0 && reinterpret_cast<uintptr_t>(a.acc) % 8 == 0;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_a + 8 * i;
+      if (row >= a.S) continue;
+      m[i] = a.m[stat + row];
+      l[i] = a.l[stat + row];
+      const float* src =
+          a.acc + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        const int d = n * 8 + 2 * tq;
+        if (d >= a.D) continue;
+        if (pairs) {
+          const float2 x = *reinterpret_cast<const float2*>(src + d);
+          o[4 * n + 2 * i] = x.x;
+          o[4 * n + 2 * i + 1] = x.y;
+        } else {
+          o[4 * n + 2 * i] = src[d];
+          if (d + 1 < a.D) o[4 * n + 2 * i + 1] = src[d + 1];
+        }
+      }
+    }
+  }
+
+  const float scale2 = a.scale * kLog2e;
+  // the i-th tile seen sits in buffer i % kRfStages, loaded two tiles
+  // ahead: the buffer refilled at tile i was read at tile i - 1, behind
+  // this tile's barrier
+  for (int i = 0; t < n_t; ++i) {
+    mma_tiles::cp_async_wait<1>();  // all but tile t_nx have landed
+    mma_tiles::fence_proxy_async();
+    __syncthreads();
+    const int t2 = next_live_tile(t_nx + 1, u0, kRfGroups, n_t, a);
+    stage_kv(t2, (i + 2) % kRfStages);
+
+    // a warpgroup none of whose rows sees the tile leaves its carry as it
+    // is; it only keeps the block's barriers
+    const int k0 = 64 * t;
+    if (active && span_live(w0, w0 + 63, k0, k0 + 63, a)) {
+      const unsigned char* kt = ks + (i % kRfStages) * kTileBytes;
+      const unsigned char* vt = vs + (i % kRfStages) * kTileBytes;
+      float s[32];
+      mma_tiles::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        mma_tiles::wgmma_m64n64k16_ss(
+            s, desc_over_d<kD>(qs + wg * kTileBytes, 0, kk),
+            desc_over_d<kD>(kt, 0, kk), kk > 0);
+      }
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(s);
+
+      // masked scores become -inf: p is exactly 0, also while m is the
+      // -1e30 seed.  The row max is taken over the raw scores and scaled
+      // after (scaling by a positive factor keeps the order)
+      const bool full = span_full(w0 + warp * 16, w0 + warp * 16 + 15, k0,
+                                  k0 + 63, a);
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int ki = k0 + (j >> 2) * 8 + 2 * tq + (j & 1);
+          if (!visible(r_a + 8 * ((j >> 1) & 1), ki, a)) s[j] = -INFINITY;
+        }
+      }
+      float corr[2], m2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new =
+            fmaxf(m[r], mma_tiles::quad_max(row_tree<fmax2>(s, r)) * a.scale);
+        // a row the tile adds nothing to keeps its carry's bits
+        corr[r] = m_new == m[r] ? 1.f : ex2((m[r] - m_new) * kLog2e);
+        m2[r] = m_new * kLog2e;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        s[j] = ex2(fmaf(s[j], scale2, -m2[(j >> 1) & 1]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * corr[r] + mma_tiles::quad_sum(row_tree<fsum>(s, r));
+      }
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        o[4 * n] *= corr[0];
+        o[4 * n + 1] *= corr[0];
+        o[4 * n + 2] *= corr[1];
+        o[4 * n + 3] *= corr[1];
+      }
+      uint32_t p[4][4];
+      pack_a<64>(p, s);
+      mma_tiles::fence_regs(o);
+      mma_tiles::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pv_wgmma<kD>(o, p[kk],
+                     mma_tiles::smem_desc(vt + kk * 256, 128, kSboV));
+      }
+      mma_tiles::wgmma_commit();
+      mma_tiles::wgmma_wait<0>();
+      mma_tiles::fence_regs(o);
+    }
+    t = t_nx;
+    t_nx = t2;
+  }
+  mma_tiles::cp_async_wait<0>();
+  if (!active) return;
+
+  // the carry out, each element by its one owner
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_a + 8 * i;
+    if (row >= a.S) continue;
+    float* dst =
+        a.acc + ((static_cast<long long>(b) * a.S + row) * a.H + h) * a.D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int d = n * 8 + 2 * tq;
+      if (d >= a.D) continue;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst + d) =
+            make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+      } else {
+        dst[d] = o[4 * n + 2 * i];
+        if (d + 1 < a.D) dst[d + 1] = o[4 * n + 2 * i + 1];
+      }
+    }
+    if (tq == 0) {
+      a.m[stat + row] = m[i];
+      a.l[stat + row] = l[i];
+    }
+  }
+}
+
+// K3q: kRqGroups warpgroups of 64 q rows of one query head each (the
+// units of first_unit), K and V tiles of 64 keys staged once for the
+// block in a kRqStages ring, one barrier a tile.  Per warpgroup, kRqCols
+// keys at a time: S = Q K^T and dP = dO V^T, p = exp(S scale - lse),
+// dS = p (dP - delta) rounded to bf16, and dQ += dS K with K read
+// MN-major.  Registers: dQ (kD / 2), S and dP (kRqCols / 2 each) a
+// thread.  In probe builds on the H100 at the ring-train shapes, 64 keys
+// at a time ran faster than 32, and 1 or 4 warpgroups a block slower
+// than 2 (PERF.md).
+constexpr int kRqGroups = 2;
+constexpr int kRqThreads = 128 * kRqGroups;
 constexpr int kRqCols = 64;
 constexpr int kRqStages = 3;
 
@@ -672,27 +924,16 @@ __global__ void __launch_bounds__(kRqThreads, 1)
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
   const int n_t = (a.S + 63) / 64;
-  const int n_units = n_t * a.G;
-  // blockIdx.x runs over (unit block, kv head), kv head fastest, unit
-  // blocks from the last: under a causal mask the heaviest start first
   const int hk = blockIdx.x % a.KV, b = blockIdx.z;
-  const int u0 = (gridDim.x / a.KV - 1 - blockIdx.x / a.KV) * kRqGroups;
+  const int u0 = first_unit(kRqGroups, a);
   const int u = u0 + wg;
-  const bool unit_live = u < n_units;
+  const bool unit_live = u < n_t * a.G;
   const int w0 = (u / a.G) * 64;  // the warpgroup's rows w0 .. w0 + 63
   const int h = hk * a.G + u % a.G;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_b + hk * a.k_h;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_b + hk * a.v_h;
-
-  // the first kv tile from t that some unit of the block sees (n_t: none)
   auto next_tile = [&](int t) {
-    for (; t < n_t; ++t) {
-      for (int i = 0; i < kRqGroups && u0 + i < n_units; ++i) {
-        const int r0 = ((u0 + i) / a.G) * 64;
-        if (span_live(r0, r0 + 63, 64 * t, 64 * t + 63, a)) return t;
-      }
-    }
-    return n_t;
+    return next_live_tile(t, u0, kRqGroups, n_t, a);
   };
 
   const int r_a = w0 + warp * 16 + g;
@@ -1010,12 +1251,13 @@ __global__ void __cluster_dims__(kRkvCluster, 1, 1)
   cluster.sync();  // no block leaves while another reads its partials
 }
 
+// shared memory of each tensor-core kernel at D padded to Dp, in bytes
+// (0 = fwd, 1 = dq, 2 = dkv)
 size_t wgmma_smem_bytes(int which, int Dp) {
-  if (which == 1) {
-    return static_cast<size_t>(64) * Dp * 2 * (2 * kRqGroups + 2 * kRqStages);
-  }
-  return static_cast<size_t>(64) * Dp * 2 * 2 +
-         static_cast<size_t>(kRkvStages) * rkv_stage_bytes(Dp);
+  const size_t tile = static_cast<size_t>(64) * Dp * 2;
+  if (which == 0) return tile * (kRfGroups + 2 * kRfStages);
+  if (which == 1) return tile * (2 * kRqGroups + 2 * kRqStages);
+  return tile * 2 + static_cast<size_t>(kRkvStages) * rkv_stage_bytes(Dp);
 }
 
 // shared memory of each scalar kernel, in bytes (0 = fwd, 1 = dq, 2 = dkv)
@@ -1042,34 +1284,40 @@ int launch(Kernel kernel, const Args& a, dim3 grid, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 1 = K3q, 2 = K3kv, on the tensor cores
+// which: 0 = K3f, 1 = K3q, 2 = K3kv, on the tensor cores
 template <int kD>
 int launch_wgmma(int which, const Args& a, bool vec, int B,
                  cudaStream_t stream) {
   void (*kernel)(Args, int) =
-      which == 1 ? ring_dq_wgmma_kernel<kD> : ring_dkv_wgmma_kernel<kD>;
+      which == 0 ? ring_fwd_wgmma_kernel<kD>
+                 : (which == 1 ? ring_dq_wgmma_kernel<kD>
+                               : ring_dkv_wgmma_kernel<kD>);
   const size_t smem = wgmma_smem_bytes(which, kD);
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_t = (a.S + 63) / 64;
-  // K3q: blocks of kRqGroups (q tile, head) units per kv head; K3kv: a
-  // cluster of kRkvCluster blocks per (kv tile, kv head)
-  const int blocks = which == 1
-                         ? (n_t * a.G + kRqGroups - 1) / kRqGroups * a.KV
-                         : n_t * a.KV * kRkvCluster;
-  const int threads = which == 1 ? kRqThreads : kRkvThreads;
+  // K3f, K3q: blocks of `groups` (q tile, head) units per kv head
+  // (first_unit); K3kv: a cluster of kRkvCluster blocks per (kv tile, kv
+  // head)
+  const int groups = which == 0 ? kRfGroups : kRqGroups;
+  const int blocks = which == 2 ? n_t * a.KV * kRkvCluster
+                                : (n_t * a.G + groups - 1) / groups * a.KV;
+  const int threads = which == 0 ? kRfThreads
+                                 : (which == 1 ? kRqThreads : kRkvThreads);
   kernel<<<dim3(blocks, 1, B), threads, smem, stream>>>(a, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3q or K3kv on bf16 inputs q, k, v, dout: D zero-padded to 16, 32, 64 or
-// 128, 16-byte copies where the inputs allow them
+// K3f on bf16 inputs q, k, v, or K3q and K3kv on q, k, v, dout: D
+// zero-padded to 16, 32, 64 or 128, 16-byte copies where the inputs allow
+// them (strides holds 3 entries for each input)
 int launch_wgmma_padded(int which, const Args& a, const long long* strides,
                         int B, cudaStream_t st) {
   const void* in[] = {a.q, a.k, a.v, a.dout};
-  const bool vec = mma_tiles::vec_copies(a.D, in, 4, strides);
+  const bool vec =
+      mma_tiles::vec_copies(a.D, in, which == 0 ? 3 : 4, strides);
   switch (mma_tiles::padded_d(a.D)) {
     case 16: return launch_wgmma<16>(which, a, vec, B, st);
     case 32: return launch_wgmma<32>(which, a, vec, B, st);
@@ -1120,11 +1368,11 @@ extern "C" {
 
 // Largest head_dim the kernels take, and the shared memory of the kernel
 // that `which` (0 = K3f, 1 = K3q, 2 = K3kv) launches on inputs of `dtype`
-// (bf16 K3q and K3kv: the tensor-core kernels at D padded).
+// (bf16: the tensor-core kernels at D padded).
 int ring_max_head_dim() { return kMaxD; }
 
 long long ring_smem_bytes(int which, int D, int dtype) {
-  if (dtype == 1 && which > 0) {
+  if (dtype == 1) {
     return static_cast<long long>(
         wgmma_smem_bytes(which, mma_tiles::padded_d(D)));
   }
@@ -1135,8 +1383,9 @@ long long ring_smem_bytes(int which, int D, int dtype) {
 // (and for the backward dout) as (batch, position, head) element strides;
 // unit stride on D.  q_off*/k_off*: global starts of the two half-chunks of
 // the q shard and of the resident kv shard.  window <= 0: none.  Each
-// returns the launch's cudaError_t.  bf16 K3q and K3kv launch the
-// tensor-core kernels, and a launch they refuse returns its error.
+// returns the launch's cudaError_t.  bf16 inputs launch the tensor-core
+// kernels, and a launch they refuse returns its error: no scalar
+// fallback.
 int ring_fwd_launch(const void* q, const void* k, const void* v, float* m,
                     float* l, float* acc, const long long* strides, int B,
                     int S, int H, int KV, int D, int q_off0, int q_off1,
@@ -1150,10 +1399,8 @@ int ring_fwd_launch(const void* q, const void* k, const void* v, float* m,
   a.acc = acc;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch(ring_fwd_kernel<float>, a, grid, smem_bytes(0, D), st);
-  if (dtype == 1) {
-    return launch(ring_fwd_kernel<__nv_bfloat16>, a, grid, smem_bytes(0, D), st);
-  }
+  if (dtype == 0) return launch(ring_fwd_kernel, a, grid, smem_bytes(0, D), st);
+  if (dtype == 1) return launch_wgmma_padded(0, a, strides, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,14 +19,16 @@ kernel launch:
 
 CUDA tensors launch csrc/ring_flash.cu (built by kernels.py at first use)
 or raise; each wrapper adds one to its count in `launches` per launch.
-bf16 K3q and K3kv take the tensor-core designs (`wgmma`, cp.async rings;
-K3kv a cluster of 2 blocks per kv tile whose partials meet in
-distributed shared memory) and also count in `launches["ring_dq_mma"]`
-and `["ring_dkv_mma"]`; f32 inputs, and K3f, run the scalar f32 designs.
-CPU tensors run the plain versions `carry_fwd_plain`, `ring_dq_plain` and
+bf16 inputs take the tensor-core designs (`wgmma`, cp.async rings; K3f
+and K3q blocks of 2 warpgroups of one GQA group, K3kv a cluster of 2
+blocks per kv tile whose partials meet in distributed shared memory) and
+also count in `launches["ring_fwd_mma"]`, `["ring_dq_mma"]` and
+`["ring_dkv_mma"]`; f32 inputs run the scalar f32 designs.  CPU tensors
+run the plain versions `carry_fwd_plain`, `ring_dq_plain` and
 `ring_dkv_plain`: the kernels' arithmetic on one (member, step) in
 whole-shard tensor ops.  `span_live` and `span_full` are the rule by which
-the kernels skip tiles and drop the per-element mask.
+the kernels skip tiles and drop the per-element mask, and `fwd_units` the
+map by which K3f and K3q deal (q tile, query head) units to blocks.
 
 Masks use global ids: a member's shard is two half-chunks whose global
 starts are `offsets(idx, n, S_l, layout)` (contiguous: adjacent halves;
@@ -64,10 +66,12 @@ POS_INF = 1e30
 # kernel launches since the last reset, per kernel (plain-version calls
 # are not counted); the *_mma counts: the bf16 launches among them, which
 # ran on the tensor cores
-launches: Dict[str, int] = {"ring_fwd": 0, "ring_dq": 0, "ring_dq_mma": 0,
+launches: Dict[str, int] = {"ring_fwd": 0, "ring_fwd_mma": 0,
+                            "ring_dq": 0, "ring_dq_mma": 0,
                             "ring_dkv": 0, "ring_dkv_mma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FWD_GROUPS = 2  # warpgroups a tensor-core K3f block (kRfGroups)
 _MAX_SMEM = 232448  # shared memory one H100 block may opt into
 _lib: Optional[ctypes.CDLL] = None
 
@@ -136,6 +140,30 @@ def span_full(q_lo: int, q_hi: int, k_lo: int, k_hi: int, q_off: Offsets,
     qa, qb = _id_hull(q_lo, q_hi, q_off, s)
     ka, kb = _id_hull(k_lo, k_hi, k_off, s)
     return kb <= qa and (window is None or ka > qb - window)
+
+
+def fwd_units(s: int, h: int, kv: int,
+              groups: int = FWD_GROUPS) -> List[Tuple[int, int, int, int]]:
+    """The tensor-core K3f's (and K3q's) map from (block, warpgroup) to
+    the 64-row q tile and query head it computes (`first_unit` in
+    csrc/ring_flash.cu), in launch order: (block, warpgroup, q tile,
+    head) for each warpgroup that holds a unit.  The units of kv head j
+    are u = (q tile) G + (head in group), head j G + u % G; a block of
+    `groups` warpgroups takes `groups` consecutive units, blocks run
+    over (unit block, kv head) with the kv head fastest and the unit
+    blocks from the last, so under a causal mask the heaviest start
+    first.  A unit no warpgroup takes would keep its carry unchanged."""
+    g = h // kv
+    n_units = -(-s // 64) * g
+    per_head = -(-n_units // groups)
+    out = []
+    for x in range(per_head * kv):
+        u0 = (per_head - 1 - x // kv) * groups
+        for wg in range(groups):
+            u = u0 + wg
+            if u < n_units:
+                out.append((x, wg, u // g, (x % kv) * g + u % g))
+    return out
 
 
 # ---------------------------------------------------------- plain versions
@@ -347,8 +375,8 @@ def _on(x: torch.Tensor) -> str:
 def ring_fwd(q, k, v, m, l, acc, q_off: Offsets, k_off: Offsets,
              causal: bool, window: Optional[int] = None) -> None:
     """K3f: one forward ring step, updating (m, l, acc) in place.  CUDA
-    tensors launch the kernel (or raise); CPU tensors run
-    carry_fwd_plain."""
+    tensors launch the kernel (or raise; bf16 on the tensor cores); CPU
+    tensors run carry_fwd_plain."""
     if _on(q) == "cpu":
         for dst, src in zip((m, l, acc), carry_fwd_plain(
                 q, k, v, m, l, acc, q_off, k_off, causal, window)):
@@ -362,6 +390,8 @@ def ring_fwd(q, k, v, m, l, acc, q_off: Offsets, k_off: Offsets,
         *_shape_args(q, k, q_off, k_off, causal, window))
     _raise_on(err, lib, "ring_fwd")
     launches["ring_fwd"] += 1
+    if q.dtype == torch.bfloat16:
+        launches["ring_fwd_mma"] += 1
 
 
 def ring_dq(q, k, v, do, lse, delta, dq, q_off: Offsets, k_off: Offsets,
