@@ -27,9 +27,26 @@ Phases, in order, none of them caught:
               pool; every KV read goes through the kernel, whose launch
               count must equal layers x model calls, every one of them
               through the tensor-core design.
-  5. parity:  full width, 2 layers, f32 (TF32 off): serve_loop's greedy
-              tokens on the card (kernel) equal those on the CPU (plain).
-  6. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
+  5. handoff: the serve phase's model over one shared 1000-token prefix
+              (62 whole blocks of 16 and a copy-on-write boundary block)
+              and 16 suffixes of 32-256 tokens, 64 new tokens each, 8
+              slots: (a) unified serve_loop(shared_prefix=), (b)
+              prefill_only=True, (c) serve_loop(full prompts, adopt=(b)'s
+              handoffs) under the slot scheduler, (d) the same under the
+              continuous one; (c) and (d) give (a)'s tokens, CoW and
+              prefix reuse happen, the first export carries the 62
+              prefix payloads and no later one does, exports and
+              adoptions are counted, K1 launches equal layers x model
+              calls in every run, all on the tensor cores; then
+              export_blocks and adopt_blocks timed alone for one 79-block
+              lane (seconds, GB/s, the hashing's share).
+  6. parity:  full width, 2 layers, f32 (TF32 off): serve_loop's greedy
+              tokens on the card (kernel) equal those on the CPU (plain);
+              then the handoff with int8 KV (K1q) over an unaligned
+              prefix, exported on the card and adopted on the card and
+              on the CPU under both schedulers, gives the CPU's unified
+              tokens.
+  7. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
               forward, K2q dQ, K2kv dK/dV) against their plain versions at
               the llama3_8b training shapes (B=1, S=2048, H=32, KV=8,
               D=128), bf16 (all three on the tensor cores) and f32:
@@ -39,7 +56,7 @@ Phases, in order, none of them caught:
               launches give the same bits; then each kernel's time beside
               its plain version, SDPA and the card's bound, and each
               kernel's and SDPA's device time alone.
-  7. train:   llama3_8b at full width and depth as train_llama builds it
+  8. train:   llama3_8b at full width and depth as train_llama builds it
               (tied embeddings, remat, flash attention, blocked CE,
               adafactor), f32 master weights from a seed, bf16 compute,
               batch 1 x 2048 (train_llama's 8 x 8192 cut to fit one card),
@@ -47,16 +64,16 @@ Phases, in order, none of them caught:
               near ln(vocab); K2f launched 2 x 32 times a step (forward and
               remat recompute), K2q and K2kv 32 times, every launch on the
               tensor cores.
-  8. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
+  9. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
-  9. kernel1q: the int8 paged-attention kernel (K1q, the same source)
+ 10. kernel1q: the int8 paged-attention kernel (K1q, the same source)
               against its plain version on the kernel phase's cases, with
               int8 pools quantized from them and the scratch block
               poisoned (payload 127, scale 1e4); two launches give the
               same bits; then its time beside the plain version's, an SDPA
               yardstick over the gathered dequantized view and the bound.
- 10. serve-int8: llama3_8b at full width and depth with int8 weights
+ 11. serve-int8: llama3_8b at full width and depth with int8 weights
               (quantized from the seeded f32 draws) and int8 KV serves the
               serve phase's 16 requests under scheduler="continuous",
               prefill_chunk=256 streamed one segment per turn, on a pool
@@ -65,11 +82,11 @@ Phases, in order, none of them caught:
               decode dispatches; every read goes through K1q, whose launch
               count must equal layers x model calls, every one of them
               through the tensor-core design, and none through K1.
- 11. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
+ 12. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
               KV, prefill_chunk set: greedy tokens and schedule of the
               continuous scheduler on the card equal those on the CPU,
               and the card's continuous tokens equal its slot tokens.
- 12. kernel3: the ring flash attention step kernels (csrc/ring_flash.cu:
+ 13. kernel3: the ring flash attention step kernels (csrc/ring_flash.cu:
               K3f forward step, K3q dQ, K3kv dK/dV) against their plain
               versions at the ring-train shapes (B=1, S_l=512, H=32, KV=8,
               D=128, a ring of 4), bf16 and f32: a diagonal, a past and a
@@ -82,19 +99,19 @@ Phases, in order, none of them caught:
               the last member's launches over its ring beside the plain
               versions, the bound and SDPA of that member's q against the
               whole sequence, and their device time alone.
- 13. ring-train: the train phase's model, tokens and recipe with
+ 14. ring-train: the train phase's model, tokens and recipe with
               attention_fn = ring flash attention over LocalRing(4)
               (contiguous, batch 1 x 2048, S_l = 512), 4 steps: every loss
               finite, the first equal to the train phase's; K2 launched
               never, K3f/K3q/K3kv exactly as the ring schedule's live
               (member, step) pairs say (K3f twice: forward and remat),
               every K3q and K3kv launch on the tensor cores.
- 14. ring-parity: full width, 2 layers, f32 (TF32 off), batch 1 x 256,
+ 15. ring-parity: full width, 2 layers, f32 (TF32 off), batch 1 x 256,
               LocalRing(4), zigzag with positions: the loss and every
               gradient norm equal across the ring on the card (K3), the
               ring on the CPU (plain versions) and the one-device flash
               attention on the card (K2).
- 15. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
+ 16. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
               card: its ring of one member launches K3 (bf16 compute
               at D = 16: K3q and K3kv on the tensor cores).
 
@@ -110,6 +127,7 @@ KV), one training step and one ring training step.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -160,18 +178,19 @@ MAX_CTX, MAX_NEW = 1024, 64
 
 
 def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS,
-              ctx=None, h: int = H):
+              ctx=None, h: int = H, t_slots=None):
     """Pools, tables, positions and q for one kernel case.  Lanes 0..6
     are live at ragged positions (or at the contexts `ctx` gives); lane 7
     is frozen (all-scratch table).  The scratch block is poisoned, so a
     masking fault shows.  ring=True gives every live lane a full modular
     table with positions past T*bs (the sliding-window table
-    discipline).  h: query heads over the KV = 8 kv heads."""
+    discipline).  h: query heads over the KV = 8 kv heads.  t_slots: the
+    table's width (default: the serve phase's, MAX_CTX + MAX_NEW)."""
     from tf_operator_tpu_torch.models.paging import blocks_for
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     dev = torch.device("cuda")
-    n_slots = blocks_for(MAX_CTX + MAX_NEW, bs)
+    n_slots = t_slots or blocks_for(MAX_CTX + MAX_NEW, bs)
     if ring:
         ctx = [int(c) for c in torch.randint(
             n_slots * bs + l, 2 * n_slots * bs, (B - 1,), generator=g)]
@@ -303,6 +322,21 @@ def sdpa_inputs(case):
 PAGED_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
 
 
+# the handoff phase's shapes: a 1000-token shared prefix, suffixes of up
+# to 256 tokens and 64 new tokens, over tables of blocks_for(1320, 16) = 83
+# slots.  Its prefix write is L=1000 at position 0, its longest suffix
+# fill L=256 at position 1000, and its decode runs 8 lanes at contexts of
+# 1033 to 1320 (1024, 1152 and 1280 end on the split's chunk edges)
+PREFIX_LEN, SUFFIX_MAX = 1000, 256
+HANDOFF_CTX = [1320, 1033, 1024, 1152, 1256, 1280, 1001]
+
+
+def handoff_t_slots() -> int:
+    from tf_operator_tpu_torch.models.paging import blocks_for
+
+    return blocks_for(PREFIX_LEN + SUFFIX_MAX + MAX_NEW, BS)
+
+
 # the decode split's edges at the kernel phase's table (68 slots of 16,
 # 64 (kv head, lane) pairs: chunks of 8 slots, 128 keys): contexts that
 # end inside the first chunk (100), on chunk boundaries (128, 512, 1024)
@@ -332,6 +366,13 @@ def paged_cases() -> list:
         # the serve phase's longest prompt; block size 64 at prefill
         cases.append(dict(dtype=dt, l=974, window=None, ring=False))
         cases.append(dict(dtype=dt, l=512, window=None, ring=False, bs=64))
+        # the handoff phase's decode, suffix fill and prefix write
+        t = handoff_t_slots()
+        cases += [dict(dtype=dt, l=l, window=None, ring=False, t_slots=t,
+                       ctx=ctx)
+                  for l, ctx in ((1, HANDOFF_CTX),
+                                 (SUFFIX_MAX, [PREFIX_LEN + SUFFIX_MAX] * 7),
+                                 (PREFIX_LEN, [PREFIX_LEN] * 7))]
     return cases
 
 
@@ -657,14 +698,211 @@ def serve_phase() -> dict:
         f"decode_s={stats.decode_time_s:.4f} model_calls={calls[0]} "
         f"kernel_launches={launches} tensor_core_launches={mma} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
-    del model
+    # the handoff phase serves on the same model
+    return dict(launches=launches, model=model)
+
+
+def ttft_pcts(stats) -> tuple:
+    """TTFT p50 and p99 of a run (with 16 requests p99 is the maximum)."""
+    ttft = sorted(r["ttft_s"] for r in stats.per_request)
+    pct = lambda p: ttft[min(len(ttft) - 1, math.ceil(p * len(ttft)) - 1)]
+    return pct(0.5), pct(0.99)
+
+
+# ----------------------------------------------------------- handoff phase
+@contextlib.contextmanager
+def handoff_timers():
+    """Host seconds spent inside paging.export_blocks (the device gather,
+    the copy to the host and the hashing), inside its hashing
+    (paging._hash_block) and inside paging.adopt_blocks (the upload and
+    the scatter), while the block is open: each is wrapped by a timer
+    and put back on exit."""
+    from tf_operator_tpu_torch.models import paging
+
+    names = ("export_blocks", "_hash_block", "adopt_blocks")
+    originals = {name: getattr(paging, name) for name in names}
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    for name in names:
+        setattr(paging, name, timed(name))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(paging, name, fn)
+
+
+def handoff_phase(model) -> None:
+    """The serve phase's llama3_8b over one shared 1000-token prefix and
+    16 suffixes of 32-256 tokens, 64 new tokens each, greedy, 8 slots:
+    (a) unified under the slot scheduler, (b) prefill_only, (c) the
+    decode side adopting (b)'s handoffs under the slot scheduler and (d)
+    under the continuous one.  Gates: (c) and (d) give (a)'s tokens; CoW
+    and prefix reuse happen; the prefix crosses the wire once; every K1
+    launch is on the tensor cores.  Then export_blocks and adopt_blocks
+    timed alone for one 79-block lane at llama3_8b's block shape."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models import paging
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    cfg = model.cfg
+    prefix = prompts_for(cfg, 1, PREFIX_LEN, PREFIX_LEN, SEED + 11)[0]
+    sufs = prompts_for(cfg, 16, 32, SUFFIX_MAX, SEED + 12)
+    full = [torch.cat([prefix, x]) for x in sufs]
+    kw = dict(slots=8, block_size=BS, steps_per_sync=8,
+              max_new_tokens=MAX_NEW, device="cuda", return_stats=True)
+    calls = [0]
+    hook = model.register_forward_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    def run(tag, prompts, **extra):
+        calls[0] = 0
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with handoff_timers() as spent:
+            out, stats = serve_loop(model, prompts, **kw, **extra)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if pa.launches != cfg.n_layers * calls[0] or pa.launches == 0:
+            raise AssertionError(
+                f"[handoff] ({tag}) K1 launched {pa.launches} times for "
+                f"{calls[0]} model calls x {cfg.n_layers} layers")
+        if pa.launches_mma != pa.launches:
+            raise AssertionError(
+                f"[handoff] ({tag}) {pa.launches_mma} of {pa.launches} K1 "
+                f"calls took the tensor-core design")
+        log(f"[handoff] ({tag}) wall_s={wall:.4f} model_calls={calls[0]} "
+            f"kernel_launches={pa.launches} "
+            f"tensor_core_launches={pa.launches_mma} "
+            f"in_export_blocks_s={spent['export_blocks']:.4f} "
+            f"of_it_hashing_s={spent['_hash_block']:.4f} "
+            f"in_adopt_blocks_s={spent['adopt_blocks']:.4f} shares: "
+            f"export/wall={spent['export_blocks'] / wall:.3f} "
+            f"hashing/export="
+            f"{spent['_hash_block'] / max(spent['export_blocks'], 1e-9):.3f}"
+            f" adopt/wall={spent['adopt_blocks'] / wall:.3f}")
+        return out, stats, wall
+
+    uni, st_a, _ = run("a", sufs, shared_prefix=prefix)
+    hand, st_b, wall_b = run("b", sufs, shared_prefix=prefix,
+                             prefill_only=True)
+    slot, st_c, _ = run("c", full, adopt=hand)
+    cont, st_d, _ = run("d", full, adopt=hand, scheduler="continuous")
+    hook.remove()
+
+    want = [r.tokens for r in uni]
+    for tag, res in (("c", slot), ("d", cont)):
+        for i, (r, w) in enumerate(zip(res, want)):
+            if r.tokens != w:
+                raise AssertionError(
+                    f"[handoff] ({tag}) request {i}: {r.tokens} != the "
+                    f"unified run's {w}")
+    n_shared = PREFIX_LEN // BS
+    if not (st_a.cow_copies == st_b.cow_copies == len(sufs)
+            and st_a.prefix_block_hits > 0 and st_c.prefix_block_hits > 0):
+        raise AssertionError(
+            f"[handoff] cow_copies (a) {st_a.cow_copies} (b) "
+            f"{st_b.cow_copies}, prefix_block_hits (a) "
+            f"{st_a.prefix_block_hits} (c) {st_c.prefix_block_hits}")
+    exports = [h.export for h in hand]
+    pfx_hashes = exports[0].hashes[:n_shared]
+    if not (all(e.shared[:n_shared] == [True] * n_shared for e in exports)
+            and all(h in exports[0].payload for h in pfx_hashes)
+            and not any(h in e.payload for e in exports[1:]
+                        for h in e.hashes[:n_shared])
+            and all(e.hashes[:n_shared] == pfx_hashes for e in exports)):
+        raise AssertionError("[handoff] the prefix's payload did not cross "
+                             "the wire exactly once")
+    live = sum(1 for h in hand if not h.completed)
+    if not (st_b.handoff_exports == st_c.handoff_adoptions
+            == st_d.handoff_adoptions == live):
+        raise AssertionError(
+            f"[handoff] exports {st_b.handoff_exports}, adoptions "
+            f"{st_c.handoff_adoptions} / {st_d.handoff_adoptions}, "
+            f"handoffs to adopt {live}")
+    blocks = sum(len(e) for e in exports)
+    payload = sum(e.payload_blocks() for e in exports)
+    wire = sum(e.nbytes() for e in exports)
+    log(f"[handoff] llama3_8b, shared prefix {PREFIX_LEN} tokens "
+        f"({n_shared} shared blocks + a CoW block), {len(sufs)} suffixes "
+        f"{[int(x.shape[0]) for x in sufs]}, {MAX_NEW} new tokens each, "
+        f"8 slots; (c) and (d) tokens == (a) tokens for all {len(sufs)}")
+    for tag, st in (("a", st_a), ("c", st_c), ("d", st_d)):
+        p50, p99 = ttft_pcts(st)
+        log(f"[handoff] ({tag}) tokens={st.total_tokens} "
+            f"wall_s={st.wall_time_s:.4f} "
+            f"tokens_per_s={st.tokens_per_sec:.2f} ttft_p50_s={p50:.4f} "
+            f"ttft_p99_s={p99:.4f} prefill_s={st.prefill_time_s:.4f} "
+            f"decode_s={st.decode_time_s:.4f} "
+            f"cow_copies={st.cow_copies} "
+            f"prefix_block_hits={st.prefix_block_hits} "
+            f"handoff_adoptions={st.handoff_adoptions} "
+            f"kv_blocks_peak_used={st.kv_blocks_peak_used} "
+            f"preemptions={st.preemptions}")
+    log(f"[handoff] (b) prefill_only wall_s={wall_b:.4f} "
+        f"handoff_exports={st_b.handoff_exports} "
+        f"cow_copies={st_b.cow_copies}; exported_blocks={blocks} "
+        f"payload_blocks={payload} wire_bytes={wire} "
+        f"({wire / 2**30:.3f} GiB; {wire / max(payload, 1)} bytes a block)")
+    del uni, hand, slot, cont
+
+    # export and adoption alone: one 79-block lane (a 1256-token prompt)
+    n_blk = 79
+    src = paging.init_block_pool(cfg, n_blk, BS, device="cuda")
+    dst = paging.init_block_pool(cfg, n_blk, BS, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for t in paging._leaves(src):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    ids = list(range(1, n_blk + 1))
+    times = {"export_blocks": [], "_hash_block": [], "adopt_blocks": []}
+    for _ in range(3):
+        # the export ends in its copy to the host, a device sync
+        with handoff_timers() as spent:
+            exp = paging.export_blocks(src, ids, [False] * n_blk, BS)
+        times["export_blocks"].append(spent["export_blocks"])
+        times["_hash_block"].append(spent["_hash_block"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paging.adopt_blocks(dst, paging.BlockPool(n_blk, BS), exp)
+        torch.cuda.synchronize()
+        times["adopt_blocks"].append(time.perf_counter() - t0)
+    for a, b in zip(paging._leaves(src), paging._leaves(dst)):
+        if not torch.equal(a[1:], b[1:]):
+            raise AssertionError("[handoff] adopted blocks differ from the "
+                                 "exported ones")
+    nbytes = exp.nbytes()
+    med = {k: sorted(v)[1] for k, v in times.items()}
+    share = [h / e for h, e in zip(times["_hash_block"],
+                                   times["export_blocks"])]
+    log(f"[handoff] export_blocks alone, {n_blk} blocks of "
+        f"{nbytes // n_blk} bytes ({nbytes} bytes): "
+        f"s={[round(x, 4) for x in times['export_blocks']]} median "
+        f"{med['export_blocks']:.4f} s, "
+        f"{nbytes / med['export_blocks'] / 1e9:.3f} GB/s; hashing inside "
+        f"it s={[round(x, 4) for x in times['_hash_block']]}, share of "
+        f"the export {[round(x, 3) for x in share]}")
+    log(f"[handoff] adopt_blocks alone, same lane: "
+        f"s={[round(x, 4) for x in times['adopt_blocks']]} median "
+        f"{med['adopt_blocks']:.4f} s, "
+        f"{nbytes / med['adopt_blocks'] / 1e9:.3f} GB/s")
+    del src, dst, exp, model
     torch.cuda.empty_cache()
-    return dict(launches=launches)
 
 
 # ------------------------------------------------------------ parity phase
 def parity_phase() -> None:
     from tf_operator_tpu_torch.models import bridge, llama, paging
+    from tf_operator_tpu_torch.models import paged_attention as pa
     from tf_operator_tpu_torch.models.serving import serve_loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -700,6 +938,41 @@ def parity_phase() -> None:
         f"max_abs_diff={diff:.3e} (atol 1e-3)")
     if not (torch.isfinite(out[0]).all() and diff <= 1e-3):
         raise AssertionError(f"[parity] logits differ by {diff}")
+
+    # the handoff over int8 KV (K1q) and an unaligned prefix (40 % 16: a
+    # CoW block): exported on the card, adopted on the card and on the
+    # CPU, under both schedulers, against the CPU's unified run
+    pfx = prompts_for(cfg, 1, 40, 40, SEED + 13)[0]
+    sufs = prompts_for(cfg, 4, 8, 40, SEED + 14)
+    full = [torch.cat([pfx, x]) for x in sufs]
+    hkw = dict(slots=2, max_new_tokens=16, block_size=BS, steps_per_sync=8,
+               kv_quant=True)
+    want = [r.tokens for r in serve_loop(m_cpu, sufs, device="cpu",
+                                         shared_prefix=pfx, **hkw)]
+    pa.reset_launches()
+    hand, st = serve_loop(m_gpu, sufs, device="cuda", shared_prefix=pfx,
+                          prefill_only=True, return_stats=True, **hkw)
+    if not (st.cow_copies == len(sufs) and pa.launches_int8 > 0
+            and pa.launches == 0):
+        raise AssertionError(
+            f"[parity] handoff prefill: cow_copies {st.cow_copies}, K1q "
+            f"launches {pa.launches_int8}, K1 launches {pa.launches}")
+    if not all(h.export.payload_blocks() < len(h.export) for h in hand[1:]):
+        raise AssertionError("[parity] a later export shipped the prefix "
+                             "again")
+    for m, dev in ((m_gpu, "cuda"), (m_cpu, "cpu")):
+        for sched in ("slot", "continuous"):
+            got = [r.tokens for r in serve_loop(
+                m, full, device=dev, adopt=hand, scheduler=sched, **hkw)]
+            if got != want:
+                raise AssertionError(
+                    f"[parity] handoff adopted on {dev} ({sched}): {got} "
+                    f"!= the cpu's unified tokens {want}")
+    log(f"[parity] handoff, int8 KV, prefix {int(pfx.shape[0])} tokens: "
+        f"{len(sufs)} exports made on cuda ({st.handoff_exports} exports, "
+        f"payload blocks {[h.export.payload_blocks() for h in hand]} of "
+        f"{[len(h.export) for h in hand]}), adopted on cuda and cpu under "
+        f"slot and continuous: tokens identical to the cpu's unified run")
 
 
 # -------------------------------------------------------------- train phase
@@ -1634,6 +1907,7 @@ def main() -> int:
         return 0
     kern = kernel_phase()
     serve = serve_phase()
+    handoff_phase(serve.pop("model"))
     parity_phase()
     kern2 = kernel2_phase()
     train = train_phase()

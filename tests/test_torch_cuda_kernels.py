@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (paged attention), K1q (paged attention over int8 pools),
 K2f/K2q/K2kv (flash attention forward, dQ and dK/dV) and K3f/K3q/K3kv
-(the ring flash attention steps).
+(the ring flash attention steps); and the shared-prefix and handoff
+block operations (copy_block, scatter_blocks, export_blocks,
+adopt_blocks) on the card against the CPU's bits.
 
 Needs a CUDA card and nvcc; every test here carries the `cuda` marker and
 skips without a card.  The file imports nothing of JAX, so it also runs
@@ -322,6 +324,99 @@ def test_int8_serve_loop_cuda_matches_cpu_tokens(scheduler):
                     for r in serve_loop(model, prompts, device=dev, **kw)])
         assert tpa.launches == before  # int8 pools never reach K1
     assert out[0] == out[1]
+
+
+# ------------------------------------------------ handoff and prefix blocks
+def _handoff_pools(kind, n=9, bs=16, kv=8, d=128, layers=2):
+    """A paged cache at llama3_8b's block shape on the CPU (bf16, f32 or
+    int8 QTensor leaves), drawn from one seed."""
+    g = torch.Generator().manual_seed(5)
+    shape = (n + 1, bs, kv, d)
+
+    def leaf():
+        if kind == "int8":
+            return quant.QTensor(
+                q=torch.randint(-127, 128, shape, generator=g,
+                                dtype=torch.int8),
+                scale=torch.rand(shape[:3] + (1,), generator=g))
+        return torch.randn(shape, generator=g).to(kind)
+
+    return [(leaf(), leaf()) for _ in range(layers)]
+
+
+def _on(cache, dev):
+    one = lambda t: (quant.QTensor(t.q.to(dev), t.scale.to(dev))
+                     if isinstance(t, quant.QTensor) else t.to(dev))
+    return [(one(k), one(v)) for k, v in cache]
+
+
+@pytest.mark.parametrize("kind", [torch.bfloat16, torch.float32, "int8"])
+def test_prefix_and_handoff_block_ops_on_the_card_match_cpu(kind):
+    """copy_block and scatter_blocks on the card leave the CPU's bits;
+    export_blocks of a pool on the card gives the CPU's hashes, elisions
+    and payload bytes; adopt_blocks on the card writes them back."""
+    from tf_operator_tpu_torch.models import paging
+
+    cpu = _handoff_pools(kind)
+    card = _on(cpu, "cuda")
+    paging.copy_block(cpu, 3, 7)
+    paging.copy_block(card, 3, 7)
+    rows = [paging._unflatten(cpu, [t[i].clone() for t in paging._leaves(cpu)])
+            for i in (1, 2)]
+    paging.scatter_blocks(cpu, [8, 5], rows)
+    paging.scatter_blocks(card, [8, 5], rows)
+    for a, b in zip(paging._leaves(cpu), paging._leaves(card)):
+        assert torch.equal(a, b.cpu())
+    ids, shared = [1, 2, 7, 4], [True, True, False, False]
+    sent_cpu, sent_card = set(), set()
+    for _ in range(2):
+        e_cpu = paging.export_blocks(cpu, ids, shared, 16,
+                                     sent_hashes=sent_cpu)
+        e_card = paging.export_blocks(card, ids, shared, 16,
+                                      sent_hashes=sent_card)
+        assert e_card.hashes == e_cpu.hashes
+        assert list(e_card.payload) == list(e_cpu.payload)
+        assert e_card.nbytes() == e_cpu.nbytes()
+        for h in e_cpu.payload:
+            for a, b in zip(paging._leaves(e_cpu.payload[h]),
+                            paging._leaves(e_card.payload[h])):
+                assert b.device.type == "cpu" and torch.equal(a, b)
+    assert e_card.payload_blocks() == 2
+    dst = _on(_handoff_pools(kind), "cuda")
+    pool = paging.BlockPool(9, 16)
+    full = paging.export_blocks(card, ids, shared, 16)
+    _, adopted, _, _, stats = paging.adopt_blocks(dst, pool, full)
+    assert stats["fresh"] == 4
+    for a, b in zip(paging._leaves(card), paging._leaves(dst)):
+        assert torch.equal(a[ids], b[adopted])
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_prefix_handoff_serve_loop_cuda_matches_cpu(kv_quant):
+    """The tiny f32 model over an unaligned shared prefix: the prefill
+    side's handoffs made on the card adopt on the card and on the CPU,
+    and every run gives the CPU's unified tokens."""
+    cfg = llama.tiny(dtype=torch.float32, max_len=128)
+    params = bridge.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(6)
+    pfx = rng.integers(0, 256, 10)
+    sufs = [rng.integers(0, 256, n) for n in (5, 9, 3, 7)]
+    full = [np.concatenate([pfx, x]) for x in sufs]
+    kw = dict(slots=2, max_new_tokens=8, block_size=4, kv_quant=kv_quant)
+    models = {dev: llama.Llama.from_params(
+        cfg, {k: v.to(dev) for k, v in params.items()}, device=dev)
+        for dev in ("cuda", "cpu")}
+    want = [r.tokens for r in serve_loop(models["cpu"], sufs, device="cpu",
+                                         shared_prefix=pfx, **kw)]
+    hand = serve_loop(models["cuda"], sufs, device="cuda", shared_prefix=pfx,
+                      prefill_only=True, **kw)
+    assert [h.export.payload_blocks() < len(h.export) for h in hand] == \
+        [False, True, True, True]
+    for dev in ("cuda", "cpu"):
+        for sched in ("slot", "continuous"):
+            got = serve_loop(models[dev], full, device=dev, adopt=hand,
+                             scheduler=sched, **kw)
+            assert [r.tokens for r in got] == want, (dev, sched)
 
 
 # ------------------------------------------------------ flash attention

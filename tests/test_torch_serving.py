@@ -129,16 +129,35 @@ def test_sampling_is_seeded_by_the_generator(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "dense"),
-    (dict(draft=object()), "speculative"),
-    (dict(shared_prefix=[1, 2]), "shared-prefix"),
-    (dict(cache_sharding=object()), "distributed"),
-    (dict(prefill_only=True), "handoff"),
-    (dict(adopt=[]), "handoff"),
-    (dict(telemetry=object()), "telemetry"),
+    (dict(paged=False), "item 7: dense"),
+    (dict(paged=False, prefill_only=True), "item 7: dense"),
+    (dict(draft=object()), "item 5: speculative"),
+    (dict(draft=object(), prefill_only=True), "item 5: speculative"),
+    (dict(cache_sharding=object()), "item 11: distributed"),
+    (dict(windowed_export=True), "item 3: sliding-window"),
+    (dict(sliding_window=8), "item 3: sliding-window"),
+    (dict(telemetry=object()), "item 8: serving telemetry"),
 ])
 def test_refused_options_name_their_roadmap_item(setup, kw, item):
+    """What the port still refuses names its ROADMAP Queue 1 item: a
+    handoff whose export carries sliding-window ring state, and a
+    sliding-window config, are item 3."""
+    from tf_operator_tpu_torch.models import paging
+    from tf_operator_tpu_torch.models.serving import KVHandoff
+
     _, _, tmodel, prompts = setup
+    kw = dict(kw)
+    if kw.pop("windowed_export", False):
+        kw["adopt"] = [KVHandoff(
+            rid=i, prompt_len=len(p), budget=4, first_token=0,
+            export=paging.BlockExport(4, [], [], {}, window={"ring": 4}))
+            for i, p in enumerate(prompts)]
+        kw["max_new_tokens"] = 4
+    if "sliding_window" in kw:
+        cfg = tl.tiny(dtype=torch.float32, max_len=128,
+                      sliding_window=kw.pop("sliding_window"))
+        tmodel = tl.Llama.from_params(
+            cfg, bridge.init_params(cfg, 0, device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         serve_loop(tmodel, prompts, device="cpu", **kw)
 
@@ -155,6 +174,16 @@ def test_refused_options_name_their_roadmap_item(setup, kw, item):
     (dict(prefill_chunks_per_sync=1), "needs prefill_chunk"),
     (dict(prefill_chunks_per_sync=0, prefill_chunk=8, block_size=4),
      "prefill_chunks_per_sync must be >= 1"),
+    (dict(prefill_only=True, adopt=[]), "two ENDS of a handoff"),
+    (dict(prefill_only=True, scheduler="continuous"),
+     "prefill_only rides the slot scheduler"),
+    (dict(adopt=[], shared_prefix=[1, 2]), "adopt= refuses shared_prefix"),
+    (dict(adopt=[]), "adopt has 0 handoffs for 5 requests"),
+    (dict(shared_prefix=[]), "shared_prefix must be non-empty"),
+    (dict(shared_prefix=[1, 2, 3], prefill_chunk=8, block_size=4),
+     "shared_prefix length 3 must be a multiple of prefill_chunk 8"),
+    (dict(shared_prefix=[1, 2], pool_blocks=5, block_size=4),
+     r"\(\+1 shared prefix blocks\), but the pool has 5"),
 ])
 def test_validation_matches_jax_refusals(setup, kw, match):
     _, _, tmodel, prompts = setup

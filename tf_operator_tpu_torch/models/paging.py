@@ -12,8 +12,19 @@ Host side (copied, since importing the JAX package would load jax):
 `SCRATCH_BLOCK`, `blocks_for`, `BlockPool`, `build_table`, `plan_request`,
 and the continuous scheduler's `blocks_to_cover` and `step_gate`.
 Device side: `init_block_pool`, the table-routed write (`block_write_index`
-+ `write_blocks`, or `paged_cache_write` for one call) and the linear-view
-gather `gather_blocks` that the plain attention reads through.
++ `write_blocks`, or `paged_cache_write` for one call), the linear-view
+gather `gather_blocks` that the plain attention reads through, and the
+shared prefix's copy-on-write `copy_block`.
+
+The prefill/decode handoff (the JAX package's export/adopt layer): the
+block table is the wire format.  `export_blocks` ships a lane's blocks as
+blake2b content hashes in table order plus the payload of each block (host
+tensors), eliding shared-prefix payload the receiver already holds;
+`adopt_blocks` writes them into another pool under fresh ids, resolving
+shared blocks through a `HandoffRegistry` so N adoptions of one prefix hold
+N references on one block.  The hashes are taken over the same bytes in the
+same order as the JAX package's, so an export crosses between the two
+frameworks (through numpy).
 
 int8 KV (`kv_quant=True`): each pool is a models/quant.QTensor, an int8
 payload [N+1, bs, KV, D] and f32 scales [N+1, bs, KV, 1], one per
@@ -25,7 +36,8 @@ pools; here the caller's pools are updated and returned).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+import hashlib
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -116,6 +128,15 @@ class BlockPool:
                 self._free.append(b)
                 freed += 1
         return freed
+
+
+def copy_block(cache, src: int, dst: int):
+    """Copy block src -> dst in every layer's (k, v) pools, in place: the
+    copy-on-write of a partial shared-prefix boundary block (the JAX
+    package's `copy_block`).  An int8 pool copies payload and scales."""
+    for p in _leaves(cache):
+        p[dst] = p[src]
+    return cache
 
 
 def build_table(ids: Sequence[int], width: int,
@@ -259,3 +280,274 @@ def gather_blocks(pool, table: torch.Tensor):
     g = pool[table.to(torch.long)]  # [B, T, bs, KV, D]
     b, t, bs = g.shape[:3]
     return g.reshape(b, t * bs, *g.shape[3:])
+
+
+# ------------------------------------------------------------------ handoff
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a cache (or of one payload row) in the JAX package's
+    tree order: per layer k then v, a QTensor as q then scale."""
+    out = []
+    for k, v in tree:
+        for t in (k, v):
+            out.extend((t.q, t.scale) if isinstance(t, QTensor) else (t,))
+    return out
+
+
+def _unflatten(like, leaves: Sequence[torch.Tensor]):
+    """`like`'s structure (layers of (k, v), QTensor or tensor) over
+    `leaves`, given in _leaves order."""
+    it = iter(leaves)
+
+    def one(t):
+        return QTensor(q=next(it), scale=next(it)) if isinstance(t, QTensor) \
+            else next(it)
+
+    return [(one(k), one(v)) for k, v in like]
+
+
+_ALIGN = 16  # bytes: each tensor's segment of a packed buffer starts here
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One flat uint8 buffer of every tensor's bytes (raw: a bf16 value is
+    never converted), each segment padded to _ALIGN bytes so the typed
+    views _unpack takes back are aligned."""
+    parts = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        parts.append(b)
+        if b.numel() % _ALIGN:
+            parts.append(b.new_zeros(-b.numel() % _ALIGN))
+    return torch.cat(parts)
+
+
+def _unpack(flat: torch.Tensor, like: Sequence[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    """Typed views into a _pack buffer, with `like`'s dtypes and shapes."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[off:off + n].view(t.dtype).reshape(t.shape))
+        off += n + (-n % _ALIGN)
+    return out
+
+
+class HandoffError(RuntimeError):
+    """A KV-block handoff cannot be adopted as shipped: wrong block size,
+    or a block's payload is absent and its hash unknown to the receiver.
+    The router's retry surface: resend with full payload (or re-prefill)
+    on a replica that can take it."""
+
+
+class BlockExport:
+    """One lane's KV blocks in wire form: content hashes in table order,
+    a dedupe-eligibility flag per block, and payload keyed by hash (host
+    tensors, one pool block each, in the pool's structure: per layer a
+    (k, v) pair of [bs, KV, D] tensors or QTensors).  `window` carries a
+    sliding-window ring's state; linear lanes leave it None."""
+
+    __slots__ = ("block_size", "hashes", "shared", "payload", "window")
+
+    def __init__(self, block_size, hashes, shared, payload, window=None):
+        self.block_size = int(block_size)
+        self.hashes = list(hashes)
+        self.shared = list(shared)
+        self.payload = dict(payload)
+        self.window = window
+
+    def __len__(self) -> int:
+        return len(self.hashes)
+
+    def payload_blocks(self) -> int:
+        """Blocks whose bytes ride this export (dedup may have elided
+        shared ones already shipped)."""
+        return len(self.payload)
+
+    def nbytes(self) -> int:
+        """Wire payload size: block bytes only (the table rides as
+        hashes)."""
+        return sum(t.numel() * t.element_size()
+                   for row in self.payload.values() for t in _leaves(row))
+
+
+def _hash_block(rows: Sequence[torch.Tensor]) -> str:
+    """blake2b (16-byte digest) over one block's bytes, leaf by leaf in
+    _leaves order: the JAX package's `_hash_block` bytes exactly."""
+    h = hashlib.blake2b(digest_size=16)
+    for r in rows:
+        h.update(r.numpy())
+    return h.hexdigest()
+
+
+def export_blocks(cache, ids: Sequence[int], shared: Sequence[bool],
+                  block_size: int, *, sent_hashes=None,
+                  window=None) -> BlockExport:
+    """Export blocks `ids` (in table order) from `cache` in wire form.
+    `shared[i]` marks block i dedupe-eligible (whole shared-prefix blocks
+    only: a CoW boundary block's tail is lane-private).  `sent_hashes`
+    (a caller-owned set) elides the payload of shared blocks already
+    shipped to the same receiver.  One gather per leaf on the pool's
+    device, then one copy of every exported block to the host, as the
+    JAX package's single device_get."""
+    if len(ids) != len(shared):
+        raise ValueError(
+            f"ids/shared length mismatch: {len(ids)} vs {len(shared)}")
+    leaves = _leaves(cache)
+    idx = torch.tensor(list(ids), dtype=torch.long, device=leaves[0].device)
+    gathered = [p.index_select(0, idx) for p in leaves]
+    host = _unpack(_pack(gathered).cpu(), gathered)  # device sync
+    raw = [h.view(torch.uint8).reshape(len(ids), -1) for h in host]
+    hashes = [_hash_block([r[i] for r in raw]) for i in range(len(ids))]
+    payload: Dict[str, list] = {}
+    for i, (h, sh) in enumerate(zip(hashes, shared)):
+        if sh and sent_hashes is not None and h in sent_hashes:
+            continue  # the receiver already holds these bytes
+        if h in payload:
+            continue
+        payload[h] = _unflatten(cache, [t[i] for t in host])
+        if sh and sent_hashes is not None:
+            sent_hashes.add(h)
+    return BlockExport(block_size, hashes, shared, payload, window)
+
+
+class HandoffRegistry:
+    """Receiver-side dedup: content hash -> adopted block id, tied to one
+    BlockPool's refcounts.  The registry holds no reference of its own: a
+    mapping lives exactly as long as some lane holds the block, so every
+    decref of a possibly registered id goes through release()."""
+
+    def __init__(self, pool: BlockPool) -> None:
+        self.pool = pool
+        self._id_of: Dict[str, int] = {}
+        self._hash_of: Dict[int, str] = {}
+        self.dedup_hits = 0
+
+    def lookup(self, h: str) -> Optional[int]:
+        return self._id_of.get(h)
+
+    def register(self, h: str, block_id: int) -> None:
+        self._id_of[h] = block_id
+        self._hash_of[block_id] = h
+
+    def adopt_shared(self, h: str) -> Optional[int]:
+        """Dedup hit: one more reference on the block already holding
+        these bytes, or None when the hash is unknown."""
+        bid = self._id_of.get(h)
+        if bid is None:
+            return None
+        self.pool.incref([bid])
+        self.dedup_hits += 1
+        return bid
+
+    def release(self, ids: Sequence[int]) -> int:
+        """decref that keeps the map honest: ids this decref frees drop
+        their registration."""
+        freed = 0
+        for b in list(ids):
+            f = self.pool.decref([b])
+            freed += f
+            if f:
+                h = self._hash_of.pop(b, None)
+                if h is not None:
+                    self._id_of.pop(h, None)
+        return freed
+
+
+def adoption_cost(export: BlockExport, registry=None) -> int:
+    """Fresh blocks an adoption of `export` allocates now, given the
+    registry's contents: the admission gate's unit (a dedup hit costs an
+    incref, not a block)."""
+    fresh = 0
+    seen = set()
+    for h, sh in zip(export.hashes, export.shared):
+        if sh and h in seen:
+            continue
+        if sh and registry is not None and registry.lookup(h) is not None:
+            continue
+        fresh += 1
+        if sh:
+            seen.add(h)
+    return fresh
+
+
+def scatter_blocks(cache, ids: Sequence[int], rows: Sequence):
+    """Adoption's device half, the JAX package's adoption scatter (its
+    `paging.write_blocks(cache, ids, rows)`; not this module's
+    table-routed `write_blocks`): write payload rows (one pool block
+    each, in the pool's structure) into the pool at block `ids`, in
+    place, one index_copy_ per leaf.  The rows cross to the pool's
+    device as one buffer.  Only the given rows are written: JAX pads the
+    count with scratch rows to bound its recompiles, and nothing here
+    compiles per count."""
+    leaves = _leaves(cache)
+    dev = leaves[0].device
+    stacked = [torch.stack(col) for col in zip(*(_leaves(r) for r in rows))]
+    on_dev = _unpack(_pack(stacked).to(dev), stacked)
+    idx = torch.tensor(list(ids), dtype=torch.long, device=dev)
+    for p, v in zip(leaves, on_dev):
+        p.index_copy_(0, idx, v)
+    return cache
+
+
+def adopt_blocks(cache, pool: BlockPool, export: BlockExport,
+                 registry: Optional[HandoffRegistry] = None):
+    """Adopt an exported lane into (cache, pool): fresh ids in table
+    order, shared blocks deduped through `registry` (an incref instead of
+    alloc + write), every fresh block written by one scatter_blocks.
+    Returns (cache, adopted_ids, shared_ids, own_ids, stats): adopted_ids
+    is the table row; shared_ids (free them through registry.release)
+    and own_ids (plain decref) split ownership for the lane's finish.
+    stats = {"fresh", "deduped", "payload_blocks"}.
+
+    Raises HandoffError on a block-size mismatch or when a block's
+    payload is missing and its hash unknown, and RuntimeError when the
+    pool cannot cover the fresh blocks (callers gate on adoption_cost).
+    Unlike the JAX package, which allocates blocks 0..i-1 before it
+    raises at block i, every block is resolved and the pool checked
+    BEFORE anything is allocated or increfed: a refused adoption leaves
+    the pool's free list, its refcounts and the registry as they were.
+    A successful one makes the same calls in the same order."""
+    if export.block_size != pool.block_size:
+        raise HandoffError(
+            f"block size mismatch: export {export.block_size} vs "
+            f"pool {pool.block_size}")
+    # adoption_cost counts a shared hash that repeats in the export once,
+    # which holds only where a registry dedups it
+    fresh = (adoption_cost(export, registry) if registry is not None
+             else len(export.hashes))
+    for i, (h, sh) in enumerate(zip(export.hashes, export.shared)):
+        hit = sh and registry is not None and registry.lookup(h) is not None
+        if not hit and h not in export.payload:
+            raise HandoffError(
+                f"block {i}: payload for hash {h} not shipped and not "
+                f"resident — resend with full payload")
+    if not pool.can_alloc(fresh):
+        raise RuntimeError(
+            f"pool exhausted: {fresh} blocks requested, "
+            f"{pool.free_blocks} free of {pool.num_blocks}")
+    adopted, shared_ids, own_ids = [], [], []
+    write_ids, write_rows = [], []
+    deduped = 0
+    for h, sh in zip(export.hashes, export.shared):
+        if sh and registry is not None:
+            bid = registry.adopt_shared(h)
+            if bid is not None:
+                adopted.append(bid)
+                shared_ids.append(bid)
+                deduped += 1
+                continue
+        [bid] = pool.alloc(1)
+        adopted.append(bid)
+        if sh:
+            shared_ids.append(bid)
+            if registry is not None:
+                registry.register(h, bid)
+        else:
+            own_ids.append(bid)
+        write_ids.append(bid)
+        write_rows.append(export.payload[h])
+    if write_rows:
+        scatter_blocks(cache, write_ids, write_rows)
+    stats = {"fresh": len(write_ids), "deduped": deduped,
+             "payload_blocks": len(write_ids)}
+    return cache, adopted, shared_ids, own_ids, stats

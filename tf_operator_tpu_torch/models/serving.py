@@ -47,10 +47,24 @@ model built from a quantized state dict serves int8 weights as it is.
 `params_transform` takes None or quant.make_dequantizer(cfg.dtype), the
 dequantization such a model already applies at each weight's use.
 
+shared_prefix: every request is the prefix followed by its suffix.  The
+prefix is prefilled once into refcounted blocks; an admission increfs the
+whole-prefix blocks, copies a partial boundary block (copy-on-write,
+paging.copy_block) and streams only its suffix.
+
+The disaggregated handoff (models/paging's export/adopt layer):
+prefill_only=True serves the prompts under the slot scheduler and, at a
+lane's first token, exports its blocks (content hashes in table order
+plus payload; a shared prefix's blocks ship once per call) and frees the
+lane: the call returns a KVHandoff per request.  adopt=[KVHandoff, ...]
+is the decode side: each admission adopts its handoff into this call's
+pool (fresh ids, shared blocks deduped by hash through a HandoffRegistry)
+and the lane goes live at the handoff's first token, under either
+scheduler.  Greedy tokens equal the unified loop's.
+
 Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-dense (non-paged) mode, speculative decoding, shared prefixes, cache
-sharding, sliding windows, the prefill/decode handoff and the telemetry
-object.
+dense (non-paged) mode, speculative decoding, cache sharding, sliding
+windows (windowed handoff exports too) and the telemetry object.
 """
 from __future__ import annotations
 
@@ -81,16 +95,37 @@ class ServeResult:
 
 
 @dataclasses.dataclass
+class KVHandoff:
+    """One request's prefill -> decode handoff: the first sampled token
+    and the lane's exported KV blocks (paging.BlockExport).  Made by
+    serve_loop(prefill_only=True), taken by serve_loop(adopt=[...]).
+    `completed`: the request finished at its first token (EOS, or a
+    budget of 1), so there is no export and the decode side answers it
+    without a lane.  prompt_len is the FULL prompt, shared prefix
+    included: the decode side is handed the full prompts and checks the
+    pairing."""
+
+    rid: int
+    prompt_len: int
+    budget: int
+    first_token: int
+    export: Optional[paging.BlockExport] = None
+    completed: bool = False
+    prefix_len: int = 0
+
+
+@dataclasses.dataclass
 class ServeStats:
     """Aggregate of one serve_loop run: the subset of the JAX package's
     ServeStats (models/telemetry.py) that the port fills.  Times are
     host wall-clock in seconds; a decode block's time ends at its token
     readback and a request's first token at its readback, both device
-    barriers.  TTFT runs from lane admission to the first token, queue
-    wait from the loop's start to admission (a preempted request's
-    count from its last admission).  prefill_time_s covers the segments
-    that ran on their own; segments fused into a decode block count in
-    decode_time_s."""
+    barriers.  TTFT runs from lane admission to the first token (on the
+    decode side of a handoff: the adoption), queue wait from the loop's
+    start (after the shared prefix's prefill) to admission (a preempted
+    request's count from its last admission).  prefill_time_s covers the
+    segments that ran on their own; segments fused into a decode block
+    count in decode_time_s."""
 
     requests: int = 0
     slots: int = 0
@@ -100,6 +135,10 @@ class ServeStats:
     kv_block_size: int = 0
     kv_blocks_total: int = 0
     kv_blocks_peak_used: int = 0
+    # shared prefix: boundary blocks copied, and prefix blocks reused by
+    # an incref (or, on the decode side of a handoff, by a dedup hit)
+    cow_copies: int = 0
+    prefix_block_hits: int = 0
     admissions_blocked_on_memory: int = 0
     # lane-steps computed past a finish, up to the block edge
     wasted_lane_steps: int = 0
@@ -107,6 +146,9 @@ class ServeStats:
     # lanes sent back to the queue when the pool ran dry
     fused_prefill_tokens: int = 0
     preemptions: int = 0
+    # the handoff: lanes exported (prefill_only) and exports adopted
+    handoff_exports: int = 0
+    handoff_adoptions: int = 0
     total_tokens: int = 0
     wall_time_s: float = 0.0
     tokens_per_sec: float = 0.0
@@ -121,7 +163,7 @@ class ServeStats:
 
 def _refuse(name: str, item: str) -> None:
     raise NotImplementedError(
-        f"serve_loop: {name} is not ported yet (ROADMAP Queue 1: {item})")
+        f"serve_loop: {name} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 # ------------------------------------------------------------ device steps
@@ -239,6 +281,13 @@ class _Setup:
     continuous: bool
     select: Callable[[torch.Tensor], torch.Tensor]
     dev: torch.device
+    # the shared prefix (None without one)
+    prefix: Optional[torch.Tensor]
+    prefill_only: bool
+    # adopt: the handoffs, and each one's export resolved against the
+    # union of the batch's payloads (None where completed)
+    adopt: Optional[List[KVHandoff]]
+    adopt_exports: Optional[List[Optional[paging.BlockExport]]]
 
 
 def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
@@ -256,7 +305,8 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                return_stats: bool = False,
                device: Union[str, torch.device, None] = None,
                draft=None, shared_prefix=None, cache_sharding=None,
-               prefill_only: bool = False, adopt=None, telemetry=None):
+               prefill_only: bool = False,
+               adopt: Optional[Sequence[KVHandoff]] = None, telemetry=None):
     """Serve `requests` (1-D token sequences) through `slots` lanes over
     a paged KV pool; returns a ServeResult per request, in request order
     (with return_stats, (results, ServeStats)).
@@ -272,32 +322,52 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     prompt per loop turn when prefill streams on its own (needs
     prefill_chunk); None = the whole prompt.
     block_size / pool_blocks: the pool's block size and usable blocks
-    (default: every lane can hold the largest worst case at once —
-    shrink it to engage the memory gate).
+    (default: every lane can hold the largest worst case at once, the
+    shared prefix once — shrink it to engage the memory gate).
     scheduler: "slot" or "continuous" (module docstring).
     kv_quant: int8 KV pools, read through K1q on the card.
     params_transform: None, or quant.make_dequantizer(cfg.dtype).
     device: where the model lives and the loop runs (default "cuda").
+    shared_prefix: tokens every request starts with; `requests` are then
+    the suffixes (module docstring).
+    prefill_only: the prefill side of a handoff (slot scheduler): returns
+    a KVHandoff per request (with return_stats, (handoffs, ServeStats)).
+    adopt: the decode side: one KVHandoff per request, adopt[i] pairing
+    with requests[i], which is the FULL prompt the prefill side served.
 
     The remaining keywords are the JAX serve_loop's options this port
     does not take yet; each raises NotImplementedError."""
     if not paged:
-        _refuse("dense mode (paged=False)", "dense decode and generate")
+        _refuse("dense mode (paged=False)", "item 7: dense mode")
     if scheduler not in ("slot", "continuous"):
         raise ValueError(f"scheduler must be 'slot' or 'continuous', got "
                          f"{scheduler!r}")
     if draft is not None:
-        _refuse("draft (speculative decoding)", "speculative decoding")
-    if shared_prefix is not None:
-        _refuse("shared_prefix", "shared-prefix blocks")
+        _refuse("draft (speculative decoding)", "item 5: speculative decoding")
     if cache_sharding is not None:
-        _refuse("cache_sharding", "distributed")
+        _refuse("cache_sharding", "item 11: distributed")
     if model.cfg.sliding_window is not None:
-        _refuse("a sliding_window config", "sliding-window paged tables")
-    if prefill_only or adopt is not None:
-        _refuse("prefill_only / adopt", "disaggregated handoff")
+        _refuse("a sliding_window config",
+                "item 3: sliding-window paged tables")
     if telemetry is not None:
-        _refuse("telemetry", "serving telemetry")
+        _refuse("telemetry", "item 8: serving telemetry")
+    continuous = scheduler == "continuous"
+    if prefill_only and adopt is not None:
+        raise ValueError(
+            "prefill_only and adopt are the two ENDS of a handoff — a "
+            "call is either the prefill fleet's half or the decode "
+            "fleet's half, never both")
+    if prefill_only and continuous:
+        raise ValueError(
+            "prefill_only rides the slot scheduler's admission/prefill "
+            "path (there are no decode lanes to fuse with) — use "
+            "scheduler='slot' on the prefill fleet; the DECODE side "
+            "takes adopt= under either scheduler")
+    if adopt is not None and shared_prefix is not None:
+        raise ValueError(
+            "adopt= refuses shared_prefix: the prefix's blocks ride "
+            "the handoff (content-hash dedup adopts them once) — pass "
+            "the FULL prompts the prefill side served")
 
     cfg = model.cfg
     if (params_transform is not None
@@ -326,6 +396,53 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         if b < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {b} (request {i})")
+    if adopt is not None:
+        adopt = list(adopt)
+        if len(adopt) != len(reqs):
+            raise ValueError(
+                f"adopt has {len(adopt)} handoffs for {len(reqs)} "
+                f"requests — adopt[i] pairs with requests[i]")
+        for i, h in enumerate(adopt):
+            if int(h.prompt_len) != int(reqs[i].shape[0]):
+                raise ValueError(
+                    f"handoff {i}: prompt_len {h.prompt_len} != "
+                    f"request length {int(reqs[i].shape[0])} — the "
+                    f"decode side takes the FULL prompt the prefill "
+                    f"side served (prefix included), in the same order")
+            if int(h.budget) != budgets[i]:
+                raise ValueError(
+                    f"handoff {i}: prefill planned budget {h.budget} "
+                    f"but this call asked {budgets[i]} — budgets must "
+                    f"match across the handoff or completed-at-prefill "
+                    f"decisions diverge")
+            if not h.completed and h.export is None:
+                raise ValueError(
+                    f"handoff {i}: no export and not completed — "
+                    f"nothing to adopt")
+            if h.export is not None and h.export.window is not None:
+                _refuse(f"handoff {i}: a windowed export (export.window)",
+                        "item 3: sliding-window paged tables")
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+    prefix = (torch.as_tensor(shared_prefix, dtype=torch.long).reshape(-1)
+              .cpu() if shared_prefix is not None else None)
+    p_fix = 0 if prefix is None else int(prefix.shape[0])
+    if prefix is not None:
+        if p_fix < 1:
+            raise ValueError("shared_prefix must be non-empty when given")
+        if prefill_chunk is not None and p_fix % prefill_chunk != 0:
+            raise ValueError(
+                f"shared_prefix length {p_fix} must be a multiple of "
+                f"prefill_chunk {prefill_chunk} so suffix segments stay "
+                f"chunk-aligned (pad the prefix or adjust the chunk)")
+        for i, r in enumerate(reqs):
+            if r.shape[0] < 1:
+                raise ValueError(
+                    f"request {i} is empty — with a shared_prefix, at "
+                    f"least one suffix token is needed to produce the "
+                    f"first-token logits")
+        # from here on every request IS prefix + suffix
+        reqs = [torch.cat([prefix, r]) for r in reqs]
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     if steps_per_sync < 1:
@@ -342,15 +459,11 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                 "admission-stall bound cannot apply")
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
-    if prefill_chunk is not None:
-        if prefill_chunk < 1:
-            raise ValueError(
-                f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        if prefill_chunk % block_size:
-            raise ValueError(
-                f"prefill_chunk {prefill_chunk} must be a multiple of "
-                f"block_size {block_size} so every streamed segment "
-                f"writes whole blocks")
+    if prefill_chunk is not None and prefill_chunk % block_size:
+        raise ValueError(
+            f"prefill_chunk {prefill_chunk} must be a multiple of "
+            f"block_size {block_size} so every streamed segment "
+            f"writes whole blocks")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
     _llama.check_truncation(cfg.vocab_size, top_k, top_p)
@@ -370,23 +483,47 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         return ([], stats) if return_stats else []
 
     # block math: the table covers the largest worst case; each plan is
-    # (total, shared, private, cow) with no prefix and no headroom
+    # (total, shared, private, cow).  A prefill_only lane reserves its
+    # prompt's blocks only: the first token comes off the final fill's
+    # logits, and decode growth belongs to the decode side's pool
     worst_total = max(int(r.shape[0]) + b for r, b in zip(reqs, budgets))
     t_blocks = paging.blocks_for(worst_total, block_size)
-    plans = [paging.plan_request(int(r.shape[0]), budgets[i], 0, block_size)
+    plans = [paging.plan_request(int(r.shape[0]),
+                                 0 if prefill_only else budgets[i], 0,
+                                 block_size, p_fix)
              for i, r in enumerate(reqs)]
+    n_prefix_blocks = paging.blocks_for(p_fix, block_size)
     if pool_blocks is None:
-        pool_blocks = slots * max(pl[2] for pl in plans)
+        pool_blocks = slots * max(pl[2] for pl in plans) + n_prefix_blocks
     if pool_blocks < 1:
         raise ValueError(f"pool_blocks must be >= 1, got {pool_blocks}")
     for i, (r, pl) in enumerate(zip(reqs, plans)):
-        # the worst case must fit an EMPTY pool or the gate waits forever
-        if pl[2] > pool_blocks:
+        # the worst case must fit an EMPTY pool (prefix aside) or the gate
+        # waits forever
+        if pl[2] + n_prefix_blocks > pool_blocks:
             raise ValueError(
                 f"request {i}: prompt {r.shape[0]} + new {budgets[i]} "
-                f"needs {pl[2]} blocks of {block_size} tokens, but the "
-                f"pool has {pool_blocks} — grow pool_blocks or shrink the "
-                f"request")
+                f"needs {pl[2]} private blocks of {block_size} tokens"
+                + (f" (+{n_prefix_blocks} shared prefix blocks)"
+                   if p_fix else "")
+                + f", but the pool has {pool_blocks} — grow pool_blocks "
+                f"or shrink the request")
+
+    adopt_exports = None
+    if adopt is not None:
+        # every export adopts against the UNION of the batch's payloads:
+        # a sender elides bytes it shipped under an earlier request's
+        # hash, but a preemption here can free that block before a later
+        # re-admission needs it
+        union: Dict[str, Any] = {}
+        for h in adopt:
+            if h.export is not None:
+                union.update(h.export.payload)
+        adopt_exports = [
+            None if h.export is None else paging.BlockExport(
+                h.export.block_size, h.export.hashes, h.export.shared,
+                {hh: union[hh] for hh in h.export.hashes if hh in union})
+            for h in adopt]
 
     def select(logits: torch.Tensor) -> torch.Tensor:
         return _llama._select_token(logits, temperature, generator, top_k,
@@ -396,8 +533,10 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                    chunks_per_sync=prefill_chunks_per_sync,
                    steps_per_sync=steps_per_sync, block_size=block_size,
                    pool_blocks=pool_blocks, t_blocks=t_blocks, plans=plans,
-                   kv_quant=kv_quant, continuous=scheduler == "continuous",
-                   select=select, dev=dev)
+                   kv_quant=kv_quant, continuous=continuous,
+                   select=select, dev=dev, prefix=prefix,
+                   prefill_only=prefill_only, adopt=adopt,
+                   adopt_exports=adopt_exports)
     with torch.inference_mode():
         results, stats = _run(model, reqs, budgets, setup)
     return (results, stats) if return_stats else results
@@ -406,10 +545,11 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
 def _run(model, reqs, budgets, o: _Setup):
     cfg = model.cfg
     dev, slots, eos, select = o.dev, o.slots, o.eos, o.select
-    t_start = time.perf_counter()
-    pool = paging.BlockPool(o.pool_blocks, o.block_size)
-    cache = paging.init_block_pool(cfg, o.pool_blocks, o.block_size,
-                                   device=dev, kv_quant=o.kv_quant)
+    bs = o.block_size
+    p_fix = 0 if o.prefix is None else int(o.prefix.shape[0])
+    pool = paging.BlockPool(o.pool_blocks, bs)
+    cache = paging.init_block_pool(cfg, o.pool_blocks, bs, device=dev,
+                                   kv_quant=o.kv_quant)
     # block tables live on the host, as the JAX continuous loop keeps
     # them: every edit is a host write, and each dispatch uploads its
     # tables once
@@ -421,6 +561,9 @@ def _run(model, reqs, budgets, o: _Setup):
     emitted: List[List[int]] = [[] for _ in range(slots)]
     results: List[Optional[ServeResult]] = [None] * len(reqs)
     admitted_step = [0] * slots
+    # per-lane blocks: shared (increffed prefix, or adopted dedup-eligible)
+    # and own (private, freed plainly)
+    lane_shared: List[List[int]] = [[] for _ in range(slots)]
     lane_own: List[List[int]] = [[] for _ in range(slots)]
     lane_nblocks = [0] * slots
     queue = deque(range(len(reqs)))
@@ -433,23 +576,82 @@ def _run(model, reqs, budgets, o: _Setup):
     t_first = [0.0] * len(reqs)
     t_done = [0.0] * len(reqs)
     counts = {"blocked": 0, "wasted": 0, "peak": 0, "fused": 0,
-              "preempted": 0}
+              "preempted": 0, "cow": 0, "prefix_hits": 0, "exports": 0,
+              "adoptions": 0}
     seconds = {"prefill": 0.0, "decode": 0.0}
+    # the handoff: hashes this call already shipped (a shared prefix's
+    # blocks go once), the handoffs made, and the receiver's registry,
+    # through which every decref of an adopted shared block goes
+    sent_hashes: set = set()
+    handoffs: List[Optional[KVHandoff]] = [None] * len(reqs)
+    registry = (paging.HandoffRegistry(pool) if o.adopt is not None
+                else None)
+
+    def effective_chunk(p_len: int) -> Optional[int]:
+        # a chunk >= the prompt is a one-segment prefill
+        if o.prefill_chunk is not None and o.prefill_chunk < p_len:
+            return o.prefill_chunk
+        return None
+
+    def resume_index(p_len: int) -> int:
+        """Leading segments of a prompt's schedule that the prefix blocks
+        already hold (0 without a shared prefix)."""
+        if p_fix == 0:
+            return 0
+        if effective_chunk(p_len) is None:
+            return 1
+        return p_fix // o.prefill_chunk
+
+    def request_segments(p_len: int):
+        """The FULL prompt's segment schedule: an unchunked prompt with a
+        shared prefix gets two segments (prefix write, suffix fill) so
+        the split point exists."""
+        if p_fix and effective_chunk(p_len) is None:
+            return [(0, p_fix, False), (p_fix, p_len, True)]
+        return _llama.prefill_segments(p_len, o.prefill_chunk)
 
     def segments_of(ridx: int):
-        return _llama.prefill_segments(int(reqs[ridx].shape[0]),
-                                       o.prefill_chunk)
+        return request_segments(int(reqs[ridx].shape[0]))
 
     def sample_peak() -> None:
         counts["peak"] = max(counts["peak"], pool.used)
 
+    # the shared prefix is prefilled ONCE into blocks the pool's base
+    # reference holds for the whole run
+    prefix_ids: List[int] = []
+    if p_fix:
+        prefix_ids = pool.alloc(paging.blocks_for(p_fix, bs))
+        pfx_row = paging.build_table(prefix_ids, o.t_blocks)[None].to(dev)
+        for start, end, _ in request_segments(p_fix + 1)[
+                :resume_index(p_fix + 1)]:
+            chunk_write(model, cache, o.prefix[None, start:end].to(dev),
+                        start, pfx_row)
+        sample_peak()
+    t_start = time.perf_counter()
+    if o.adopt is not None:
+        # completed-at-prefill handoffs carry no export: answer them
+        # without a lane
+        for i, h in enumerate(o.adopt):
+            if h.completed:
+                results[i] = ServeResult(
+                    tokens=[int(h.first_token)], admitted_at_step=0,
+                    finished_at_step=0, slot=-1)
+                t_admit[i] = t_first[i] = t_done[i] = time.perf_counter()
+        queue = deque(i for i in queue if not o.adopt[i].completed)
+
     def release(s: int) -> None:
-        """Free lane s's blocks; its table row goes back to all-scratch
-        so the frozen lane's pinned writes can never land in a block the
+        """Free lane s's blocks (shared ones through the registry when
+        there is one); its table row goes back to all-scratch so the
+        frozen lane's pinned writes can never land in a block the
         allocator hands to someone else."""
+        if lane_shared[s]:
+            if registry is not None:
+                registry.release(lane_shared[s])
+            else:
+                pool.decref(lane_shared[s])
         if lane_own[s]:
             pool.decref(lane_own[s])
-        lane_own[s] = []
+        lane_shared[s], lane_own[s] = [], []
         lane_nblocks[s] = 0
         table[s] = 0
 
@@ -466,34 +668,113 @@ def _run(model, reqs, budgets, o: _Setup):
         release(s)
 
     def admit(s: int, ridx: int, n_blocks: int) -> None:
-        """Lane s takes the queue head with n_blocks fresh blocks; its
-        prompt streams through its own row table, and its batch row stays
-        all scratch until activation."""
+        """Lane s takes the queue head with n_blocks fresh blocks after
+        the shared prefix's whole blocks (increfed; a partial boundary
+        block is copied into the first fresh one); its prompt streams
+        through its own row table from resume_index, and its batch row
+        stays all scratch until activation."""
         queue.popleft()
+        _, shared_i, _, cow = o.plans[ridx]
         own = pool.alloc(n_blocks)
+        shared_ids = prefix_ids[:shared_i]
+        if shared_ids:
+            pool.incref(shared_ids)
+            counts["prefix_hits"] += len(shared_ids)
+        if cow:
+            paging.copy_block(cache, prefix_ids[shared_i], own[0])
+            counts["cow"] += 1
+        lane_shared[s] = list(shared_ids)
         lane_own[s] = own
-        lane_nblocks[s] = n_blocks
-        pending[s] = {"ridx": ridx, "next": 0,
-                      "row_tbl": paging.build_table(own, o.t_blocks)[None]}
+        lane_nblocks[s] = shared_i + n_blocks
+        pending[s] = {
+            "ridx": ridx, "next": resume_index(int(reqs[ridx].shape[0])),
+            "row_tbl": paging.build_table(shared_ids + own,
+                                          o.t_blocks)[None]}
         t_admit[ridx] = time.perf_counter()
         sample_peak()
 
+    def export_lane(s: int, ridx: int) -> paging.BlockExport:
+        """Lane s's prompt blocks in wire form, in position order; only
+        whole shared-prefix blocks are dedupe-eligible (a CoW boundary
+        block's tail is the lane's own)."""
+        n_blk = paging.blocks_for(int(reqs[ridx].shape[0]), bs)
+        ids = (lane_shared[s] + lane_own[s])[:n_blk]
+        shared = [i < len(lane_shared[s]) for i in range(len(ids))]
+        counts["exports"] += 1
+        return paging.export_blocks(cache, ids, shared, bs,
+                                    sent_hashes=sent_hashes)
+
     def activate_lane(s: int, first: int, dev_done: bool = False) -> None:
         """The lane goes live with its first token; its table row becomes
-        real only now.  dev_done: a fused fill already set tok/pos."""
+        real only now.  dev_done: a fused fill already set tok/pos.
+        prefill_only: the lane's job ends here, so it ships its blocks
+        (unless the request already finished) and frees the lane."""
         st = pending.pop(s)
         ridx = st["ridx"]
+        p_len = int(reqs[ridx].shape[0])
         table[s] = st["row_tbl"][0]
         owner[s] = ridx
         admitted_step[s] = n_step
         emitted[s] = [first]
         if not dev_done:
             tok[s] = first
-            pos[s] = int(reqs[ridx].shape[0])
+            pos[s] = p_len
         frozen_py[s] = False
         t_first[ridx] = time.perf_counter()
-        if first == eos or budgets[ridx] == 1:
+        done = first == eos or budgets[ridx] == 1
+        if o.prefill_only:
+            handoffs[ridx] = KVHandoff(
+                rid=ridx, prompt_len=p_len, budget=budgets[ridx],
+                first_token=first, prefix_len=p_fix, completed=done,
+                export=None if done else export_lane(s, ridx))
             finish(s)
+            return
+        if done:
+            finish(s)
+
+    def admit_adopt(s: int) -> bool:
+        """Admit the queue head into lane s by ADOPTING its handoff: the
+        blocks arrive written and the lane goes live at once with the
+        prefill side's first token.  The memory gate covers the export's
+        fresh blocks (dedup hits are increfs) plus this side's decode
+        growth, which the continuous scheduler grows lazily behind its
+        step gate.  False = the gate held (FIFO: stop admitting)."""
+        ridx = queue[0]
+        exp = o.adopt_exports[ridx]
+        p_len = int(reqs[ridx].shape[0])
+        fresh = paging.adoption_cost(exp, registry)
+        if o.continuous:
+            growth = 0
+            if hold or not paging.step_gate(pool.free_blocks, fresh,
+                                            len(in_flight())):
+                counts["blocked"] += 1
+                return False
+        else:
+            growth = o.plans[ridx][0] - paging.blocks_for(p_len, bs)
+            if not pool.can_alloc(fresh + growth):
+                counts["blocked"] += 1
+                return False
+        queue.popleft()
+        t_admit[ridx] = time.perf_counter()
+        _, adopted, sh_ids, own_ids, st = paging.adopt_blocks(
+            cache, pool, exp, registry)
+        grow = pool.alloc(growth) if growth else []
+        lane_shared[s] = sh_ids
+        lane_own[s] = own_ids + grow
+        lane_nblocks[s] = len(adopted) + len(grow)
+        counts["adoptions"] += 1
+        counts["prefix_hits"] += st["deduped"]
+        table[s] = paging.build_table(adopted + grow, o.t_blocks)
+        first = int(o.adopt[ridx].first_token)
+        owner[s] = ridx
+        admitted_step[s] = n_step
+        emitted[s] = [first]
+        tok[s] = first
+        pos[s] = p_len
+        frozen_py[s] = False
+        t_first[ridx] = time.perf_counter()
+        sample_peak()
+        return True
 
     def advance_prefill(s: int) -> None:
         """Stream up to prefill_chunks_per_sync segments of slot s's
@@ -535,9 +816,10 @@ def _run(model, reqs, budgets, o: _Setup):
 
     def ensure_cover(s: int, upto: int) -> bool:
         """Grow lane s's coverage to positions [0, upto); False (nothing
-        changed) when the pool cannot supply the blocks."""
-        covered = len(lane_own[s])
-        need = paging.blocks_to_cover(upto, covered, o.block_size)
+        changed) when the pool cannot supply the blocks.  Coverage counts
+        table entries, shared prefix blocks included."""
+        covered = len(lane_shared[s]) + len(lane_own[s])
+        need = paging.blocks_to_cover(upto, covered, bs)
         if need == 0:
             return True
         if not pool.can_alloc(need):
@@ -580,17 +862,25 @@ def _run(model, reqs, budgets, o: _Setup):
 
     def admit_free_lanes() -> None:
         """Lazy admission: the queue head needs only its first segment's
-        blocks now, plus one block per request in flight (step_gate)."""
+        blocks beyond the shared prefix now (increfs cost none), plus one
+        block per request in flight (step_gate).  Under adopt, admission
+        adopts the handoff instead."""
         for s in range(slots):
             if not queue:
                 return
             if owner[s] is not None or s in pending:
                 continue
+            if o.adopt is not None:
+                if not admit_adopt(s):
+                    return
+                continue
             ridx = queue[0]
             if hold:
                 return
-            first_end = segments_of(ridx)[0][1]
-            need_now = paging.blocks_to_cover(first_end, 0, o.block_size)
+            first_end = segments_of(ridx)[
+                resume_index(int(reqs[ridx].shape[0]))][1]
+            need_now = paging.blocks_to_cover(first_end, o.plans[ridx][1],
+                                              bs)
             if not paging.step_gate(pool.free_blocks, need_now,
                                     len(in_flight())):
                 counts["blocked"] += 1
@@ -691,8 +981,13 @@ def _run(model, reqs, budgets, o: _Setup):
         while queue or pending or any(w is not None for w in owner):
             # admission: every free lane reserves the queue head's worst
             # case of blocks, FIFO — the head waits until the pool covers
+            # (or, under adopt, adopts its handoff)
             for s in range(slots):
                 if owner[s] is None and s not in pending and queue:
+                    if o.adopt is not None:
+                        if not admit_adopt(s):
+                            break
+                        continue
                     ridx = queue[0]
                     private_i = o.plans[ridx][2]
                     if not pool.can_alloc(private_i):
@@ -730,12 +1025,15 @@ def _run(model, reqs, budgets, o: _Setup):
         requests=len(reqs), slots=slots,
         scheduler="continuous" if o.continuous else "slot",
         paged_kernel="cuda" if dev.type == "cuda" else "plain",
-        kv_block_size=o.block_size, kv_blocks_total=o.pool_blocks,
+        kv_block_size=bs, kv_blocks_total=o.pool_blocks,
         kv_blocks_peak_used=counts["peak"],
+        cow_copies=counts["cow"], prefix_block_hits=counts["prefix_hits"],
         admissions_blocked_on_memory=counts["blocked"],
         wasted_lane_steps=counts["wasted"],
         fused_prefill_tokens=counts["fused"],
-        preemptions=counts["preempted"], total_tokens=total,
+        preemptions=counts["preempted"],
+        handoff_exports=counts["exports"],
+        handoff_adoptions=counts["adoptions"], total_tokens=total,
         wall_time_s=wall, tokens_per_sec=total / wall if wall > 0 else 0.0,
         queue_wait_mean_s=sum(t_admit[i] - t_start
                               for i in range(len(reqs))) / len(reqs),
@@ -748,4 +1046,4 @@ def _run(model, reqs, budgets, o: _Setup):
             "queue_wait_s": t_admit[i] - t_start, "ttft_s": ttft[i],
             "e2e_latency_s": t_done[i] - t_start,
         } for i in range(len(reqs))])
-    return results, stats
+    return (handoffs if o.prefill_only else results), stats
