@@ -46,7 +46,33 @@ Phases, in order, none of them caught:
               prefix, exported on the card and adopted on the card and
               on the CPU under both schedulers, gives the CPU's unified
               tokens.
-  7. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
+  7. window:  mistral_7b at full width and depth (bf16, random weights
+              from seed 0, sliding window 4096) over a 1024-token shared
+              prefix and 16 suffixes of 1024-6656 tokens, 128 new tokens
+              each, 8 slots, prefill_chunk 512: a modular ring of 288
+              slots of 16 (4608 positions) per lane, through which the
+              long prompts stream and onto whose prefix slots the rings
+              wrap; (a) the slot scheduler, (b) the continuous one, (c)
+              the first 8 requests as prefill_only, adopted under the
+              continuous scheduler.  (b) and (c) give (a)'s tokens, every
+              run evicts ring blocks and swaps prefix slots for shadows,
+              each leaves the pool holding the prefix's blocks alone, K1
+              launches equal layers x model calls, all on the tensor
+              cores, and K1q is never launched.
+  8. window-parity: mistral_7b at full width, 2 layers, f32 (TF32 off),
+              window 64 and max_len 512 (a 128-position ring): prompts
+              streaming past the ring over a shared prefix, under both
+              schedulers, give the CPU's tokens and schedule; so do an
+              unaligned prefix at window 120, unchunked (the rotation
+              copies prefix blocks, the boundary is copied on write), and
+              int8 KV (K1q); an int8-KV windowed handoff exported on the
+              card and adopted on the card and on the CPU gives the CPU's
+              unified tokens.  Then K1 and K1q at the window phase's
+              shapes (8 lanes at L=1 over wrapped 288-slot rings, one
+              lane's L=512 segment past the ring, window 4096) against
+              their plain versions, timed beside them, SDPA with the
+              window mask and the bound counting only the window's keys.
+  9. kernel2: the flash-attention kernels (csrc/flash_attention.cu: K2f
               forward, K2q dQ, K2kv dK/dV) against their plain versions at
               the llama3_8b training shapes (B=1, S=2048, H=32, KV=8,
               D=128), bf16 (all three on the tensor cores) and f32:
@@ -56,7 +82,7 @@ Phases, in order, none of them caught:
               launches give the same bits; then each kernel's time beside
               its plain version, SDPA and the card's bound, and each
               kernel's and SDPA's device time alone.
-  8. train:   llama3_8b at full width and depth as train_llama builds it
+ 10. train:   llama3_8b at full width and depth as train_llama builds it
               (tied embeddings, remat, flash attention, blocked CE,
               adafactor), f32 master weights from a seed, bf16 compute,
               batch 1 x 2048 (train_llama's 8 x 8192 cut to fit one card),
@@ -64,16 +90,16 @@ Phases, in order, none of them caught:
               near ln(vocab); K2f launched 2 x 32 times a step (forward and
               remat recompute), K2q and K2kv 32 times, every launch on the
               tensor cores.
-  9. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
+ 11. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
- 10. kernel1q: the int8 paged-attention kernel (K1q, the same source)
+ 12. kernel1q: the int8 paged-attention kernel (K1q, the same source)
               against its plain version on the kernel phase's cases, with
               int8 pools quantized from them and the scratch block
               poisoned (payload 127, scale 1e4); two launches give the
               same bits; then its time beside the plain version's, an SDPA
               yardstick over the gathered dequantized view and the bound.
- 11. serve-int8: llama3_8b at full width and depth with int8 weights
+ 13. serve-int8: llama3_8b at full width and depth with int8 weights
               (quantized from the seeded f32 draws) and int8 KV serves the
               serve phase's 16 requests under scheduler="continuous",
               prefill_chunk=256 streamed one segment per turn, on a pool
@@ -82,11 +108,11 @@ Phases, in order, none of them caught:
               decode dispatches; every read goes through K1q, whose launch
               count must equal layers x model calls, every one of them
               through the tensor-core design, and none through K1.
- 12. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
+ 14. parity-int8: full width, 2 layers, f32 (TF32 off), int8 weights and
               KV, prefill_chunk set: greedy tokens and schedule of the
               continuous scheduler on the card equal those on the CPU,
               and the card's continuous tokens equal its slot tokens.
- 13. kernel3: the ring flash attention step kernels (csrc/ring_flash.cu:
+ 15. kernel3: the ring flash attention step kernels (csrc/ring_flash.cu:
               K3f forward step, K3q dQ, K3kv dK/dV) against their plain
               versions at the ring-train shapes (B=1, S_l=512, H=32, KV=8,
               D=128, a ring of 4), bf16 and f32: a diagonal, a past and a
@@ -99,19 +125,19 @@ Phases, in order, none of them caught:
               the last member's launches over its ring beside the plain
               versions, the bound and SDPA of that member's q against the
               whole sequence, and their device time alone.
- 14. ring-train: the train phase's model, tokens and recipe with
+ 16. ring-train: the train phase's model, tokens and recipe with
               attention_fn = ring flash attention over LocalRing(4)
               (contiguous, batch 1 x 2048, S_l = 512), 4 steps: every loss
               finite, the first equal to the train phase's; K2 launched
               never, K3f/K3q/K3kv exactly as the ring schedule's live
               (member, step) pairs say (K3f twice: forward and remat),
               every K3q and K3kv launch on the tensor cores.
- 15. ring-parity: full width, 2 layers, f32 (TF32 off), batch 1 x 256,
+ 17. ring-parity: full width, 2 layers, f32 (TF32 off), batch 1 x 256,
               LocalRing(4), zigzag with positions: the loss and every
               gradient norm equal across the ring on the card (K3), the
               ring on the CPU (plain versions) and the one-device flash
               attention on the card (K2).
- 16. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
+ 18. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
               card: its ring of one member launches K3 (bf16 compute
               at D = 16: K3q and K3kv on the tensor cores).
 
@@ -412,59 +438,82 @@ def kernel_phase(int8: bool = False) -> dict:
 
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, kw in enumerate(paged_cases()):
-        dt, l, w = kw["dtype"], kw["l"], kw["window"]
+        dt, l = kw["dtype"], kw["l"]
         case = make_case(seed=SEED + i, **kw)
-        args = inputs(case)
-        got = pa.paged_attention(*args, window=w)
-        again = pa.paged_attention(*args, window=w)
-        ref = plain(*args, window=w)
-        torch.cuda.synchronize()
-        live = slice(0, B - 1)
-        diff = (got[live].float() - ref[live].float()).abs()
-        atol, rtol = PAGED_TOL[dt]
-        ok = bool((diff <= atol + rtol * ref[live].float().abs()).all())
-        same = torch.equal(got, again)
-        frozen_zero = bool((got[B - 1] == 0).all())
-        err = float(diff.max())
-        errs[dt] = max(errs[dt], err)
         bs, h = kw.get("bs", BS), kw.get("h", H)
         chunk = (pa.split_slots(l * h // KV, case["table"].shape[1], bs,
                                 KV * B) if dt == torch.bfloat16 else 0)
-        log(f"{tag} {str(dt)[6:]:8s} L={l:<4d} H={h} bs={bs} window={w} "
-            f"ring={kw['ring']} ctx={case['ctx']} split_slots={chunk} "
-            f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
-            f"frozen_lane_zero={frozen_zero} repeat={same}")
-        if not (ok and same and frozen_zero and torch.isfinite(got).all()):
-            raise AssertionError(
-                f"{tag} the kernel disagrees with its plain version or does "
-                f"not repeat: {kw} err={err} bit_identical={same}")
+        err = check_paged(
+            case, inputs(case), plain, dt, B - 1,
+            f"{tag} {str(dt)[6:]:8s} L={l:<4d} H={h} bs={bs} "
+            f"window={kw['window']} ring={kw['ring']} ctx={case['ctx']} "
+            f"split_slots={chunk}")
+        errs[dt] = max(errs[dt], err)
 
     timings = {}
     for name, l in (("decode", 1), ("prefill", 512)):
         case = make_case(torch.bfloat16, l, None, False, SEED + 100)
-        args = inputs(case)
-        sq, sk, sv, mask = sdpa_inputs(dict(case, k=args[1], v=args[2]))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_fn = lambda: sdpa(sq, sk, sv, attn_mask=mask, enable_gqa=True)
-        # plain, kernel, kernel, plain: one card, in turns
-        p1 = time_ms(lambda: plain(*args))
-        k1 = time_ms(lambda: pa.paged_attention(*args))
-        k2 = time_ms(lambda: pa.paged_attention(*args))
-        p2 = time_ms(lambda: plain(*args))
-        lib = time_ms(lib_fn)
-        # device time alone: the launches queued behind a wait on the card
-        kq = time_ms(lambda: pa.paged_attention(*args), queued=True)
-        libq = time_ms(lib_fn, queued=True)
-        bnd, by = bound_ms(case, torch.bfloat16, int8=int8)
-        timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             library_ms=lib, bound_ms=bnd, bound_by=by,
-                             device_ms=kq, library_device_ms=libq)
-        log(f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
-            f"B={B} L={l} H={H} KV={KV} D={D} bs={BS} ctx={case['ctx']}: "
-            f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time alone: "
-            f"kernel {kq:.4f} ms, sdpa {libq:.4f} ms")
+        timings[name] = paged_timing(
+            case, inputs(case), plain, bound_ms(case, torch.bfloat16, int8),
+            f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
+            f"B={B} L={l} H={H} KV={KV} D={D} bs={BS} ctx={case['ctx']}")
     return dict(errs=errs, timings=timings)
+
+
+def check_paged(case, args, plain, dt, frozen, label: str) -> float:
+    """K1 or K1q on args (the wrapper's inputs) against its plain version:
+    the live rows within PAGED_TOL, lane `frozen` (None: none) finalizing
+    to 0, two launches with the same bits.  Returns the largest error."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    w = case["window"]
+    got = pa.paged_attention(*args, window=w)
+    again = pa.paged_attention(*args, window=w)
+    ref = plain(*args, window=w)
+    torch.cuda.synchronize()
+    live = slice(0, frozen)
+    diff = (got[live].float() - ref[live].float()).abs()
+    atol, rtol = PAGED_TOL[dt]
+    ok = bool((diff <= atol + rtol * ref[live].float().abs()).all())
+    same = torch.equal(got, again)
+    frozen_zero = frozen is None or bool((got[frozen] == 0).all())
+    err = float(diff.max())
+    log(f"{label} max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
+        f"frozen_lane_zero={frozen_zero} repeat={same}")
+    if not (ok and same and frozen_zero and torch.isfinite(got).all()):
+        raise AssertionError(
+            f"{label}: the kernel disagrees with its plain version or does "
+            f"not repeat: err={err} bit_identical={same}")
+    return err
+
+
+def paged_timing(case, args, plain, bound: tuple, label: str) -> dict:
+    """K1's or K1q's time on args (the wrapper's inputs) beside its plain
+    version, SDPA over the gathered (dequantized) view with the case's
+    ring and window mask, and `bound` (ms, "bytes" or "operations"); and
+    the kernel's and SDPA's device time alone."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    w = case["window"]
+    sq, sk, sv, mask = sdpa_inputs(dict(case, k=args[1], v=args[2]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fn = lambda: sdpa(sq, sk, sv, attn_mask=mask, enable_gqa=True)
+    # plain, kernel, kernel, plain: one card, in turns
+    p1 = time_ms(lambda: plain(*args, window=w))
+    k1 = time_ms(lambda: pa.paged_attention(*args, window=w))
+    k2 = time_ms(lambda: pa.paged_attention(*args, window=w))
+    p2 = time_ms(lambda: plain(*args, window=w))
+    lib = time_ms(lib_fn)
+    # device time alone: the launches queued behind a wait on the card
+    kq = time_ms(lambda: pa.paged_attention(*args, window=w), queued=True)
+    libq = time_ms(lib_fn, queued=True)
+    bnd, by = bound
+    log(f"{label}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time alone: "
+        f"kernel {kq:.4f} ms, sdpa {libq:.4f} ms")
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                bound_ms=bnd, bound_by=by, device_ms=kq,
+                library_device_ms=libq)
 
 
 # --------------------------------------------------------- kernel-2 phase
@@ -973,6 +1022,394 @@ def parity_phase() -> None:
         f"payload blocks {[h.export.payload_blocks() for h in hand]} of "
         f"{[len(h.export) for h in hand]}), adopted on cuda and cpu under "
         f"slot and continuous: tokens identical to the cpu's unified run")
+
+
+# ------------------------------------------------------------ window phase
+# mistral_7b's serving: a 1024-token shared prefix (64 whole blocks, two
+# chunks), 16 suffixes of 1024-6656 tokens (full prompts 2048-7680), 128
+# new tokens, prefill_chunk 512: a ring of bucket(4096 + 512) = 4608
+# positions, 288 slots of 16
+WIN_PREFIX, WIN_SUFFIX, WIN_NEW, WIN_CHUNK = 1024, (1024, 6656), 128, 512
+WIN_REQUESTS = 16
+
+
+@contextlib.contextmanager
+def window_tally():
+    """While the block is open: the shared slots the rings swapped for a
+    shadow (`swaps`) and how many of those first copied the shared block
+    (`copies`), counted in paging.WindowRotation.advance, and the
+    BlockPool of each serve_loop call (`pools`), so a run's end state can
+    be read."""
+    from tf_operator_tpu_torch.models import paging
+
+    tally = {"swaps": 0, "copies": 0, "pools": []}
+    advance, pool_cls = paging.WindowRotation.advance, paging.BlockPool
+
+    def counted(self, upto_pos, q_min):
+        edits, released, evicted = advance(self, upto_pos, q_min)
+        tally["swaps"] += len(edits)
+        tally["copies"] += sum(c is not None for _, _, c in edits)
+        return edits, released, evicted
+
+    class Recorded(pool_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            tally["pools"].append(self)
+
+    paging.WindowRotation.advance = counted
+    paging.BlockPool = Recorded
+    try:
+        yield tally
+    finally:
+        paging.WindowRotation.advance = advance
+        paging.BlockPool = pool_cls
+
+
+def window_phase() -> dict:
+    """mistral_7b at full width and depth (bf16, lm_head f32, random
+    weights from seed 0) over a 1024-token shared prefix and 16 suffixes
+    streamed through its 288-slot ring, 128 new tokens, greedy, 8 slots:
+    (a) the slot scheduler, (b) the continuous one, (c) the windowed
+    handoff of the first 8 requests (prefill_only under the slot
+    scheduler, adopt under the continuous one).  Gates: (b) gives (a)'s
+    tokens and (c) (a)'s first 8; every run's rings wrap; prefix blocks
+    are shared and rotated out; each run leaves the pool holding the
+    prefix's blocks alone; K1 launches equal layers x model calls, all
+    on the tensor cores, and K1q is never launched."""
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    torch.cuda.empty_cache()
+    cfg = llama.mistral_7b()
+    t0 = time.perf_counter()
+    model = llama.Llama.from_params(
+        cfg, bridge.init_params(cfg, SEED, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[window] mistral_7b {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"vocab={cfg.vocab_size} window={cfg.sliding_window} {cfg.dtype}: "
+        f"random weights in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefix = prompts_for(cfg, 1, WIN_PREFIX, WIN_PREFIX, SEED + 21)[0]
+    sufs = prompts_for(cfg, WIN_REQUESTS, *WIN_SUFFIX, SEED + 22)
+    full = [torch.cat([prefix, x]) for x in sufs]
+    n_pfx = WIN_PREFIX // BS
+    kw = dict(slots=8, block_size=BS, steps_per_sync=8,
+              prefill_chunk=WIN_CHUNK, max_new_tokens=WIN_NEW,
+              device="cuda", return_stats=True)
+    # warm-up: one request that streams past the ring and wraps
+    serve_loop(model, [full[0][:4700]], **dict(kw, max_new_tokens=8,
+                                               slots=1))
+    calls = [0]
+    hook = model.register_forward_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    launches = []
+
+    def run(tag, prompts, pool_left, **extra):
+        calls[0] = 0
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with window_tally() as tally, handoff_timers() as spent:
+            out, stats = serve_loop(model, prompts, **kw, **extra)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if pa.launches != cfg.n_layers * calls[0] or pa.launches == 0:
+            raise AssertionError(
+                f"[window] ({tag}) K1 launched {pa.launches} times for "
+                f"{calls[0]} model calls x {cfg.n_layers} layers")
+        if pa.launches_mma != pa.launches or pa.launches_int8:
+            raise AssertionError(
+                f"[window] ({tag}) {pa.launches_mma} of {pa.launches} K1 "
+                f"calls on the tensor cores, K1q {pa.launches_int8}")
+        if stats.window_evicted_blocks == 0 or tally["swaps"] == 0:
+            raise AssertionError(
+                f"[window] ({tag}) the rings did not wrap onto the prefix: "
+                f"{stats.window_evicted_blocks} evictions, "
+                f"{tally['swaps']} shared slots swapped")
+        launches.append(pa.launches)
+        [pool] = tally["pools"]
+        if pool.used != pool_left:
+            raise AssertionError(
+                f"[window] ({tag}) the pool holds {pool.used} blocks after "
+                f"the run, not {pool_left}")
+        log(f"[window] ({tag}) wall_s={wall:.4f} model_calls={calls[0]} "
+            f"kernel_launches={pa.launches} "
+            f"tensor_core_launches={pa.launches_mma} "
+            f"window_evicted_blocks={stats.window_evicted_blocks} "
+            f"shared_slots_swapped={tally['swaps']} "
+            f"rotation_copies={tally['copies']} "
+            f"kv_blocks_total={stats.kv_blocks_total} "
+            f"kv_blocks_peak_used={stats.kv_blocks_peak_used} "
+            f"prefix_block_hits={stats.prefix_block_hits} "
+            f"cow_copies={stats.cow_copies} "
+            f"in_export_blocks_s={spent['export_blocks']:.4f} "
+            f"of_it_hashing_s={spent['_hash_block']:.4f} "
+            f"in_adopt_blocks_s={spent['adopt_blocks']:.4f} "
+            f"max_memory_allocated_gib={peak / 2**30:.3f}")
+        return out, stats
+
+    uni, st_a = run("a", sufs, n_pfx, shared_prefix=prefix)
+    cont, st_b = run("b", sufs, n_pfx, shared_prefix=prefix,
+                     scheduler="continuous")
+    hand, st_p = run("c prefill", sufs[:8], n_pfx, shared_prefix=prefix,
+                     prefill_only=True)
+    dec, st_c = run("c decode", full[:8], 0, adopt=hand,
+                    scheduler="continuous")
+    hook.remove()
+    want = [r.tokens for r in uni]
+    for tag, res in (("b", cont), ("c", dec)):
+        for i, r in enumerate(res):
+            if r.tokens != want[i]:
+                raise AssertionError(
+                    f"[window] ({tag}) request {i}: {r.tokens} != (a)'s "
+                    f"{want[i]}")
+    for i, r in enumerate(uni):
+        if len(r.tokens) != WIN_NEW or not all(0 <= t < cfg.vocab_size
+                                               for t in r.tokens):
+            raise AssertionError(f"[window] request {i}: {len(r.tokens)} "
+                                 f"tokens or one out of vocab")
+    if not (st_a.prefix_block_hits == st_b.prefix_block_hits
+            == n_pfx * WIN_REQUESTS and st_c.prefix_block_hits > 0):
+        raise AssertionError(
+            f"[window] prefix_block_hits (a) {st_a.prefix_block_hits} (b) "
+            f"{st_b.prefix_block_hits} (c) {st_c.prefix_block_hits}")
+    wins = [h.export.window for h in hand]
+    if not all(w["ring"] == 288 for w in wins):
+        raise AssertionError(f"[window] rings {[w['ring'] for w in wins]}")
+    log(f"[window] mistral_7b, shared prefix {WIN_PREFIX} tokens "
+        f"({n_pfx} shared blocks), {WIN_REQUESTS} suffixes, full prompts "
+        f"{[int(x.shape[0]) for x in full]}, {WIN_NEW} new tokens each, "
+        f"8 slots, prefill_chunk {WIN_CHUNK}, ring {wins[0]['ring']} slots "
+        f"of {BS}: (b) tokens == (a) tokens for all {WIN_REQUESTS}, (c) "
+        f"== (a) for its 8")
+    for tag, st in (("a", st_a), ("b", st_b), ("c decode", st_c)):
+        p50, p99 = ttft_pcts(st)
+        log(f"[window] ({tag}) tokens={st.total_tokens} "
+            f"wall_s={st.wall_time_s:.4f} "
+            f"tokens_per_s={st.tokens_per_sec:.2f} ttft_p50_s={p50:.4f} "
+            f"ttft_p99_s={p99:.4f} prefill_s={st.prefill_time_s:.4f} "
+            f"decode_s={st.decode_time_s:.4f} "
+            f"fused_prefill_tokens={st.fused_prefill_tokens} "
+            f"handoff_adoptions={st.handoff_adoptions}")
+    log(f"[window] (c prefill) handoff_exports={st_p.handoff_exports} "
+        f"exported_blocks={sum(len(h.export) for h in hand)} "
+        f"payload_blocks={sum(h.export.payload_blocks() for h in hand)} "
+        f"wire_bytes={sum(h.export.nbytes() for h in hand)} next_block="
+        f"{[w['next_block'] for w in wins]} shared_slots_left="
+        f"{[len(w['shared_slots']) for w in wins]}")
+    log(f"[window] K1 launches per run (a, b, c prefill, c decode): "
+        f"{launches}, {sum(launches)} in all")
+    del uni, cont, hand, dec, model
+    torch.cuda.empty_cache()
+    return dict(launches=sum(launches))
+
+
+# ----------------------------------------------------- window-parity phase
+def window_parity_phase() -> dict:
+    """mistral_7b at full width, 2 layers, f32 (TF32 off), window 64 and
+    max_len 512 so the ring (128 positions) wraps at lengths the CPU can
+    serve: greedy tokens and schedule on the card (K1) equal the CPU's
+    (plain) for prompts streaming past the ring over a shared prefix,
+    under both schedulers; over an unaligned prefix and window 120 (the
+    rotation copies shared blocks, the boundary is copied on write); with
+    int8 KV (K1q); and a windowed int8-KV handoff exported on the card and
+    adopted on the card and on the CPU gives the CPU's unified tokens."""
+    import dataclasses
+
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.mistral_7b(n_layers=2, sliding_window=64, max_len=512,
+                           dtype=torch.float32)
+    cfg120 = dataclasses.replace(cfg, sliding_window=120)
+    params = bridge.init_params(cfg, SEED + 23, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    models = {(w, dev): llama.Llama.from_params(c, p, device=dev)
+              for w, c in ((64, cfg), (120, cfg120))
+              for dev, p in (("cuda", params), ("cpu", cpu_params))}
+    del params, cpu_params
+    sched = lambda rs: [(r.tokens, r.admitted_at_step, r.finished_at_step,
+                         r.slot, r.kv_blocks) for r in rs]
+    pfx = prompts_for(cfg, 1, 32, 32, SEED + 24)[0]
+    sufs = prompts_for(cfg, 4, 110, 200, SEED + 25)
+    base = dict(slots=2, block_size=BS, steps_per_sync=8,
+                return_stats=True)
+    runs = {
+        # prompts of 142-232 tokens stream past the 128-position ring in
+        # chunks of 32 (<= ring - window) over a 32-token prefix
+        "stream": (64, sufs, dict(base, max_new_tokens=24, prefill_chunk=32,
+                                  shared_prefix=pfx)),
+        # a 40-token prefix (2 whole blocks and a CoW block), unchunked,
+        # window 120: each decode wrap onto a prefix slot copies it first
+        "copy": (120, prompts_for(cfg, 4, 50, 80, SEED + 26),
+                 dict(base, max_new_tokens=40,
+                      shared_prefix=prompts_for(cfg, 1, 40, 40,
+                                                SEED + 27)[0])),
+        "int8": (64, sufs, dict(base, max_new_tokens=24, prefill_chunk=32,
+                                shared_prefix=pfx, kv_quant=True)),
+    }
+    out = {"launches_int8": 0}
+    for name, (w, reqs, kw) in runs.items():
+        with window_tally() as tally:
+            want, st_cpu = serve_loop(models[w, "cpu"], reqs, device="cpu",
+                                      **kw)
+        copies_cpu = tally["copies"]
+        for scheduler in ("slot", "continuous"):
+            pa.reset_launches()
+            with window_tally() as tally:
+                got, st = serve_loop(models[w, "cuda"], reqs, device="cuda",
+                                     scheduler=scheduler, **kw)
+            int8 = kw.get("kv_quant", False)
+            if (pa.launches_int8 if int8 else pa.launches) == 0 or (
+                    pa.launches if int8 else pa.launches_int8):
+                raise AssertionError(
+                    f"[window-parity] ({name}, {scheduler}) K1 "
+                    f"{pa.launches}, K1q {pa.launches_int8} launches")
+            if int8:
+                out["launches_int8"] += pa.launches_int8
+            same = (sched(got) == sched(want) if scheduler == "slot"
+                    else [r.tokens for r in got] == [r.tokens for r in want])
+            if not same:
+                raise AssertionError(
+                    f"[window-parity] ({name}, {scheduler}) cuda "
+                    f"{sched(got)} != cpu {sched(want)}")
+            if st.window_evicted_blocks == 0 or (
+                    name == "copy" and (tally["copies"] == 0
+                                        or st.cow_copies == 0)):
+                raise AssertionError(
+                    f"[window-parity] ({name}, {scheduler}) evictions "
+                    f"{st.window_evicted_blocks}, rotation copies "
+                    f"{tally['copies']}, cow copies {st.cow_copies}")
+            log(f"[window-parity] ({name}, {scheduler}) {len(reqs)} "
+                f"requests, cuda's "
+                f"{'tokens and schedule' if scheduler == 'slot' else 'tokens'}"
+                f" == cpu's (slot); "
+                f"window_evicted_blocks={st.window_evicted_blocks} "
+                f"rotation_copies={tally['copies']} (cpu {copies_cpu}) "
+                f"cow_copies={st.cow_copies} "
+                f"prefix_block_hits={st.prefix_block_hits} "
+                f"K1={pa.launches} K1q={pa.launches_int8}")
+        if name == "int8":
+            unified = [r.tokens for r in want]
+    # the windowed handoff, int8 KV: exported on the card, adopted on
+    # the card (both schedulers) and on the CPU
+    kw = dict(runs["int8"][2])
+    full = [torch.cat([pfx, x]) for x in sufs]
+    hand, st = serve_loop(models[64, "cuda"], sufs, device="cuda",
+                          prefill_only=True, **kw)
+    if not all(h.export.window["ring"] == 8 for h in hand):
+        raise AssertionError("[window-parity] the exports carry no ring")
+    del kw["shared_prefix"]
+    for dev in ("cuda", "cpu"):
+        for scheduler in ("slot", "continuous"):
+            got, _ = serve_loop(models[64, dev], full, device=dev,
+                                adopt=hand, scheduler=scheduler, **kw)
+            if [r.tokens for r in got] != unified:
+                raise AssertionError(
+                    f"[window-parity] handoff adopted on {dev} "
+                    f"({scheduler}): {[r.tokens for r in got]} != the "
+                    f"cpu's unified {unified}")
+    log(f"[window-parity] windowed handoff, int8 KV: {len(hand)} exports "
+        f"made on cuda (next_block "
+        f"{[h.export.window['next_block'] for h in hand]}, payload blocks "
+        f"{[h.export.payload_blocks() for h in hand]} of "
+        f"{[len(h.export) for h in hand]}), adopted on cuda and cpu under "
+        f"slot and continuous: tokens identical to the cpu's unified run")
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------- window kernel shapes (K1/K1q)
+WIN_W, WIN_SLOTS = 4096, 288
+
+
+def window_case(l: int, seed: int, dtype=torch.bfloat16) -> dict:
+    """The window phase's kernel shapes: at L=1, 8 lanes over wrapped
+    288-slot rings of 16-position blocks (contexts 4609 to 7815, the
+    phase's full prompts plus their decode); at L=512, one lane's segment
+    at positions 5120-5631, streamed past the ring.  Window 4096; the
+    scratch block is poisoned."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if l == 1:
+        ctx = [4609, 7815] + torch.randint(4610, 7815, (6,),
+                                           generator=g).tolist()
+    else:
+        ctx = [5120 + l]
+    b = len(ctx)
+    dev = torch.device("cuda")
+    table = (torch.randperm(b * WIN_SLOTS, generator=g) + 1).to(
+        torch.int32).view(b, WIN_SLOTS)
+    shape = (b * WIN_SLOTS + 1, BS, KV, D)
+    k_pool = torch.randn(shape, generator=g)
+    v_pool = torch.randn(shape, generator=g)
+    k_pool[0] = 1e4
+    v_pool[0] = 1e4
+    q = torch.randn((b, l, H, D), generator=g)
+    return dict(q=q.to(dev, dtype), k=k_pool.to(dev, dtype),
+                v=v_pool.to(dev, dtype), table=table.to(dev),
+                pos=torch.tensor([c - l for c in ctx], dtype=torch.int32,
+                                 device=dev), window=WIN_W, ctx=ctx)
+
+
+def window_bound_ms(case, dtype, int8: bool = False) -> tuple:
+    """bound_ms for a window case, counting only the keys inside the
+    window: a lane's L rows at pos..pos+L-1 read the positions
+    pos+L-window .. pos+L-1 (each once) and row i does its products
+    against min(pos+i+1, window) of them."""
+    esz = torch.finfo(dtype).bits // 8
+    q = case["q"]
+    b, l, h, d = q.shape
+    per_pos = KV * D * esz if not int8 else KV * D + KV * 4
+    keys = pairs = 0
+    for p in case["pos"].tolist():
+        keys += (p + l) - max(0, p + l - WIN_W)
+        pairs += sum(min(p + i + 1, WIN_W) for i in range(l))
+    io = 2 * q.numel() * esz + case["table"].numel() * 4 + b * 4
+    t_bytes = (keys * per_pos * 2 + io) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 2 * h * d * pairs / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_kernel_phase(int8: bool = False) -> dict:
+    """K1 (or K1q over int8_pools of the same draws) at the window
+    phase's shapes against its plain version, bf16 and f32 queries: live
+    rows within PAGED_TOL, two launches with the same bits; then the bf16
+    decode and prefill times beside the plain version, SDPA over the
+    gathered view with the ring and window mask, and the bound."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    tag = "[kernel1q-window]" if int8 else "[kernel-window]"
+    plain = (pa.paged_attention_int8_plain if int8
+             else pa.paged_attention_plain)
+
+    def inputs(case):
+        k, v = int8_pools(case) if int8 else (case["k"], case["v"])
+        return (case["q"], k, v, case["table"], case["pos"])
+
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timings = {}
+    for name, l in (("decode", 1), ("prefill", 512)):
+        for dt in (torch.float32, torch.bfloat16):
+            case = window_case(l, SEED + 200 + l, dt)
+            args = inputs(case)
+            errs[dt] = max(errs[dt], check_paged(
+                case, args, plain, dt, None,
+                f"{tag} {str(dt)[6:]:8s} {name} L={l} "
+                f"B={len(case['ctx'])} ring {WIN_SLOTS} slots window "
+                f"{WIN_W} ctx={case['ctx']}"))
+        timings[name] = paged_timing(
+            case, args, plain, window_bound_ms(case, torch.bfloat16, int8),
+            f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
+            f"B={len(case['ctx'])} L={l} ring {WIN_SLOTS} x {BS} window "
+            f"{WIN_W} ctx={case['ctx']}")
+    return dict(errs=errs, timings=timings)
 
 
 # -------------------------------------------------------------- train phase
@@ -1892,6 +2329,7 @@ def main() -> int:
         return 1
     import tf_operator_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     card = device_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
@@ -1909,6 +2347,10 @@ def main() -> int:
     serve = serve_phase()
     handoff_phase(serve.pop("model"))
     parity_phase()
+    win = window_phase()
+    win_parity = window_parity_phase()
+    kern_win = window_kernel_phase()
+    kern_win_q = window_kernel_phase(int8=True)
     kern2 = kernel2_phase()
     train = train_phase()
     train_parity_phase()
@@ -1940,7 +2382,13 @@ def main() -> int:
 
     rows = [paged_row("paged_attention", 96, kern, serve["launches"]),
             paged_row("paged_attention_int8", 259, kern1q,
-                      serve_int8["launches"])]
+                      serve_int8["launches"]),
+            # the same kernels at the window phase's shapes: wrapped
+            # 288-slot rings, window 4096
+            paged_row("paged_attention_window", 96, kern_win,
+                      win["launches"]),
+            paged_row("paged_attention_int8_window", 259, kern_win_q,
+                      win_parity["launches_int8"])]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
     # _dkv_kernel)
     for name, line in (("flash_fwd", 112), ("flash_dq", 217),
@@ -1972,6 +2420,7 @@ def main() -> int:
                      "library_ms": t["library_ms"],
                      "device_ms": t["device_ms"],
                      "library_device_ms": t["library_device_ms"]})
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

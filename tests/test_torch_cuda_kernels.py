@@ -139,6 +139,48 @@ def test_kernel_split_edges(dtype, l, g, window):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def _wrapped_ring(l):
+    """The window phase's tables: 288-slot modular rings of 16-position
+    blocks (4608 positions) at window 4096.  Lanes 0-4 have wrapped
+    (contexts 4609 to 7815, their rings permuted blocks), lane 5 has not
+    (4200: 263 slots, the rest scratch), lane 6 is frozen (all scratch)."""
+    n_slots, bs = 288, 16
+    ctx = [4609, 5000, 6144, 7000, 7815, 4200]
+    rng = np.random.default_rng(21)
+    ids = (rng.permutation(6 * n_slots) + 1).tolist()
+    table = []
+    for i, c in enumerate(ctx):
+        used = min(n_slots, -(-c // bs))
+        table.append(ids[i * n_slots:i * n_slots + used]
+                     + [0] * (n_slots - used))
+    table.append([0] * n_slots)
+    return table, [c - l for c in ctx] + [0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 512])
+def test_kernel_wrapped_window_ring(dtype, l):
+    """K1 at the window phase's shapes (head_dim 128, G = 4) over rings
+    that have wrapped, at window 4096: decode (L=1, split over the table
+    in bf16, where whole chunks hold only positions that left the
+    window) and a 512-token segment streamed past the ring; the frozen
+    lane finalizes to 0, two launches give the same bits."""
+    table, pos = _wrapped_ring(l)
+    args = _case(30 + l, l=l, g=4, d=128, bs=16, dtype=dtype, table=table,
+                 pos=pos)
+    before = tpa.launches
+    got = tpa.paged_attention(*args, window=4096)
+    again = tpa.paged_attention(*args, window=4096)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool((got[6] == 0).all())
+    want = tpa.paged_attention_plain(*args, window=4096)
+    live = [0, 1, 2, 3, 4, 5]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l", [1, 40])
 def test_kernel_block_size_64(dtype, l):

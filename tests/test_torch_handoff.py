@@ -24,15 +24,15 @@ import pytest
 import torch
 
 from tests.torch_serving_util import (int8_models, pool_pair, prompts,
-                                      tiny_models, to_numpy, to_torch)
+                                      tiny_models)
+from tests.torch_serving_util import handoff_to_jax as _to_jax
+from tests.torch_serving_util import handoff_to_port as _to_port
+from tests.torch_serving_util import row_to_jax as _row_to_jax
 from tf_operator_tpu.models import paging as jp
-from tf_operator_tpu.models import quant as jq
-from tf_operator_tpu.models.serving import KVHandoff as JaxHandoff
 from tf_operator_tpu.models.serving import serve_loop as jax_serve
 from tf_operator_tpu_torch.models import bridge
 from tf_operator_tpu_torch.models import llama as tl
 from tf_operator_tpu_torch.models import paging as tp
-from tf_operator_tpu_torch.models import quant as tq
 from tf_operator_tpu_torch.models.serving import KVHandoff, serve_loop
 
 KW = dict(slots=2, max_new_tokens=10, block_size=4)
@@ -41,40 +41,6 @@ KW = dict(slots=2, max_new_tokens=10, block_size=4)
 @pytest.fixture(scope="module")
 def setup():
     return tiny_models()
-
-
-# ------------------------------------------------ numpy bridge of the wire
-def _row_to_jax(row):
-    leaf = lambda t: (jq.QTensor(q=to_numpy(t.q), scale=to_numpy(t.scale))
-                      if isinstance(t, tq.QTensor) else to_numpy(t))
-    return [(leaf(k), leaf(v)) for k, v in row]
-
-
-def _row_to_port(row):
-    leaf = lambda t: (tq.QTensor(q=to_torch(t.q), scale=to_torch(t.scale))
-                      if isinstance(t, jq.QTensor) else to_torch(t))
-    return [(leaf(k), leaf(v)) for k, v in row]
-
-
-def _export_to(exp, mod, row_fn):
-    if exp is None:
-        return None
-    return mod.BlockExport(exp.block_size, exp.hashes, exp.shared,
-                           {h: row_fn(r) for h, r in exp.payload.items()},
-                           exp.window)
-
-
-def _convert(h, cls, mod, row_fn):
-    fields = {f.name: getattr(h, f.name) for f in dataclasses.fields(h)}
-    return cls(**dict(fields, export=_export_to(h.export, mod, row_fn)))
-
-
-def _to_jax(h: KVHandoff) -> JaxHandoff:
-    return _convert(h, JaxHandoff, jp, _row_to_jax)
-
-
-def _to_port(h: JaxHandoff) -> KVHandoff:
-    return _convert(h, KVHandoff, tp, _row_to_port)
 
 
 def _schedule(results):
@@ -410,19 +376,23 @@ def test_handoff_validation_matches_jax(setup):
 
 
 def test_windowed_handoffs_refuse_naming_item_3(setup):
-    """Sliding-window tables are ROADMAP item 3: a windowed export, and a
-    sliding-window config on either side, refuse naming it."""
+    """Sliding-window tables (ROADMAP item 3) now serve, and a handoff
+    adopts only into a table of its own kind: a windowed export into a
+    linear model, and a linear export into a sliding-window model, raise
+    HandoffError before the loop starts; the sliding-window model's
+    prefill side ships its ring (export.window)."""
     _, _, tmodel = setup
     ps = prompts([6, 4], seed=1)
     hand = serve_loop(tmodel, ps, device="cpu", prefill_only=True, **KW)
     windowed = [dataclasses.replace(h, export=tp.BlockExport(
         4, h.export.hashes, h.export.shared, h.export.payload,
         window={"ring": 4})) for h in hand]
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(tp.HandoffError, match="ring of 4 slots"):
         serve_loop(tmodel, ps, device="cpu", adopt=windowed, **KW)
     wcfg = tl.tiny(dtype=torch.float32, max_len=128, sliding_window=8)
     wmodel = tl.Llama.from_params(
         wcfg, bridge.init_params(wcfg, 0, device="cpu"), device="cpu")
-    for extra in (dict(prefill_only=True), dict(adopt=hand)):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            serve_loop(wmodel, ps, device="cpu", **KW, **extra)
+    with pytest.raises(tp.HandoffError, match="sender shipped None"):
+        serve_loop(wmodel, ps, device="cpu", adopt=hand, **KW)
+    whand = serve_loop(wmodel, ps, device="cpu", prefill_only=True, **KW)
+    assert [h.export.window["ring"] for h in whand] == [32, 32]

@@ -256,7 +256,7 @@ def test_sampling_helpers():
 
 
 def test_config_factories_match_jax():
-    for name in ("llama3_8b", "llama31_8b", "tiny"):
+    for name in ("llama3_8b", "llama31_8b", "mistral_7b", "tiny"):
         want = dataclasses.asdict(getattr(jl, name)())
         got = dataclasses.asdict(getattr(tl, name)())
         for key, val in got.items():
@@ -266,14 +266,20 @@ def test_config_factories_match_jax():
                 assert val == want[key]
             else:
                 assert val == want[key], (name, key)
-    # the full-sequence path takes a window; the paged path refuses it
+    # the full-sequence path takes a window; the paged path writes
+    # through a ring: position 9 of a 2-slot table of 4-position blocks
+    # lands in slot (9 // 4) % 2 = 0, block 1, at offset 1
     cfg = tl.tiny(sliding_window=8)
     model = tl.Llama.from_params(cfg, bridge.init_params(cfg, 0, device="cpu"),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding"):
-        model(torch.zeros((1, 1), dtype=torch.long),
-              tpg.init_block_pool(cfg, 2, 4, device="cpu"), 0,
-              torch.tensor([[1, 2]], dtype=torch.int32))
+    cache = tpg.init_block_pool(cfg, 2, 4, device="cpu")
+    out = model(torch.zeros((1, 1), dtype=torch.long), cache, 9,
+                torch.tensor([[1, 2]], dtype=torch.int32))
+    assert out.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(out).all())
+    for k_pool, _ in cache:
+        written = k_pool.float().abs().sum(dim=(2, 3)) > 0
+        assert written.nonzero().tolist() == [[1, 1]]
 
 
 def test_init_params_follow_flax_initializers():

@@ -134,30 +134,11 @@ def test_sampling_is_seeded_by_the_generator(setup):
     (dict(draft=object()), "item 5: speculative"),
     (dict(draft=object(), prefill_only=True), "item 5: speculative"),
     (dict(cache_sharding=object()), "item 11: distributed"),
-    (dict(windowed_export=True), "item 3: sliding-window"),
-    (dict(sliding_window=8), "item 3: sliding-window"),
     (dict(telemetry=object()), "item 8: serving telemetry"),
 ])
 def test_refused_options_name_their_roadmap_item(setup, kw, item):
-    """What the port still refuses names its ROADMAP Queue 1 item: a
-    handoff whose export carries sliding-window ring state, and a
-    sliding-window config, are item 3."""
-    from tf_operator_tpu_torch.models import paging
-    from tf_operator_tpu_torch.models.serving import KVHandoff
-
+    """What the port still refuses names its ROADMAP Queue 1 item."""
     _, _, tmodel, prompts = setup
-    kw = dict(kw)
-    if kw.pop("windowed_export", False):
-        kw["adopt"] = [KVHandoff(
-            rid=i, prompt_len=len(p), budget=4, first_token=0,
-            export=paging.BlockExport(4, [], [], {}, window={"ring": 4}))
-            for i, p in enumerate(prompts)]
-        kw["max_new_tokens"] = 4
-    if "sliding_window" in kw:
-        cfg = tl.tiny(dtype=torch.float32, max_len=128,
-                      sliding_window=kw.pop("sliding_window"))
-        tmodel = tl.Llama.from_params(
-            cfg, bridge.init_params(cfg, 0, device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         serve_loop(tmodel, prompts, device="cpu", **kw)
 

@@ -74,8 +74,8 @@ class LlamaConfig:
     attention_fn: Optional[Callable] = None
     remat: bool = False  # recompute each block in the backward pass
     # Mistral-style sliding window: passed as window= to attention_fn on
-    # the full-sequence path; the paged path does not serve it yet
-    # (ROADMAP: sliding-window paged tables) and refuses it
+    # the full-sequence path; the paged path writes through modular
+    # (ring) block tables and passes it to paged_attention
     sliding_window: Optional[int] = None
 
     def __post_init__(self):
@@ -121,6 +121,15 @@ def llama31_8b(**kw) -> LlamaConfig:
         rope_scaling=RopeScaling(factor=8.0, low_freq_factor=1.0,
                                  high_freq_factor=4.0,
                                  original_max_len=8192),
+    ), kw)
+
+
+def mistral_7b(**kw) -> LlamaConfig:
+    """Mistral-class: 4:1 GQA + 4096-token sliding-window attention."""
+    return _config(dict(
+        vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+        n_layers=32, d_ff=14336, max_len=8192, rope_theta=1000000.0,
+        sliding_window=4096,
     ), kw)
 
 
@@ -368,7 +377,8 @@ class Llama(nn.Module):
     Decode mode, forward(tokens [B, L], cache, cache_pos, block_table):
     writes the L new positions' K/V into the pools of `cache` (per-layer
     (k, v) from paging.init_block_pool; updated IN PLACE) through
-    block_table [B, T].  cache_pos is the position of tokens[:, 0]: an
+    block_table [B, T], a modular ring of T blocks for a sliding-window
+    config (position p in table slot (p // bs) % T).  cache_pos is the position of tokens[:, 0]: an
     int for every row, or a [B] tensor giving each lane its own position.
 
     Full-sequence mode, forward(tokens [B, S]) (cache None): positions
@@ -489,10 +499,6 @@ class Llama(nn.Module):
         if cache is None:
             return self._forward_full(tokens, return_hidden, positions)
         cfg = self.cfg
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding_window models are not served by the port yet "
-                "(ROADMAP Queue 1: sliding-window paged tables)")
         b, l = tokens.shape
         table = self.rope()
         dev = table.device
@@ -512,9 +518,11 @@ class Llama(nn.Module):
             pos = torch.full((b,), int(cache_pos), dtype=torch.int32,
                              device=dev)
         cos, sin = _rope_cos_sin(angles)
-        # every layer writes the same positions through the same table
-        write_index = paging.block_write_index(pos, block_table, l,
-                                               cache[0][0].shape[1])
+        # every layer writes the same positions through the same table;
+        # a sliding-window model's table is a ring (modular)
+        write_index = paging.block_write_index(
+            pos, block_table, l, cache[0][0].shape[1],
+            modular=cfg.sliding_window is not None)
         x = self._embed(tokens)
         for blk, layer_cache in zip(self.blocks, cache):
             x = blk(x, cos, sin, layer_cache, pos, block_table, write_index)
@@ -555,6 +563,67 @@ def params_flops_per_token(cfg: LlamaConfig) -> float:
     mlp = 3 * cfg.d_model * cfg.d_ff
     p = cfg.vocab_size * cfg.d_model + cfg.n_layers * (attn + mlp)
     return 6.0 * p
+
+
+# ------------------------------------------------------------- cache sizing
+def chunk_align_cache(cache_len: int, prefill_chunk: int,
+                      max_len: int) -> int:
+    """Round a cache length up to a prefill_chunk multiple (streaming
+    prefill requires chunk | cache so no segment write wraps), falling
+    back to the largest multiple under max_len when rounding would cross
+    the RoPE-table bound."""
+    c = -(-cache_len // prefill_chunk) * prefill_chunk
+    if c > max_len:
+        c = max(prefill_chunk, max_len // prefill_chunk * prefill_chunk)
+    return c
+
+
+def check_prefill_chunk(prefill_chunk: int, cache_len: int, window,
+                        streams_past_cache: bool, who: str = "") -> None:
+    """Streaming-prefill validation: the chunk must divide the cache, and
+    when the ring wraps it must not evict positions its own segment's
+    queries still attend."""
+    if cache_len % prefill_chunk:
+        raise ValueError(
+            f"prefill_chunk {prefill_chunk} must divide {who}cache_len "
+            f"{cache_len} — a segment write must never wrap the ring")
+    if (window is not None and streams_past_cache
+            and prefill_chunk > cache_len - window):
+        # a segment write evicts the ring's oldest prefill_chunk positions
+        # before the segment's attention runs; if any of them is still
+        # inside the first query's window, that query would attend the
+        # aliased (future) K/V in their slots
+        raise ValueError(
+            f"prefill_chunk {prefill_chunk} > {who}cache_len {cache_len} "
+            f"- sliding_window {window}: a segment's write would evict "
+            f"positions its own queries still attend (grow the cache or "
+            f"shrink the chunk)")
+
+
+def auto_cache_len(cfg: LlamaConfig, prompt_len: int, total: int,
+                   prefill_chunk: Optional[int] = None) -> int:
+    """The default KV ring length: 128-multiples of the longest sequence
+    (capped at max_len).  A sliding-window model gets a ring of
+    O(window) positions instead: room for the whole prompt, whose
+    prefill write must not wrap, or, with prefill_chunk, window plus one
+    chunk's eviction band (the prompt streams through the ring), rounded
+    up to a chunk multiple."""
+    def bucket(n):
+        return min(cfg.max_len, (n + 127) // 128 * 128)
+
+    cache_len = bucket(total)
+    if cfg.sliding_window is not None:
+        if prefill_chunk is None:
+            cache_len = min(cache_len,
+                            max(bucket(cfg.sliding_window),
+                                bucket(prompt_len)))
+        else:
+            cache_len = min(cache_len,
+                            bucket(cfg.sliding_window + prefill_chunk))
+    if prefill_chunk is not None:
+        cache_len = chunk_align_cache(cache_len, prefill_chunk,
+                                      cfg.max_len)
+    return cache_len
 
 
 # ---------------------------------------------------------------- sampling

@@ -1,16 +1,25 @@
 """Paged KV cache: block pool, block tables, and their reads and writes.
 
-The port of tf_operator_tpu/models/paging.py's linear-table half.  The KV
-cache is a fixed pool of blocks per layer, [num_blocks + 1, block_size,
-KV, D], and each lane holds a block table [T] of ids: position p lives in
-block table[p // bs] at offset p % bs.  Block id 0 is a reserved SCRATCH
+The port of tf_operator_tpu/models/paging.py.  The KV cache is a fixed
+pool of blocks per layer, [num_blocks + 1, block_size, KV, D], and each
+lane holds a block table [T] of ids: position p lives in block
+table[p // bs] at offset p % bs.  Block id 0 is a reserved SCRATCH
 block that is never handed out: frozen lanes and table padding point at
 it, so their writes can never land in a block another lane owns, and
 every read masks it.
 
+Sliding-window lanes hold a MODULAR table instead: a ring of T slots,
+position p in slot (p // bs) % T, so a lane touches at most T blocks
+however long its sequence.  `plan_window_request` reserves a lane's
+blocks, and `WindowRotation` keeps its slot map: when the ring wraps
+onto a slot that still holds a shared prefix block, the lane swaps in a
+pre-reserved private shadow (copying the shared bytes first while any
+of them is still inside a live query's window) and drops its reference.
+
 Host side (copied, since importing the JAX package would load jax):
 `SCRATCH_BLOCK`, `blocks_for`, `BlockPool`, `build_table`, `plan_request`,
-and the continuous scheduler's `blocks_to_cover` and `step_gate`.
+`plan_window_request`, `WindowRotation`, and the continuous scheduler's
+`blocks_to_cover` and `step_gate`.
 Device side: `init_block_pool`, the table-routed write (`block_write_index`
 + `write_blocks`, or `paged_cache_write` for one call), the linear-view
 gather `gather_blocks` that the plain attention reads through, and the
@@ -168,6 +177,92 @@ def plan_request(prompt_len: int, max_new_tokens: int, headroom: int,
     return total, shared, total - shared, cow
 
 
+def plan_window_request(prompt_len: int, max_new_tokens: int,
+                        block_size: int, ring_blocks: int,
+                        prefix_len: int = 0, write_slack: int = 0):
+    """Admission block math for a sliding-window lane over a modular
+    table of `ring_blocks` slots: (needed slots, shared prefix blocks,
+    private blocks to reserve, needs boundary CoW, shared blocks the
+    ring will rotate out).
+
+    The lane touches at most ring_blocks slots whatever its length.
+    Shared prefix blocks first sit in their own slots (the serve loop
+    checks that the prefix fits the ring); when the ring wraps back onto
+    a shared slot the lane swaps in a private shadow block and drops its
+    reference.  The shadows are reserved here, at admission, so the
+    memory gate's worst case is exact and a rotation never allocates.
+
+    write_slack: positions the device may write past the worst case (a
+    decode block runs to its edge after EOS or the budget); those writes
+    wrap the table too, so the shadows cover them."""
+    seq = prompt_len + max_new_tokens + write_slack
+    last_block = (seq - 1) // block_size
+    needed = min(last_block + 1, ring_blocks)
+    shared = min(prefix_len // block_size, needed)
+    cow = prefix_len % block_size != 0
+    rotated = (max(0, min(shared, last_block - ring_blocks + 1))
+               if last_block >= ring_blocks else 0)
+    private = needed - shared + rotated
+    return needed, shared, private, cow, rotated
+
+
+class WindowRotation:
+    """Host-side modular-table bookkeeping for one sliding-window lane.
+
+    Holds the slot -> block id map and the pre-reserved shadow blocks;
+    `advance(upto_pos, q_min)` walks every block index the lane is about
+    to write and returns the table edits to apply before that write is
+    dispatched:
+
+      - a private slot whose old epoch retires is reused in place (no
+        edit);
+      - a shared (prefix) slot is swapped to a shadow block and the
+        shared id returned for a decref: eviction by refcount.  While
+        any of the old block's positions is still inside the window of a
+        query at q_min or later, the shadow must first get a copy of the
+        shared bytes (copy_block), so the offsets not yet overwritten
+        stay readable; a block wholly out of the window is dropped
+        without a copy."""
+
+    def __init__(self, slot_ids: List[int], shared_count: int,
+                 shadows: List[int], block_size: int,
+                 window: int) -> None:
+        self.slots = list(slot_ids)        # slot -> block id (0 = scratch)
+        self.ring = len(slot_ids)
+        # the slots that still hold a shared (read-only) block
+        self.shared_slots = set(range(shared_count))
+        self.shadows = list(shadows)       # pre-reserved private ids
+        self.bs = block_size
+        self.window = window
+        self.next_block = self.ring        # the first block index that wraps
+
+    def advance(self, upto_pos: int, q_min: int):
+        """Handle every wrap up to (and including) the block holding
+        `upto_pos`; returns (edits, released, evicted): edits [(slot,
+        new_id, copy_src or None)], the shared ids to decref, and the
+        count of retired block epochs."""
+        edits, released, evicted = [], [], 0
+        last = upto_pos // self.bs
+        while self.next_block <= last:
+            j = self.next_block
+            slot = j % self.ring
+            evicted += 1
+            if slot in self.shared_slots:
+                old = self.slots[slot]
+                new = self.shadows.pop()
+                # the old epoch held positions [(j - ring) * bs, + bs):
+                # copy iff one of them is visible to a query at q_min or
+                # later (q - window < k)
+                old_max = (j - self.ring) * self.bs + self.bs - 1
+                copy_src = old if old_max > q_min - self.window else None
+                self.slots[slot] = new
+                self.shared_slots.discard(slot)
+                released.append(old)
+                edits.append((slot, new, copy_src))
+            self.next_block += 1
+        return edits, released, evicted
+
+
 def blocks_to_cover(upto_tokens: int, covered_blocks: int,
                     block_size: int) -> int:
     """Marginal blocks a lane's linear table needs to cover positions
@@ -219,26 +314,33 @@ def init_block_pool(cfg, num_blocks: int, block_size: int,
 
 
 def block_write_index(pos, table: torch.Tensor, length: int,
-                      block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      block_size: int, modular: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(block ids, offsets), each [B, length], of positions pos..pos+L-1
     per row routed through table [B, T]: position p lands in block
     table[b, p // bs] at offset p % bs.
 
-    The table column CLAMPS to the last one instead of wrapping: a live
-    lane's end-of-block overshoot (decode blocks run to the block edge
-    past EOS or budget) writes positions past its worst case, which land
-    in the lane's own last block — garbage the position mask never shows
-    a query — or, for a frozen lane pinned past its zeroed table, in
-    scratch.  Torch faults on an out-of-range index where JAX clamps, so
-    the clamp is explicit.  pos is an int (one start for every row) or
-    a [B] tensor (per-lane positions)."""
+    A linear table's column CLAMPS to the last one instead of wrapping: a
+    live lane's end-of-block overshoot (decode blocks run to the block
+    edge past EOS or budget) writes positions past its worst case, which
+    land in the lane's own last block — garbage the position mask never
+    shows a query — or, for a frozen lane pinned past its zeroed table,
+    in scratch.  Torch faults on an out-of-range index where JAX clamps,
+    so the clamp is explicit.  modular=True (a sliding-window ring)
+    wraps each row to slot (p // bs) % T of its own table; WindowRotation
+    has made every slot a write wraps onto the lane's own by then, and a
+    frozen lane's all-scratch row still lands in scratch.  pos is an int
+    (one start for every row) or a [B] tensor (per-lane positions)."""
     b = table.shape[0]
     steps = torch.arange(length, device=table.device)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         p = pos.to(torch.long)[:, None] + steps[None, :]
     else:
         p = (int(pos) + steps)[None, :].expand(b, length)
-    slot = torch.clamp(p // block_size, max=table.shape[1] - 1)
+    if modular:
+        slot = torch.remainder(p // block_size, table.shape[1])
+    else:
+        slot = torch.clamp(p // block_size, max=table.shape[1] - 1)
     bidx = torch.gather(table.to(torch.long), 1, slot)
     return bidx, p % block_size
 
@@ -261,11 +363,13 @@ def write_blocks(pool, val: torch.Tensor,
     return pool
 
 
-def paged_cache_write(pool, val: torch.Tensor, pos, table: torch.Tensor):
-    """One K or V block-pool write through a linear table, in place
-    (the JAX package's `_block_write` with modular=False)."""
+def paged_cache_write(pool, val: torch.Tensor, pos, table: torch.Tensor,
+                      modular: bool = False):
+    """One K or V block-pool write through a linear or (modular=True) a
+    ring table, in place: the JAX package's `paged_cache_write`.  An
+    int8 pool quantizes on the write."""
     return write_blocks(pool, val, block_write_index(
-        pos, table, val.shape[1], pool.shape[1]))
+        pos, table, val.shape[1], pool.shape[1], modular))
 
 
 def gather_blocks(pool, table: torch.Tensor):

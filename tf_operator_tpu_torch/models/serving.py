@@ -62,9 +62,24 @@ pool (fresh ids, shared blocks deduped by hash through a HandoffRegistry)
 and the lane goes live at the handoff's first token, under either
 scheduler.  Greedy tokens equal the unified loop's.
 
+Sliding windows (a config with sliding_window, e.g. llama.mistral_7b):
+each lane's table is a modular ring of t_blocks slots sized by
+llama.auto_cache_len (window plus one chunk's band when prefill_chunk
+is set, so a long prompt streams through the ring), and its admission
+reserves paging.plan_window_request's blocks, shadows included, under
+either scheduler (the continuous one keeps that reservation and admits
+no windowed lane lazily).  Before every dispatch whose writes reach a
+new block (a prompt segment, a fused segment, a decode block) the lane's
+paging.WindowRotation swaps a wrapped-onto shared slot for its shadow,
+copying the shared block first while its positions are still in the
+window, and drops the reference; the edit reaches the host table (the
+pending row or the live one) that the dispatch uploads.  A windowed
+export carries the ring's slot map and cursor (`window`: the JAX
+package's dict), and the decode side resumes the rotation mid-ring.
+
 Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-dense (non-paged) mode, speculative decoding, cache sharding, sliding
-windows (windowed handoff exports too) and the telemetry object.
+dense (non-paged) mode, speculative decoding, cache sharding and the
+telemetry object.
 """
 from __future__ import annotations
 
@@ -149,6 +164,9 @@ class ServeStats:
     # the handoff: lanes exported (prefill_only) and exports adopted
     handoff_exports: int = 0
     handoff_adoptions: int = 0
+    # sliding windows: block epochs the rings retired (a shared slot
+    # swapped for its shadow, or a private one reused in place)
+    window_evicted_blocks: int = 0
     total_tokens: int = 0
     wall_time_s: float = 0.0
     tokens_per_sec: float = 0.0
@@ -276,9 +294,13 @@ class _Setup:
     block_size: int
     pool_blocks: int
     t_blocks: int
+    # per request (slots needed, shared prefix blocks, private blocks,
+    # boundary CoW, shared blocks the ring rotates out; 0 when linear)
     plans: list
     kv_quant: bool
     continuous: bool
+    # a sliding-window model: modular tables of t_blocks slots
+    windowed: bool
     select: Callable[[torch.Tensor], torch.Tensor]
     dev: torch.device
     # the shared prefix (None without one)
@@ -346,9 +368,6 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         _refuse("draft (speculative decoding)", "item 5: speculative decoding")
     if cache_sharding is not None:
         _refuse("cache_sharding", "item 11: distributed")
-    if model.cfg.sliding_window is not None:
-        _refuse("a sliding_window config",
-                "item 3: sliding-window paged tables")
     if telemetry is not None:
         _refuse("telemetry", "item 8: serving telemetry")
     continuous = scheduler == "continuous"
@@ -419,9 +438,6 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                 raise ValueError(
                     f"handoff {i}: no export and not completed — "
                     f"nothing to adopt")
-            if h.export is not None and h.export.window is not None:
-                _refuse(f"handoff {i}: a windowed export (export.window)",
-                        "item 3: sliding-window paged tables")
     if prefill_chunk is not None and prefill_chunk < 1:
         raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
     prefix = (torch.as_tensor(shared_prefix, dtype=torch.long).reshape(-1)
@@ -463,7 +479,8 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         raise ValueError(
             f"prefill_chunk {prefill_chunk} must be a multiple of "
             f"block_size {block_size} so every streamed segment "
-            f"writes whole blocks")
+            f"writes whole blocks (adjust the chunk or the block "
+            f"size)")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
     _llama.check_truncation(cfg.vocab_size, top_k, top_p)
@@ -482,16 +499,52 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         stats = ServeStats(slots=slots, scheduler=scheduler)
         return ([], stats) if return_stats else []
 
-    # block math: the table covers the largest worst case; each plan is
-    # (total, shared, private, cow).  A prefill_only lane reserves its
-    # prompt's blocks only: the first token comes off the final fill's
-    # logits, and decode growth belongs to the decode side's pool
+    # block math: a linear table covers the largest worst case; a
+    # windowed one is a ring of ring_len // block_size slots, sized as
+    # the JAX package sizes it (block- and chunk-aligned), whatever the
+    # sequence length.  A prefill_only lane plans for its prompt only:
+    # the first token comes off the final fill's logits, and decode
+    # growth (and its overshoot's wraps) belongs to the decode side
     worst_total = max(int(r.shape[0]) + b for r, b in zip(reqs, budgets))
-    t_blocks = paging.blocks_for(worst_total, block_size)
-    plans = [paging.plan_request(int(r.shape[0]),
-                                 0 if prefill_only else budgets[i], 0,
-                                 block_size, p_fix)
-             for i, r in enumerate(reqs)]
+    windowed = cfg.sliding_window is not None
+    if windowed:
+        window = cfg.sliding_window
+        ring_len = _llama.auto_cache_len(
+            cfg, max(int(r.shape[0]) for r in reqs), worst_total,
+            prefill_chunk)
+        if prefill_chunk is None:
+            ring_len = -(-ring_len // block_size) * block_size
+        t_blocks = ring_len // block_size
+        if p_fix > ring_len:
+            raise ValueError(
+                f"shared_prefix length {p_fix} exceeds the window "
+                f"ring ({t_blocks} blocks x {block_size} = "
+                f"{ring_len} positions, window {window}) — a prefix "
+                f"longer than the ring would wrap over itself; "
+                f"shrink the prefix or use the dense ring")
+        for i, r in enumerate(reqs):
+            p_len = int(r.shape[0])
+            chunk = (prefill_chunk if prefill_chunk is not None
+                     and prefill_chunk < p_len else None)
+            if chunk is None and p_len > ring_len:
+                raise ValueError(
+                    f"request {i}: prompt {p_len} exceeds the window "
+                    f"ring {ring_len}; pass prefill_chunk to stream it")
+            if chunk is not None:
+                _llama.check_prefill_chunk(
+                    chunk, ring_len, window,
+                    streams_past_cache=p_len + budgets[i] > ring_len)
+        plans = [paging.plan_window_request(
+            int(r.shape[0]), 0 if prefill_only else budgets[i], block_size,
+            t_blocks, p_fix,
+            write_slack=0 if prefill_only else steps_per_sync - 1)
+            for i, r in enumerate(reqs)]
+    else:
+        t_blocks = paging.blocks_for(worst_total, block_size)
+        plans = [paging.plan_request(int(r.shape[0]),
+                                     0 if prefill_only else budgets[i], 0,
+                                     block_size, p_fix) + (0,)
+                 for i, r in enumerate(reqs)]
     n_prefix_blocks = paging.blocks_for(p_fix, block_size)
     if pool_blocks is None:
         pool_blocks = slots * max(pl[2] for pl in plans) + n_prefix_blocks
@@ -511,6 +564,8 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
 
     adopt_exports = None
     if adopt is not None:
+        for i, h in enumerate(adopt):
+            _check_ring(i, h.export, t_blocks if windowed else None)
         # every export adopts against the UNION of the batch's payloads:
         # a sender elides bytes it shipped under an earlier request's
         # hash, but a preemption here can free that block before a later
@@ -522,7 +577,8 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         adopt_exports = [
             None if h.export is None else paging.BlockExport(
                 h.export.block_size, h.export.hashes, h.export.shared,
-                {hh: union[hh] for hh in h.export.hashes if hh in union})
+                {hh: union[hh] for hh in h.export.hashes if hh in union},
+                h.export.window)
             for h in adopt]
 
     def select(logits: torch.Tensor) -> torch.Tensor:
@@ -534,12 +590,33 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                    steps_per_sync=steps_per_sync, block_size=block_size,
                    pool_blocks=pool_blocks, t_blocks=t_blocks, plans=plans,
                    kv_quant=kv_quant, continuous=continuous,
-                   select=select, dev=dev, prefix=prefix,
+                   windowed=windowed, select=select, dev=dev, prefix=prefix,
                    prefill_only=prefill_only, adopt=adopt,
                    adopt_exports=adopt_exports)
     with torch.inference_mode():
         results, stats = _run(model, reqs, budgets, setup)
     return (results, stats) if return_stats else results
+
+
+def _check_ring(i: int, export: Optional[paging.BlockExport],
+                ring: Optional[int]) -> None:
+    """An export adopts only into a table of its own kind: a windowed
+    one into a ring of the same width (`ring`, the receiver's t_blocks),
+    a linear one into a linear table (ring None).  Raised before the
+    loop starts, so no pool or registry exists yet."""
+    if export is None:
+        return
+    win = export.window
+    if ring is not None and (win is None or win["ring"] != ring):
+        raise paging.HandoffError(
+            f"windowed adoption needs a matching ring: sender "
+            f"shipped {None if win is None else win['ring']}, "
+            f"this pool's tables are {ring} wide")
+    if ring is None and win is not None:
+        raise paging.HandoffError(
+            f"handoff {i}: the export carries a sliding-window ring of "
+            f"{win['ring']} slots, but this model has no sliding_window "
+            f"and its tables are linear")
 
 
 def _run(model, reqs, budgets, o: _Setup):
@@ -566,6 +643,11 @@ def _run(model, reqs, budgets, o: _Setup):
     lane_shared: List[List[int]] = [[] for _ in range(slots)]
     lane_own: List[List[int]] = [[] for _ in range(slots)]
     lane_nblocks = [0] * slots
+    # windowed lanes: each one's ring bookkeeping (slot map, shadows)
+    lane_rot: Dict[int, paging.WindowRotation] = {}
+    # the continuous scheduler grows linear lanes lazily; a windowed
+    # lane keeps its ring reservation (the ring is its per-step bound)
+    lazy = o.continuous and not o.windowed
     queue = deque(range(len(reqs)))
     pending: Dict[int, dict] = {}
     n_step = 0
@@ -577,7 +659,7 @@ def _run(model, reqs, budgets, o: _Setup):
     t_done = [0.0] * len(reqs)
     counts = {"blocked": 0, "wasted": 0, "peak": 0, "fused": 0,
               "preempted": 0, "cow": 0, "prefix_hits": 0, "exports": 0,
-              "adoptions": 0}
+              "adoptions": 0, "evicted": 0}
     seconds = {"prefill": 0.0, "decode": 0.0}
     # the handoff: hashes this call already shipped (a shared prefix's
     # blocks go once), the handoffs made, and the receiver's registry,
@@ -639,16 +721,20 @@ def _run(model, reqs, budgets, o: _Setup):
                 t_admit[i] = t_first[i] = t_done[i] = time.perf_counter()
         queue = deque(i for i in queue if not o.adopt[i].completed)
 
+    def release_shared(ids: List[int]) -> None:
+        if registry is not None:
+            registry.release(ids)
+        else:
+            pool.decref(ids)
+
     def release(s: int) -> None:
         """Free lane s's blocks (shared ones through the registry when
         there is one); its table row goes back to all-scratch so the
         frozen lane's pinned writes can never land in a block the
         allocator hands to someone else."""
+        lane_rot.pop(s, None)
         if lane_shared[s]:
-            if registry is not None:
-                registry.release(lane_shared[s])
-            else:
-                pool.decref(lane_shared[s])
+            release_shared(lane_shared[s])
         if lane_own[s]:
             pool.decref(lane_own[s])
         lane_shared[s], lane_own[s] = [], []
@@ -672,37 +758,89 @@ def _run(model, reqs, budgets, o: _Setup):
         the shared prefix's whole blocks (increfed; a partial boundary
         block is copied into the first fresh one); its prompt streams
         through its own row table from resume_index, and its batch row
-        stays all scratch until activation."""
+        stays all scratch until activation.  A windowed lane's last
+        `rotated` fresh blocks are its shadows, outside the table until
+        the ring wraps onto a shared slot."""
         queue.popleft()
-        _, shared_i, _, cow = o.plans[ridx]
+        _, shared_i, _, cow, rotated = o.plans[ridx]
         own = pool.alloc(n_blocks)
+        slot_ids = own[:n_blocks - rotated]
         shared_ids = prefix_ids[:shared_i]
         if shared_ids:
             pool.incref(shared_ids)
             counts["prefix_hits"] += len(shared_ids)
         if cow:
-            paging.copy_block(cache, prefix_ids[shared_i], own[0])
+            paging.copy_block(cache, prefix_ids[shared_i], slot_ids[0])
             counts["cow"] += 1
         lane_shared[s] = list(shared_ids)
         lane_own[s] = own
         lane_nblocks[s] = shared_i + n_blocks
+        row = shared_ids + slot_ids
+        if o.windowed:
+            lane_rot[s] = paging.WindowRotation(
+                row + [paging.SCRATCH_BLOCK] * (o.t_blocks - len(row)),
+                shared_i, own[n_blocks - rotated:], bs, cfg.sliding_window)
         pending[s] = {
             "ridx": ridx, "next": resume_index(int(reqs[ridx].shape[0])),
-            "row_tbl": paging.build_table(shared_ids + own,
-                                          o.t_blocks)[None]}
+            "row_tbl": paging.build_table(row, o.t_blocks)[None]}
         t_admit[ridx] = time.perf_counter()
         sample_peak()
 
+    def rotate_window(s: int, upto_pos: int, q_min: int) -> None:
+        """A windowed lane's ring rotations for every block it is about
+        to write through `upto_pos`, made before the dispatch that
+        writes there: each wrapped-onto shared slot gets its shadow in
+        the host table the dispatch uploads (the pending row, or the
+        live one), the shadow first taking a copy of the shared block
+        while any of its positions is inside the window of a query at
+        q_min or later; then the shared id is dropped (through the
+        registry when there is one)."""
+        rot = lane_rot.get(s)
+        if rot is None:
+            return
+        edits, released, evicted = rot.advance(upto_pos, q_min)
+        row = pending[s]["row_tbl"][0] if s in pending else table[s]
+        for slot, new_id, copy_src in edits:
+            if copy_src is not None:
+                paging.copy_block(cache, copy_src, new_id)
+            row[slot] = new_id
+        if released:
+            release_shared(released)
+            for rid in released:
+                lane_shared[s].remove(rid)
+        counts["evicted"] += evicted
+
     def export_lane(s: int, ridx: int) -> paging.BlockExport:
-        """Lane s's prompt blocks in wire form, in position order; only
-        whole shared-prefix blocks are dedupe-eligible (a CoW boundary
-        block's tail is the lane's own)."""
-        n_blk = paging.blocks_for(int(reqs[ridx].shape[0]), bs)
-        ids = (lane_shared[s] + lane_own[s])[:n_blk]
-        shared = [i < len(lane_shared[s]) for i in range(len(ids))]
+        """Lane s's blocks in wire form; only whole shared-prefix blocks
+        are dedupe-eligible (a CoW boundary block's tail is the lane's
+        own).  A linear lane ships its prompt's blocks in position
+        order; a windowed one ships its ring's non-scratch slots in slot
+        order with `window`, the JAX package's window_meta: the ring's
+        width, each slot's index into the shipped blocks (-1: scratch),
+        the slots still holding shared blocks and the rotation cursor,
+        so the decode side resumes the ring where it stopped."""
+        rot = lane_rot.get(s)
+        window_meta = None
+        if rot is not None:
+            ids, shared, slots_map = [], [], []
+            for slot_i, bid in enumerate(rot.slots):
+                if bid == paging.SCRATCH_BLOCK:
+                    slots_map.append(-1)
+                    continue
+                slots_map.append(len(ids))
+                ids.append(bid)
+                shared.append(slot_i in rot.shared_slots)
+            window_meta = {"ring": len(rot.slots), "slots": slots_map,
+                           "shared_slots": sorted(rot.shared_slots),
+                           "next_block": rot.next_block}
+        else:
+            n_blk = paging.blocks_for(int(reqs[ridx].shape[0]), bs)
+            ids = (lane_shared[s] + lane_own[s])[:n_blk]
+            shared = [i < len(lane_shared[s]) for i in range(len(ids))]
         counts["exports"] += 1
         return paging.export_blocks(cache, ids, shared, bs,
-                                    sent_hashes=sent_hashes)
+                                    sent_hashes=sent_hashes,
+                                    window=window_meta)
 
     def activate_lane(s: int, first: int, dev_done: bool = False) -> None:
         """The lane goes live with its first token; its table row becomes
@@ -738,12 +876,39 @@ def _run(model, reqs, budgets, o: _Setup):
         prefill side's first token.  The memory gate covers the export's
         fresh blocks (dedup hits are increfs) plus this side's decode
         growth, which the continuous scheduler grows lazily behind its
-        step gate.  False = the gate held (FIFO: stop admitting)."""
+        step gate for a linear lane.  A windowed lane's growth is its
+        ring's tail slots still scratch in the export (the sender's
+        prompt-only plan never reserved them) plus a shadow for each
+        wrap still to come onto a surviving shared slot; its rotation
+        resumes mid-ring from the export's `window`.  False = the gate
+        held (FIFO: stop admitting)."""
         ridx = queue[0]
         exp = o.adopt_exports[ridx]
         p_len = int(reqs[ridx].shape[0])
         fresh = paging.adoption_cost(exp, registry)
-        if o.continuous:
+        win = exp.window
+        if o.windowed:
+            shs = set(win["shared_slots"])
+            smap = win["slots"]
+            last = (p_len + budgets[ridx] + o.steps_per_sync - 2) // bs
+            tail_slots: List[int] = []
+            shadow_n = 0
+            seen: set = set()
+            for j in range(p_len // bs, last + 1):
+                sl = j % win["ring"]
+                if sl in seen:
+                    continue
+                seen.add(sl)
+                if smap[sl] < 0:
+                    tail_slots.append(sl)
+                elif sl in shs and j >= win["next_block"]:
+                    shs.discard(sl)
+                    shadow_n += 1
+            growth = len(tail_slots) + shadow_n
+            if not pool.can_alloc(fresh + growth):
+                counts["blocked"] += 1
+                return False
+        elif o.continuous:
             growth = 0
             if hold or not paging.step_gate(pool.free_blocks, fresh,
                                             len(in_flight())):
@@ -764,7 +929,20 @@ def _run(model, reqs, budgets, o: _Setup):
         lane_nblocks[s] = len(adopted) + len(grow)
         counts["adoptions"] += 1
         counts["prefix_hits"] += st["deduped"]
-        table[s] = paging.build_table(adopted + grow, o.t_blocks)
+        row = adopted + grow
+        if o.windowed:
+            row = [paging.SCRATCH_BLOCK] * win["ring"]
+            for slot_i, idx in enumerate(win["slots"]):
+                if idx >= 0:
+                    row[slot_i] = adopted[idx]
+            for sl, bid in zip(tail_slots, grow):
+                row[sl] = bid
+            rot = paging.WindowRotation(row, 0, grow[len(tail_slots):], bs,
+                                        cfg.sliding_window)
+            rot.shared_slots = set(win["shared_slots"])
+            rot.next_block = win["next_block"]
+            lane_rot[s] = rot
+        table[s] = paging.build_table(row, o.t_blocks)
         first = int(o.adopt[ridx].first_token)
         owner[s] = ridx
         admitted_step[s] = n_step
@@ -787,11 +965,14 @@ def _run(model, reqs, budgets, o: _Setup):
         segments = segments_of(st["ridx"])
         budget = o.chunks_per_sync or len(segments)
         for start, end, is_last in segments[st["next"]:st["next"] + budget]:
-            if o.continuous and not grow_or_preempt(s, end):
+            if lazy and not grow_or_preempt(s, end):
                 return
             piece = prompt[None, start:end].to(dev)
-            row = st["row_tbl"].to(dev)
             st["next"] += 1
+            # a prompt streaming through a ring may wrap onto shared
+            # slots: the segment's queries start at `start`
+            rotate_window(s, end - 1, start)
+            row = st["row_tbl"].to(dev)
             t0 = time.perf_counter()
             if is_last:
                 first = int(select(chunk_fill(model, cache, piece, start,
@@ -875,6 +1056,13 @@ def _run(model, reqs, budgets, o: _Setup):
                     return
                 continue
             ridx = queue[0]
+            if not lazy:
+                # a windowed lane reserves its whole ring plan
+                if not pool.can_alloc(o.plans[ridx][2]):
+                    counts["blocked"] += 1
+                    return
+                admit(s, ridx, o.plans[ridx][2])
+                continue
             if hold:
                 return
             first_end = segments_of(ridx)[
@@ -911,25 +1099,34 @@ def _run(model, reqs, budgets, o: _Setup):
                 s_pre = min(pending, key=lambda s: pending[s]["ridx"])
                 st = pending[s_pre]
                 start, end, is_last = segments_of(st["ridx"])[st["next"]]
-                if grow_or_preempt(s_pre, end):
+                if not lazy or grow_or_preempt(s_pre, end):
+                    rotate_window(s_pre, end - 1, start)
                     seg_plan = (s_pre, start, end, is_last)
-            # grow every live lane for this block's writes, oldest request
-            # first (a young lane under pressure preempts itself)
-            for s in sorted(live, key=lambda s: owner[s]
-                            if owner[s] is not None else slots):
-                if owner[s] is None or frozen_py[s]:
-                    continue  # preempted by a senior's growth
-                r = owner[s]
-                p_len = int(reqs[r].shape[0])
-                grow_or_preempt(s, min(p_len + len(emitted[s]) - 1 + n,
-                                       p_len + budgets[r]))
-            live = live_lanes()
-            if seg_plan is not None and seg_plan[0] not in pending:
-                seg_plan = None  # the pending lane lost its blocks
-            if not live:
-                continue
-            n = min(n, max(budgets[owner[s]] - len(emitted[s])
-                           for s in live))
+            if lazy:
+                # grow every live lane for this block's writes, oldest
+                # request first (a young lane under pressure preempts
+                # itself)
+                for s in sorted(live, key=lambda s: owner[s]
+                                if owner[s] is not None else slots):
+                    if owner[s] is None or frozen_py[s]:
+                        continue  # preempted by a senior's growth
+                    r = owner[s]
+                    p_len = int(reqs[r].shape[0])
+                    grow_or_preempt(s, min(p_len + len(emitted[s]) - 1 + n,
+                                           p_len + budgets[r]))
+                live = live_lanes()
+                if seg_plan is not None and seg_plan[0] not in pending:
+                    seg_plan = None  # the pending lane lost its blocks
+                if not live:
+                    continue
+                n = min(n, max(budgets[owner[s]] - len(emitted[s])
+                               for s in live))
+            else:
+                # rotate every live ring for this block's writes; its
+                # earliest query is the lane's current position
+                for s in live:
+                    cur = int(reqs[owner[s]].shape[0]) + len(emitted[s]) - 1
+                    rotate_window(s, cur + n - 1, cur)
             live_set = set(live)
             left = torch.tensor([budgets[owner[s]] - len(emitted[s])
                                  if s in live_set else 0
@@ -998,6 +1195,11 @@ def _run(model, reqs, budgets, o: _Setup):
                 advance_prefill(s)
             if all(w is None for w in owner):
                 continue  # nothing decoding yet; keep prefilling/admitting
+            # rotate every live ring for the positions this block writes
+            # (a lane finishing mid-block still writes to the block edge)
+            for s in live_lanes():
+                cur = int(reqs[owner[s]].shape[0]) + len(emitted[s]) - 1
+                rotate_window(s, cur + o.steps_per_sync - 1, cur)
             sample_peak()
             t0 = time.perf_counter()
             frozen = torch.tensor(frozen_py).to(dev)
@@ -1033,7 +1235,8 @@ def _run(model, reqs, budgets, o: _Setup):
         fused_prefill_tokens=counts["fused"],
         preemptions=counts["preempted"],
         handoff_exports=counts["exports"],
-        handoff_adoptions=counts["adoptions"], total_tokens=total,
+        handoff_adoptions=counts["adoptions"],
+        window_evicted_blocks=counts["evicted"], total_tokens=total,
         wall_time_s=wall, tokens_per_sec=total / wall if wall > 0 else 0.0,
         queue_wait_mean_s=sum(t_admit[i] - t_start
                               for i in range(len(reqs))) / len(reqs),
