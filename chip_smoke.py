@@ -18,15 +18,30 @@ Phases, in order, none of them caught:
               and without a window; the split's edges (contexts ending
               inside the first chunk, on chunk boundaries and inside
               chunks, a window that empties whole chunks, L*G = 12, 16 and
-              17 rows), L=974 and bs=64; two launches give the same bits;
+              17 rows), L=974 and bs=64, the spec phase's verify (8 lanes
+              at L=5, each at its own position, 20 rows a kv head) and
+              draft step (L=1) over 69-slot tables with lanes across,
+              on and off block edges; two launches give the same bits;
               then its time beside the plain version's, an SDPA yardstick
               and the card's bound, and the kernel's and SDPA's device
-              time alone.
+              time alone, at decode, prefill and the verify.
   4. serve:   llama3_8b at full width and depth (bf16, random weights from
               a seed) serves 16 requests through serve_loop on a paged
               pool; every KV read goes through the kernel, whose launch
               count must equal layers x model calls, every one of them
-              through the tensor-core design.
+              through the tensor-core design.  Its telemetry: a private
+              Tracer holds one span tree a request (queued, prefill,
+              decode), whose Chrome export parses; the card's memory
+              peak is reported; TPOT, end-to-end latency and occupancy
+              are printed (as in every serving phase).
+  4b. spec:   the serve phase's model and prompts served speculatively,
+              64 new tokens, 8 slots, spec_k 4, 4 rounds a block, the
+              draft the target's own first 8 layers: (a) the slot
+              scheduler, (b) the continuous one, which gives (a)'s
+              tokens; then the target as its own draft (8 requests),
+              whose acceptance rate must pass 0.9.  K1 launches equal
+              target layers x target calls + draft layers x draft calls,
+              all on the tensor cores.
   5. handoff: the serve phase's model over one shared 1000-token prefix
               (62 whole blocks of 16 and a copy-on-write boundary block)
               and 16 suffixes of 32-256 tokens, 64 new tokens each, 8
@@ -46,6 +61,16 @@ Phases, in order, none of them caught:
               prefix, exported on the card and adopted on the card and
               on the CPU under both schedulers, gives the CPU's unified
               tokens.
+  6b. spec-parity: full width, 2 layers, f32 (TF32 off), a 1-layer draft
+              from another seed, spec_k 3: tokens, schedule and each
+              request's accepted/proposed drafts on the card equal the
+              CPU's under both schedulers, over an unaligned prefix, with
+              the target as its own draft (rounds that accept), and with
+              int8 weights, KV and draft (K1q, over the parity-int8
+              phase's first two requests); the card's speculative tokens
+              equal its non-speculative ones.  Then, informational, how
+              far int8 KV moves one prefill's logits between the card and
+              the CPU.
   7. window:  mistral_7b at full width and depth (bf16, random weights
               from seed 0, sliding window 4096) over a 1024-token shared
               prefix and 16 suffixes of 1024-6656 tokens, 128 new tokens
@@ -154,6 +179,7 @@ KV), one training step and one ring training step.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -363,6 +389,23 @@ def handoff_t_slots() -> int:
     return blocks_for(PREFIX_LEN + SUFFIX_MAX + MAX_NEW, BS)
 
 
+# the spec phase's verify: 8 lanes at L = SPEC_K + 1 = 5 (L*G = 20 rows a
+# kv head, past the decode split's 16), each at its own position, over
+# tables of blocks_for(1024 + 64 + 5, 16) = 69 slots (the worst case
+# with the verify's headroom); the draft's L=1 steps run over its own
+# pools through the same tables.  Contexts put the 5 positions across a
+# block edge (18: 13..17), ending on one (16, 1024) and starting on one
+# (21: 16..20; 517: 512..516); the first lane sits at the cap
+SPEC_K = 4
+VERIFY_CTX = [MAX_CTX + MAX_NEW + SPEC_K + 1, 16, 18, 21, 517, 1024, 700]
+
+
+def verify_t_slots() -> int:
+    from tf_operator_tpu_torch.models.paging import blocks_for
+
+    return blocks_for(MAX_CTX + MAX_NEW + SPEC_K + 1, BS)
+
+
 # the decode split's edges at the kernel phase's table (68 slots of 16,
 # 64 (kv head, lane) pairs: chunks of 8 slots, 128 keys): contexts that
 # end inside the first chunk (100), on chunk boundaries (128, 512, 1024)
@@ -399,6 +442,10 @@ def paged_cases() -> list:
                   for l, ctx in ((1, HANDOFF_CTX),
                                  (SUFFIX_MAX, [PREFIX_LEN + SUFFIX_MAX] * 7),
                                  (PREFIX_LEN, [PREFIX_LEN] * 7))]
+        # the spec phase's verify (L = 5, 20 rows) and draft step (L = 1)
+        cases += [dict(dtype=dt, l=l, window=None, ring=False,
+                       t_slots=verify_t_slots(), ctx=VERIFY_CTX)
+                  for l in (SPEC_K + 1, 1)]
     return cases
 
 
@@ -437,6 +484,8 @@ def kernel_phase(int8: bool = False) -> dict:
         return (case["q"], k, v, case["table"], case["pos"])
 
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    # the verify cases' own (the spec phase's L = 5 at VERIFY_CTX)
+    verify_errs = dict(errs)
     for i, kw in enumerate(paged_cases()):
         dt, l = kw["dtype"], kw["l"]
         case = make_case(seed=SEED + i, **kw)
@@ -449,15 +498,21 @@ def kernel_phase(int8: bool = False) -> dict:
             f"window={kw['window']} ring={kw['ring']} ctx={case['ctx']} "
             f"split_slots={chunk}")
         errs[dt] = max(errs[dt], err)
+        if l == SPEC_K + 1 and kw.get("ctx") is VERIFY_CTX:
+            verify_errs[dt] = max(verify_errs[dt], err)
 
     timings = {}
-    for name, l in (("decode", 1), ("prefill", 512)):
-        case = make_case(torch.bfloat16, l, None, False, SEED + 100)
+    for name, l in (("decode", 1), ("prefill", 512),
+                    ("verify", SPEC_K + 1)):
+        # the verify: the spec phase's tables, lanes at ragged contexts
+        case = make_case(torch.bfloat16, l, None, False, SEED + 100,
+                         t_slots=verify_t_slots() if l == SPEC_K + 1
+                         else None)
         timings[name] = paged_timing(
             case, inputs(case), plain, bound_ms(case, torch.bfloat16, int8),
             f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} KV, "
             f"B={B} L={l} H={H} KV={KV} D={D} bs={BS} ctx={case['ctx']}")
-    return dict(errs=errs, timings=timings)
+    return dict(errs=errs, verify_errs=verify_errs, timings=timings)
 
 
 def check_paged(case, args, plain, dt, frozen, label: str) -> float:
@@ -690,10 +745,45 @@ def prompts_for(cfg, n: int, lo: int, hi: int, seed: int):
             for m in lens]
 
 
+def tel_line(stats) -> str:
+    """The telemetry a serving run reports beside its throughput
+    (models/telemetry.ServeStats; host clock, the memory peak from
+    torch's allocator)."""
+    tpot = ("None" if stats.tpot_mean_s is None
+            else f"{stats.tpot_mean_s:.6f}")
+    return (f"tpot_mean_s={tpot} "
+            f"e2e_latency_mean_s={stats.e2e_latency_mean_s:.4f} "
+            f"e2e_latency_max_s={stats.e2e_latency_max_s:.4f} "
+            f"occupancy_mean={stats.occupancy_mean:.4f} "
+            f"kv_block_occupancy_mean={stats.kv_block_occupancy_mean:.2f} "
+            f"hbm_peak_bytes={json.dumps(stats.hbm_peak_bytes)}")
+
+
+def check_spans(tracer, stats, n: int, tag: str) -> None:
+    """A private tracer's serving spans: one root a request, each with
+    the queued, prefill and decode children, and a Chrome export that
+    parses with one complete event a span."""
+    roots = tracer.traces()
+    kids = [[c.name for c in r.children] for r in roots]
+    reqs = sorted(r.attrs["request"] for r in roots)
+    doc = json.loads(tracer.export_chrome_json())
+    n_spans = sum(1 for r in roots for _ in r.walk())
+    if (reqs != list(range(n)) or stats.requests != n
+            or any(k != ["queued", "prefill", "decode"] for k in kids)
+            or len(doc["traceEvents"]) != n_spans
+            or not all(e["ph"] == "X" and e["cat"] == "serving"
+                       for e in doc["traceEvents"])):
+        raise AssertionError(
+            f"[{tag}] spans: roots for requests {reqs} of {n}, children "
+            f"{kids[:2]}, {len(doc['traceEvents'])} events of {n_spans}")
+
+
 def serve_phase() -> dict:
+    from tf_operator_tpu_torch.engine.tracing import Tracer
     from tf_operator_tpu_torch.models import bridge, llama
     from tf_operator_tpu_torch.models import paged_attention as pa
     from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.models.telemetry import ServeTelemetry
 
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -714,13 +804,20 @@ def serve_phase() -> dict:
     hook = model.register_forward_hook(
         lambda *_: calls.__setitem__(0, calls[0] + 1))
     torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
     pa.reset_launches()
     results, stats = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
-                                return_stats=True, **kw)
+                                return_stats=True,
+                                telemetry=ServeTelemetry(tracer=tracer), **kw)
     torch.cuda.synchronize()
     launches, mma = pa.launches, pa.launches_mma
     hook.remove()
     peak = torch.cuda.max_memory_allocated()
+    check_spans(tracer, stats, len(prompts), "serve")
+    dev_key = f"cuda:{torch.cuda.current_device()}"
+    if not stats.hbm_peak_bytes.get(dev_key, 0) > 0:
+        raise AssertionError(f"[serve] hbm_peak_bytes "
+                             f"{stats.hbm_peak_bytes} has no {dev_key}")
 
     for i, r in enumerate(results):
         if len(r.tokens) != MAX_NEW:
@@ -747,8 +844,12 @@ def serve_phase() -> dict:
         f"decode_s={stats.decode_time_s:.4f} model_calls={calls[0]} "
         f"kernel_launches={launches} tensor_core_launches={mma} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
-    # the handoff phase serves on the same model
-    return dict(launches=launches, model=model)
+    log(f"[serve] telemetry: {tel_line(stats)}; spans: "
+        f"{len(tracer.traces())} request roots of queued/prefill/decode, "
+        f"Chrome export parsed")
+    # the spec and handoff phases serve on the same model
+    return dict(launches=launches, model=model, prompts=prompts,
+                tokens=[r.tokens for r in results])
 
 
 def ttft_pcts(stats) -> tuple:
@@ -756,6 +857,254 @@ def ttft_pcts(stats) -> tuple:
     ttft = sorted(r["ttft_s"] for r in stats.per_request)
     pct = lambda p: ttft[min(len(ttft) - 1, math.ceil(p * len(ttft)) - 1)]
     return pct(0.5), pct(0.99)
+
+
+# -------------------------------------------------------------- spec phase
+SPEC_DRAFT_LAYERS, SPEC_ROUNDS, SPEC_WITNESS = 8, 4, 8
+
+
+def early_exit_draft(model, n_layers: int):
+    """The target's own first n_layers as a draft (bench.py's early-exit
+    draft): the embedding, those blocks, the final norm and the head,
+    the same tensors on the card (from_params copies none of them)."""
+    from tf_operator_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    params = {k: v for k, v in model.state_dict().items()
+              if not k.startswith("blocks.")
+              or int(k.split(".")[1]) < n_layers}
+    return llama.Llama.from_params(cfg, params,
+                                   device=model.embed.device)
+
+
+def spec_phase(model, prompts, base_tokens) -> dict:
+    """Speculative serving of the serve phase's llama3_8b (bf16, 32
+    layers, its seeded weights) and its 16 prompts, 64 new tokens,
+    greedy, 8 slots, spec_k = SPEC_K, SPEC_ROUNDS rounds a block; the
+    draft is the target's own first 8 layers.  (a) the slot scheduler,
+    (b) the continuous one: (b) gives (a)'s tokens.  Then the self-draft
+    witness (the target as its own draft, 8 requests): the acceptance
+    rate must pass 0.9 (a broken verify reads near 0).  In every run K1
+    launches equal target layers x target calls + draft layers x draft
+    calls, every one on the tensor cores."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    draft = early_exit_draft(model, SPEC_DRAFT_LAYERS)
+    kw = dict(slots=8, block_size=BS, steps_per_sync=SPEC_ROUNDS,
+              spec_k=SPEC_K, device="cuda", return_stats=True)
+    # warm-up on two short requests
+    serve_loop(model, [p[:64] for p in prompts[:2]], max_new_tokens=8,
+               draft=draft, **kw)
+    calls = {"target": 0, "draft": 0}
+    hooks = [m.register_forward_hook(
+        lambda *_, n=name: calls.__setitem__(n, calls[n] + 1))
+        for name, m in (("target", model), ("draft", draft))]
+    launches = []
+
+    def run(tag, reqs, drafter, **extra):
+        calls.update(target=0, draft=0)
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        out, stats = serve_loop(model, reqs, max_new_tokens=MAX_NEW,
+                                draft=drafter, **kw, **extra)
+        torch.cuda.synchronize()
+        # the self-draft's draft calls are the target's module's
+        want = (cfg.n_layers * calls["target"]
+                + drafter.cfg.n_layers * calls["draft"])
+        if pa.launches != want or pa.launches == 0:
+            raise AssertionError(
+                f"[spec] ({tag}) K1 launched {pa.launches} times for "
+                f"{calls} model calls, {want} expected")
+        if pa.launches_mma != pa.launches or pa.launches_int8:
+            raise AssertionError(
+                f"[spec] ({tag}) {pa.launches_mma} of {pa.launches} K1 "
+                f"calls on the tensor cores, K1q {pa.launches_int8}")
+        for i, r in enumerate(out):
+            if len(r.tokens) != MAX_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"[spec] ({tag}) request {i}: "
+                                     f"{len(r.tokens)} tokens or one out "
+                                     f"of vocab")
+        launches.append(pa.launches)
+        p50, p99 = ttft_pcts(stats)
+        log(f"[spec] ({tag}) tokens={stats.total_tokens} "
+            f"wall_s={stats.wall_time_s:.4f} "
+            f"tokens_per_s={stats.tokens_per_sec:.2f} ttft_p50_s={p50:.4f} "
+            f"ttft_p99_s={p99:.4f} prefill_s={stats.prefill_time_s:.4f} "
+            f"decode_s={stats.decode_time_s:.4f} "
+            f"accepted_drafts={stats.accepted_drafts} "
+            f"proposed_drafts={stats.proposed_drafts} "
+            f"acceptance_rate={stats.acceptance_rate:.4f} "
+            f"wasted_lane_steps={stats.wasted_lane_steps} "
+            f"target_calls={calls['target']} draft_calls={calls['draft']} "
+            f"kernel_launches={pa.launches} "
+            f"tensor_core_launches={pa.launches_mma}")
+        log(f"[spec] ({tag}) telemetry: {tel_line(stats)}")
+        return out, stats
+
+    slot, st_a = run("a slot", prompts, draft)
+    cont, st_b = run("b continuous", prompts, draft, scheduler="continuous")
+    for i, (r, w) in enumerate(zip(cont, slot)):
+        if r.tokens != w.tokens:
+            raise AssertionError(f"[spec] (b) request {i}: {r.tokens} != "
+                                 f"(a)'s {w.tokens}")
+    same = sum(r.tokens == w for r, w in zip(slot, base_tokens))
+    log(f"[spec] llama3_8b target, its first {SPEC_DRAFT_LAYERS} layers as "
+        f"the draft, spec_k={SPEC_K}, {SPEC_ROUNDS} rounds a block, "
+        f"{len(prompts)} requests x {MAX_NEW} tokens: (b) tokens == (a) "
+        f"tokens for all {len(prompts)}; {same} of {len(prompts)} requests "
+        f"give the serve phase's non-speculative tokens (informational: "
+        f"bf16 at L={SPEC_K + 1} and at L=1 may round differently)")
+    hooks[1].remove()
+    _, st_w = run("self-draft witness", prompts[:SPEC_WITNESS], model)
+    hooks[0].remove()
+    if not st_w.acceptance_rate > 0.9:
+        raise AssertionError(f"[spec] the self-draft witness accepted "
+                             f"{st_w.acceptance_rate} of its drafts")
+    log(f"[spec] K1 launches per run (a, b, witness): {launches}, "
+        f"{sum(launches)} in all; phase {time.perf_counter() - t_phase:.1f} s")
+    del draft
+    return dict(launches=sum(launches))
+
+
+# ------------------------------------------------------- spec-parity phase
+def int8_tie_witness(models, prompt) -> None:
+    """Informational: one prefill of `prompt` by an int8-weight model on
+    the card and on the CPU, with int8 and with f32 KV: the int8 KV
+    values that differ between the two devices, the largest logit
+    difference, and each device's top two tokens and logits (a greedy
+    choice whose top two lie closer than that difference can differ)."""
+    from tf_operator_tpu_torch.models import paging
+
+    for kv_quant in (True, False):
+        res = []
+        for m in models:
+            dev = m.embed.device
+            n = paging.blocks_for(int(prompt.shape[0]), BS)
+            cache = paging.init_block_pool(m.cfg, n, BS, device=dev,
+                                           kv_quant=kv_quant)
+            table = torch.arange(1, n + 1, dtype=torch.int32,
+                                 device=dev)[None]
+            with torch.inference_mode():
+                lg = m(prompt[None].to(dev), cache, 0, table)[0, -1]
+            res.append((lg.float().cpu(), [t.cpu() for t in
+                                           paging._leaves(cache)]))
+        (lg_g, pool_g), (lg_c, pool_c) = res
+        flips = (sum(int((a != b).sum()) for a, b in zip(pool_g, pool_c)
+                     if a.dtype == torch.int8) if kv_quant else 0)
+        top = [torch.topk(lg, 2) for lg in (lg_g, lg_c)]
+        log(f"[spec-parity] int8 weights, {'int8' if kv_quant else 'f32'} "
+            f"KV, one {int(prompt.shape[0])}-token prefill: int8 KV values "
+            f"differing cuda/cpu {flips}; max logit diff "
+            f"{float((lg_g - lg_c).abs().max()):.3e}; top two cuda "
+            f"{top[0].indices.tolist()} {top[0].values.tolist()}, cpu "
+            f"{top[1].indices.tolist()} {top[1].values.tolist()}")
+
+
+def spec_parity_phase() -> dict:
+    """Full width, 2 layers, f32 (TF32 off), a 1-layer draft from another
+    seed, spec_k 3: the card's greedy tokens, schedule and per-request
+    accepted/proposed drafts equal the CPU's under both schedulers, over
+    an unaligned shared prefix (a CoW block in both pools), with the
+    target as its own draft (rounds that accept), and with int8 weights
+    and KV and an int8 draft through draft_transform (K1q; over the
+    parity-int8 phase's target, first two requests and chunking); the card's
+    speculative tokens equal its non-speculative ones.  Then
+    int8_tie_witness, informational."""
+    from tf_operator_tpu_torch.models import bridge, llama, quant
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.llama3_8b(n_layers=2, dtype=torch.float32)
+    dcfg = llama.llama3_8b(n_layers=1, dtype=torch.float32)
+
+    def both(params, c):
+        on_card = llama.Llama.from_params(c, params, device="cuda")
+        on_cpu = llama.Llama.from_params(
+            c, {k: v.to("cpu") for k, v in params.items()}, device="cpu")
+        return on_card, on_cpu
+
+    m_gpu, m_cpu = both(bridge.init_params(cfg, SEED + 31, device="cuda"),
+                        cfg)
+    d_gpu, d_cpu = both(bridge.init_params(dcfg, SEED + 32, device="cuda"),
+                        dcfg)
+    prompts = prompts_for(cfg, 4, 24, 96, SEED + 33)
+    pfx = prompts_for(cfg, 1, 40, 40, SEED + 34)[0]
+    sufs = prompts_for(cfg, 4, 8, 40, SEED + 35)
+    kw = dict(slots=2, max_new_tokens=[6, 16, 10, 12], block_size=BS,
+              steps_per_sync=2, spec_k=3)
+    sched = lambda rs: [(r.tokens, r.admitted_at_step, r.finished_at_step,
+                         r.slot, r.accepted_drafts, r.proposed_drafts,
+                         r.kv_blocks) for r in rs]
+    out = {}
+
+    def check(tag, models, reqs, **extra):
+        (tg, dg), (tc, dc) = models
+        run_kw = dict(kw, **extra)
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        got = serve_loop(tg, reqs, device="cuda", draft=dg, **run_kw)
+        torch.cuda.synchronize()
+        n_k1, n_k1q = pa.launches, pa.launches_int8
+        t1 = time.perf_counter()
+        want = serve_loop(tc, reqs, device="cpu", draft=dc, **run_kw)
+        t2 = time.perf_counter()
+        if sched(got) != sched(want):
+            raise AssertionError(f"[spec-parity] ({tag}) cuda {sched(got)} "
+                                 f"!= cpu {sched(want)}")
+        acc = [(r.accepted_drafts, r.proposed_drafts) for r in got]
+        log(f"[spec-parity] ({tag}) tokens, schedule and drafts identical "
+            f"on cuda and cpu: accepted/proposed {acc}; K1 launches {n_k1}, "
+            f"K1q {n_k1q}; cuda {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s")
+        out[tag] = (got, n_k1, n_k1q)
+        return got
+
+    pair = ((m_gpu, d_gpu), (m_cpu, d_cpu))
+    slot = check("slot", pair, prompts)
+    check("continuous", pair, prompts, scheduler="continuous")
+    check("prefix", pair, sufs, shared_prefix=pfx)
+    plain = serve_loop(m_gpu, prompts, device="cuda",
+                       **{k: v for k, v in kw.items() if k != "spec_k"})
+    if [r.tokens for r in slot] != [r.tokens for r in plain]:
+        raise AssertionError("[spec-parity] speculative tokens on the card "
+                             "differ from its non-speculative tokens")
+    # the target as its own draft: rounds that accept (a random draft,
+    # or the first layer of random weights at this width, accepts none)
+    got = check("self-draft", ((m_gpu, m_gpu), (m_cpu, m_cpu)), prompts)
+    if sum(r.accepted_drafts for r in got) == 0:
+        raise AssertionError("[spec-parity] the self-draft accepted "
+                             "nothing")
+    del m_gpu, m_cpu, d_gpu, d_cpu, pair
+    torch.cuda.empty_cache()
+    # int8 weights and KV, an int8 draft (K1q at the verify shape), over
+    # the parity-int8 phase's target, first two requests and chunking:
+    # int8 KV turns last-bit f32 differences into flipped int8 values,
+    # so card = CPU holds only where no greedy choice is a near tie (the
+    # witness below measures how near).  Two requests and short budgets:
+    # the CPU dequantizes each int8 weight, the 0.5 G-element lm_head
+    # included, at every model call, four calls a round
+    q_pair = list(zip(both(int8_params(cfg, SEED + 7), cfg),
+                      both(int8_params(dcfg, SEED + 37), dcfg)))
+    dq = quant.make_dequantizer(torch.float32)
+    check("int8", q_pair, prompts_for(cfg, 4, 24, 96, SEED + 3)[:2],
+          scheduler="continuous", kv_quant=True, prefill_chunk=32,
+          max_new_tokens=[4, 8], params_transform=dq, draft_transform=dq)
+    if out["int8"][1] or not out["int8"][2]:
+        raise AssertionError(f"[spec-parity] int8 KV: K1 {out['int8'][1]}, "
+                             f"K1q {out['int8'][2]}")
+    del q_pair
+    int8_tie_witness(both(int8_params(cfg, SEED + 36), cfg), prompts[0])
+    log(f"[spec-parity] 2 layers f32: every run identical on cuda and cpu; "
+        f"speculative == non-speculative tokens on cuda; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(launches_int8=out["int8"][2])
 
 
 # ----------------------------------------------------------- handoff phase
@@ -898,6 +1247,7 @@ def handoff_phase(model) -> None:
             f"handoff_adoptions={st.handoff_adoptions} "
             f"kv_blocks_peak_used={st.kv_blocks_peak_used} "
             f"preemptions={st.preemptions}")
+        log(f"[handoff] ({tag}) telemetry: {tel_line(st)}")
     log(f"[handoff] (b) prefill_only wall_s={wall_b:.4f} "
         f"handoff_exports={st_b.handoff_exports} "
         f"cow_copies={st_b.cow_copies}; exported_blocks={blocks} "
@@ -1194,6 +1544,7 @@ def window_phase() -> dict:
             f"decode_s={st.decode_time_s:.4f} "
             f"fused_prefill_tokens={st.fused_prefill_tokens} "
             f"handoff_adoptions={st.handoff_adoptions}")
+        log(f"[window] ({tag}) telemetry: {tel_line(st)}")
     log(f"[window] (c prefill) handoff_exports={st_p.handoff_exports} "
         f"exported_blocks={sum(len(h.export) for h in hand)} "
         f"payload_blocks={sum(h.export.payload_blocks() for h in hand)} "
@@ -1665,6 +2016,7 @@ def serve_int8_phase() -> dict:
         f"k1q_tensor_core_launches={mma} "
         f"k1_launches={k1_launches} quantized_bytes={qbytes} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    log(f"[serve-int8] telemetry: {tel_line(stats)}")
     del model
     torch.cuda.empty_cache()
     return dict(launches=launches)
@@ -2345,8 +2697,10 @@ def main() -> int:
         return 0
     kern = kernel_phase()
     serve = serve_phase()
+    spec = spec_phase(serve["model"], serve["prompts"], serve["tokens"])
     handoff_phase(serve.pop("model"))
     parity_phase()
+    spec_parity = spec_parity_phase()
     win = window_phase()
     win_parity = window_parity_phase()
     kern_win = window_kernel_phase()
@@ -2362,23 +2716,29 @@ def main() -> int:
     ring_parity_phase()
     ring_entry_phase()
 
-    def paged_row(name, line, kern, launches):
-        """K1's or K1q's row: decode times, prefill times beside them."""
-        t, pre = kern["timings"]["decode"], kern["timings"]["prefill"]
-        return {"name": name, "route": "cuda",
-                "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
-                "replaces": f"tf_operator_tpu/models/paged_attention.py:{line}",
-                "launches": launches,
-                "max_abs_err": kern["errs"][torch.bfloat16],
-                "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-                "library_device_ms": t["library_device_ms"],
-                "prefill_ms": pre["ms"], "prefill_plain_ms": pre["plain_ms"],
-                "prefill_bound_ms": pre["bound_ms"],
-                "prefill_library_ms": pre["library_ms"],
-                "prefill_device_ms": pre["device_ms"],
-                "prefill_library_device_ms": pre["library_device_ms"]}
+    def paged_row(name, line, kern, launches, verify=False):
+        """K1's or K1q's row: decode times, prefill times beside them;
+        verify=True: the spec phase's verify shape alone (L = 5)."""
+        t = kern["timings"]["verify" if verify else "decode"]
+        errs = kern["verify_errs" if verify else "errs"]
+        row = {"name": name, "route": "cuda",
+               "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
+               "replaces": f"tf_operator_tpu/models/paged_attention.py:{line}",
+               "launches": launches,
+               "max_abs_err": errs[torch.bfloat16],
+               "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+               "library_device_ms": t["library_device_ms"]}
+        if not verify:
+            pre = kern["timings"]["prefill"]
+            row.update({"prefill_ms": pre["ms"],
+                        "prefill_plain_ms": pre["plain_ms"],
+                        "prefill_bound_ms": pre["bound_ms"],
+                        "prefill_library_ms": pre["library_ms"],
+                        "prefill_device_ms": pre["device_ms"],
+                        "prefill_library_device_ms": pre["library_device_ms"]})
+        return row
 
     rows = [paged_row("paged_attention", 96, kern, serve["launches"]),
             paged_row("paged_attention_int8", 259, kern1q,
@@ -2388,7 +2748,14 @@ def main() -> int:
             paged_row("paged_attention_window", 96, kern_win,
                       win["launches"]),
             paged_row("paged_attention_int8_window", 259, kern_win_q,
-                      win_parity["launches_int8"])]
+                      win_parity["launches_int8"]),
+            # the same kernels at the spec phase's verify shape (8 lanes
+            # at L = 5); launches: every K1 call of the spec phase's
+            # runs, and the spec-parity phase's int8 run for K1q
+            paged_row("paged_attention_verify", 96, kern, spec["launches"],
+                      verify=True),
+            paged_row("paged_attention_int8_verify", 259, kern1q,
+                      spec_parity["launches_int8"], verify=True)]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
     # _dkv_kernel)
     for name, line in (("flash_fwd", 112), ("flash_dq", 217),

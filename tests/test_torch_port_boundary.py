@@ -33,7 +33,9 @@ def test_every_module_imports_without_jax():
                  "ops.blocked_ce", "runtime.optim", "runtime.train",
                  "runtime.loop", "runtime.profiler", "train_llama",
                  "ops.zigzag", "ops.ring_attention", "ops.ring_flash",
-                 "parallel.ring", "parallel.mesh"):
+                 "parallel.ring", "parallel.mesh", "engine.metrics",
+                 "engine.tracing", "models.telemetry",
+                 "models.speculative"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

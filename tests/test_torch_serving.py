@@ -131,16 +131,23 @@ def test_sampling_is_seeded_by_the_generator(setup):
 @pytest.mark.parametrize("kw,item", [
     (dict(paged=False), "item 7: dense"),
     (dict(paged=False, prefill_only=True), "item 7: dense"),
-    (dict(draft=object()), "item 5: speculative"),
-    (dict(draft=object(), prefill_only=True), "item 5: speculative"),
     (dict(cache_sharding=object()), "item 11: distributed"),
-    (dict(telemetry=object()), "item 8: serving telemetry"),
+    (dict(draft_cache_sharding=object()), "item 11: distributed"),
 ])
 def test_refused_options_name_their_roadmap_item(setup, kw, item):
     """What the port still refuses names its ROADMAP Queue 1 item."""
     _, _, tmodel, prompts = setup
     with pytest.raises(NotImplementedError, match=item):
         serve_loop(tmodel, prompts, device="cpu", **kw)
+
+
+def test_speculation_does_not_hand_off(setup):
+    """A draft beside prefill_only is refused with the JAX package's
+    reason: the two pools would have to ship."""
+    _, _, tmodel, prompts = setup
+    with pytest.raises(ValueError, match="does not hand off"):
+        serve_loop(tmodel, prompts, device="cpu", draft=tmodel,
+                   prefill_only=True)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -7,7 +7,8 @@ JAX package (the block allocator, the segment schedule) are copied here,
 and `tests/test_torch_*.py` hold each copy against its original.
 
 What is ported so far is the Llama family's paged serving path (slot and
-continuous schedulers, bf16 or int8 weights and KV) and its training step,
+continuous schedulers, bf16 or int8 weights and KV, speculation, serving
+telemetry) and its training step,
 with attention on one device or split over a sequence ring:
 
   - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
@@ -25,7 +26,14 @@ with attention on one device or split over a sequence ring:
   - models/bridge.py          flax parameter trees -> the port's state dict,
                               and seeded random weights at full width
   - models/serving.py         serve_loop's paged slot and continuous
-                              schedulers
+                              schedulers (shared prefix, the handoff,
+                              sliding windows, speculation)
+  - models/speculative.py     the draft/verify round of speculative
+                              serving over paged pools
+  - models/telemetry.py       serving telemetry: ServeTelemetry and
+                              ServeStats, fed by serve_loop
+  - engine/tracing.py         span tracer (Chrome trace export)
+  - engine/metrics.py         the Prometheus serving families
   - models/transformer.py     the einsum attention and the CLM loss
   - ops/flash_attention.py    flash attention forward and backward: three
                               hand-written CUDA kernels

@@ -77,9 +77,26 @@ pending row or the live one) that the dispatch uploads.  A windowed
 export carries the ring's slot map and cursor (`window`: the JAX
 package's dict), and the decode side resumes the rotation mid-ring.
 
+Speculation (draft=, spec_k=, draft_transform=): every decode block
+becomes rounds of models/speculative.spec_round for every lane at its own
+position (spec_k draft steps, one (spec_k+1)-token target verify), up to
+spec_k+1 tokens a lane a round.  The draft (a Llama holding its own
+weights) has its own pools, routed by the target's table; it writes every
+prompt segment and the shared prefix, and a CoW boundary block is copied
+in both pools.  Admission reserves the worst case plus spec_k+1 positions
+of headroom under either scheduler (no lazy growth, no fused segments:
+the continuous scheduler cuts its rounds to the longest remaining
+budget).  Greedy tokens equal target-only serving; each ServeResult
+counts its accepted and proposed drafts.
+
+Telemetry (models/telemetry.ServeTelemetry): every call feeds one, the
+caller's (telemetry=) or a fresh one over the process-global tracer, at
+the points where the JAX loop feeds its own; with return_stats the call
+returns its ServeStats.  It reads host clocks at barriers the loop
+already has and changes no token or schedule.
+
 Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-dense (non-paged) mode, speculative decoding, cache sharding and the
-telemetry object.
+dense (non-paged) mode and cache sharding (draft_cache_sharding too).
 """
 from __future__ import annotations
 
@@ -94,18 +111,24 @@ import torch
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import llama as _llama
 from tf_operator_tpu_torch.models import paging, quant
+from tf_operator_tpu_torch.models import speculative as _spec
+from tf_operator_tpu_torch.models.telemetry import ServeTelemetry
 
 
 @dataclasses.dataclass
 class ServeResult:
     """Per-request outcome: the emitted tokens (EOS included when hit)
     and its schedule — the step its lane went live, the step it
-    finished, its lane, and the KV blocks its table referenced."""
+    finished, its lane, and the KV blocks its table referenced.  Under
+    speculation, accepted/proposed_drafts count this request's own
+    rounds (rounds past its finish excluded)."""
 
     tokens: List[int]
     admitted_at_step: int
     finished_at_step: int
     slot: int
+    accepted_drafts: int = 0
+    proposed_drafts: int = 0
     kv_blocks: int = 0
 
 
@@ -127,56 +150,6 @@ class KVHandoff:
     export: Optional[paging.BlockExport] = None
     completed: bool = False
     prefix_len: int = 0
-
-
-@dataclasses.dataclass
-class ServeStats:
-    """Aggregate of one serve_loop run: the subset of the JAX package's
-    ServeStats (models/telemetry.py) that the port fills.  Times are
-    host wall-clock in seconds; a decode block's time ends at its token
-    readback and a request's first token at its readback, both device
-    barriers.  TTFT runs from lane admission to the first token (on the
-    decode side of a handoff: the adoption), queue wait from the loop's
-    start (after the shared prefix's prefill) to admission (a preempted
-    request's count from its last admission).  prefill_time_s covers the
-    segments that ran on their own; segments fused into a decode block
-    count in decode_time_s."""
-
-    requests: int = 0
-    slots: int = 0
-    scheduler: str = "slot"
-    # which paged read served the run: "cuda" (the kernel) or "plain"
-    paged_kernel: str = ""
-    kv_block_size: int = 0
-    kv_blocks_total: int = 0
-    kv_blocks_peak_used: int = 0
-    # shared prefix: boundary blocks copied, and prefix blocks reused by
-    # an incref (or, on the decode side of a handoff, by a dedup hit)
-    cow_copies: int = 0
-    prefix_block_hits: int = 0
-    admissions_blocked_on_memory: int = 0
-    # lane-steps computed past a finish, up to the block edge
-    wasted_lane_steps: int = 0
-    # continuous: prompt tokens that rode a decode block's dispatch, and
-    # lanes sent back to the queue when the pool ran dry
-    fused_prefill_tokens: int = 0
-    preemptions: int = 0
-    # the handoff: lanes exported (prefill_only) and exports adopted
-    handoff_exports: int = 0
-    handoff_adoptions: int = 0
-    # sliding windows: block epochs the rings retired (a shared slot
-    # swapped for its shadow, or a private one reused in place)
-    window_evicted_blocks: int = 0
-    total_tokens: int = 0
-    wall_time_s: float = 0.0
-    tokens_per_sec: float = 0.0
-    queue_wait_mean_s: float = 0.0
-    ttft_mean_s: float = 0.0
-    ttft_max_s: float = 0.0
-    prefill_time_s: float = 0.0
-    decode_time_s: float = 0.0
-    per_request: List[Dict[str, Any]] = dataclasses.field(
-        default_factory=list)
 
 
 def _refuse(name: str, item: str) -> None:
@@ -310,6 +283,12 @@ class _Setup:
     # union of the batch's payloads (None where completed)
     adopt: Optional[List[KVHandoff]]
     adopt_exports: Optional[List[Optional[paging.BlockExport]]]
+    # speculation: the draft (None without), its round width, and the
+    # sampling options its rounds draw with
+    draft: Optional[_llama.Llama]
+    spec_k: int
+    sampling: Tuple[float, int, float, Optional[torch.Generator]]
+    tel: ServeTelemetry
 
 
 def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
@@ -326,9 +305,12 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                kv_quant: bool = False, params_transform=None,
                return_stats: bool = False,
                device: Union[str, torch.device, None] = None,
-               draft=None, shared_prefix=None, cache_sharding=None,
+               draft: Optional[_llama.Llama] = None, spec_k: int = 4,
+               draft_transform=None, shared_prefix=None,
+               cache_sharding=None, draft_cache_sharding=None,
                prefill_only: bool = False,
-               adopt: Optional[Sequence[KVHandoff]] = None, telemetry=None):
+               adopt: Optional[Sequence[KVHandoff]] = None,
+               telemetry: Optional[ServeTelemetry] = None):
     """Serve `requests` (1-D token sequences) through `slots` lanes over
     a paged KV pool; returns a ServeResult per request, in request order
     (with return_stats, (results, ServeStats)).
@@ -356,26 +338,36 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     a KVHandoff per request (with return_stats, (handoffs, ServeStats)).
     adopt: the decode side: one KVHandoff per request, adopt[i] pairing
     with requests[i], which is the FULL prompt the prefill side served.
+    draft / spec_k / draft_transform: speculative serving (module
+    docstring); draft is a Llama on the same device, holding its own
+    weights, and draft_transform takes None or
+    quant.make_dequantizer(draft.cfg.dtype), as params_transform.
+    telemetry: the ServeTelemetry to feed (default: a fresh one over the
+    process-global tracer).
 
-    The remaining keywords are the JAX serve_loop's options this port
-    does not take yet; each raises NotImplementedError."""
+    The remaining keywords (cache_sharding, draft_cache_sharding) are
+    the JAX serve_loop's options this port does not take yet; each
+    raises NotImplementedError."""
     if not paged:
         _refuse("dense mode (paged=False)", "item 7: dense mode")
     if scheduler not in ("slot", "continuous"):
         raise ValueError(f"scheduler must be 'slot' or 'continuous', got "
                          f"{scheduler!r}")
-    if draft is not None:
-        _refuse("draft (speculative decoding)", "item 5: speculative decoding")
     if cache_sharding is not None:
         _refuse("cache_sharding", "item 11: distributed")
-    if telemetry is not None:
-        _refuse("telemetry", "item 8: serving telemetry")
+    if draft_cache_sharding is not None:
+        _refuse("draft_cache_sharding", "item 11: distributed")
     continuous = scheduler == "continuous"
     if prefill_only and adopt is not None:
         raise ValueError(
             "prefill_only and adopt are the two ENDS of a handoff — a "
             "call is either the prefill fleet's half or the decode "
             "fleet's half, never both")
+    if (prefill_only or adopt is not None) and draft is not None:
+        raise ValueError(
+            "speculative serving does not hand off: target and draft "
+            "share the block table but ship as TWO pools — drop the "
+            "draft or serve unified")
     if prefill_only and continuous:
         raise ValueError(
             "prefill_only rides the slot scheduler's admission/prefill "
@@ -389,20 +381,39 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
             "the FULL prompts the prefill side served")
 
     cfg = model.cfg
-    if (params_transform is not None
-            and params_transform is not quant.make_dequantizer(cfg.dtype)):
+    spec = draft is not None
+    if spec and not isinstance(draft, _llama.Llama):
         raise ValueError(
-            "params_transform takes None or quant.make_dequantizer("
-            "cfg.dtype): the port's model applies its weights as they are "
-            "stored (int8 ones dequantized to cfg.dtype at each use), and "
-            "runs no other transform of them")
+            f"draft model given without draft_params: the port's draft "
+            f"is a Llama holding its own weights, got "
+            f"{type(draft).__name__}")
+    for name, xf, m in (("params_transform", params_transform, model),
+                        ("draft_transform", draft_transform, draft)):
+        if (xf is not None and m is not None
+                and xf is not quant.make_dequantizer(m.cfg.dtype)):
+            raise ValueError(
+                f"{name} takes None or quant.make_dequantizer("
+                f"cfg.dtype): the port's model applies its weights as "
+                f"they are stored (int8 ones dequantized to cfg.dtype at "
+                f"each use), and runs no other transform of them")
     dev = resolve_device(device)
-    p_dev = model.embed.device
-    if p_dev.type != dev.type or (dev.index is not None
-                                  and p_dev.index != dev.index):
-        raise ValueError(f"model is on {p_dev}, serve_loop asked for {dev}")
+    for name, m in (("model", model), ("draft", draft)):
+        if m is None:
+            continue
+        p_dev = m.embed.device
+        if p_dev.type != dev.type or (dev.index is not None
+                                      and p_dev.index != dev.index):
+            raise ValueError(f"{name} is on {p_dev}, serve_loop asked for "
+                             f"{dev}")
+    tel = telemetry if telemetry is not None else ServeTelemetry()
     reqs = [torch.as_tensor(r, dtype=torch.long).reshape(-1).cpu()
             for r in requests]
+    if not reqs:
+        # zero requests is still a run: the telemetry reports the
+        # configured slots and speculation, and completes its lifecycle
+        tel.loop_started(0, slots, spec, scheduler=scheduler, device=dev)
+        stats = tel.finalize()
+        return ([], stats) if return_stats else []
     if isinstance(max_new_tokens, numbers.Integral):
         budgets = [int(max_new_tokens)] * len(reqs)
     else:
@@ -488,16 +499,42 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         raise ValueError(
             f"eos_id {eos_id} out of range for vocab_size {cfg.vocab_size}")
     eos = -1 if eos_id is None else int(eos_id)
+    if spec:
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if draft.cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"target vocab {cfg.vocab_size} != draft vocab "
+                f"{draft.cfg.vocab_size} — speculation compares token ids")
+    # speculation headroom: a verify round writes spec_k+1 positions past
+    # a lane's current length
+    headroom = (spec_k + 1) if spec else 0
+    model_cfgs = [("target", cfg)] + ([("draft", draft.cfg)] if spec else [])
+    if spec and any(c.sliding_window is not None for _n, c in model_cfgs):
+        w_name, w_cfg = next((n, c) for n, c in model_cfgs
+                             if c.sliding_window is not None)
+        need = paging.blocks_for(w_cfg.sliding_window + spec_k + 1,
+                                 block_size)
+        raise ValueError(
+            f"paged sliding-window serving does not compose with "
+            f"speculation: target and draft share ONE block table, "
+            f"but a window table is modular per model — the {w_name}"
+            f"'s window {w_cfg.sliding_window} (+ verify headroom "
+            f"{spec_k + 1}) needs a private ring of {need} blocks "
+            f"of {block_size} tokens whose wrap seam the other "
+            f"model's positions would shear — use the dense ring "
+            f"(paged=False), which sizes each model's ring "
+            f"independently")
     for i, r in enumerate(reqs):
         if r.shape[0] < 1:
             raise ValueError(f"request {i} is empty")
-        if r.shape[0] + budgets[i] > cfg.max_len:
-            raise ValueError(
-                f"request {i}: prompt {r.shape[0]} + new {budgets[i]} "
-                f"exceeds max_len {cfg.max_len}")
-    if not reqs:
-        stats = ServeStats(slots=slots, scheduler=scheduler)
-        return ([], stats) if return_stats else []
+        for name, c in model_cfgs:
+            if r.shape[0] + budgets[i] + headroom > c.max_len:
+                raise ValueError(
+                    f"request {i}: prompt {r.shape[0]} + new {budgets[i]}"
+                    + (f" (+{headroom} speculation headroom)" if spec
+                       else "")
+                    + f" exceeds max_len {c.max_len} ({name})")
 
     # block math: a linear table covers the largest worst case; a
     # windowed one is a ring of ring_len // block_size slots, sized as
@@ -540,9 +577,10 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
             write_slack=0 if prefill_only else steps_per_sync - 1)
             for i, r in enumerate(reqs)]
     else:
-        t_blocks = paging.blocks_for(worst_total, block_size)
+        t_blocks = paging.blocks_for(worst_total + headroom, block_size)
         plans = [paging.plan_request(int(r.shape[0]),
-                                     0 if prefill_only else budgets[i], 0,
+                                     0 if prefill_only else budgets[i],
+                                     0 if prefill_only else headroom,
                                      block_size, p_fix) + (0,)
                  for i, r in enumerate(reqs)]
     n_prefix_blocks = paging.blocks_for(p_fix, block_size)
@@ -555,8 +593,9 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         # waits forever
         if pl[2] + n_prefix_blocks > pool_blocks:
             raise ValueError(
-                f"request {i}: prompt {r.shape[0]} + new {budgets[i]} "
-                f"needs {pl[2]} private blocks of {block_size} tokens"
+                f"request {i}: prompt {r.shape[0]} + new {budgets[i]}"
+                + (f" (+{headroom} speculation headroom)" if spec else "")
+                + f" needs {pl[2]} private blocks of {block_size} tokens"
                 + (f" (+{n_prefix_blocks} shared prefix blocks)"
                    if p_fix else "")
                 + f", but the pool has {pool_blocks} — grow pool_blocks "
@@ -592,10 +631,15 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                    kv_quant=kv_quant, continuous=continuous,
                    windowed=windowed, select=select, dev=dev, prefix=prefix,
                    prefill_only=prefill_only, adopt=adopt,
-                   adopt_exports=adopt_exports)
+                   adopt_exports=adopt_exports, draft=draft, spec_k=spec_k,
+                   sampling=(float(temperature), int(top_k), float(top_p),
+                             generator),
+                   tel=tel)
     with torch.inference_mode():
-        results, stats = _run(model, reqs, budgets, setup)
-    return (results, stats) if return_stats else results
+        results = _run(model, reqs, budgets, setup)
+    # every exit idles the occupancy gauges and samples the memory peak
+    tel.loop_finished()
+    return (results, tel.finalize()) if return_stats else results
 
 
 def _check_ring(i: int, export: Optional[paging.BlockExport],
@@ -623,10 +667,16 @@ def _run(model, reqs, budgets, o: _Setup):
     cfg = model.cfg
     dev, slots, eos, select = o.dev, o.slots, o.eos, o.select
     bs = o.block_size
+    tel = o.tel
     p_fix = 0 if o.prefix is None else int(o.prefix.shape[0])
+    spec = o.draft is not None
     pool = paging.BlockPool(o.pool_blocks, bs)
     cache = paging.init_block_pool(cfg, o.pool_blocks, bs, device=dev,
                                    kv_quant=o.kv_quant)
+    # the draft's pools: the same block ids through the same tables
+    d_cache = (paging.init_block_pool(o.draft.cfg, o.pool_blocks, bs,
+                                      device=dev, kv_quant=o.kv_quant)
+               if spec else None)
     # block tables live on the host, as the JAX continuous loop keeps
     # them: every edit is a host write, and each dispatch uploads its
     # tables once
@@ -638,6 +688,8 @@ def _run(model, reqs, budgets, o: _Setup):
     emitted: List[List[int]] = [[] for _ in range(slots)]
     results: List[Optional[ServeResult]] = [None] * len(reqs)
     admitted_step = [0] * slots
+    # speculation: (accepted, proposed) drafts of each lane's occupant
+    spec_acc = [(0, 0)] * slots
     # per-lane blocks: shared (increffed prefix, or adopted dedup-eligible)
     # and own (private, freed plainly)
     lane_shared: List[List[int]] = [[] for _ in range(slots)]
@@ -646,21 +698,14 @@ def _run(model, reqs, budgets, o: _Setup):
     # windowed lanes: each one's ring bookkeeping (slot map, shadows)
     lane_rot: Dict[int, paging.WindowRotation] = {}
     # the continuous scheduler grows linear lanes lazily; a windowed
-    # lane keeps its ring reservation (the ring is its per-step bound)
-    lazy = o.continuous and not o.windowed
+    # lane keeps its ring reservation (the ring is its per-step bound),
+    # and a speculative one its worst case (a verify writes ahead)
+    lazy = o.continuous and not o.windowed and not spec
     queue = deque(range(len(reqs)))
     pending: Dict[int, dict] = {}
     n_step = 0
     # continuous: admissions wait after a preemption until a lane finishes
     hold = False
-    # host clock marks per request: admitted, first token, finished
-    t_admit = [0.0] * len(reqs)
-    t_first = [0.0] * len(reqs)
-    t_done = [0.0] * len(reqs)
-    counts = {"blocked": 0, "wasted": 0, "peak": 0, "fused": 0,
-              "preempted": 0, "cow": 0, "prefix_hits": 0, "exports": 0,
-              "adoptions": 0, "evicted": 0}
-    seconds = {"prefill": 0.0, "decode": 0.0}
     # the handoff: hashes this call already shipped (a shared prefix's
     # blocks go once), the handoffs made, and the receiver's registry,
     # through which every decref of an adopted shared block goes
@@ -695,8 +740,16 @@ def _run(model, reqs, budgets, o: _Setup):
     def segments_of(ridx: int):
         return request_segments(int(reqs[ridx].shape[0]))
 
-    def sample_peak() -> None:
-        counts["peak"] = max(counts["peak"], pool.used)
+    def write_segment(piece: torch.Tensor, start: int, row: torch.Tensor,
+                      last: bool):
+        """One prompt segment into the lane's blocks through its row
+        table: the target's write (a final one returns the last
+        position's logits), then the draft's, which only writes."""
+        out = (chunk_fill if last else chunk_write)(model, cache, piece,
+                                                    start, row)
+        if spec:
+            chunk_write(o.draft, d_cache, piece, start, row)
+        return out
 
     # the shared prefix is prefilled ONCE into blocks the pool's base
     # reference holds for the whole run
@@ -706,19 +759,27 @@ def _run(model, reqs, budgets, o: _Setup):
         pfx_row = paging.build_table(prefix_ids, o.t_blocks)[None].to(dev)
         for start, end, _ in request_segments(p_fix + 1)[
                 :resume_index(p_fix + 1)]:
-            chunk_write(model, cache, o.prefix[None, start:end].to(dev),
-                        start, pfx_row)
-        sample_peak()
-    t_start = time.perf_counter()
+            write_segment(o.prefix[None, start:end].to(dev), start, pfx_row,
+                          False)
+    # every request is queued from here on
+    tel.loop_started(len(reqs), slots, spec,
+                     scheduler="continuous" if o.continuous else "slot",
+                     device=dev)
+    tel.pool_configured(o.pool_blocks, bs,
+                        "cuda" if dev.type == "cuda" else "plain")
+    tel.blocks_in_use(pool.used)  # the prefix's blocks, if any
     if o.adopt is not None:
         # completed-at-prefill handoffs carry no export: answer them
         # without a lane
         for i, h in enumerate(o.adopt):
-            if h.completed:
-                results[i] = ServeResult(
-                    tokens=[int(h.first_token)], admitted_at_step=0,
-                    finished_at_step=0, slot=-1)
-                t_admit[i] = t_first[i] = t_done[i] = time.perf_counter()
+            if not h.completed:
+                continue
+            tel.request_admitted(i, -1)
+            tel.request_activated(i, 0)
+            results[i] = ServeResult(
+                tokens=[int(h.first_token)], admitted_at_step=0,
+                finished_at_step=0, slot=-1)
+            tel.request_finished(i, results[i], 0)
         queue = deque(i for i in queue if not o.adopt[i].completed)
 
     def release_shared(ids: List[int]) -> None:
@@ -748,19 +809,23 @@ def _run(model, reqs, budgets, o: _Setup):
         ridx = owner[s]
         results[ridx] = ServeResult(
             tokens=emitted[s], admitted_at_step=admitted_step[s],
-            finished_at_step=n_step, slot=s, kv_blocks=lane_nblocks[s])
-        t_done[ridx] = time.perf_counter()
+            finished_at_step=n_step, slot=s,
+            accepted_drafts=spec_acc[s][0], proposed_drafts=spec_acc[s][1],
+            kv_blocks=lane_nblocks[s])
         owner[s] = None
         release(s)
+        tel.blocks_in_use(pool.used)
+        tel.request_finished(ridx, results[ridx], n_step)
 
     def admit(s: int, ridx: int, n_blocks: int) -> None:
         """Lane s takes the queue head with n_blocks fresh blocks after
         the shared prefix's whole blocks (increfed; a partial boundary
-        block is copied into the first fresh one); its prompt streams
-        through its own row table from resume_index, and its batch row
-        stays all scratch until activation.  A windowed lane's last
-        `rotated` fresh blocks are its shadows, outside the table until
-        the ring wraps onto a shared slot."""
+        block is copied into the first fresh one, in the draft's pools
+        too); its prompt streams through its own row table from
+        resume_index, and its batch row stays all scratch until
+        activation.  A windowed lane's last `rotated` fresh blocks are
+        its shadows, outside the table until the ring wraps onto a
+        shared slot."""
         queue.popleft()
         _, shared_i, _, cow, rotated = o.plans[ridx]
         own = pool.alloc(n_blocks)
@@ -768,10 +833,12 @@ def _run(model, reqs, budgets, o: _Setup):
         shared_ids = prefix_ids[:shared_i]
         if shared_ids:
             pool.incref(shared_ids)
-            counts["prefix_hits"] += len(shared_ids)
+            tel.prefix_blocks_reused(len(shared_ids))
         if cow:
             paging.copy_block(cache, prefix_ids[shared_i], slot_ids[0])
-            counts["cow"] += 1
+            if spec:
+                paging.copy_block(d_cache, prefix_ids[shared_i], slot_ids[0])
+            tel.cow_copy()
         lane_shared[s] = list(shared_ids)
         lane_own[s] = own
         lane_nblocks[s] = shared_i + n_blocks
@@ -783,8 +850,8 @@ def _run(model, reqs, budgets, o: _Setup):
         pending[s] = {
             "ridx": ridx, "next": resume_index(int(reqs[ridx].shape[0])),
             "row_tbl": paging.build_table(row, o.t_blocks)[None]}
-        t_admit[ridx] = time.perf_counter()
-        sample_peak()
+        tel.request_admitted(ridx, s)
+        tel.blocks_in_use(pool.used)
 
     def rotate_window(s: int, upto_pos: int, q_min: int) -> None:
         """A windowed lane's ring rotations for every block it is about
@@ -808,7 +875,9 @@ def _run(model, reqs, budgets, o: _Setup):
             release_shared(released)
             for rid in released:
                 lane_shared[s].remove(rid)
-        counts["evicted"] += evicted
+            tel.blocks_in_use(pool.used)
+        if evicted:
+            tel.window_blocks_evicted(evicted)
 
     def export_lane(s: int, ridx: int) -> paging.BlockExport:
         """Lane s's blocks in wire form; only whole shared-prefix blocks
@@ -837,10 +906,13 @@ def _run(model, reqs, budgets, o: _Setup):
             n_blk = paging.blocks_for(int(reqs[ridx].shape[0]), bs)
             ids = (lane_shared[s] + lane_own[s])[:n_blk]
             shared = [i < len(lane_shared[s]) for i in range(len(ids))]
-        counts["exports"] += 1
-        return paging.export_blocks(cache, ids, shared, bs,
-                                    sent_hashes=sent_hashes,
-                                    window=window_meta)
+        t0 = time.perf_counter()
+        exp = paging.export_blocks(cache, ids, shared, bs,
+                                   sent_hashes=sent_hashes,
+                                   window=window_meta)
+        tel.handoff_exported(len(exp), exp.payload_blocks(),
+                             time.perf_counter() - t0)
+        return exp
 
     def activate_lane(s: int, first: int, dev_done: bool = False) -> None:
         """The lane goes live with its first token; its table row becomes
@@ -852,13 +924,14 @@ def _run(model, reqs, budgets, o: _Setup):
         p_len = int(reqs[ridx].shape[0])
         table[s] = st["row_tbl"][0]
         owner[s] = ridx
+        spec_acc[s] = (0, 0)
         admitted_step[s] = n_step
         emitted[s] = [first]
         if not dev_done:
             tok[s] = first
             pos[s] = p_len
         frozen_py[s] = False
-        t_first[ridx] = time.perf_counter()
+        tel.request_activated(ridx, n_step)
         done = first == eos or budgets[ridx] == 1
         if o.prefill_only:
             handoffs[ridx] = KVHandoff(
@@ -906,29 +979,31 @@ def _run(model, reqs, budgets, o: _Setup):
                     shadow_n += 1
             growth = len(tail_slots) + shadow_n
             if not pool.can_alloc(fresh + growth):
-                counts["blocked"] += 1
+                tel.admission_blocked_on_memory(ridx)
                 return False
         elif o.continuous:
             growth = 0
             if hold or not paging.step_gate(pool.free_blocks, fresh,
                                             len(in_flight())):
-                counts["blocked"] += 1
+                tel.admission_blocked_on_memory(ridx)
                 return False
         else:
             growth = o.plans[ridx][0] - paging.blocks_for(p_len, bs)
             if not pool.can_alloc(fresh + growth):
-                counts["blocked"] += 1
+                tel.admission_blocked_on_memory(ridx)
                 return False
         queue.popleft()
-        t_admit[ridx] = time.perf_counter()
+        t0 = time.perf_counter()
         _, adopted, sh_ids, own_ids, st = paging.adopt_blocks(
             cache, pool, exp, registry)
         grow = pool.alloc(growth) if growth else []
         lane_shared[s] = sh_ids
         lane_own[s] = own_ids + grow
         lane_nblocks[s] = len(adopted) + len(grow)
-        counts["adoptions"] += 1
-        counts["prefix_hits"] += st["deduped"]
+        tel.handoff_adopted(st["fresh"], st["deduped"],
+                            time.perf_counter() - t0)
+        if st["deduped"]:
+            tel.prefix_blocks_reused(st["deduped"])
         row = adopted + grow
         if o.windowed:
             row = [paging.SCRATCH_BLOCK] * win["ring"]
@@ -945,24 +1020,29 @@ def _run(model, reqs, budgets, o: _Setup):
         table[s] = paging.build_table(row, o.t_blocks)
         first = int(o.adopt[ridx].first_token)
         owner[s] = ridx
+        spec_acc[s] = (0, 0)
         admitted_step[s] = n_step
         emitted[s] = [first]
         tok[s] = first
         pos[s] = p_len
         frozen_py[s] = False
-        t_first[ridx] = time.perf_counter()
-        sample_peak()
+        # JAX's order: the adoption, then admitted, then activated (TTFT
+        # runs from the adopted lane's admission to its first token)
+        tel.request_admitted(ridx, s)
+        tel.blocks_in_use(pool.used)
+        tel.request_activated(ridx, n_step)
         return True
 
     def advance_prefill(s: int) -> None:
         """Stream up to prefill_chunks_per_sync segments of slot s's
-        pending prompt into its blocks; the final segment's logits give
-        the first token and activate the lane.  The continuous scheduler
-        first grows the lane's coverage for each segment (and stops if
-        that preempted the lane itself)."""
+        pending prompt into its blocks (the draft's too); the final
+        segment's logits give the first token and activate the lane.
+        The continuous scheduler first grows the lane's coverage for
+        each segment (and stops if that preempted the lane itself)."""
         st = pending[s]
-        prompt = reqs[st["ridx"]]
-        segments = segments_of(st["ridx"])
+        ridx = st["ridx"]
+        prompt = reqs[ridx]
+        segments = segments_of(ridx)
         budget = o.chunks_per_sync or len(segments)
         for start, end, is_last in segments[st["next"]:st["next"] + budget]:
             if lazy and not grow_or_preempt(s, end):
@@ -973,15 +1053,13 @@ def _run(model, reqs, budgets, o: _Setup):
             # slots: the segment's queries start at `start`
             rotate_window(s, end - 1, start)
             row = st["row_tbl"].to(dev)
-            t0 = time.perf_counter()
+            with tel.prefill_segment(ridx, start, end):
+                logits = write_segment(piece, start, row, is_last)
+                if is_last:
+                    first = int(select(logits)[0])  # device sync
             if is_last:
-                first = int(select(chunk_fill(model, cache, piece, start,
-                                              row))[0])  # device sync
-                seconds["prefill"] += time.perf_counter() - t0
                 activate_lane(s, first)
                 return
-            chunk_write(model, cache, piece, start, row)
-            seconds["prefill"] += time.perf_counter() - t0
 
     # ---------------------------------------- continuous-only bookkeeping
     def in_flight() -> List[int]:
@@ -1011,7 +1089,7 @@ def _run(model, reqs, budgets, o: _Setup):
                                                    dtype=torch.int32)
         lane_own[s].extend(new_ids)
         lane_nblocks[s] += need
-        sample_peak()
+        tel.blocks_in_use(pool.used)
         return True
 
     def preempt(s: int) -> None:
@@ -1029,7 +1107,8 @@ def _run(model, reqs, budgets, o: _Setup):
         emitted[s] = []
         queue.appendleft(ridx)
         hold = True
-        counts["preempted"] += 1
+        tel.preempted_to_queue(ridx)
+        tel.blocks_in_use(pool.used)
 
     def grow_or_preempt(s: int, upto: int) -> bool:
         """ensure_cover, preempting the youngest request in flight until
@@ -1057,9 +1136,10 @@ def _run(model, reqs, budgets, o: _Setup):
                 continue
             ridx = queue[0]
             if not lazy:
-                # a windowed lane reserves its whole ring plan
+                # a windowed lane reserves its whole ring plan, a
+                # speculative one its worst case
                 if not pool.can_alloc(o.plans[ridx][2]):
-                    counts["blocked"] += 1
+                    tel.admission_blocked_on_memory(ridx)
                     return
                 admit(s, ridx, o.plans[ridx][2])
                 continue
@@ -1071,9 +1151,54 @@ def _run(model, reqs, budgets, o: _Setup):
                                               bs)
             if not paging.step_gate(pool.free_blocks, need_now,
                                     len(in_flight())):
-                counts["blocked"] += 1
+                tel.admission_blocked_on_memory(ridx)
                 return
             admit(s, ridx, need_now)
+
+    def spec_dispatch(n_rounds: int, busy: int) -> Tuple[list, list]:
+        """n_rounds speculation rounds for every lane, as one decode
+        block: one readback of the rounds' candidates [n_rounds][B][k+1]
+        and accepted counts [n_rounds][B] (-1: frozen)."""
+        nonlocal tok, pos
+        temp, top_k, top_p, gen = o.sampling
+        k = o.spec_k
+        with tel.decode_block(busy, pool.used):
+            tok, pos, cands, n_accs = _spec.spec_block(
+                model, o.draft, cache, d_cache, tok, pos,
+                torch.tensor(frozen_py).to(dev), table.to(dev), n_rounds, k,
+                temp, top_k, top_p, gen)
+            flat = torch.cat([cands.reshape(-1),
+                              n_accs.reshape(-1)]).tolist()  # device sync
+        tel.step_mix(busy, 0)
+        n_c = n_rounds * slots * (k + 1)
+        c_rows = [[flat[(i * slots + s) * (k + 1):(i * slots + s + 1) * (k + 1)]
+                   for s in range(slots)] for i in range(n_rounds)]
+        a_rows = [flat[n_c + i * slots:n_c + (i + 1) * slots]
+                  for i in range(n_rounds)]
+        return c_rows, a_rows
+
+    def emit_rounds(c_rows: list, a_rows: list) -> None:
+        """The host's side of a speculative block: each live lane's
+        round tokens in order, its drafts counted, a finish where it hits
+        EOS or its budget (the rest of the block is overshoot)."""
+        nonlocal n_step
+        n_rounds = len(a_rows)
+        waste = 0
+        for i in range(n_rounds):
+            n_step += 1
+            for s in range(slots):
+                if owner[s] is None or frozen_py[s]:
+                    continue
+                acc, prop = spec_acc[s]
+                spec_acc[s] = (acc + a_rows[i][s], prop + o.spec_k)
+                bud = budgets[owner[s]]
+                for t in c_rows[i][s][:a_rows[i][s] + 1]:
+                    emitted[s].append(t)
+                    if t == eos or len(emitted[s]) >= bud:
+                        finish(s)
+                        waste += n_rounds - 1 - i
+                        break
+        tel.lane_wasted_steps(waste)
 
     def run_continuous() -> None:
         nonlocal tok, pos, n_step, hold
@@ -1082,15 +1207,25 @@ def _run(model, reqs, budgets, o: _Setup):
                 hold = False  # the pool drained; retry
             admit_free_lanes()
             live = live_lanes()
-            if not live:
-                # nothing to fuse with: stream pending prompts the slot
-                # way, oldest request first
+            if spec or not live:
+                # nothing to fuse with (or speculation, which fuses
+                # nothing): stream pending prompts the slot way, oldest
+                # request first
                 for s in sorted(pending, key=lambda s: pending[s]["ridx"]):
                     if s in pending:  # a peer's growth may evict it
                         advance_prefill(s)
                 live = live_lanes()
                 if not live:
                     continue
+            if spec:
+                # rounds cut to the longest remaining budget; lanes
+                # freeze on the host (the -1 marker skips frozen ones)
+                max_rem = max(budgets[owner[s]] - len(emitted[s])
+                              for s in live)
+                n_rounds = min(o.steps_per_sync,
+                               -(-max_rem // (o.spec_k + 1)))
+                emit_rounds(*spec_dispatch(n_rounds, len(live)))
+                continue
             n = min(o.steps_per_sync,
                     max(budgets[owner[s]] - len(emitted[s]) for s in live))
             seg_plan = None
@@ -1134,30 +1269,32 @@ def _run(model, reqs, budgets, o: _Setup):
                                 dtype=torch.int32).to(dev)
             frozen = torch.tensor(frozen_py).to(dev)
             table_d = table.to(dev)
-            sample_peak()
-            t0 = time.perf_counter()
+            busy = len(live)
+            seg_tok = 0
             first_dev = None
-            if seg_plan is not None:
-                s_pre, start, end, is_last = seg_plan
-                st = pending[s_pre]
-                piece = reqs[st["ridx"]][None, start:end].to(dev)
-                row = st["row_tbl"].to(dev)
-                if is_last:
-                    tok, pos, toks, lives, first_dev = fused_fill(
-                        model, cache, tok, pos, frozen, left, eos, table_d,
-                        piece, start, row, s_pre, n, select)
+            with tel.decode_block(busy, pool.used):
+                if seg_plan is not None:
+                    s_pre, start, end, is_last = seg_plan
+                    st = pending[s_pre]
+                    piece = reqs[st["ridx"]][None, start:end].to(dev)
+                    row = st["row_tbl"].to(dev)
+                    if is_last:
+                        tok, pos, toks, lives, first_dev = fused_fill(
+                            model, cache, tok, pos, frozen, left, eos,
+                            table_d, piece, start, row, s_pre, n, select)
+                    else:
+                        tok, pos, toks, lives = fused_write(
+                            model, cache, tok, pos, frozen, left, eos,
+                            table_d, piece, start, row, n, select)
+                    st["next"] += 1
+                    seg_tok = end - start
                 else:
-                    tok, pos, toks, lives = fused_write(
+                    tok, pos, toks, lives = cb_decode_block(
                         model, cache, tok, pos, frozen, left, eos, table_d,
-                        piece, start, row, n, select)
-                st["next"] += 1
-                counts["fused"] += end - start
-            else:
-                tok, pos, toks, lives = cb_decode_block(
-                    model, cache, tok, pos, frozen, left, eos, table_d, n,
-                    select)
-            toks_h, lives_h, first = _readback(toks, lives, first_dev)
-            seconds["decode"] += time.perf_counter() - t0
+                        n, select)
+                toks_h, lives_h, first = _readback(toks, lives, first_dev)
+            tel.step_mix(busy, seg_tok)
+            waste = 0
             for i in range(n):
                 n_step += 1
                 for s in range(slots):
@@ -1169,7 +1306,8 @@ def _run(model, reqs, budgets, o: _Setup):
                         finish(s)
                         # the device froze the lane; its remaining rows
                         # still computed (masked) to the block edge
-                        counts["wasted"] += n - 1 - i
+                        waste += n - 1 - i
+            tel.lane_wasted_steps(waste)
             if seg_plan is not None and seg_plan[3]:
                 activate_lane(seg_plan[0], first, dev_done=True)
 
@@ -1188,26 +1326,34 @@ def _run(model, reqs, budgets, o: _Setup):
                     ridx = queue[0]
                     private_i = o.plans[ridx][2]
                     if not pool.can_alloc(private_i):
-                        counts["blocked"] += 1
+                        tel.admission_blocked_on_memory(ridx)
                         break
                     admit(s, ridx, private_i)
             for s in list(pending):
                 advance_prefill(s)
             if all(w is None for w in owner):
                 continue  # nothing decoding yet; keep prefilling/admitting
+            # lanes owned by a live request this block (finish clears the
+            # owner, so owned == decoding)
+            busy = sum(1 for w in owner if w is not None)
+            if spec:
+                # steps_per_sync rounds; a lane that finishes mid-block
+                # speculates to the block edge and the host discards it
+                emit_rounds(*spec_dispatch(o.steps_per_sync, busy))
+                continue
             # rotate every live ring for the positions this block writes
             # (a lane finishing mid-block still writes to the block edge)
             for s in live_lanes():
                 cur = int(reqs[owner[s]].shape[0]) + len(emitted[s]) - 1
                 rotate_window(s, cur + o.steps_per_sync - 1, cur)
-            sample_peak()
-            t0 = time.perf_counter()
-            frozen = torch.tensor(frozen_py).to(dev)
-            tok, pos, toks = decode_block(model, cache, tok, pos, frozen,
-                                          table.to(dev), o.steps_per_sync,
-                                          select)
-            block = toks.cpu().tolist()  # [steps_per_sync][B]; device sync
-            seconds["decode"] += time.perf_counter() - t0
+            with tel.decode_block(busy, pool.used):
+                frozen = torch.tensor(frozen_py).to(dev)
+                tok, pos, toks = decode_block(model, cache, tok, pos, frozen,
+                                              table.to(dev), o.steps_per_sync,
+                                              select)
+                block = toks.cpu().tolist()  # [steps_per_sync][B]; sync
+            tel.step_mix(busy, 0)
+            waste = 0
             for i in range(o.steps_per_sync):
                 n_step += 1
                 for s in range(slots):
@@ -1217,36 +1363,8 @@ def _run(model, reqs, budgets, o: _Setup):
                     emitted[s].append(t)
                     if t == eos or len(emitted[s]) >= budgets[owner[s]]:
                         finish(s)  # later in-block tokens are overshoot
-                        counts["wasted"] += o.steps_per_sync - 1 - i
+                        waste += o.steps_per_sync - 1 - i
+            tel.lane_wasted_steps(waste)
 
     (run_continuous if o.continuous else run_slot)()
-    wall = time.perf_counter() - t_start
-    total = sum(len(r.tokens) for r in results)
-    ttft = [t_first[i] - t_admit[i] for i in range(len(reqs))]
-    stats = ServeStats(
-        requests=len(reqs), slots=slots,
-        scheduler="continuous" if o.continuous else "slot",
-        paged_kernel="cuda" if dev.type == "cuda" else "plain",
-        kv_block_size=bs, kv_blocks_total=o.pool_blocks,
-        kv_blocks_peak_used=counts["peak"],
-        cow_copies=counts["cow"], prefix_block_hits=counts["prefix_hits"],
-        admissions_blocked_on_memory=counts["blocked"],
-        wasted_lane_steps=counts["wasted"],
-        fused_prefill_tokens=counts["fused"],
-        preemptions=counts["preempted"],
-        handoff_exports=counts["exports"],
-        handoff_adoptions=counts["adoptions"],
-        window_evicted_blocks=counts["evicted"], total_tokens=total,
-        wall_time_s=wall, tokens_per_sec=total / wall if wall > 0 else 0.0,
-        queue_wait_mean_s=sum(t_admit[i] - t_start
-                              for i in range(len(reqs))) / len(reqs),
-        ttft_mean_s=sum(ttft) / len(ttft), ttft_max_s=max(ttft),
-        prefill_time_s=seconds["prefill"],
-        decode_time_s=seconds["decode"],
-        per_request=[{
-            "request": i, "slot": results[i].slot,
-            "tokens": len(results[i].tokens),
-            "queue_wait_s": t_admit[i] - t_start, "ttft_s": ttft[i],
-            "e2e_latency_s": t_done[i] - t_start,
-        } for i in range(len(reqs))])
-    return (handoffs if o.prefill_only else results), stats
+    return handoffs if o.prefill_only else results
