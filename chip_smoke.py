@@ -42,6 +42,16 @@ Phases, in order, none of them caught:
               whose acceptance rate must pass 0.9.  K1 launches equal
               target layers x target calls + draft layers x draft calls,
               all on the tensor cores.
+  4c. dense:  the serve phase's model and prompts over dense per-lane
+              rings, serve_loop(paged=False): (a) the slot scheduler, (b)
+              the continuous one, which gives (a)'s tokens (how many
+              requests give the serve phase's paged tokens is printed);
+              generate on 8 equal 512-token prompts, one pass and in
+              chunks of 128; the self-draft witnesses over the spec
+              phase's witness requests, serve_loop and
+              speculative_generate, each accepting more than 0.9; the
+              rings' bytes beside the paged pool's.  No kernel reads a
+              dense ring: K1 and K1q launch 0 times.
   5. handoff: the serve phase's model over one shared 1000-token prefix
               (62 whole blocks of 16 and a copy-on-write boundary block)
               and 16 suffixes of 32-256 tokens, 64 new tokens each, 8
@@ -71,6 +81,14 @@ Phases, in order, none of them caught:
               equal its non-speculative ones.  Then, informational, how
               far int8 KV moves one prefill's logits between the card and
               the CPU.
+  6c. dense-parity: full width, 2 layers, f32 (TF32 off): generate one
+              pass and chunked, speculative_generate self-drafted and
+              over a windowed ring the verify wraps (window 32, 40
+              slots; = generate on the card), serve_loop(paged=False)
+              under both schedulers, over an unaligned prefix, with a
+              1-layer draft, and with int8 weights and KV over the
+              spec-parity phase's int8 requests: tokens (and schedules)
+              on the card equal the CPU's; dense = paged on the card.
   7. window:  mistral_7b at full width and depth (bf16, random weights
               from seed 0, sliding window 4096) over a 1024-token shared
               prefix and 16 suffixes of 1024-6656 tokens, 128 new tokens
@@ -968,6 +986,312 @@ def spec_phase(model, prompts, base_tokens) -> dict:
         f"{sum(launches)} in all; phase {time.perf_counter() - t_phase:.1f} s")
     del draft
     return dict(launches=sum(launches))
+
+
+# ------------------------------------------------------------ dense phase
+DENSE_BATCH, DENSE_PROMPT, DENSE_CHUNK = 8, 512, 128
+
+
+def ring_bytes(cfg, lanes: int, slots: int) -> int:
+    """Bytes of dense rings (or of a paged pool of `lanes` blocks of
+    `slots` positions): K and V of every layer, in cfg.dtype."""
+    return (2 * cfg.n_layers * lanes * slots * cfg.n_kv_heads * cfg.head_dim
+            * torch.finfo(cfg.dtype).bits // 8)
+
+
+def dense_phase(model, prompts, paged_tokens) -> None:
+    """Dense-ring decoding of the serve phase's llama3_8b (bf16, 32
+    layers, its seeded weights): serve_loop(paged=False) over its 16
+    prompts, 64 new tokens, 8 lanes, under (a) the slot and (b) the
+    continuous scheduler, whose tokens must be equal; how many requests
+    give the paged serve phase's tokens is printed (bf16: K1 and the
+    dense einsum sum in other orders).  Then generate on a batch of 8
+    equal 512-token prompts, one pass and in chunks of 128 (rows that
+    agree printed).  Then the self-draft witnesses (the target as its
+    own draft, spec_k 4) over that batch: serve_loop(paged=False) and
+    speculative_generate in bf16 must accept more than 0.5 (sound runs
+    read 0.85-0.90, bf16 near ties flipping between the draft's L=1 and
+    the verify's L=5 rounding; a broken verify reads near 0), and
+    speculative_generate over the same weights upcast to f32 more than
+    0.9 (rounding flips almost no tie there).  No kernel reads a dense
+    ring: K1 and K1q are launched 0 times in every run."""
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.models.speculative import speculative_generate
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    kw = dict(slots=8, steps_per_sync=8, device="cuda", paged=False,
+              return_stats=True)
+    serve_loop(model, [p[:64] for p in prompts[:2]], max_new_tokens=8, **kw)
+    calls = [0]
+    hook = model.register_forward_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    def no_kernel(tag):
+        if pa.launches or pa.launches_int8:
+            raise AssertionError(f"[dense] ({tag}) K1 {pa.launches}, K1q "
+                                 f"{pa.launches_int8} launches on dense "
+                                 f"rings")
+
+    runs = {}
+    for tag, sched in (("a slot", "slot"), ("b continuous", "continuous")):
+        calls[0] = 0
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, st = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
+                             scheduler=sched, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        no_kernel(tag)
+        for i, r in enumerate(out):
+            if len(r.tokens) != MAX_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.tokens):
+                raise AssertionError(f"[dense] ({tag}) request {i}: "
+                                     f"{len(r.tokens)} tokens or one out "
+                                     f"of vocab")
+        if st.paged or st.kv_blocks_total:
+            raise AssertionError(f"[dense] ({tag}) stats say paged")
+        p50, p99 = ttft_pcts(st)
+        log(f"[dense] ({tag}) tokens={st.total_tokens} "
+            f"wall_s={st.wall_time_s:.4f} "
+            f"tokens_per_s={st.tokens_per_sec:.2f} ttft_p50_s={p50:.4f} "
+            f"ttft_p99_s={p99:.4f} prefill_s={st.prefill_time_s:.4f} "
+            f"decode_s={st.decode_time_s:.4f} model_calls={calls[0]} "
+            f"kernel_launches=0 max_memory_allocated_gib="
+            f"{peak / 2**30:.3f}")
+        log(f"[dense] ({tag}) telemetry: {tel_line(st)}")
+        runs[sched] = [r.tokens for r in out]
+    if runs["slot"] != runs["continuous"]:
+        bad = [i for i, (a, b) in enumerate(zip(runs["slot"],
+                                                runs["continuous"]))
+               if a != b]
+        raise AssertionError(f"[dense] (b) continuous tokens differ from "
+                             f"(a) slot's at requests {bad}")
+    same = sum(a == b for a, b in zip(runs["slot"], paged_tokens))
+    longest = max(int(p.shape[0]) for p in prompts)
+    c = llama.auto_cache_len(cfg, longest, longest + MAX_NEW)
+    pool = 8 * -(-(longest + MAX_NEW) // BS) + 1
+    log(f"[dense] {len(prompts)} requests x {MAX_NEW} tokens: (b) tokens "
+        f"== (a) tokens for all; {same} of {len(prompts)} requests give "
+        f"the paged serve phase's tokens (informational: K1 and the dense "
+        f"einsum round bf16 sums in other orders); dense rings 8 lanes x "
+        f"{c} slots = {ring_bytes(cfg, 8, c) / 2**30:.4f} GiB, the paged "
+        f"pool for the same requests {pool} blocks x {BS} = "
+        f"{ring_bytes(cfg, pool, BS) / 2**30:.4f} GiB")
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    batch = torch.randint(0, cfg.vocab_size,
+                          (DENSE_BATCH, DENSE_PROMPT), generator=g).cuda()
+    gen = {}
+    for tag, chunk in (("one pass", None), ("chunked", DENSE_CHUNK)):
+        calls[0] = 0
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen[tag] = llama.generate(model, batch, MAX_NEW, device="cuda",
+                                  prefill_chunk=chunk)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        no_kernel(f"generate {tag}")
+        if gen[tag].shape != (DENSE_BATCH, MAX_NEW) or not bool(
+                ((gen[tag] >= 0) & (gen[tag] < cfg.vocab_size)).all()):
+            raise AssertionError(f"[dense] generate {tag}: shape "
+                                 f"{tuple(gen[tag].shape)} or a token out "
+                                 f"of vocab")
+        log(f"[dense] generate ({tag}) {DENSE_BATCH} x {DENSE_PROMPT} "
+            f"prompt tokens + {MAX_NEW} new: wall_s={dt:.4f} "
+            f"tokens_per_s={DENSE_BATCH * MAX_NEW / dt:.2f} "
+            f"model_calls={calls[0]}")
+    rows = int((gen["one pass"] == gen["chunked"]).all(dim=1).sum())
+    log(f"[dense] generate: {rows} of {DENSE_BATCH} rows one pass == "
+        f"chunked (informational: bf16 segments round differently)")
+    hook.remove()
+
+    def witness(tag, reqs, fn):
+        """A self-draft run (the target as its own draft, spec_k=SPEC_K):
+        its acceptance, launches checked, timed."""
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, acc, prop = fn(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        no_kernel(tag)
+        rate = acc / max(prop, 1)
+        log(f"[dense] {tag}, the target as its own draft, spec_k={SPEC_K}: "
+            f"accepted {acc} of {prop}, acceptance_rate={rate:.4f}, "
+            f"wall_s={dt:.4f} tokens_per_s="
+            f"{len(reqs) * MAX_NEW / dt:.2f}")
+        return out, rate
+
+    def serve_spec(reqs):
+        out, st = serve_loop(model, reqs, max_new_tokens=MAX_NEW, draft=model,
+                             spec_k=SPEC_K, **dict(kw, steps_per_sync=
+                                                   SPEC_ROUNDS))
+        return out, st.accepted_drafts, st.proposed_drafts
+
+    def spec_gen(target):
+        def fn(batch_):
+            out, st = speculative_generate(target, target, batch_, MAX_NEW,
+                                           k=SPEC_K, device="cuda",
+                                           return_stats=True)
+            return out, st["accepted_drafts"], st["proposed_drafts"]
+        return fn
+
+    # the self-draft witnesses over the generate batch.  In bf16 the
+    # draft's L=1 steps and the verify's L=k+1 pass round near ties apart
+    # and reject some drafts (sound runs read 0.85-0.90 here, a broken
+    # verify near 0); the same weights in f32 leave almost no tie that
+    # rounding flips, so there the rate must pass 0.9
+    _, r_serve = witness("serve_loop(paged=False) over the generate batch, "
+                         "bf16", list(batch.cpu()), serve_spec)
+    spec, r_gen = witness("speculative_generate over the generate batch, "
+                          "bf16", batch, spec_gen(model))
+    agree = int((spec == gen["one pass"]).all(dim=1).sum())
+    log(f"[dense] speculative_generate bf16: {agree} of {DENSE_BATCH} rows "
+        f"== generate's (informational: bf16 at L={SPEC_K + 1} and at L=1 "
+        f"may round differently)")
+    for tag, rate in (("serve_loop", r_serve), ("speculative_generate",
+                                                r_gen)):
+        if not rate > 0.5:
+            raise AssertionError(f"[dense] the bf16 {tag} self-draft "
+                                 f"witness accepted {rate} of its drafts")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = llama.Llama.from_params(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        {k: v.float() for k, v in model.state_dict().items()}, device="cuda")
+    spec32, r32 = witness("speculative_generate over the generate batch, "
+                          "f32 (the same weights upcast)", batch,
+                          spec_gen(f32))
+    gen32 = llama.generate(f32, batch, MAX_NEW, device="cuda")
+    agree32 = int((spec32 == gen32).all(dim=1).sum())
+    del f32
+    torch.cuda.empty_cache()
+    log(f"[dense] speculative_generate f32: {agree32} of {DENSE_BATCH} rows "
+        f"== f32 generate's; acceptance bf16 {r_gen:.4f} -> f32 {r32:.4f} "
+        f"on the same batch and weights")
+    if not r32 > 0.9:
+        raise AssertionError(f"[dense] the f32 speculative_generate "
+                             f"self-draft witness accepted {r32} of its "
+                             f"drafts")
+    log(f"[dense] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ dense-parity phase
+def dense_parity_phase() -> None:
+    """Full width, 2 layers, f32 (TF32 off): dense decoding on the card
+    gives the CPU's tokens: generate one pass and chunked;
+    speculative_generate with the target as its own draft, and over a
+    windowed ring smaller than the sequence (window 32, ring 40, chunk
+    8: the verify's write wraps); serve_loop(paged=False) under both
+    schedulers (schedules too), over an unaligned prefix, with
+    speculation (a 1-layer draft), and with int8 weights and KV over the
+    spec-parity phase's int8 requests; and on the card, dense serving
+    gives paged serving's tokens."""
+    from tf_operator_tpu_torch.models import bridge, llama, quant
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.models.speculative import speculative_generate
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.llama3_8b(n_layers=2, dtype=torch.float32)
+    wcfg = llama.llama3_8b(n_layers=2, dtype=torch.float32,
+                           sliding_window=32, max_len=512)
+    dcfg = llama.llama3_8b(n_layers=1, dtype=torch.float32)
+
+    def both(params, c):
+        return (llama.Llama.from_params(c, params, device="cuda"),
+                llama.Llama.from_params(
+                    c, {k: v.to("cpu") for k, v in params.items()},
+                    device="cpu"))
+
+    def same(tag, fn):
+        """fn(model index, device) on the card and the CPU: equal."""
+        t0 = time.perf_counter()
+        got = fn(0, "cuda")
+        t1 = time.perf_counter()
+        want = fn(1, "cpu")
+        t2 = time.perf_counter()
+        if got != want:
+            raise AssertionError(f"[dense-parity] ({tag}) cuda {got} != "
+                                 f"cpu {want}")
+        log(f"[dense-parity] ({tag}) identical on cuda and cpu; cuda "
+            f"{t1 - t0:.1f} s, cpu {t2 - t1:.1f} s")
+        return got
+
+    params = bridge.init_params(cfg, SEED + 41, device="cuda")
+    m = both(params, cfg)
+    w = both(params, wcfg)   # the same weights under a window of 32
+    del params
+    d = both(bridge.init_params(dcfg, SEED + 42, device="cuda"), dcfg)
+    pa.reset_launches()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 43)
+    batch = torch.randint(0, cfg.vocab_size, (2, 48), generator=g)
+    toks = lambda t: t.cpu().tolist()
+    same("generate one pass", lambda i, dev: toks(llama.generate(
+        m[i], batch, 8, device=dev)))
+    same("generate chunked", lambda i, dev: toks(llama.generate(
+        m[i], batch, 8, device=dev, prefill_chunk=16)))
+    same("speculative_generate, self-draft", lambda i, dev: toks(
+        speculative_generate(m[i], m[i], batch, 8, k=3, device=dev)))
+    ring = dict(cache_len=40, prefill_chunk=8)
+    wrapped = same("speculative_generate, window 32 over a 40-slot ring",
+                   lambda i, dev: toks(speculative_generate(
+                       w[i], w[i], batch, 8, k=3, device=dev,
+                       draft_cache_len=40, **ring)))
+    if wrapped != toks(llama.generate(w[0], batch, 8, device="cuda",
+                                      **ring)):
+        raise AssertionError("[dense-parity] windowed speculation differs "
+                             "from generate on the card")
+    reqs = prompts_for(cfg, 4, 24, 96, SEED + 44)
+    pfx = prompts_for(cfg, 1, 40, 40, SEED + 45)[0]
+    sufs = prompts_for(cfg, 4, 8, 40, SEED + 46)
+    kw = dict(slots=2, max_new_tokens=[6, 12, 8, 10], steps_per_sync=4,
+              paged=False)
+    sched = lambda rs: [(r.tokens, r.admitted_at_step, r.finished_at_step,
+                         r.slot, r.accepted_drafts, r.proposed_drafts)
+                        for r in rs]
+    slot = same("serve slot", lambda i, dev: sched(serve_loop(
+        m[i], reqs, device=dev, **kw)))
+    same("serve continuous", lambda i, dev: sched(serve_loop(
+        m[i], reqs, device=dev, scheduler="continuous", **kw)))
+    same("serve prefix", lambda i, dev: sched(serve_loop(
+        m[i], sufs, device=dev, shared_prefix=pfx, **kw)))
+    same("serve speculative", lambda i, dev: sched(serve_loop(
+        m[i], reqs, device=dev, draft=d[i], spec_k=3, **kw)))
+    if pa.launches or pa.launches_int8:
+        raise AssertionError("[dense-parity] a kernel read a dense ring")
+    paged = serve_loop(m[0], reqs, device="cuda", block_size=BS,
+                       **{k: v for k, v in kw.items() if k != "paged"})
+    if [r.tokens for r in paged] != [t[0] for t in slot]:
+        raise AssertionError("[dense-parity] dense tokens on the card "
+                             "differ from paged tokens")
+    paged_k1 = pa.launches
+    del m, w, d
+    torch.cuda.empty_cache()
+    # int8 weights and KV over the spec-parity phase's int8 requests
+    q = both(int8_params(cfg, SEED + 7), cfg)
+    dq = quant.make_dequantizer(torch.float32)
+    pa.reset_launches()
+    same("serve int8 weights and KV", lambda i, dev: sched(serve_loop(
+        q[i], prompts_for(cfg, 4, 24, 96, SEED + 3)[:2], device=dev,
+        scheduler="continuous", kv_quant=True, prefill_chunk=32,
+        params_transform=dq, slots=2, max_new_tokens=[4, 8],
+        steps_per_sync=4, paged=False)))
+    if pa.launches or pa.launches_int8:
+        raise AssertionError("[dense-parity] a kernel read a dense ring")
+    del q
+    torch.cuda.empty_cache()
+    log(f"[dense-parity] 2 layers f32: every run identical on cuda and "
+        f"cpu, no kernel launched on a dense ring; dense == paged tokens "
+        f"on cuda (the paged run: {paged_k1} K1 launches); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------- spec-parity phase
@@ -2698,9 +3022,11 @@ def main() -> int:
     kern = kernel_phase()
     serve = serve_phase()
     spec = spec_phase(serve["model"], serve["prompts"], serve["tokens"])
+    dense_phase(serve["model"], serve["prompts"], serve["tokens"])
     handoff_phase(serve.pop("model"))
     parity_phase()
     spec_parity = spec_parity_phase()
+    dense_parity_phase()
     win = window_phase()
     win_parity = window_parity_phase()
     kern_win = window_kernel_phase()

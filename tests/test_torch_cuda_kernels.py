@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions:
 K1 (paged attention), K1q (paged attention over int8 pools),
 K2f/K2q/K2kv (flash attention forward, dQ and dK/dV) and K3f/K3q/K3kv
-(the ring flash attention steps); and the shared-prefix and handoff
-block operations (copy_block, scatter_blocks, export_blocks,
-adopt_blocks) on the card against the CPU's bits.
+(the ring flash attention steps); the shared-prefix and handoff block
+operations (copy_block, scatter_blocks, export_blocks, adopt_blocks) on
+the card against the CPU's bits; and dense-ring decoding (generate,
+speculative_generate, serve_loop(paged=False)) on the card against the
+CPU's tokens.
 
 Needs a CUDA card and nvcc; every test here carries the `cuda` marker and
 skips without a card.  The file imports nothing of JAX, so it also runs
@@ -365,6 +367,57 @@ def test_int8_serve_loop_cuda_matches_cpu_tokens(scheduler):
                      r.slot, r.kv_blocks)
                     for r in serve_loop(model, prompts, device=dev, **kw)])
         assert tpa.launches == before  # int8 pools never reach K1
+    assert out[0] == out[1]
+
+
+# ------------------------------------------------------------ dense rings
+def _dense_models():
+    cfg = llama.tiny(dtype=torch.float32, max_len=128)
+    params = bridge.init_params(cfg, seed=0, device="cpu")
+    return {dev: llama.Llama.from_params(
+        cfg, {k: v.to(dev) for k, v in params.items()}, device=dev)
+        for dev in ("cuda", "cpu")}
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_dense_generate_cuda_matches_cpu(kv_quant):
+    """Dense rings (no kernel reads them): generate's greedy tokens, one
+    pass and chunked, and speculative_generate's (the model as its own
+    draft) on the card equal the CPU's; K1 is never launched."""
+    from tf_operator_tpu_torch.models.speculative import speculative_generate
+
+    models = _dense_models()
+    prompt = np.random.default_rng(5).integers(0, 256, (3, 12))
+    out = {}
+    before = (tpa.launches, tpa.launches_int8)
+    for dev, m in models.items():
+        out[dev] = [llama.generate(m, prompt, 10, device=dev,
+                                   kv_quant=kv_quant, **kw).cpu()
+                    for kw in ({}, dict(prefill_chunk=4))]
+        out[dev].append(speculative_generate(m, m, prompt, 10, k=3,
+                                             device=dev,
+                                             kv_quant=kv_quant).cpu())
+    assert (tpa.launches, tpa.launches_int8) == before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("scheduler", ["slot", "continuous"])
+def test_dense_serve_loop_cuda_matches_cpu(scheduler):
+    """serve_loop(paged=False): the same greedy tokens and schedule on
+    the card as on the CPU, and no K1 launch."""
+    models = _dense_models()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n) for n in (5, 13, 3, 9, 17)]
+    kw = dict(slots=2, max_new_tokens=[8, 5, 9, 6, 7], prefill_chunk=8,
+              steps_per_sync=4, scheduler=scheduler, paged=False)
+    out = []
+    before = tpa.launches
+    for dev, m in models.items():
+        out.append([(r.tokens, r.admitted_at_step, r.finished_at_step,
+                     r.slot) for r in serve_loop(m, prompts, device=dev,
+                                                 **kw)])
+    assert tpa.launches == before
     assert out[0] == out[1]
 
 

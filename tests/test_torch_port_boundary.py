@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
                  "ops.zigzag", "ops.ring_attention", "ops.ring_flash",
                  "parallel.ring", "parallel.mesh", "engine.metrics",
                  "engine.tracing", "models.telemetry",
-                 "models.speculative"):
+                 "models.speculative", "generate_llama"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"
@@ -78,6 +78,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
         serve_loop(model, [[1, 2, 3]], max_new_tokens=2)
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_dense_entry_points_default_to_cuda_and_raise_without_it(no_card):
+    """generate, speculative_generate, init_cache, dense serve_loop and
+    the generate_llama entry point run on the card unless asked for the
+    CPU, and raise without one."""
+    from tf_operator_tpu_torch import generate_llama
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.models.speculative import speculative_generate
+
+    cfg = llama.tiny(n_layers=1)
+    model = llama.Llama.from_params(
+        cfg, bridge.init_params(cfg, seed=0, device="cpu"), device="cpu")
+    prompt = [[1, 2, 3]]
+    with pytest.raises(RuntimeError, match="cuda"):
+        llama.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        llama.generate(model, prompt, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        speculative_generate(model, model, prompt, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_loop(model, prompt, max_new_tokens=2, paged=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        generate_llama.main(["--smoke", "--prompt", "hi"])
+    assert llama.generate(model, prompt, 2, device="cpu").shape == (1, 2)
 
 
 def test_kernel_build_needs_nvcc(no_card, tmp_path, monkeypatch):

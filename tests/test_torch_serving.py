@@ -129,8 +129,9 @@ def test_sampling_is_seeded_by_the_generator(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "item 7: dense"),
-    (dict(paged=False, prefill_only=True), "item 7: dense"),
+    (dict(paged=False, cache_sharding=object()), "item 11: distributed"),
+    (dict(paged=False, draft_cache_sharding=object()),
+     "item 11: distributed"),
     (dict(cache_sharding=object()), "item 11: distributed"),
     (dict(draft_cache_sharding=object()), "item 11: distributed"),
 ])
@@ -163,6 +164,9 @@ def test_speculation_does_not_hand_off(setup):
     (dict(prefill_chunks_per_sync=0, prefill_chunk=8, block_size=4),
      "prefill_chunks_per_sync must be >= 1"),
     (dict(prefill_only=True, adopt=[]), "two ENDS of a handoff"),
+    (dict(paged=False, prefill_only=True), "paged-only"),
+    (dict(paged=False, adopt=[]), "paged-only"),
+    (dict(cache_len=64), "dense-ring knob"),
     (dict(prefill_only=True, scheduler="continuous"),
      "prefill_only rides the slot scheduler"),
     (dict(adopt=[], shared_prefix=[1, 2]), "adopt= refuses shared_prefix"),

@@ -267,7 +267,13 @@ def _counters(mod):
 
 
 def _gauges(mod):
-    return {n: getattr(mod, n).samples() for n, kind in _FAMILIES.items()
+    """Every series a serve loop writes to the gauge families.  The
+    router's per-fleet series of the same families (labelled "fleet",
+    router.py:1408-1409) are left out: they are no serve loop's, and a
+    router or fleet test earlier in the process leaves them behind."""
+    return {n: {k: v for k, v in getattr(mod, n).samples().items()
+                if "fleet" not in dict(k)}
+            for n, kind in _FAMILIES.items()
             if kind == "Gauge" and n != "SERVING_HBM_PEAK"}
 
 
@@ -334,22 +340,26 @@ def _non_clock(stats):
     return out
 
 
-def run_pair(models, prompts, jax_kw=None, port_kw=None, **kw):
-    """The same requests through JAX's paged serve_loop and the port's,
-    each with a private tracer, a RequestRecorder and return_stats
-    (jax_kw and port_kw: keywords for one side only); returns ((jax
-    results, stats, seen), (port results, stats, seen))."""
+def run_pair(models, prompts, jax_kw=None, port_kw=None, paged=True,
+             **kw):
+    """The same requests through JAX's serve_loop and the port's, paged
+    (JAX through its gather oracle) or over dense rings, each with a
+    private tracer, a RequestRecorder and return_stats (jax_kw and
+    port_kw: keywords for one side only); returns ((jax results, stats,
+    seen), (port results, stats, seen))."""
     jmodel, params, tmodel = models
     jkw = dict(kw, **(jax_kw or {}))
     kw = dict(kw, **(port_kw or {}))
+    layout = (dict(paged=True, paged_kernel="gather") if paged
+              else dict(paged=False))
     (jres, jst), jseen = _instrumented(
         lambda tel: jax_serve(jmodel, params,
                               [jnp.asarray(p) for p in prompts],
-                              paged=True, paged_kernel="gather",
-                              return_stats=True, telemetry=tel, **jkw),
+                              return_stats=True, telemetry=tel, **layout,
+                              **jkw),
         jem, jtel.ServeTelemetry, jtr.Tracer, len(prompts))
     (tres, tst), tseen = _instrumented(
-        lambda tel: serve_loop(tmodel, prompts, device="cpu",
+        lambda tel: serve_loop(tmodel, prompts, device="cpu", paged=paged,
                                return_stats=True, telemetry=tel, **kw),
         em, ServeTelemetry, Tracer, len(prompts))
     return (jres, jst, jseen), (tres, tst, tseen)
@@ -382,6 +392,10 @@ def test_scheduler_telemetry_equals_jax(models, scheduler):
     streamed in 8-token segments: the gate holds the queue head (slot),
     or the step gate admits lazily, preempts and fuses segments into
     decode dispatches (continuous)."""
+    _scheduler_case(models, scheduler)
+
+
+def _scheduler_case(models, scheduler):
     j, t = run_pair(models, _prompts(LENS), scheduler=scheduler, **SCHED_KW)
     assert _results(t[0]) == _results(j[0])
     assert_same_telemetry(j, t)
@@ -397,6 +411,10 @@ def test_shared_prefix_telemetry_equals_jax(models):
     """An unaligned 10-token prefix (a CoW block a lane), suffixes
     through 2 lanes: CoW copies, prefix block hits and the span trees
     equal."""
+    _shared_prefix_case(models)
+
+
+def _shared_prefix_case(models):
     pfx = _prompts([10], seed=3)[0]
     j, t = run_pair(models, _prompts([5, 9, 3, 7, 6], seed=4), slots=2,
                     max_new_tokens=8, block_size=4, shared_prefix=pfx)
@@ -410,6 +428,10 @@ def test_handoff_telemetry_equals_jax(models):
     the handoffs under the continuous scheduler: exports, adoptions,
     handoff block counts and durations observed, and the decode side's
     spans (admitted after the adoption, then activated) equal JAX's."""
+    _handoff_case(models)
+
+
+def _handoff_case(models):
     pfx = _prompts([8], seed=5)[0]
     sufs = _prompts([5, 9, 3, 7], seed=6)
     kw = dict(slots=2, max_new_tokens=[6, 1, 7, 5], block_size=4)
@@ -437,3 +459,26 @@ def test_handoff_telemetry_equals_jax(models):
     # the decode side's TTFT runs from the adopted lane's admission
     events = [e for e, _ in tseen["events"][0]]
     assert events.index("admitted") < events.index("first_token")
+
+
+def test_comparisons_ignore_router_fleet_gauges(models):
+    """A router or fleet test earlier on the same worker leaves
+    {"fleet": ...} series in the JAX package's KV-block gauges
+    (router.py:1408-1409), which no port serve loop writes.  Planted as
+    the router sets them, they must not reach the four comparisons
+    above, which still hold every other gauge series exactly; the
+    registry is put back as it was."""
+    fams = (jem.SERVING_KV_BLOCKS_USED, jem.SERVING_KV_BLOCKS_TOTAL)
+    saved = [dict(f._values) for f in fams]
+    try:
+        for f in fams:
+            f.set(3, {"fleet": "decode"})
+        for scheduler in ("slot", "continuous"):
+            _scheduler_case(models, scheduler)
+        _shared_prefix_case(models)
+        _handoff_case(models)
+        assert all(f.get({"fleet": "decode"}) == 3 for f in fams)
+    finally:
+        for f, vals in zip(fams, saved):
+            f._values.clear()
+            f._values.update(vals)

@@ -49,6 +49,13 @@ def w16():
 
 
 @pytest.fixture(scope="module")
+def w16_int8(w16):
+    """w16's weights quantized: (int8 params, the port's model over them,
+    JAX's serve_loop keywords), shared by the int8 cases."""
+    return int8_models(w16[1], max_len=256, sliding_window=16)
+
+
+@pytest.fixture(scope="module")
 def w120():
     """window 120 over the same 128-position ring: a decode block that
     wraps onto a shared slot still sees its positions, so the rotation
@@ -303,7 +310,8 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_windowed_serve_loop_matches_jax(w16, w120, copy_calls, case):
+def test_windowed_serve_loop_matches_jax(w16, w120, w16_int8, copy_calls,
+                                        case):
     """serve_loop over a modular table against JAX's paged windowed
     serve_loop: greedy tokens, the schedule, the pool counters and the
     copy_block calls (boundary CoWs plus rotation copies) equal.  Every
@@ -312,8 +320,7 @@ def test_windowed_serve_loop_matches_jax(w16, w120, copy_calls, case):
     jmodel, params, tmodel = w120 if c.get("window") == 120 else w16
     jkw = {}
     if c.get("int8"):
-        params, tmodel, jkw = int8_models(
-            params, max_len=256, sliding_window=c.get("window", 16))
+        params, tmodel, jkw = w16_int8
     kw = dict(dict(slots=2, block_size=4), **c["kw"])
     if c.get("int8"):
         kw["kv_quant"] = True
@@ -402,24 +409,36 @@ def _handoff_prompts():
     return prompts([16], seed=5)[0], prompts([140, 9, 100], seed=8)
 
 
-@pytest.mark.parametrize("scheduler", ["slot", "continuous"])
-def test_windowed_handoff_port_to_port(w16, scheduler):
-    """prefill_only then adopt on the port: the unified run's tokens; the
-    exports' `window` dicts equal JAX's, and their hashes and elisions
-    follow the ring's slot order."""
+@pytest.fixture(scope="module")
+def handoff_runs(w16):
+    """The f32 handoff's runs that several tests read: the port's
+    unified run, its prefill_only run (handoffs and stats) and JAX's
+    prefill_only run, over _handoff_prompts."""
     jmodel, params, tmodel = w16
     pfx, sufs = _handoff_prompts()
-    full = [np.concatenate([pfx, s]) for s in sufs]
     uni = serve_loop(tmodel, sufs, shared_prefix=pfx, device="cpu",
                      **HANDOFF)
     hand, hst = serve_loop(tmodel, sufs, shared_prefix=pfx, device="cpu",
                            prefill_only=True, return_stats=True, **HANDOFF)
-    out, st = serve_loop(tmodel, full, device="cpu", adopt=hand,
-                         scheduler=scheduler, return_stats=True, **HANDOFF)
     jhand = jax_serve(jmodel, params, [jnp.asarray(s) for s in sufs],
                       paged=True, paged_kernel="gather",
                       shared_prefix=jnp.asarray(pfx), prefill_only=True,
                       **HANDOFF)
+    return dict(uni=uni, hand=hand, hst=hst, jhand=jhand)
+
+
+@pytest.mark.parametrize("scheduler", ["slot", "continuous"])
+def test_windowed_handoff_port_to_port(w16, handoff_runs, scheduler):
+    """prefill_only then adopt on the port: the unified run's tokens; the
+    exports' `window` dicts equal JAX's, and their hashes and elisions
+    follow the ring's slot order."""
+    tmodel = w16[2]
+    pfx, sufs = _handoff_prompts()
+    full = [np.concatenate([pfx, s]) for s in sufs]
+    uni, hand, hst, jhand = (handoff_runs[k] for k in
+                             ("uni", "hand", "hst", "jhand"))
+    out, st = serve_loop(tmodel, full, device="cpu", adopt=hand,
+                         scheduler=scheduler, return_stats=True, **HANDOFF)
     assert [r.tokens for r in out] == [r.tokens for r in uni]
     assert [h.export.window for h in hand] == \
         [h.export.window for h in jhand]
@@ -434,7 +453,8 @@ def test_windowed_handoff_port_to_port(w16, scheduler):
     assert st.handoff_adoptions == 3 and st.prefix_block_hits > 0
 
 
-def test_windowed_handoff_crosses_between_frameworks(w16):
+def test_windowed_handoff_crosses_between_frameworks(w16, w16_int8,
+                                                    handoff_runs):
     """JAX's windowed handoffs adopt into the port, the port's into JAX's
     serve_loop(adopt=...), int8 KV too: both give JAX's unified tokens,
     with equal adoption counters."""
@@ -446,18 +466,22 @@ def test_windowed_handoff_crosses_between_frameworks(w16):
         jkw = {}
         p, m = params, tmodel
         if kv_quant:
-            p, m, jkw = int8_models(params, max_len=256, sliding_window=16)
+            p, m, jkw = w16_int8
         kw = dict(HANDOFF, kv_quant=kv_quant)
         want = [r.tokens for r in jax_serve(
             jmodel, p, [jnp.asarray(s) for s in sufs], paged=True,
             paged_kernel="gather", shared_prefix=jnp.asarray(pfx),
             **jkw, **kw)]
-        jhand = jax_serve(jmodel, p, [jnp.asarray(s) for s in sufs],
-                          paged=True, paged_kernel="gather",
-                          shared_prefix=jnp.asarray(pfx), prefill_only=True,
-                          **jkw, **kw)
-        thand = serve_loop(m, sufs, shared_prefix=pfx, device="cpu",
-                           prefill_only=True, **kw)
+        if kv_quant:
+            jhand = jax_serve(jmodel, p, [jnp.asarray(s) for s in sufs],
+                              paged=True, paged_kernel="gather",
+                              shared_prefix=jnp.asarray(pfx),
+                              prefill_only=True, **jkw, **kw)
+            thand = serve_loop(m, sufs, shared_prefix=pfx, device="cpu",
+                               prefill_only=True, **kw)
+        else:
+            # HANDOFF with f32 KV: handoff_runs' prefill_only runs
+            jhand, thand = handoff_runs["jhand"], handoff_runs["hand"]
         got, st = serve_loop(m, full, device="cpu",
                              adopt=[handoff_to_port(h) for h in jhand],
                              return_stats=True, **kw)
@@ -471,15 +495,15 @@ def test_windowed_handoff_crosses_between_frameworks(w16):
             assert getattr(st, name) == getattr(jst, name), name
 
 
-def test_windowed_handoff_ring_mismatch_leaves_pool(w16, monkeypatch):
+def test_windowed_handoff_ring_mismatch_leaves_pool(w16, handoff_runs,
+                                                    monkeypatch):
     """A windowed export whose ring is not the receiver's raises JAX's
     HandoffError before the loop builds its pool, so no block changes
     hands; the same export with its own ring adopts."""
     _, _, tmodel = w16
     pfx, sufs = _handoff_prompts()
     full = [np.concatenate([pfx, s]) for s in sufs]
-    hand = serve_loop(tmodel, sufs, shared_prefix=pfx, device="cpu",
-                      prefill_only=True, **HANDOFF)
+    hand = handoff_runs["hand"]
     pools = []
 
     class Recorded(tp.BlockPool):

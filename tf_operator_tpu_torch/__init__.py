@@ -8,12 +8,14 @@ and `tests/test_torch_*.py` hold each copy against its original.
 
 What is ported so far is the Llama family's paged serving path (slot and
 continuous schedulers, bf16 or int8 weights and KV, speculation, serving
-telemetry) and its training step,
+telemetry), its decoding over dense ring caches (generate,
+speculative_generate, serve_loop(paged=False)) and its training step,
 with attention on one device or split over a sequence ring:
 
   - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
-                              attention, the decoder (paged decode and
-                              full-sequence training), token selection
+                              attention, the decoder (paged decode, dense
+                              ring decode and full-sequence training),
+                              token selection, init_cache and generate
   - models/paging.py          block pool allocator, the continuous
                               scheduler's gate, block-table writes (float
                               or int8 pools)
@@ -25,11 +27,12 @@ with attention on one device or split over a sequence ring:
                               plain PyTorch versions on the CPU
   - models/bridge.py          flax parameter trees -> the port's state dict,
                               and seeded random weights at full width
-  - models/serving.py         serve_loop's paged slot and continuous
-                              schedulers (shared prefix, the handoff,
-                              sliding windows, speculation)
-  - models/speculative.py     the draft/verify round of speculative
-                              serving over paged pools
+  - models/serving.py         serve_loop's slot and continuous
+                              schedulers over a paged pool (shared
+                              prefix, the handoff, sliding windows,
+                              speculation) or dense rings (paged=False)
+  - models/speculative.py     the draft/verify round (paged pools or
+                              dense rings) and speculative_generate
   - models/telemetry.py       serving telemetry: ServeTelemetry and
                               ServeStats, fed by serve_loop
   - engine/tracing.py         span tracer (Chrome trace export)
@@ -52,6 +55,7 @@ with attention on one device or split over a sequence ring:
   - runtime/                  adafactor, train state and step, the
                               training loop, the profiler
   - train_llama.py            the training entry point
+  - generate_llama.py         the inference entry point
 
 Entry points take `device=` and default to "cuda"; without a card they
 raise instead of running on the CPU (device.py).

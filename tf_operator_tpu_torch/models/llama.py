@@ -2,11 +2,15 @@
 
 The port of tf_operator_tpu/models/llama.py: the config and its
 factories, rotary embeddings, RMSNorm, the fused SwiGLU MLP, the dense
-ring-visibility attention (`cached_attention`, the plain read the paged
-kernel is held against), and the decoder in two modes:
+ring-visibility attention (`cached_attention`: the dense cache's read,
+and the plain read the paged kernel is held against), and the decoder in
+three modes:
 
   - decode over a paged KV block pool (serving): every KV read goes
     through models/paged_attention.paged_attention;
+  - decode over dense per-row ring caches [B, C, KV, D] (`init_cache`,
+    written by `_cache_write`, read by `cached_attention`): the JAX
+    package's default inference layout, which `generate` decodes with;
   - full sequence (training): causal attention through cfg.attention_fn
     (ops/flash_attention.flash_attention, or the einsum reference when
     None), optional recompute of each block in the backward pass
@@ -36,7 +40,8 @@ from torch import nn
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import paged_attention as _pa
 from tf_operator_tpu_torch.models import paging
-from tf_operator_tpu_torch.models.quant import QTensor
+from tf_operator_tpu_torch.models import quant
+from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
 
 
@@ -241,6 +246,57 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, l, h, d).to(q.dtype)
 
 
+# ------------------------------------------------------------ dense writes
+def _ring_write(buf: torch.Tensor, val: torch.Tensor, pos,
+                wrap: bool = False) -> torch.Tensor:
+    """Write val [B, L, ...] into the ring buf [B, C, ...] at global
+    position pos (slot pos % C), in place; returns buf.
+
+    A VECTOR pos [B] writes each row at its own position, modulo C per
+    (row, step), so the seam is always handled and `wrap` does not
+    matter; a write of more than C positions a row is refused (its slots
+    would alias).  A scalar pos with wrap=True (and L > 1) scatters each
+    position to its own slot modulo C, as JAX's flag does; no caller of
+    the port sets it, since every write that may cross the seam (a
+    speculative verify) carries a [B] pos.  Otherwise one contiguous
+    write at slot pos % C, its start clamped to [0, C - L] as
+    dynamic_update_slice clamps it (callers guarantee no wrap)."""
+    c = buf.shape[1]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        l = val.shape[1]
+        if l > c:
+            raise ValueError(
+                f"per-row write of L={l} positions into a C={c} ring "
+                f"would alias slots within a row")
+        slots = torch.remainder(
+            pos.to(torch.long)[:, None]
+            + torch.arange(l, device=buf.device), c)
+        buf[rows[:, None], slots] = val.to(buf.dtype)
+        return buf
+    pos = int(pos)
+    l = val.shape[1]
+    if wrap and l > 1:
+        idx = torch.remainder(pos + torch.arange(l, device=buf.device), c)
+        buf[:, idx] = val.to(buf.dtype)
+        return buf
+    start = max(min(pos % c, c - l), 0)
+    buf[:, start:start + l] = val.to(buf.dtype)
+    return buf
+
+
+def _cache_write(cache_buf, val: torch.Tensor, pos, wrap: bool = False):
+    """One K or V dense cache write, in place; an int8 cache (QTensor)
+    quantizes at the write, one scale per (position, head) over
+    head_dim, and writes payload and scale through the same slots."""
+    if isinstance(cache_buf, QTensor):
+        qv = quantize_tensor(val, axes=(3,))   # [B, L, KV, D]: [B, L, KV, 1]
+        _ring_write(cache_buf.q, qv.q, pos, wrap)
+        _ring_write(cache_buf.scale, qv.scale, pos, wrap)
+        return cache_buf
+    return _ring_write(cache_buf, val, pos, wrap)
+
+
 def _supports_gqa(attn) -> bool:
     """Does the backend consume compact [B,S,KV,D] kv natively?  Looks
     through functools.partial layers."""
@@ -306,12 +362,18 @@ class SwiGlu(nn.Module):
 class GqaAttention(nn.Module):
     """Grouped-query attention with rotary embeddings.
 
-    Decode path (cache = a layer's (k, v) block pools): project q and the
-    fused k/v, rotate, write k/v into the lanes' blocks, then read every
-    visible position through paged_attention (the CUDA kernel on the
-    card, its plain version on the CPU).  Full-sequence path (cache None):
-    causal attention through cfg.attention_fn over compact kv when the
-    backend takes GQA natively, else over kv repeated to H heads."""
+    Paged decode (cache = a layer's (k, v) block pools, block_table set):
+    project q and the fused k/v, rotate, write k/v into the lanes'
+    blocks, then read every visible position through paged_attention
+    (the CUDA kernel on the card, its plain version on the CPU).  Dense
+    decode (cache = a layer's (k, v) rings [B, C, KV, D], block_table
+    None): write through _cache_write at pos (an int: one contiguous
+    segment; or [B]: each row at its own position, modulo the ring) and
+    read the whole ring through cached_attention with the position
+    mask.  Full-sequence
+    path (cache None): causal attention through cfg.attention_fn over
+    compact kv when the backend takes GQA natively, else over kv
+    repeated to H heads."""
 
     def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
@@ -337,12 +399,22 @@ class GqaAttention(nn.Module):
         q = _rotate(q, cos, sin)
         k = _rotate(kvp[:, :, 0], cos, sin)
         v = kvp[:, :, 1]
-        if cache is not None:
+        if cache is not None and block_table is not None:
             k_pool, v_pool = cache
             paging.write_blocks(k_pool, k, write_index)
             paging.write_blocks(v_pool, v, write_index)
             out = _pa.paged_attention(q, k_pool, v_pool, block_table, pos,
                                       window=cfg.sliding_window)
+        elif cache is not None:
+            k_cache, v_cache = cache
+            _cache_write(k_cache, k, pos)
+            _cache_write(v_cache, v, pos)
+            steps = torch.arange(l, device=x.device)
+            q_pos = (pos.to(torch.long)[:, None] + steps
+                     if isinstance(pos, torch.Tensor) else pos + steps)
+            out = cached_attention(q, k_cache, v_cache, q_pos,
+                                   k_cache.shape[1],
+                                   window=cfg.sliding_window)
         else:
             attn = cfg.attention_fn or dot_product_attention
             if cfg.q_per_kv > 1 and not _supports_gqa(attn):
@@ -374,12 +446,20 @@ class LlamaBlock(nn.Module):
 class Llama(nn.Module):
     """Causal decoder LM.
 
-    Decode mode, forward(tokens [B, L], cache, cache_pos, block_table):
+    Paged decode, forward(tokens [B, L], cache, cache_pos, block_table):
     writes the L new positions' K/V into the pools of `cache` (per-layer
     (k, v) from paging.init_block_pool; updated IN PLACE) through
     block_table [B, T], a modular ring of T blocks for a sliding-window
-    config (position p in table slot (p // bs) % T).  cache_pos is the position of tokens[:, 0]: an
-    int for every row, or a [B] tensor giving each lane its own position.
+    config (position p in table slot (p // bs) % T).  cache_pos is the
+    position of tokens[:, 0]: an int for every row, or a [B] tensor
+    giving each lane its own position.
+
+    Dense decode, the same call with block_table None: `cache` is
+    init_cache's per-layer (k, v) rings [B, C, KV, D] (position p in
+    slot p % C; updated IN PLACE), an int cache_pos writes one
+    contiguous segment (callers size the ring so it never wraps) and a
+    [B] cache_pos each row at its own position, crossing the seam
+    where it must.
 
     Full-sequence mode, forward(tokens [B, S]) (cache None): positions
     0..S-1, or `positions` ([S] or [B, S] ids into the RoPE table).
@@ -515,14 +595,17 @@ class Llama(nn.Module):
             # dynamic_slice_in_dim clamps its start to [0, max_len - L]
             start = min(max(int(cache_pos), 0), cfg.max_len - l)
             angles = table[start:start + l]                    # [L, D/2]
-            pos = torch.full((b,), int(cache_pos), dtype=torch.int32,
-                             device=dev)
+            pos = (torch.full((b,), int(cache_pos), dtype=torch.int32,
+                              device=dev) if block_table is not None
+                   else int(cache_pos))
         cos, sin = _rope_cos_sin(angles)
-        # every layer writes the same positions through the same table;
-        # a sliding-window model's table is a ring (modular)
-        write_index = paging.block_write_index(
-            pos, block_table, l, cache[0][0].shape[1],
-            modular=cfg.sliding_window is not None)
+        write_index = None
+        if block_table is not None:
+            # every layer writes the same positions through the same
+            # table; a sliding-window model's table is a ring (modular)
+            write_index = paging.block_write_index(
+                pos, block_table, l, cache[0][0].shape[1],
+                modular=cfg.sliding_window is not None)
         x = self._embed(tokens)
         for blk, layer_cache in zip(self.blocks, cache):
             x = blk(x, cos, sin, layer_cache, pos, block_table, write_index)
@@ -685,3 +768,198 @@ def _select_token(logits: torch.Tensor, temperature: float,
     probs = torch.softmax(
         _truncate_logits(logits.float(), temperature, top_k, top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+# ---------------------------------------------------------------- generate
+def init_cache(cfg: LlamaConfig, batch: int, cache_len: Optional[int] = None,
+               dtype: Optional[torch.dtype] = None, kv_quant: bool = False,
+               device: Union[str, torch.device, None] = None) -> list:
+    """Per-layer (k, v) dense ring caches [B, C, KV, D], zeroed, on
+    `device` (default "cuda"): compact kv heads, C = cache_len or
+    cfg.max_len, refused above max_len (the RoPE table's rows).
+    kv_quant=True makes each leaf a QTensor: int8 zeros and f32 ones
+    scales [B, C, KV, 1], quantized at the write; it takes no dtype."""
+    c = cache_len or cfg.max_len
+    if c > cfg.max_len:
+        raise ValueError(
+            f"cache_len {c} exceeds cfg.max_len {cfg.max_len} (the RoPE "
+            f"table bound — raise max_len/rope_theta for longer contexts)")
+    dev = resolve_device(device)
+    shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
+    if kv_quant:
+        if dtype is not None:
+            raise ValueError(
+                "kv_quant and dtype are mutually exclusive: the int8 "
+                "cache's layout is fixed (int8 payload + f32 scales)")
+
+        def leaf() -> QTensor:
+            return QTensor(
+                q=torch.zeros(shape, dtype=torch.int8, device=dev),
+                scale=torch.ones(shape[:3] + (1,), dtype=torch.float32,
+                                 device=dev))
+
+        return [(leaf(), leaf()) for _ in range(cfg.n_layers)]
+    dt = dtype or cfg.dtype
+    return [(torch.zeros(shape, dtype=dt, device=dev),
+             torch.zeros(shape, dtype=dt, device=dev))
+            for _ in range(cfg.n_layers)]
+
+
+def check_transform(name: str, transform, model: "Llama") -> None:
+    """A weight transform (params_transform, draft_transform, ...) takes
+    None or quant.make_dequantizer(cfg.dtype): the port's model applies
+    its weights as they are stored (int8 ones dequantized to cfg.dtype
+    at each use) and runs no other transform of them."""
+    if (transform is not None
+            and transform is not quant.make_dequantizer(model.cfg.dtype)):
+        raise ValueError(
+            f"{name} takes None or quant.make_dequantizer(cfg.dtype): the "
+            f"port's model applies its weights as they are stored (int8 "
+            f"ones dequantized to cfg.dtype at each use), and runs no "
+            f"other transform of them")
+
+
+def check_model_device(name: str, model: "Llama", dev: torch.device) -> None:
+    """Refuse a model whose weights live elsewhere than `dev`."""
+    p_dev = model.embed.device
+    if p_dev.type != dev.type or (dev.index is not None
+                                  and p_dev.index != dev.index):
+        raise ValueError(f"{name} is on {p_dev}, the call asked for {dev}")
+
+
+def chunk_fill(model: "Llama", cache, segment: torch.Tensor, pos,
+               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A prompt segment [B, S] into `cache` at position `pos` (dense rings,
+    or block pools through `table`): returns the last position's f32
+    logits [B, V] (the head runs on that position alone)."""
+    h = model(segment, cache, pos, table, return_hidden=True)
+    return model.logits(h[:, -1])
+
+
+def chunk_write(model: "Llama", cache, segment: torch.Tensor, pos,
+                table: Optional[torch.Tensor] = None) -> None:
+    """A non-final prompt segment: feeds the cache only (no lm_head)."""
+    model(segment, cache, pos, table, return_hidden=True)
+
+
+def stream_prefill(model: "Llama", cache, prompt: torch.Tensor,
+                   prefill_chunk: Optional[int]) -> torch.Tensor:
+    """The prompt [B, P] into dense rings along prefill_segments:
+    intermediate segments feed only the cache, the final one returns its
+    last position's logits [B, V].  Callers validate the sizing
+    (check_prefill_chunk) first."""
+    *head, (start, end, _) = prefill_segments(prompt.shape[1],
+                                              prefill_chunk)
+    for s, e, _ in head:
+        chunk_write(model, cache, prompt[:, s:e], s)
+    return chunk_fill(model, cache, prompt[:, start:end], start)
+
+
+def decode(model: "Llama", cache, first: torch.Tensor, pos0: int,
+           length: int, select: Callable[[torch.Tensor], torch.Tensor],
+           eos: int = -1) -> torch.Tensor:
+    """`length` single-token steps over dense rings from `first` [B] at
+    position pos0 (every row): [B, length] tokens.  eos >= 0: a row that
+    emitted it (`first` included) keeps emitting it."""
+    tok, pos = first, pos0
+    done = first == eos
+    out = []
+    for _ in range(length):
+        nxt = select(model(tok[:, None], cache, pos)[:, 0])
+        if eos >= 0:
+            nxt = torch.where(done, eos, nxt)
+            done = done | (nxt == eos)
+        out.append(nxt)
+        tok, pos = nxt, pos + 1
+    return torch.stack(out, dim=1)
+
+
+def generate(model: "Llama", prompt, max_new_tokens: int,
+             generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             eos_id: Optional[int] = None, cache_len: Optional[int] = None,
+             params_transform=None, prefill_chunk: Optional[int] = None,
+             cache_sharding=None, kv_quant: bool = False,
+             device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """Autoregressive decoding over dense ring caches: the prompt [B, P]
+    prefills in one pass (or in segments of prefill_chunk), then
+    max_new_tokens - 1 single-token steps.  Returns [B, max_new_tokens]
+    int64 tokens on `device` (default "cuda", where the model must
+    live).
+
+    temperature 0 -> greedy; else a draw from _truncate_logits'
+    distribution (top_k, top_p) with `generator`, a torch.Generator on
+    the device.  eos_id: a row that emits it keeps emitting it.
+    cache_len: ring slots (default llama.auto_cache_len: 128-multiples of
+    prompt + new, an O(window) ring for a sliding-window model), with
+    JAX's refusals.  prefill_chunk: stream the prompt through the ring
+    (a sliding-window model's long prompt through an O(window) ring); it
+    must divide the ring.  kv_quant: int8 rings, quantized at the write.
+    params_transform: None or quant.make_dequantizer(cfg.dtype), the
+    dequantization a model built from int8 weights already applies.
+    cache_sharding raises NotImplementedError (ROADMAP item 11)."""
+    if cache_sharding is not None:
+        raise NotImplementedError(
+            "generate: cache_sharding is not ported yet (ROADMAP Queue 1, "
+            "item 11: distributed)")
+    cfg = model.cfg
+    check_transform("params_transform", params_transform, model)
+    dev = resolve_device(device)
+    check_model_device("model", model, dev)
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
+    b, prompt_len = prompt.shape
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    check_truncation(cfg.vocab_size, top_k, top_p)
+    eos = -1 if eos_id is None else int(eos_id)
+    if eos_id is not None and not 0 <= eos < cfg.vocab_size:
+        raise ValueError(
+            f"eos_id {eos_id} out of range for vocab_size {cfg.vocab_size}")
+    if max_new_tokens == 0:
+        return torch.zeros((b, 0), dtype=torch.long, device=dev)
+    total = prompt_len + max_new_tokens
+    if total > cfg.max_len:
+        raise ValueError(
+            f"prompt {prompt_len} + new {max_new_tokens} exceeds RoPE "
+            f"table length max_len={cfg.max_len}")
+    if prefill_chunk is not None and prefill_chunk >= prompt_len:
+        # one segment holds the whole prompt: the unchunked path
+        prefill_chunk = None
+    if cache_len is None:
+        cache_len = auto_cache_len(cfg, prompt_len, total, prefill_chunk)
+    if cfg.sliding_window is None and total > cache_len:
+        raise ValueError(
+            f"prompt {prompt_len} + new {max_new_tokens} exceeds cache "
+            f"length {cache_len}")
+    if prefill_chunk is not None:
+        if prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        check_prefill_chunk(prefill_chunk, cache_len, cfg.sliding_window,
+                            streams_past_cache=total > cache_len)
+    elif prompt_len > cache_len:
+        raise ValueError(
+            f"prompt {prompt_len} exceeds cache length {cache_len} "
+            f"(a single-pass prefill write must not wrap the ring; pass "
+            f"prefill_chunk to stream a long prompt through a smaller "
+            f"cache)")
+    if (cfg.sliding_window is not None
+            and cache_len < min(cfg.sliding_window, total)):
+        raise ValueError(
+            f"cache_len {cache_len} < sliding window "
+            f"{min(cfg.sliding_window, total)} — visible positions would "
+            f"be overwritten")
+    cache = init_cache(cfg, b, cache_len, kv_quant=kv_quant, device=dev)
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+
+    def select(logits: torch.Tensor) -> torch.Tensor:
+        return _select_token(logits, temperature, generator, top_k, top_p)
+
+    with torch.inference_mode():
+        first = select(stream_prefill(model, cache, prompt, prefill_chunk))
+        if max_new_tokens == 1:
+            return first[:, None]
+        rest = decode(model, cache, first, prompt_len, max_new_tokens - 1,
+                      select, eos)
+    return torch.cat([first[:, None], rest], dim=1)

@@ -1,6 +1,7 @@
-"""Paged serving loop: the slot scheduler and the continuous scheduler.
+"""The serving loop: the slot scheduler and the continuous scheduler,
+over a paged KV pool or dense per-lane rings.
 
-The port of tf_operator_tpu/models/serve_loop's paged paths.  A fixed
+The port of tf_operator_tpu/models/serving.serve_loop.  A fixed
 batch of `slots` decode lanes shares one KV block pool; requests wait in
 a FIFO queue and stream their prompts straight into their lanes' blocks,
 segment by segment (`prefill_chunk`); the last segment's logits give the
@@ -95,8 +96,22 @@ the points where the JAX loop feeds its own; with return_stats the call
 returns its ServeStats.  It reads host clocks at barriers the loop
 already has and changes no token or schedule.
 
+Dense mode (paged=False, the JAX package's default; the port defaults
+to paged=True): each lane owns a ring of cache_len slots per model
+(llama.init_cache; a draft's ring is capped at its own max_len), sized
+and refused as JAX sizes them.  Admission takes the queue head at once
+(there is no memory gate), the prompt streams into a fresh single-row
+ring (a copy of the shared prefix's rows when there is one) and the row
+is inserted into its lane at the final segment (insert_row), which also
+wipes what the lane's frozen steps wrote there.  Decode blocks, the
+continuous scheduler's on-device finish and speculation rounds are the
+paged ones with no table; nothing fuses.  Every read is llama's
+cached_attention, plain PyTorch (JAX reads the dense ring with an XLA
+einsum, not a Pallas kernel).  prefill_only and adopt are refused with
+JAX's words; block_size and pool_blocks are ignored.
+
 Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-dense (non-paged) mode and cache sharding (draft_cache_sharding too).
+cache sharding (draft_cache_sharding too).
 """
 from __future__ import annotations
 
@@ -112,6 +127,7 @@ from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import llama as _llama
 from tf_operator_tpu_torch.models import paging, quant
 from tf_operator_tpu_torch.models import speculative as _spec
+from tf_operator_tpu_torch.models.llama import chunk_fill, chunk_write
 from tf_operator_tpu_torch.models.telemetry import ServeTelemetry
 
 
@@ -198,18 +214,16 @@ def decode_block(model: _llama.Llama, cache, tok: torch.Tensor,
     return tok, pos, toks
 
 
-def chunk_fill(model: _llama.Llama, cache, segment: torch.Tensor,
-               start: int, table: torch.Tensor) -> torch.Tensor:
-    """The final prefill segment [1, S] into the lane's blocks ([1, T]
-    table): returns the last position's f32 logits [1, V]."""
-    h = model(segment, cache, start, table, return_hidden=True)
-    return model.logits(h[:, -1])
-
-
-def chunk_write(model: _llama.Llama, cache, segment: torch.Tensor,
-                start: int, table: torch.Tensor) -> None:
-    """A non-final prefill segment: feeds the blocks only (no lm_head)."""
-    model(segment, cache, start, table, return_hidden=True)
+def insert_row(cache, row_cache, slot: int) -> None:
+    """A prefilled single-row dense cache into batch lane `slot` of the
+    dense rings, in place (payload and scales of an int8 cache)."""
+    for (k, v), (rk, rv) in zip(cache, row_cache):
+        for leaf, row in ((k, rk), (v, rv)):
+            if isinstance(leaf, quant.QTensor):
+                leaf.q[slot] = row.q[0]
+                leaf.scale[slot] = row.scale[0]
+            else:
+                leaf[slot] = row[0]
 
 
 def fused_fill(model: _llama.Llama, cache, tok, pos, frozen, left, eos: int,
@@ -289,11 +303,16 @@ class _Setup:
     spec_k: int
     sampling: Tuple[float, int, float, Optional[torch.Generator]]
     tel: ServeTelemetry
+    # dense mode (paged=False): per-lane rings of eff_len[model] slots,
+    # by model name ("target", "draft"); None when paged
+    paged: bool = True
+    eff_len: Optional[Dict[str, int]] = None
 
 
 def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                slots: int = 4, max_new_tokens: Union[int, Sequence[int]] = 64,
                eos_id: Optional[int] = None,
+               cache_len: Optional[int] = None,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                generator: Optional[torch.Generator] = None,
                prefill_chunk: Optional[int] = None,
@@ -312,11 +331,19 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                adopt: Optional[Sequence[KVHandoff]] = None,
                telemetry: Optional[ServeTelemetry] = None):
     """Serve `requests` (1-D token sequences) through `slots` lanes over
-    a paged KV pool; returns a ServeResult per request, in request order
-    (with return_stats, (results, ServeStats)).
+    a paged KV pool (or, paged=False, per-lane dense rings); returns a
+    ServeResult per request, in request order (with return_stats,
+    (results, ServeStats)).
 
     max_new_tokens: one budget for every request or one per request.
     eos_id: a request that emits it finishes (EOS included in tokens).
+    paged: True (the default here; the JAX package defaults to False)
+    serves over the block pool; False over dense rings (module
+    docstring), where block_size and pool_blocks are ignored, as JAX
+    ignores them, and cache_len sizes the rings (default:
+    llama.auto_cache_len over the longest prompt and worst case, widened
+    by spec_k for a windowed model under speculation).  Greedy tokens
+    are the same under either layout.  cache_len is refused when paged.
     temperature / top_k / top_p: 0 = greedy; sampling draws from
     `generator`, a torch.Generator on `device`.
     prefill_chunk: prefill in segments of this many tokens (a multiple
@@ -348,8 +375,6 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     The remaining keywords (cache_sharding, draft_cache_sharding) are
     the JAX serve_loop's options this port does not take yet; each
     raises NotImplementedError."""
-    if not paged:
-        _refuse("dense mode (paged=False)", "item 7: dense mode")
     if scheduler not in ("slot", "continuous"):
         raise ValueError(f"scheduler must be 'slot' or 'continuous', got "
                          f"{scheduler!r}")
@@ -363,6 +388,12 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
             "prefill_only and adopt are the two ENDS of a handoff — a "
             "call is either the prefill fleet's half or the decode "
             "fleet's half, never both")
+    if (prefill_only or adopt is not None) and not paged:
+        raise ValueError(
+            "disaggregated serving is paged-only: the handoff's wire "
+            "format IS the block table (models/paging.BlockExport) — "
+            "a dense lane has no blocks to export or adopt; pass "
+            "paged=True")
     if (prefill_only or adopt is not None) and draft is not None:
         raise ValueError(
             "speculative serving does not hand off: target and draft "
@@ -389,22 +420,12 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
             f"{type(draft).__name__}")
     for name, xf, m in (("params_transform", params_transform, model),
                         ("draft_transform", draft_transform, draft)):
-        if (xf is not None and m is not None
-                and xf is not quant.make_dequantizer(m.cfg.dtype)):
-            raise ValueError(
-                f"{name} takes None or quant.make_dequantizer("
-                f"cfg.dtype): the port's model applies its weights as "
-                f"they are stored (int8 ones dequantized to cfg.dtype at "
-                f"each use), and runs no other transform of them")
+        if m is not None:
+            _llama.check_transform(name, xf, m)
     dev = resolve_device(device)
     for name, m in (("model", model), ("draft", draft)):
-        if m is None:
-            continue
-        p_dev = m.embed.device
-        if p_dev.type != dev.type or (dev.index is not None
-                                      and p_dev.index != dev.index):
-            raise ValueError(f"{name} is on {p_dev}, serve_loop asked for "
-                             f"{dev}")
+        if m is not None:
+            _llama.check_model_device(name, m, dev)
     tel = telemetry if telemetry is not None else ServeTelemetry()
     reqs = [torch.as_tensor(r, dtype=torch.long).reshape(-1).cpu()
             for r in requests]
@@ -484,14 +505,6 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                 "prefill_chunks_per_sync needs prefill_chunk: an "
                 "unchunked prompt prefills in one segment, so the "
                 "admission-stall bound cannot apply")
-    if block_size < 1:
-        raise ValueError(f"block_size must be >= 1, got {block_size}")
-    if prefill_chunk is not None and prefill_chunk % block_size:
-        raise ValueError(
-            f"prefill_chunk {prefill_chunk} must be a multiple of "
-            f"block_size {block_size} so every streamed segment "
-            f"writes whole blocks (adjust the chunk or the block "
-            f"size)")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
     _llama.check_truncation(cfg.vocab_size, top_k, top_p)
@@ -510,6 +523,54 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     # a lane's current length
     headroom = (spec_k + 1) if spec else 0
     model_cfgs = [("target", cfg)] + ([("draft", draft.cfg)] if spec else [])
+    if paged:
+        _check_paged(cfg, model_cfgs, spec, spec_k, block_size,
+                     prefill_chunk, cache_len)
+    for i, r in enumerate(reqs):
+        if r.shape[0] < 1:
+            raise ValueError(f"request {i} is empty")
+        for name, c in model_cfgs:
+            if r.shape[0] + budgets[i] + headroom > c.max_len:
+                raise ValueError(
+                    f"request {i}: prompt {r.shape[0]} + new {budgets[i]}"
+                    + (f" (+{headroom} speculation headroom)" if spec
+                       else "")
+                    + f" exceeds max_len {c.max_len} ({name})")
+
+    def select(logits: torch.Tensor) -> torch.Tensor:
+        return _llama._select_token(logits, temperature, generator, top_k,
+                                    top_p)
+
+    setup = _Setup(slots=slots, eos=eos, prefill_chunk=prefill_chunk,
+                   chunks_per_sync=prefill_chunks_per_sync,
+                   steps_per_sync=steps_per_sync, block_size=block_size,
+                   pool_blocks=0, t_blocks=0, plans=[], kv_quant=kv_quant,
+                   continuous=continuous,
+                   windowed=cfg.sliding_window is not None, select=select,
+                   dev=dev, prefix=prefix, prefill_only=prefill_only,
+                   adopt=adopt, adopt_exports=None, draft=draft,
+                   spec_k=spec_k,
+                   sampling=(float(temperature), int(top_k), float(top_p),
+                             generator),
+                   tel=tel, paged=paged)
+    if paged:
+        _size_pool(setup, cfg, reqs, budgets, headroom, pool_blocks)
+    else:
+        setup.eff_len = _size_rings(reqs, budgets, model_cfgs, spec, spec_k,
+                                    headroom, prefill_chunk, cache_len)
+    with torch.inference_mode():
+        results = _run(model, reqs, budgets, setup)
+    # every exit idles the occupancy gauges and samples the memory peak
+    tel.loop_finished()
+    return (results, tel.finalize()) if return_stats else results
+
+
+def _check_paged(cfg, model_cfgs, spec: bool, spec_k: int, block_size: int,
+                 prefill_chunk: Optional[int],
+                 cache_len: Optional[int]) -> None:
+    """The paged-only refusals, with JAX's words."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
     if spec and any(c.sliding_window is not None for _n, c in model_cfgs):
         w_name, w_cfg = next((n, c) for n, c in model_cfgs
                              if c.sliding_window is not None)
@@ -525,17 +586,86 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
             f"model's positions would shear — use the dense ring "
             f"(paged=False), which sizes each model's ring "
             f"independently")
-    for i, r in enumerate(reqs):
-        if r.shape[0] < 1:
-            raise ValueError(f"request {i} is empty")
-        for name, c in model_cfgs:
-            if r.shape[0] + budgets[i] + headroom > c.max_len:
-                raise ValueError(
-                    f"request {i}: prompt {r.shape[0]} + new {budgets[i]}"
-                    + (f" (+{headroom} speculation headroom)" if spec
-                       else "")
-                    + f" exceeds max_len {c.max_len} ({name})")
+    if cache_len is not None:
+        raise ValueError(
+            "cache_len is a dense-ring knob; paged serving sizes "
+            "memory by pool_blocks x block_size — pass pool_blocks "
+            "instead")
+    if prefill_chunk is not None and prefill_chunk % block_size:
+        raise ValueError(
+            f"prefill_chunk {prefill_chunk} must be a multiple of "
+            f"block_size {block_size} so every streamed segment "
+            f"writes whole blocks (adjust the chunk or the block "
+            f"size)")
 
+
+def _size_rings(reqs, budgets, model_cfgs, spec: bool, spec_k: int,
+                headroom: int, prefill_chunk: Optional[int],
+                cache_len: Optional[int]) -> Dict[str, int]:
+    """Dense mode's ring length per model, sized and refused as the JAX
+    package sizes them: cache_len defaults to llama.auto_cache_len over
+    the longest prompt and the worst case plus headroom, for every model
+    (a windowed one's window widened by spec_k under speculation), and
+    each model's ring is capped at its own max_len.  A full-causal model
+    must hold the worst case; a windowed ring that wraps must hold its
+    window (+ spec_k); an unchunked prompt must fit the smallest ring;
+    a chunk must divide every ring."""
+    longest = max(int(r.shape[0]) for r in reqs)
+    worst_i = max(range(len(reqs)),
+                  key=lambda i: int(reqs[i].shape[0]) + budgets[i])
+    worst_total = int(reqs[worst_i].shape[0]) + budgets[worst_i]
+    if cache_len is None:
+        cache_len = max(
+            _llama.auto_cache_len(
+                (dataclasses.replace(c, sliding_window=c.sliding_window
+                                     + spec_k)
+                 if spec and c.sliding_window is not None else c),
+                longest, worst_total + headroom, prefill_chunk)
+            for _n, c in model_cfgs)
+    eff_len = {name: min(cache_len, c.max_len) for name, c in model_cfgs}
+    worst = worst_total + headroom
+    for name, c in model_cfgs:
+        if c.sliding_window is None and worst > eff_len[name]:
+            raise ValueError(
+                f"request {worst_i}: prompt {reqs[worst_i].shape[0]}"
+                f" + new {budgets[worst_i]} (+{headroom} headroom) "
+                f"exceeds cache length {eff_len[name]} — a "
+                f"full-causal {name} model cannot stream past its "
+                f"cache")
+        if c.sliding_window is not None:
+            need = min(c.sliding_window + (spec_k if spec else 0), worst)
+            if eff_len[name] < need:
+                raise ValueError(
+                    f"cache_len {eff_len[name]} < {name} requirement "
+                    f"{need} (window {c.sliding_window}"
+                    + (f" + spec_k {spec_k}" if spec else "")
+                    + ", capped at the no-wrap total) — visible "
+                    "positions would be overwritten")
+    for i, r in enumerate(reqs):
+        p_len = int(r.shape[0])
+        chunk = (prefill_chunk if prefill_chunk is not None
+                 and prefill_chunk < p_len else None)
+        if chunk is None and p_len > min(eff_len.values()):
+            raise ValueError(
+                f"request {i}: prompt {p_len} exceeds cache_len "
+                f"{min(eff_len.values())}; pass prefill_chunk to "
+                f"stream it")
+        if chunk is not None:
+            for name, c in model_cfgs:
+                _llama.check_prefill_chunk(chunk, eff_len[name],
+                                           c.sliding_window,
+                                           streams_past_cache=True)
+    return eff_len
+
+
+def _size_pool(o: _Setup, cfg, reqs, budgets, headroom: int,
+               pool_blocks: Optional[int]) -> None:
+    """Paged mode's block math, into `o`: the table width, each request's
+    plan and the pool (refusing a request that cannot fit an empty
+    pool), and the handoffs' exports resolved against the batch."""
+    prefill_chunk, block_size = o.prefill_chunk, o.block_size
+    prefill_only, adopt, spec = o.prefill_only, o.adopt, o.draft is not None
+    p_fix = 0 if o.prefix is None else int(o.prefix.shape[0])
     # block math: a linear table covers the largest worst case; a
     # windowed one is a ring of ring_len // block_size slots, sized as
     # the JAX package sizes it (block- and chunk-aligned), whatever the
@@ -543,7 +673,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     # the first token comes off the final fill's logits, and decode
     # growth (and its overshoot's wraps) belongs to the decode side
     worst_total = max(int(r.shape[0]) + b for r, b in zip(reqs, budgets))
-    windowed = cfg.sliding_window is not None
+    windowed = o.windowed
     if windowed:
         window = cfg.sliding_window
         ring_len = _llama.auto_cache_len(
@@ -574,7 +704,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         plans = [paging.plan_window_request(
             int(r.shape[0]), 0 if prefill_only else budgets[i], block_size,
             t_blocks, p_fix,
-            write_slack=0 if prefill_only else steps_per_sync - 1)
+            write_slack=0 if prefill_only else o.steps_per_sync - 1)
             for i, r in enumerate(reqs)]
     else:
         t_blocks = paging.blocks_for(worst_total + headroom, block_size)
@@ -585,7 +715,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                  for i, r in enumerate(reqs)]
     n_prefix_blocks = paging.blocks_for(p_fix, block_size)
     if pool_blocks is None:
-        pool_blocks = slots * max(pl[2] for pl in plans) + n_prefix_blocks
+        pool_blocks = o.slots * max(pl[2] for pl in plans) + n_prefix_blocks
     if pool_blocks < 1:
         raise ValueError(f"pool_blocks must be >= 1, got {pool_blocks}")
     for i, (r, pl) in enumerate(zip(reqs, plans)):
@@ -601,7 +731,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                 + f", but the pool has {pool_blocks} — grow pool_blocks "
                 f"or shrink the request")
 
-    adopt_exports = None
+    o.pool_blocks, o.t_blocks, o.plans = pool_blocks, t_blocks, plans
     if adopt is not None:
         for i, h in enumerate(adopt):
             _check_ring(i, h.export, t_blocks if windowed else None)
@@ -613,33 +743,22 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
         for h in adopt:
             if h.export is not None:
                 union.update(h.export.payload)
-        adopt_exports = [
+        o.adopt_exports = [
             None if h.export is None else paging.BlockExport(
                 h.export.block_size, h.export.hashes, h.export.shared,
                 {hh: union[hh] for hh in h.export.hashes if hh in union},
                 h.export.window)
             for h in adopt]
 
-    def select(logits: torch.Tensor) -> torch.Tensor:
-        return _llama._select_token(logits, temperature, generator, top_k,
-                                    top_p)
 
-    setup = _Setup(slots=slots, eos=eos, prefill_chunk=prefill_chunk,
-                   chunks_per_sync=prefill_chunks_per_sync,
-                   steps_per_sync=steps_per_sync, block_size=block_size,
-                   pool_blocks=pool_blocks, t_blocks=t_blocks, plans=plans,
-                   kv_quant=kv_quant, continuous=continuous,
-                   windowed=windowed, select=select, dev=dev, prefix=prefix,
-                   prefill_only=prefill_only, adopt=adopt,
-                   adopt_exports=adopt_exports, draft=draft, spec_k=spec_k,
-                   sampling=(float(temperature), int(top_k), float(top_p),
-                             generator),
-                   tel=tel)
-    with torch.inference_mode():
-        results = _run(model, reqs, budgets, setup)
-    # every exit idles the occupancy gauges and samples the memory peak
-    tel.loop_finished()
-    return (results, tel.finalize()) if return_stats else results
+def _clone_cache(cache) -> list:
+    """A copy of a dense cache (an int8 one's payloads and scales)."""
+    def one(t):
+        if isinstance(t, quant.QTensor):
+            return quant.QTensor(t.q.clone(), t.scale.clone())
+        return t.clone()
+
+    return [(one(k), one(v)) for k, v in cache]
 
 
 def _check_ring(i: int, export: Optional[paging.BlockExport],
@@ -670,17 +789,30 @@ def _run(model, reqs, budgets, o: _Setup):
     tel = o.tel
     p_fix = 0 if o.prefix is None else int(o.prefix.shape[0])
     spec = o.draft is not None
-    pool = paging.BlockPool(o.pool_blocks, bs)
-    cache = paging.init_block_pool(cfg, o.pool_blocks, bs, device=dev,
-                                   kv_quant=o.kv_quant)
-    # the draft's pools: the same block ids through the same tables
-    d_cache = (paging.init_block_pool(o.draft.cfg, o.pool_blocks, bs,
-                                      device=dev, kv_quant=o.kv_quant)
-               if spec else None)
-    # block tables live on the host, as the JAX continuous loop keeps
-    # them: every edit is a host write, and each dispatch uploads its
-    # tables once
-    table = torch.zeros((slots, o.t_blocks), dtype=torch.int32)
+    paged = o.paged
+    if paged:
+        pool = paging.BlockPool(o.pool_blocks, bs)
+        cache = paging.init_block_pool(cfg, o.pool_blocks, bs, device=dev,
+                                       kv_quant=o.kv_quant)
+        # the draft's pools: the same block ids through the same tables
+        d_cache = (paging.init_block_pool(o.draft.cfg, o.pool_blocks, bs,
+                                          device=dev, kv_quant=o.kv_quant)
+                   if spec else None)
+        # block tables live on the host, as the JAX continuous loop keeps
+        # them: every edit is a host write, and each dispatch uploads its
+        # tables once
+        table = torch.zeros((slots, o.t_blocks), dtype=torch.int32)
+    else:
+        # dense: one ring a lane per model, [slots, eff_len, KV, D]; a
+        # prompt prefills into a fresh single-row ring and is inserted
+        # into its lane whole at activation, which also wipes whatever
+        # the lane's frozen steps wrote there
+        pool = table = None
+        cache = _llama.init_cache(cfg, slots, o.eff_len["target"],
+                                  kv_quant=o.kv_quant, device=dev)
+        d_cache = (_llama.init_cache(o.draft.cfg, slots, o.eff_len["draft"],
+                                     kv_quant=o.kv_quant, device=dev)
+                   if spec else None)
     tok = torch.zeros((slots,), dtype=torch.long, device=dev)
     pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
     frozen_py = [True] * slots
@@ -697,10 +829,11 @@ def _run(model, reqs, budgets, o: _Setup):
     lane_nblocks = [0] * slots
     # windowed lanes: each one's ring bookkeeping (slot map, shadows)
     lane_rot: Dict[int, paging.WindowRotation] = {}
-    # the continuous scheduler grows linear lanes lazily; a windowed
-    # lane keeps its ring reservation (the ring is its per-step bound),
-    # and a speculative one its worst case (a verify writes ahead)
-    lazy = o.continuous and not o.windowed and not spec
+    # the continuous scheduler grows linear paged lanes lazily; a
+    # windowed lane keeps its ring reservation (the ring is its per-step
+    # bound), and a speculative one its worst case (a verify writes
+    # ahead)
+    lazy = paged and o.continuous and not o.windowed and not spec
     queue = deque(range(len(reqs)))
     pending: Dict[int, dict] = {}
     n_step = 0
@@ -740,34 +873,64 @@ def _run(model, reqs, budgets, o: _Setup):
     def segments_of(ridx: int):
         return request_segments(int(reqs[ridx].shape[0]))
 
-    def write_segment(piece: torch.Tensor, start: int, row: torch.Tensor,
+    def fresh_rows() -> dict:
+        """Dense mode: one admission's single-row rings ("row", and the
+        draft's "d_row"), copies of the shared prefix's when there is
+        one, else zeroed."""
+        if pfx:
+            return {"row": _clone_cache(pfx["row"]),
+                    "d_row": _clone_cache(pfx["d_row"]) if spec else None}
+        return {"row": _llama.init_cache(cfg, 1, o.eff_len["target"],
+                                         kv_quant=o.kv_quant, device=dev),
+                "d_row": (_llama.init_cache(o.draft.cfg, 1,
+                                            o.eff_len["draft"],
+                                            kv_quant=o.kv_quant, device=dev)
+                          if spec else None)}
+
+    def write_segment(piece: torch.Tensor, start: int, st: dict,
                       last: bool):
-        """One prompt segment into the lane's blocks through its row
-        table: the target's write (a final one returns the last
-        position's logits), then the draft's, which only writes."""
-        out = (chunk_fill if last else chunk_write)(model, cache, piece,
+        """One prompt segment of a pending lane: the target's write (a
+        final one returns the last position's logits), then the draft's,
+        which only writes.  Paged: into the lane's blocks through its row
+        table; dense: into its single-row rings."""
+        if paged:
+            t_c, d_c, row = cache, d_cache, st["row_tbl"].to(dev)
+        else:
+            t_c, d_c, row = st["row"], st["d_row"], None
+        out = (chunk_fill if last else chunk_write)(model, t_c, piece,
                                                     start, row)
         if spec:
-            chunk_write(o.draft, d_cache, piece, start, row)
+            chunk_write(o.draft, d_c, piece, start, row)
         return out
 
-    # the shared prefix is prefilled ONCE into blocks the pool's base
-    # reference holds for the whole run
+    def blocks_in_use() -> None:
+        if paged:
+            tel.blocks_in_use(pool.used)
+
+    def dev_table() -> Optional[torch.Tensor]:
+        return table.to(dev) if paged else None
+
+    # the shared prefix is prefilled ONCE: into blocks the pool's base
+    # reference holds for the whole run, or (dense) into single-row rings
+    # that every admission copies
     prefix_ids: List[int] = []
-    if p_fix:
+    pfx: dict = {}
+    if paged and p_fix:
         prefix_ids = pool.alloc(paging.blocks_for(p_fix, bs))
-        pfx_row = paging.build_table(prefix_ids, o.t_blocks)[None].to(dev)
-        for start, end, _ in request_segments(p_fix + 1)[
-                :resume_index(p_fix + 1)]:
-            write_segment(o.prefix[None, start:end].to(dev), start, pfx_row,
-                          False)
+        pfx = {"row_tbl": paging.build_table(prefix_ids, o.t_blocks)[None]}
+    elif p_fix:
+        pfx = fresh_rows()
+    for start, end, _ in (request_segments(p_fix + 1)[
+            :resume_index(p_fix + 1)] if p_fix else []):
+        write_segment(o.prefix[None, start:end].to(dev), start, pfx, False)
     # every request is queued from here on
     tel.loop_started(len(reqs), slots, spec,
                      scheduler="continuous" if o.continuous else "slot",
                      device=dev)
-    tel.pool_configured(o.pool_blocks, bs,
-                        "cuda" if dev.type == "cuda" else "plain")
-    tel.blocks_in_use(pool.used)  # the prefix's blocks, if any
+    if paged:
+        tel.pool_configured(o.pool_blocks, bs,
+                            "cuda" if dev.type == "cuda" else "plain")
+    blocks_in_use()  # the prefix's blocks, if any
     if o.adopt is not None:
         # completed-at-prefill handoffs carry no export: answer them
         # without a lane
@@ -800,7 +963,8 @@ def _run(model, reqs, budgets, o: _Setup):
             pool.decref(lane_own[s])
         lane_shared[s], lane_own[s] = [], []
         lane_nblocks[s] = 0
-        table[s] = 0
+        if paged:
+            table[s] = 0
 
     def finish(s: int) -> None:
         nonlocal hold
@@ -814,7 +978,7 @@ def _run(model, reqs, budgets, o: _Setup):
             kv_blocks=lane_nblocks[s])
         owner[s] = None
         release(s)
-        tel.blocks_in_use(pool.used)
+        blocks_in_use()
         tel.request_finished(ridx, results[ridx], n_step)
 
     def admit(s: int, ridx: int, n_blocks: int) -> None:
@@ -852,6 +1016,15 @@ def _run(model, reqs, budgets, o: _Setup):
             "row_tbl": paging.build_table(row, o.t_blocks)[None]}
         tel.request_admitted(ridx, s)
         tel.blocks_in_use(pool.used)
+
+    def admit_dense(s: int) -> None:
+        """Dense mode: lane s takes the queue head at once (no memory
+        gate: every lane owns its rings); its prompt streams into fresh
+        single-row rings."""
+        ridx = queue.popleft()
+        pending[s] = dict(fresh_rows(), ridx=ridx, next=resume_index(
+            int(reqs[ridx].shape[0])))
+        tel.request_admitted(ridx, s)
 
     def rotate_window(s: int, upto_pos: int, q_min: int) -> None:
         """A windowed lane's ring rotations for every block it is about
@@ -922,7 +1095,8 @@ def _run(model, reqs, budgets, o: _Setup):
         st = pending.pop(s)
         ridx = st["ridx"]
         p_len = int(reqs[ridx].shape[0])
-        table[s] = st["row_tbl"][0]
+        if paged:
+            table[s] = st["row_tbl"][0]
         owner[s] = ridx
         spec_acc[s] = (0, 0)
         admitted_step[s] = n_step
@@ -1052,10 +1226,13 @@ def _run(model, reqs, budgets, o: _Setup):
             # a prompt streaming through a ring may wrap onto shared
             # slots: the segment's queries start at `start`
             rotate_window(s, end - 1, start)
-            row = st["row_tbl"].to(dev)
             with tel.prefill_segment(ridx, start, end):
-                logits = write_segment(piece, start, row, is_last)
+                logits = write_segment(piece, start, st, is_last)
                 if is_last:
+                    if not paged:
+                        insert_row(cache, st["row"], s)
+                        if spec:
+                            insert_row(d_cache, st["d_row"], s)
                     first = int(select(logits)[0])  # device sync
             if is_last:
                 activate_lane(s, first)
@@ -1134,6 +1311,9 @@ def _run(model, reqs, budgets, o: _Setup):
                 if not admit_adopt(s):
                     return
                 continue
+            if not paged:
+                admit_dense(s)
+                continue
             ridx = queue[0]
             if not lazy:
                 # a windowed lane reserves its whole ring plan, a
@@ -1162,10 +1342,10 @@ def _run(model, reqs, budgets, o: _Setup):
         nonlocal tok, pos
         temp, top_k, top_p, gen = o.sampling
         k = o.spec_k
-        with tel.decode_block(busy, pool.used):
+        with tel.decode_block(busy, pool.used if paged else None):
             tok, pos, cands, n_accs = _spec.spec_block(
                 model, o.draft, cache, d_cache, tok, pos,
-                torch.tensor(frozen_py).to(dev), table.to(dev), n_rounds, k,
+                torch.tensor(frozen_py).to(dev), dev_table(), n_rounds, k,
                 temp, top_k, top_p, gen)
             flat = torch.cat([cands.reshape(-1),
                               n_accs.reshape(-1)]).tolist()  # device sync
@@ -1202,15 +1382,18 @@ def _run(model, reqs, budgets, o: _Setup):
 
     def run_continuous() -> None:
         nonlocal tok, pos, n_step, hold
+        # a prompt segment rides the decode dispatch through its own row
+        # table: paged, non-speculative serving only
+        fused = paged and not spec
         while queue or pending or any(w is not None for w in owner):
             if hold and not in_flight():
                 hold = False  # the pool drained; retry
             admit_free_lanes()
             live = live_lanes()
-            if spec or not live:
-                # nothing to fuse with (or speculation, which fuses
-                # nothing): stream pending prompts the slot way, oldest
-                # request first
+            if not fused or not live:
+                # nothing to fuse with (or dense rings, or speculation,
+                # which fuse nothing): stream pending prompts the slot
+                # way, oldest request first
                 for s in sorted(pending, key=lambda s: pending[s]["ridx"]):
                     if s in pending:  # a peer's growth may evict it
                         advance_prefill(s)
@@ -1229,7 +1412,7 @@ def _run(model, reqs, budgets, o: _Setup):
             n = min(o.steps_per_sync,
                     max(budgets[owner[s]] - len(emitted[s]) for s in live))
             seg_plan = None
-            if pending:
+            if fused and pending:
                 # fuse the OLDEST pending lane's next segment
                 s_pre = min(pending, key=lambda s: pending[s]["ridx"])
                 st = pending[s_pre]
@@ -1268,11 +1451,11 @@ def _run(model, reqs, budgets, o: _Setup):
                                  for s in range(slots)],
                                 dtype=torch.int32).to(dev)
             frozen = torch.tensor(frozen_py).to(dev)
-            table_d = table.to(dev)
+            table_d = dev_table()
             busy = len(live)
             seg_tok = 0
             first_dev = None
-            with tel.decode_block(busy, pool.used):
+            with tel.decode_block(busy, pool.used if paged else None):
                 if seg_plan is not None:
                     s_pre, start, end, is_last = seg_plan
                     st = pending[s_pre]
@@ -1323,6 +1506,9 @@ def _run(model, reqs, budgets, o: _Setup):
                         if not admit_adopt(s):
                             break
                         continue
+                    if not paged:
+                        admit_dense(s)
+                        continue
                     ridx = queue[0]
                     private_i = o.plans[ridx][2]
                     if not pool.can_alloc(private_i):
@@ -1346,10 +1532,10 @@ def _run(model, reqs, budgets, o: _Setup):
             for s in live_lanes():
                 cur = int(reqs[owner[s]].shape[0]) + len(emitted[s]) - 1
                 rotate_window(s, cur + o.steps_per_sync - 1, cur)
-            with tel.decode_block(busy, pool.used):
+            with tel.decode_block(busy, pool.used if paged else None):
                 frozen = torch.tensor(frozen_py).to(dev)
                 tok, pos, toks = decode_block(model, cache, tok, pos, frozen,
-                                              table.to(dev), o.steps_per_sync,
+                                              dev_table(), o.steps_per_sync,
                                               select)
                 block = toks.cpu().tolist()  # [steps_per_sync][B]; sync
             tel.step_mix(busy, 0)
