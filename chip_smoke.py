@@ -125,6 +125,15 @@ Phases, in order, none of them caught:
               launches give the same bits; then each kernel's time beside
               its plain version, SDPA and the card's bound, and each
               kernel's and SDPA's device time alone.
+  9b. kernel2-window: K2f, K2q and K2kv at mistral_7b's training shape
+              (B=1, S=8192, H=32, KV=8, D=128, causal, window 4096, bf16)
+              against their plain versions, elementwise and by each
+              output's relative error norm (which a planted fault, the
+              kernels at window 4032, must exceed), two launches
+              bit-equal; their times beside the plain versions,
+              flex_attention with a band block mask (the JSON line's
+              library_ms), SDPA over the boolean band mask and the bound
+              (only the keys inside the window).
  10. train:   llama3_8b at full width and depth as train_llama builds it
               (tied embeddings, remat, flash attention, blocked CE,
               adafactor), f32 master weights from a seed, bf16 compute,
@@ -133,9 +142,25 @@ Phases, in order, none of them caught:
               near ln(vocab); K2f launched 2 x 32 times a step (forward and
               remat recompute), K2q and K2kv 32 times, every launch on the
               tensor cores.
+ 10b. mistral-train: mistral_7b at full width and depth (tied, remat,
+              flash attention, f32 masters, bf16 compute), batch 1 x 8192
+              (two windows of 4096), 3 steps through run_training: every
+              loss finite, the first near ln(vocab); K2f launched 2 x 32
+              times a step, K2q and K2kv 32, all on the tensor cores; step
+              time, tokens/s, MFU and the memory peak printed; then one
+              full-depth save of the trained state (the save a preemption
+              makes), its seconds to the host and to the disk printed.
  11. train-parity: full width, 2 layers, f32 (TF32 off), batch 2 x 128:
               the loss and every parameter's gradient norm of one step on
               the card (kernels) equal those on the CPU (plain versions).
+ 11b. checkpoint: llama3_8b at full width, 2 layers, f32 masters, batch
+              1 x 2048, checkpoints in a temporary directory: 2 steps, a
+              sync save, a fresh model of another seed resumed for 2 more
+              give the 4-step unbroken run's losses and parameters bit for
+              bit; an async save followed by an in-place step restores the
+              saved step's bits; restore_params into a bf16 serving model
+              gives the in-memory model's greedy tokens through K1; bytes,
+              seconds and GB/s of each save and restore.
  12. kernel1q: the int8 paged-attention kernel (K1q, the same source)
               against its plain version on the kernel phase's cases, with
               int8 pools quantized from them and the scratch block
@@ -183,6 +208,12 @@ Phases, in order, none of them caught:
  18. entry:   train_llama.main(["--smoke", "--ring", "--steps", "2"]) on the
               card: its ring of one member launches K3 (bf16 compute
               at D = 16: K3q and K3kv on the tensor cores).
+ 19. entry-ckpt: two seeded .rec shards; train_llama --smoke --data-dir
+              --ckpt-dir (a save a step) for 2 steps, then to 4, resuming
+              from 2; train_llama --smoke --model mistral (window 16: K2 on
+              the tensor cores); serve_llama --smoke --ckpt-dir dense,
+              --paged (K1) and --paged --int8-kv (K1q), and generate_llama
+              --smoke --ckpt-dir: dense = paged = generate tokens.
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
@@ -192,7 +223,8 @@ Prints the kernel table as one JSON line, then the device line, and last
 instead builds the kernels and prints where the time goes at full width
 (device time by kernel under torch.profiler, and the device's idle share)
 for one decode block and one prefill segment (bf16, then int8 weights and
-KV), one training step and one ring training step.
+KV), one training step, one ring training step and one mistral_7b
+training step at 1 x 8192.
 """
 from __future__ import annotations
 
@@ -753,6 +785,185 @@ def kernel2_phase() -> dict:
     log(f"[kernel2] K2q + K2kv, device time alone: {pair:.4f} ms against "
         f"sdpa bwd {lib_bwd_q:.4f} ms ({pair / lib_bwd_q:.2f}x)")
     return dict(errs=errs, timings=timings)
+
+
+# mistral_7b's training shape: S = 8192 tokens, two windows of 4096
+MS, MWIN = 8192, 4096
+# the outputs of each flash kernel, by name
+FLASH_OUTS = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
+              "flash_dkv": ("dk", "dv")}
+# The window row's norm check, ||got - ref||_2 / ||ref||_2 for each output:
+# the elementwise band (2e-2 + 2e-2 |ref|) is as wide as out, dq, dk and dv
+# themselves at S = 8192 (|out| ~ 0.02 on unit randn), so it would pass a
+# kernel that dropped the 64-key tile at the band's edge.  The limits sit a
+# little above the sound bf16 readings (out, dq, dk, dv are rounded to
+# bf16: 2^-9 relative; lse is f32); that fault, planted by launching the
+# kernels at window MWIN - 64 against the MWIN reference, must exceed them.
+WIN_NORM_TOL = {"out": 5e-3, "lse": 1e-6, "dq": 2e-3, "dk": 2e-3,
+                "dv": 2e-3}
+WIN_FAULT = MWIN - 64
+
+
+def rel_l2(got, ref) -> float:
+    """||got - ref||_2 / ||ref||_2, in f64."""
+    ref = ref.double()
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+def kernel2_window_phase(kern2: dict) -> dict:
+    """K2f, K2q and K2kv at mistral_7b's training shape (B=1, S=8192,
+    H=32, KV=8, D=128, causal, window 4096, bf16) against their plain
+    versions (whose [1, 32, 8192, 8192] f32 scores, 8.6 GB, fit beside
+    the inputs): elementwise within 2e-2 + 2e-2 |ref|, each output's
+    relative error norm within WIN_NORM_TOL, and the same kernels at
+    window 4032 (a dropped edge tile) beyond it; two launches bit-equal.
+    Then each kernel's time beside its plain version, flex_attention with
+    a sliding-window block mask (which skips the tiles outside the band,
+    as the kernels do), SDPA with the boolean band mask and the bound
+    (only the keys inside the window), and the bound's share of device
+    time beside the 2048-causal row's (kernel2 phase)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    tol = 2e-2
+    q, k, v, do = flash_case(torch.bfloat16, MS, SEED + 31)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, True, MWIN)
+    delta = flash_delta(out_p, do)
+    bwd = (q, k, v, do, lse_p, delta, True)
+    want = {"flash_fwd": (out_p, lse_p),
+            "flash_dq": (fa.flash_dq_plain(*bwd, MWIN),),
+            "flash_dkv": fa.flash_dkv_plain(*bwd, MWIN)}
+    fa.reset_launches()
+    runs = [{"flash_fwd": fa.flash_fwd(q, k, v, True, MWIN),
+             "flash_dq": (fa.flash_dq(*bwd, MWIN),),
+             "flash_dkv": fa.flash_dkv(*bwd, MWIN)} for _ in range(2)]
+    torch.cuda.synchronize()
+    if any(fa.launches[n] != 2 or fa.launches[n + "_mma"] != 2
+           for n in FLASH):
+        raise AssertionError(f"[kernel2-window] launches {fa.launches}")
+    # the planted fault: the band's edge tile left out
+    fault = {"flash_fwd": fa.flash_fwd(q, k, v, True, WIN_FAULT),
+             "flash_dq": (fa.flash_dq(*bwd, WIN_FAULT),),
+             "flash_dkv": fa.flash_dkv(*bwd, WIN_FAULT)}
+    errs, norms, failed = {}, {}, []
+    for name in FLASH:
+        same = all(torch.equal(a, b)
+                   for a, b in zip(runs[0][name], runs[1][name]))
+        err, ok = 0.0, same
+        for out, got, bad, ref in zip(FLASH_OUTS[name], runs[0][name],
+                                      fault[name], want[name]):
+            diff = (got.float() - ref.float()).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool(torch.isfinite(got).all())
+            ok &= bool((diff <= tol * (1 + ref.float().abs())).all())
+            norms[out] = (rel_l2(got, ref), rel_l2(bad, ref))
+            log(f"[kernel2-window] {out}: rel_l2 {norms[out][0]:.3e} "
+                f"(limit {WIN_NORM_TOL[out]:.0e}); planted fault (window "
+                f"{WIN_FAULT}) {norms[out][1]:.3e}")
+            if norms[out][0] > WIN_NORM_TOL[out]:
+                failed.append(f"{out} rel_l2 {norms[out][0]}")
+            if norms[out][1] <= WIN_NORM_TOL[out]:
+                failed.append(f"{out}: the norm check passes a dropped "
+                              f"edge tile ({norms[out][1]})")
+        errs[name] = err
+        log(f"[kernel2-window] bf16 S={MS} window={MWIN} {name} "
+            f"err={err:.3e} repeat={same} (atol=rtol={tol})")
+        if not ok:
+            failed.append(f"{name} elementwise err={err} bit_identical={same}")
+    if failed:
+        raise AssertionError(f"[kernel2-window] the kernels disagree with "
+                             f"their plain versions or do not repeat: "
+                             f"{failed}")
+    del runs, fault, want, lse_p
+    torch.cuda.empty_cache()
+
+    out, lse = fa.flash_fwd(q, k, v, True, MWIN)
+    bwd = (q, k, v, do, lse, flash_delta(out, do), True, MWIN)
+    fns = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, True, MWIN),
+                         lambda: fa.flash_fwd_plain(q, k, v, True, MWIN)),
+           "flash_dq": (lambda: fa.flash_dq(*bwd),
+                        lambda: fa.flash_dq_plain(*bwd)),
+           "flash_dkv": (lambda: fa.flash_dkv(*bwd),
+                         lambda: fa.flash_dkv_plain(*bwd))}
+    qt, kt, vt = (x.transpose(1, 2).detach() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def library(attend) -> tuple:
+        """Events and device-alone times of `attend`'s forward and of its
+        backward through autograd (dq, dk and dv together), and its
+        forward's rel_l2 against the plain version's out."""
+        with torch.no_grad():
+            fwd = lambda: attend(qt, kt, vt)
+            o = fwd().transpose(1, 2)
+            times = (time_ms(fwd, reps=5), time_ms(fwd, reps=5, queued=True))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+        o_g = attend(qg, kg, vg)
+        back = lambda: torch.autograd.grad(o_g, (qg, kg, vg), dot,
+                                           retain_graph=True)
+        times += (time_ms(back, reps=5), time_ms(back, reps=5, queued=True))
+        return times + (rel_l2(o, out_p),)
+
+    # the yardsticks; the port calls neither.  flex_attention (compiled)
+    # with a block mask of the band skips the tiles outside it; SDPA takes
+    # the band as a boolean mask (key j visible to query i when
+    # i - 4096 < j <= i) and so computes every tile
+    band_mod = lambda b, h, i, j: (j <= i) & (j > i - MWIN)
+    block_mask = create_block_mask(band_mod, None, None, MS, MS,
+                                   device="cuda")
+    flex = torch.compile(flex_attention)
+    t = time.perf_counter()
+    # its backward is timed again and again over one graph (retain_graph),
+    # which a compiled backward that donates its buffers refuses
+    with torch._functorch.config.patch(donated_buffer=False):
+        lib = {"flex": library(lambda a, b, c: flex(
+            a, b, c, block_mask=block_mask, enable_gqa=True))}
+    t_flex = time.perf_counter() - t
+    i = torch.arange(MS, device="cuda")
+    band = band_mod(None, None, i[:, None], i[None, :])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib["sdpa"] = library(lambda a, b, c: sdpa(a, b, c, attn_mask=band,
+                                                  enable_gqa=True))
+    for which, (*_, rel) in lib.items():
+        log(f"[kernel2-window] {which} forward against the plain version: "
+            f"rel_l2 {rel:.3e}")
+        if rel > WIN_NORM_TOL["out"]:
+            raise AssertionError(f"[kernel2-window] {which} does not compute "
+                                 f"the windowed attention: rel_l2 {rel}")
+    log(f"[kernel2-window] flex_attention compiled and timed in "
+        f"{t_flex:.1f} s")
+    del out_p
+    timings = {}
+    for name, (kern, plain) in fns.items():
+        p1 = time_ms(plain, reps=3)
+        k1 = time_ms(kern)
+        k2 = time_ms(kern)
+        p2 = time_ms(plain, reps=3)
+        kq = time_ms(kern, queued=True)
+        bnd, by = flash_bound_ms(name, torch.bfloat16, MS, True, MWIN)
+        at = 0 if name == "flash_fwd" else 2
+        fx, sd = lib["flex"][at:at + 2], lib["sdpa"][at:at + 2]
+        timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                             library_ms=fx[0], library_device_ms=fx[1],
+                             sdpa_band_ms=sd[0], sdpa_band_device_ms=sd[1],
+                             bound_ms=bnd, bound_by=by, device_ms=kq)
+        causal = kern2["timings"][name]
+        log(f"[kernel2-window] timing {name} bf16 causal window={MWIN} "
+            f"B={TB} S={MS} H={TH} KV={TKV} D={TD}: kernel {k1:.4f}/"
+            f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"{'fwd' if at == 0 else 'bwd'}: flex (block mask) {fx[0]:.4f} "
+            f"ms, sdpa (band mask) {sd[0]:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); device time alone: kernel {kq:.4f} ms, flex "
+            f"{fx[1]:.4f} ms, sdpa {sd[1]:.4f} ms; bound share "
+            f"{bnd / kq:.4f} (2048 causal: "
+            f"{causal['bound_ms'] / causal['device_ms']:.4f})")
+    pair = timings["flash_dq"]["device_ms"] + timings["flash_dkv"]["device_ms"]
+    log(f"[kernel2-window] K2q + K2kv, device time alone: {pair:.4f} ms "
+        f"against flex bwd {lib['flex'][3]:.4f} ms "
+        f"({pair / lib['flex'][3]:.2f}x), sdpa bwd {lib['sdpa'][3]:.4f} ms "
+        f"({pair / lib['sdpa'][3]:.2f}x)")
+    return dict(errs=errs, norms=norms, timings=timings)
 
 
 # ------------------------------------------------------------- serve phase
@@ -2091,16 +2302,16 @@ def window_kernel_phase(int8: bool = False) -> dict:
 TRAIN_STEPS = 4
 
 
-def train_model(cfg):
+def train_model(cfg, seed: int = SEED):
     """The model train_llama builds for `cfg`, around f32 masters drawn
-    from SEED, and its train state and step."""
+    from `seed`, and its train state and step."""
     from tf_operator_tpu_torch import train_llama
     from tf_operator_tpu_torch.models import bridge, llama
     from tf_operator_tpu_torch.runtime.optim import Adafactor
     from tf_operator_tpu_torch.runtime.train import TrainState
 
     model = llama.Llama.from_params(
-        cfg, bridge.init_params(cfg, SEED, device="cuda", train=True),
+        cfg, bridge.init_params(cfg, seed, device="cuda", train=True),
         device="cuda", train=True)
     state = TrainState.create(model, Adafactor(1e-3))
     return model, state, train_llama.make_lm_step(model)
@@ -2184,6 +2395,109 @@ def train_phase() -> dict:
     return dict(launches=launches, losses=losses)
 
 
+MISTRAL_STEPS = 3
+
+
+def mistral_train_phase() -> dict:
+    """mistral_7b at full width and depth as train_llama builds it (tied,
+    remat, flash attention), batch 1 x 8192 (its preset max_len: two
+    windows of 4096, so K2's window cuts every sequence), 3 steps through
+    run_training: every loss finite, the first within 1.5 of ln(vocab);
+    K2f launched 2 x 32 times a step, K2q and K2kv 32 times, all on the
+    tensor cores.  Then one full-depth save of the trained state (about
+    28.5 GB), timed to the host and to the disk."""
+    import shutil
+    import tempfile
+
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.models.llama import params_flops_per_token
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+    from tf_operator_tpu_torch.runtime.train import Checkpointer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.mistral_7b(tie_embeddings=True, remat=True,
+                           attention_fn=flash_attention)
+    t0 = time.perf_counter()
+    model, state, step = train_model(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[mistral-train] mistral_7b tied, remat, flash attention, window "
+        f"{cfg.sliding_window}, {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.4f} B f32 master params in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB); compute "
+        f"{cfg.dtype}; batch {TB} x {MS}")
+    losses, times = [], []
+
+    def timed_step(state, tokens):
+        t = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    batches = train_llama.lm_batches(TB, MS, cfg.vocab_size, SEED + 7,
+                                     device="cuda")
+    fa.reset_launches()
+    res = run_training(state, timed_step, batches, num_steps=MISTRAL_STEPS,
+                       profiler=Profiler(batch_size=TB), log_interval_steps=1,
+                       metrics_sink=lambda line: log(f"[mistral-train] "
+                                                     f"metrics {line}"))
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # the full-depth save that a preemption makes (run_training saves with
+    # wait=True on SIGTERM): async here, waited for at once, so the host
+    # snapshot's seconds and the write's show apart
+    root = tempfile.mkdtemp(prefix="chip_smoke_mistral_ckpt_")
+    try:
+        ckpt = Checkpointer(root, async_save=True)
+        t = time.perf_counter()
+        ckpt.save(MISTRAL_STEPS, res.state)
+        t_snap = time.perf_counter() - t
+        ckpt.wait_until_finished()
+        t_save = time.perf_counter() - t
+        nbytes = _dir_bytes(f"{root}/{MISTRAL_STEPS}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, state, step, res
+    torch.cuda.empty_cache()
+
+    if len(losses) != MISTRAL_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[mistral-train] losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"[mistral-train] first loss {losses[0]} is "
+                             f"not within 1.5 of ln({cfg.vocab_size})")
+    n = cfg.n_layers * MISTRAL_STEPS
+    want = {"flash_fwd": 2 * n, "flash_fwd_mma": 2 * n, "flash_dq": n,
+            "flash_dq_mma": n, "flash_dkv": n, "flash_dkv_mma": n}
+    if launches != want:
+        raise AssertionError(f"[mistral-train] kernel launches {launches}, "
+                             f"expected {want}")
+    steady = sorted(times[1:])
+    step_s = steady[len(steady) // 2]
+    tokens_per_s = TB * MS / step_s
+    mfu = tokens_per_s * params_flops_per_token(cfg) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    log(f"[mistral-train] losses {[round(x, 4) for x in losses]} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}); step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{MISTRAL_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
+        f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
+        f"kernel_launches {json.dumps(launches)}")
+    gb = nbytes / 1e9
+    log(f"[mistral-train] full-depth save: bytes_saved {nbytes} ({gb:.3f} "
+        f"GB); host snapshot {t_snap:.3f} s ({gb / t_snap:.3f} GB/s), on "
+        f"disk (fsynced) after {t_save:.3f} s ({gb / t_save:.3f} GB/s)")
+    return dict(launches=launches, losses=losses)
+
+
 # K2 launches of one f32 step of 2 layers with remat: the scalar kernels
 F32_K2_LAUNCHES = {"flash_fwd": 4, "flash_fwd_mma": 0, "flash_dq": 2,
                    "flash_dq_mma": 0, "flash_dkv": 2, "flash_dkv_mma": 0}
@@ -2235,6 +2549,180 @@ def train_parity_phase() -> None:
     # f32: the scalar kernels, never the tensor cores (TF32)
     if launches != F32_K2_LAUNCHES:
         raise AssertionError(f"[train-parity] launches {launches}")
+
+
+# ------------------------------------------------------- checkpoint phase
+CKPT_LAYERS = 2
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_phase() -> None:
+    """Checkpointed training at full width: llama3_8b cut to 2 layers
+    (tied, remat, flash attention, f32 masters, bf16 compute; about 0.96 B
+    parameters, 3.85 GB of f32 a save), batch 1 x 2048, in a temporary
+    directory removed at the end.  (a) 4 steps unbroken; (b) from the
+    same seed 2 steps with a sync save at step 2, then a fresh model from
+    another seed resumed from it for 2 more: steps 3-4's losses and the
+    final parameters equal (a)'s bit for bit; (c) an async save at step 2,
+    step 3 updating the parameters in place, wait_until_finished, restore:
+    the step-2 parameters bit for bit; (d) restore_params into a bf16
+    serving model, whose greedy serve_loop(paged=True) tokens (through K1)
+    equal those of a serving model built from the trained model in memory.
+    Prints the bytes saved and each save's and restore's seconds and
+    GB/s."""
+    import shutil
+    import tempfile
+
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.train import Checkpointer
+
+    class Timed(Checkpointer):
+        """Checkpointer that records each save's and restore's seconds."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.times = []
+
+        def save(self, step, state, wait=False):
+            t = time.perf_counter()
+            out = super().save(step, state, wait=wait)
+            self.times.append(("save", step, time.perf_counter() - t))
+            return out
+
+        def restore(self, state, step=None):
+            t = time.perf_counter()
+            state = super().restore(state, step)
+            torch.cuda.synchronize()
+            self.times.append(("restore", step, time.perf_counter() - t))
+            return state
+
+    cfg = llama3_train_cfg(n_layers=CKPT_LAYERS)
+    stream = lambda: train_llama.lm_batches(TB, TS, cfg.vocab_size,
+                                            SEED + 8, device="cuda")
+
+    def run(seed, batches, num_steps, ckpt=None):
+        model, state, step = train_model(cfg, seed)
+        losses = []
+
+        def logged(state, tokens):
+            state, m = step(state, tokens)
+            losses.append(float(m["loss"]))
+            return state, m
+
+        res = run_training(state, logged, batches, num_steps=num_steps,
+                           checkpointer=ckpt, save_interval_steps=2)
+        torch.cuda.synchronize()
+        return model, res, losses
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # (a) unbroken
+        model, res, unbroken = run(SEED, stream(), 4)
+        want = {k: p.detach().clone() for k, p in res.state.params.items()}
+        del model, res
+        # (b) sync save at step 2, resume in a fresh model of another seed
+        sync = Timed(f"{root}/sync")
+        model, res, first = run(SEED, stream(), 2, sync)
+        del model, res
+        rest = stream()
+        for _ in range(2):
+            next(rest)  # the resumed job reads on from batch 3
+        model, res, second = run(SEED + 1, rest, 4, sync)
+        if (res.resumed_from, res.steps_run, res.last_saved_step) != (2, 2, 4):
+            raise AssertionError(
+                f"[checkpoint] resumed_from {res.resumed_from}, steps_run "
+                f"{res.steps_run}, last_saved_step {res.last_saved_step}")
+        if first + second != unbroken:
+            raise AssertionError(f"[checkpoint] losses {first + second} != "
+                                 f"unbroken {unbroken}")
+        differ = [k for k, p in res.state.params.items()
+                  if not torch.equal(p, want[k])]
+        if differ:
+            raise AssertionError(f"[checkpoint] resumed parameters differ "
+                                 f"from the unbroken run's: {differ[:5]}")
+        trained = {k: p.detach() for k, p in res.state.params.items()}
+        del want
+        nbytes = _dir_bytes(f"{root}/sync/2")
+
+        # (c) async save at step 2, then step 3 in place
+        asyn = Checkpointer(f"{root}/async", async_save=True)
+        model2, state2, step2 = train_model(cfg, SEED)
+        it = stream()
+        for _ in range(2):
+            state2, _ = step2(state2, *next(it))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        asyn.save(2, state2)
+        t_return = time.perf_counter() - t
+        state2, _ = step2(state2, *next(it))
+        torch.cuda.synchronize()
+        asyn.wait_until_finished()
+        t_durable = time.perf_counter() - t
+        t = time.perf_counter()
+        asyn.restore(state2)
+        torch.cuda.synchronize()
+        t_async_restore = time.perf_counter() - t
+        at_2 = sync.restore_params(step=2, device="cuda")
+        differ = [k for k, p in state2.params.items()
+                  if not torch.equal(p, at_2[k])]
+        if differ or state2.step != 2 or state2.opt_state["count"] != 2:
+            raise AssertionError(f"[checkpoint] async restore differs from "
+                                 f"step 2: {differ[:5]}, step {state2.step}")
+        del model2, state2, step2, at_2
+
+        # (d) the checkpoint into a bf16 serving model
+        serve_cfg = llama.llama3_8b(n_layers=CKPT_LAYERS,
+                                    tie_embeddings=True)
+        with torch.device("meta"):
+            storage = llama.Llama(serve_cfg).state_dict()
+        t = time.perf_counter()
+        params = sync.restore_params(storage, device="cuda")
+        torch.cuda.synchronize()
+        t_params = time.perf_counter() - t
+        restored = llama.Llama.from_params(serve_cfg, params, device="cuda")
+        memory = llama.Llama.from_params(serve_cfg, trained, device="cuda")
+        del params, trained, model, res
+        prompts = prompts_for(serve_cfg, 4, 16, 128, SEED + 9)
+        kw = dict(slots=4, max_new_tokens=16, block_size=BS, paged=True,
+                  device="cuda")
+        pa.reset_launches()
+        got = [r.tokens for r in serve_loop(restored, prompts, **kw)]
+        k1 = pa.launches
+        ref = [r.tokens for r in serve_loop(memory, prompts, **kw)]
+        del restored, memory
+        if got != ref or k1 == 0:
+            raise AssertionError(f"[checkpoint] restored model's tokens "
+                                 f"{got} != in memory {ref} (K1 {k1})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    gb = nbytes / 1e9
+    (_, _, t_save), = [x for x in sync.times if x[0] == "save" and x[1] == 2]
+    (_, _, t_restore), = [x for x in sync.times if x[0] == "restore"]
+    log(f"[checkpoint] llama3_8b x {CKPT_LAYERS} layers: losses unbroken "
+        f"{[round(x, 6) for x in unbroken]} = resumed "
+        f"{[round(x, 6) for x in first + second]} bit for bit, final "
+        f"parameters equal; async save + in-place step 3 restores step 2 "
+        f"bit for bit; restored bf16 model = in-memory model, "
+        f"{sum(map(len, got))} greedy tokens through K1 ({k1} launches)")
+    log(f"[checkpoint] bytes_saved {nbytes} ({gb:.3f} GB); sync save "
+        f"{t_save:.3f} s ({gb / t_save:.3f} GB/s); async save returns in "
+        f"{t_return:.3f} s ({gb / t_return:.3f} GB/s), durable after "
+        f"{t_durable:.3f} s ({gb / t_durable:.3f} GB/s, step 3 included); "
+        f"restore {t_restore:.3f} s ({gb / t_restore:.3f} GB/s), async "
+        f"restore {t_async_restore:.3f} s; restore_params into bf16 "
+        f"{t_params:.3f} s ({gb / t_params:.3f} GB/s of f32 read)")
 
 
 # ------------------------------------------------------- serve-int8 phase
@@ -2883,6 +3371,125 @@ def ring_entry_phase() -> None:
                              f"K2 {k2}")
 
 
+ENTRY_PROMPTS = ["hello", "the quick brown fox", "hi"]
+
+
+def _run_main(main, argv) -> str:
+    """main(argv)'s standard output (it must exit 0); echoed to the log."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[entry-ckpt]   | {line}")
+    if rc != 0:
+        raise AssertionError(f"[entry-ckpt] {argv}: exit {rc}")
+    return out
+
+
+def entry_ckpt_phase() -> None:
+    """The CLIs on the card with records and checkpoints: two seeded .rec
+    shards; train_llama --smoke --data-dir --ckpt-dir for 2 steps (a save
+    a step), then for 4, which resumes from step 2; train_llama --smoke
+    --model mistral (window 16 over 64 tokens through K2); serve_llama
+    --smoke --ckpt-dir --paged, plain (K1) and with --int8-kv (K1q), and
+    dense; generate_llama --smoke --ckpt-dir on each prompt: greedy tokens
+    equal across dense, paged and generate (f32 smoke)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tf_operator_tpu_torch import generate_llama, serve_llama, train_llama
+    from tf_operator_tpu_torch.data.loader import FieldSpec, write_records
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        data, ckpt = f"{root}/data", f"{root}/ckpt"
+        os.makedirs(data)
+        rng = np.random.default_rng(SEED + 12)
+        for i in range(2):  # the smoke model: 256 tokens, 64 a row
+            write_records(f"{data}/part-{i}.rec",
+                          [FieldSpec("tokens", (64,), "int32")],
+                          {"tokens": rng.integers(0, 256, (16, 64))})
+        argv = ["--smoke", "--data-dir", data, "--ckpt-dir", ckpt,
+                "--save-interval", "1", "--steps"]
+        out = _run_main(train_llama.main, argv + ["2"])
+        if ("data: records x32 (shard 0/1)" not in out
+                or "complete: steps=2 resumed_from=None" not in out):
+            raise AssertionError("[entry-ckpt] first train run")
+        out = _run_main(train_llama.main, argv + ["4"])
+        if "complete: steps=2 resumed_from=2" not in out:
+            raise AssertionError("[entry-ckpt] the second run did not "
+                                 "resume from step 2")
+        fa.reset_launches()
+        out = _run_main(train_llama.main, ["--smoke", "--model", "mistral",
+                                           "--steps", "2"])
+        torch.cuda.synchronize()
+        k2 = dict(fa.launches)
+        # tiny: 2 layers, no remat, bf16 compute at D = 16: the tensor cores
+        want = {n: 4 for n in fa.launches}
+        if "model mistral (smoke)" not in out or k2 != want:
+            raise AssertionError(f"[entry-ckpt] mistral smoke: K2 {k2}, "
+                                 f"expected {want}")
+
+        seen = []
+        inner = serve_llama.serve_loop
+
+        def recording(*a, **kw):
+            res = inner(*a, **kw)
+            seen.append([[int(t) for t in r.tokens] for r in res])
+            return res
+
+        serve_llama.serve_loop = recording
+        try:
+            serve = ["--smoke", "--ckpt-dir", ckpt, "--max-new", "16",
+                     "--slots", "2"] + [a for p in ENTRY_PROMPTS
+                                        for a in ("--prompt", p)]
+            paged = ["--paged", "--block-size", "16"]
+            launches = {}
+            for label, extra in (("dense", []), ("paged", paged),
+                                 ("paged int8-kv", paged + ["--int8-kv"])):
+                pa.reset_launches()
+                out = _run_main(serve_llama.main, serve + extra)
+                torch.cuda.synchronize()
+                launches[label] = (pa.launches, pa.launches_int8)
+                if "restored step 4 from" not in out:
+                    raise AssertionError(f"[entry-ckpt] serve {label}: no "
+                                         f"restore line")
+        finally:
+            serve_llama.serve_loop = inner
+        dense, paged_tokens, _ = seen
+        gen = []
+        for p in ENTRY_PROMPTS:
+            out = _run_main(generate_llama.main, [
+                "--smoke", "--ckpt-dir", ckpt, "--max-new", "16",
+                "--prompt", p])
+            line = [l for l in out.splitlines() if l.startswith("tokens: ")]
+            gen.append(json.loads(line[-1][len("tokens: "):]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # generate keeps decoding past EOS; serve_loop stops at it
+    same = all(g[:len(d)] == d for g, d in zip(gen, dense))
+    if (dense != paged_tokens or not same
+            or launches["dense"] != (0, 0) or launches["paged"][0] == 0
+            or launches["paged"][1] != 0 or launches["paged int8-kv"][1] == 0
+            or launches["paged int8-kv"][0] != 0):
+        raise AssertionError(
+            f"[entry-ckpt] dense {dense}, paged {paged_tokens}, generate "
+            f"{gen}; K1/K1q launches {launches}")
+    log(f"[entry-ckpt] train_llama resumed from step 2 over records; "
+        f"mistral smoke K2 {json.dumps(k2)}; serve_llama dense = paged = "
+        f"generate_llama tokens {dense}; (K1, K1q) launches "
+        f"{json.dumps(launches)}; int8-KV tokens {seen[2]}")
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
@@ -2975,24 +3582,32 @@ def profile_phase(int8: bool = False) -> None:
                  f"{tag}prefill 1 lane x {ctx} tokens", 1)
 
 
-def profile_train_phase(ring: bool = False) -> None:
+def profile_train_phase(ring: bool = False, mistral: bool = False) -> None:
     """Where a training step's time goes at full width: one llama3_8b
     step (batch 1 x 2048) under torch.profiler, with the one-device flash
-    attention or (ring) ring flash attention over LocalRing(4)."""
+    attention or (ring) ring flash attention over LocalRing(4); or
+    (mistral) one mistral_7b step at batch 1 x 8192, window 4096."""
     from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import llama
     from tf_operator_tpu_torch.ops import ring_flash as rf
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
     from tf_operator_tpu_torch.parallel.ring import LocalRing
 
-    kw = {}
-    if ring:
-        kw["attention_fn"] = rf.make_ring_flash_attention_fn(
-            LocalRing(RING_N))
-    cfg = llama3_train_cfg(**kw)
+    seq, label = TS, "train step"
+    if mistral:
+        cfg = llama.mistral_7b(tie_embeddings=True, remat=True,
+                               attention_fn=flash_attention)
+        seq, label = MS, f"mistral train step (window {MWIN})"
+    elif ring:
+        cfg = llama3_train_cfg(attention_fn=rf.make_ring_flash_attention_fn(
+            LocalRing(RING_N)))
+        label = f"ring train step (LocalRing({RING_N}))"
+    else:
+        cfg = llama3_train_cfg()
     model, state, step = train_model(cfg)
-    tokens = next(train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 4,
+    tokens = next(train_llama.lm_batches(TB, seq, cfg.vocab_size, SEED + 4,
                                          device="cuda"))[0]
-    label = f"ring train step (LocalRing({RING_N}))" if ring else "train step"
-    _profile(lambda: step(state, tokens), f"{label} {TB} x {TS}", 1)
+    _profile(lambda: step(state, tokens), f"{label} {TB} x {seq}", 1)
     del model, state, step
     torch.cuda.empty_cache()
 
@@ -3018,29 +3633,46 @@ def main() -> int:
         torch.cuda.empty_cache()
         profile_train_phase()
         profile_train_phase(ring=True)
+        profile_train_phase(mistral=True)
         return 0
-    kern = kernel_phase()
-    serve = serve_phase()
-    spec = spec_phase(serve["model"], serve["prompts"], serve["tokens"])
-    dense_phase(serve["model"], serve["prompts"], serve["tokens"])
-    handoff_phase(serve.pop("model"))
-    parity_phase()
-    spec_parity = spec_parity_phase()
-    dense_parity_phase()
-    win = window_phase()
-    win_parity = window_parity_phase()
-    kern_win = window_kernel_phase()
-    kern_win_q = window_kernel_phase(int8=True)
-    kern2 = kernel2_phase()
-    train = train_phase()
-    train_parity_phase()
-    kern1q = kernel_phase(int8=True)
-    serve_int8 = serve_int8_phase()
-    parity_int8_phase()
-    kern3 = kernel3_phase()
-    ring_train = ring_train_phase(train["losses"][0])
-    ring_parity_phase()
-    ring_entry_phase()
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str, result=None):
+        """Log the seconds since the last lap under the phase's name, and
+        pass the phase's result on."""
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+        return result
+
+    kern = lap("kernel", kernel_phase())
+    serve = lap("serve", serve_phase())
+    spec = lap("spec", spec_phase(serve["model"], serve["prompts"],
+                                  serve["tokens"]))
+    lap("dense", dense_phase(serve["model"], serve["prompts"],
+                             serve["tokens"]))
+    lap("handoff", handoff_phase(serve.pop("model")))
+    lap("parity", parity_phase())
+    spec_parity = lap("spec-parity", spec_parity_phase())
+    lap("dense-parity", dense_parity_phase())
+    win = lap("window", window_phase())
+    win_parity = lap("window-parity", window_parity_phase())
+    kern_win = lap("window kernel", window_kernel_phase())
+    kern_win_q = lap("window kernel int8", window_kernel_phase(int8=True))
+    kern2 = lap("kernel2", kernel2_phase())
+    kern2_win = lap("kernel2-window", kernel2_window_phase(kern2))
+    train = lap("train", train_phase())
+    mistral = lap("mistral-train", mistral_train_phase())
+    lap("train-parity", train_parity_phase())
+    lap("checkpoint", checkpoint_phase())
+    kern1q = lap("kernel1q", kernel_phase(int8=True))
+    serve_int8 = lap("serve-int8", serve_int8_phase())
+    lap("parity-int8", parity_int8_phase())
+    kern3 = lap("kernel3", kernel3_phase())
+    ring_train = lap("ring-train", ring_train_phase(train["losses"][0]))
+    lap("ring-parity", ring_parity_phase())
+    lap("entry", ring_entry_phase())
+    lap("entry-ckpt", entry_ckpt_phase())
 
     def paged_row(name, line, kern, launches, verify=False):
         """K1's or K1q's row: decode times, prefill times beside them;
@@ -3083,21 +3715,29 @@ def main() -> int:
             paged_row("paged_attention_int8_verify", 259, kern1q,
                       spec_parity["launches_int8"], verify=True)]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
-    # _dkv_kernel)
-    for name, line in (("flash_fwd", 112), ("flash_dq", 217),
-                       ("flash_dkv", 256)):
-        t = kern2["timings"][name]
-        rows.append({"name": name, "route": "cuda",
-                     "source": "tf_operator_tpu_torch/csrc/flash_attention.cu",
-                     "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
-                     "launches": train["launches"][name],
-                     "max_abs_err": kern2["errs"][name],
-                     "ms": t["ms"], "kernel_ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"],
-                     "device_ms": t["device_ms"],
-                     "library_device_ms": t["library_device_ms"]})
+    # _dkv_kernel); the _window rows: the same kernels at mistral_7b's
+    # training shape, launched by the mistral-train phase
+    for suffix, kern, run in (("", kern2, train),
+                              ("_window", kern2_win, mistral)):
+        for name, line in (("flash_fwd", 112), ("flash_dq", 217),
+                           ("flash_dkv", 256)):
+            t = kern["timings"][name]
+            rows.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
+                "launches": run["launches"][name],
+                "max_abs_err": kern["errs"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
+            if suffix:  # flex_attention is library_ms; SDPA beside it
+                rows[-1].update(
+                    sdpa_band_ms=t["sdpa_band_ms"],
+                    sdpa_band_device_ms=t["sdpa_band_device_ms"],
+                    rel_l2={o: kern["norms"][o][0] for o in FLASH_OUTS[name]})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel)
     for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):

@@ -519,6 +519,12 @@ def test_prefix_handoff_serve_loop_cuda_matches_cpu(kv_quant):
 # (and the forward folded by online softmax).  bf16: outputs, p and dS
 # rounded to bf16 (2^-8 relative).
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 also by each output's error norm, ||got - ref|| / ||ref||: at long
+# S the elementwise band is as wide as out and the gradients themselves
+# (chip_smoke.py's WIN_NORM_TOL, which a dropped edge tile of the window
+# exceeds)
+FLASH_NORM_TOL = {"out": 5e-3, "lse": 1e-6, "dq": 2e-3, "dk": 2e-3,
+                  "dv": 2e-3}
 
 
 def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
@@ -537,7 +543,8 @@ def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
     (1000, 8, 2, 64, True, 512), (1000, 4, 1, 64, False, None),
     (300, 6, 2, 128, True, 100), (77, 8, 1, 8, True, None),
     (127, 4, 2, 128, True, None), (129, 8, 1, 128, True, None),
-    (192, 4, 2, 128, False, None), (256, 8, 1, 128, True, 64)])
+    (192, 4, 2, 128, False, None), (256, 8, 1, 128, True, 64),
+    (6144, 32, 8, 128, True, 4096)])
 def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     """Each kernel against its plain version on the same inputs (the
     backward kernels take the plain forward's lse and delta), with
@@ -545,8 +552,12 @@ def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     D = 8 to 128, windows and bit-identical repeats; S = 127, 129 and
     192 put the tail inside, just past and on the 32-row halves of the
     backward's 64-row tiles, and G = 8 at D = 128 deals eight heads'
-    units to K2kv's two warpgroups.  Every bf16 launch counts on the
-    tensor cores, no f32 one."""
+    units to K2kv's two warpgroups; S = 6144 at window 4096 has
+    mistral_7b's heads and window over one and a half windows, where the
+    band skips whole tiles (the plain versions' S x S scores bound S
+    here; chip_smoke.py holds the kernels at S = 8192).  bf16 outputs
+    are also held by their relative error norm.  Every bf16 launch counts
+    on the tensor cores, no f32 one."""
     q, k, v, do = _flash_case(s + d, s=s, h=h, kv=kv, d=d, dtype=dtype)
     out_p, lse_p = tfa.flash_fwd_plain(q, k, v, causal, window)
     delta = (out_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
@@ -565,6 +576,13 @@ def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
         assert torch.equal(a, b), name
         torch.testing.assert_close(a.float(), ref.float(), rtol=tol, atol=tol,
                                    msg=name)
+        # at window 1 each row sees one key (p = 1, dS = 0): dq and dk are
+        # rounding noise around 0, with no relative size to hold
+        if dtype == torch.bfloat16 and not (window == 1
+                                            and name in ("dq", "dk")):
+            rel = float((a.double() - ref.double()).norm()
+                        / ref.double().norm())
+            assert rel <= FLASH_NORM_TOL[name], (name, rel)
 
 
 def test_flash_function_on_card_matches_cpu():

@@ -509,8 +509,6 @@ def test_generate_llama_smoke_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--ckpt-dir", "x"], NotImplementedError, "item 9"),
-    (["--draft-ckpt-dir", "x"], NotImplementedError, "item 9"),
     (["--hf-dir", "x"], NotImplementedError, "item 10"),
     (["--tokenizer", "x"], NotImplementedError, "item 10"),
     (["--model", "mixtral"], NotImplementedError, "item 10"),
@@ -539,9 +537,10 @@ def test_draft_config_is_the_model_cut_to_its_first_layers():
     """--draft-layers n builds the smoke config at n layers from the same
     seed: the draft's weights are the target's first n layers."""
     cfg = tl.tiny(tie_embeddings=True, dtype=torch.float32, max_len=256)
-    t = generate_llama.build_model(cfg, False, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    t = generate_llama.build_model(cfg, "", cpu, smoke=True)
     d = generate_llama.build_model(dataclasses.replace(cfg, n_layers=1),
-                                   False, torch.device("cpu"))
+                                   "", cpu, smoke=True)
     td = t.state_dict()
     for k, v in d.state_dict().items():
         assert torch.equal(v, td[k]), k

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax():
                  "ops.zigzag", "ops.ring_attention", "ops.ring_flash",
                  "parallel.ring", "parallel.mesh", "engine.metrics",
                  "engine.tracing", "models.telemetry",
-                 "models.speculative", "generate_llama"):
+                 "models.speculative", "generate_llama", "serve_llama",
+                 "data.loader"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"
@@ -82,8 +83,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
 
 def test_dense_entry_points_default_to_cuda_and_raise_without_it(no_card):
     """generate, speculative_generate, init_cache, dense serve_loop and
-    the generate_llama entry point run on the card unless asked for the
-    CPU, and raise without one."""
+    the generate_llama and serve_llama entry points run on the card unless
+    asked for the CPU, and raise without one."""
     from tf_operator_tpu_torch import generate_llama
     from tf_operator_tpu_torch.models import bridge, llama
     from tf_operator_tpu_torch.models.serving import serve_loop
@@ -103,6 +104,9 @@ def test_dense_entry_points_default_to_cuda_and_raise_without_it(no_card):
         serve_loop(model, prompt, max_new_tokens=2, paged=False)
     with pytest.raises(RuntimeError, match="cuda"):
         generate_llama.main(["--smoke", "--prompt", "hi"])
+    from tf_operator_tpu_torch import serve_llama
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_llama.main(["--smoke", "--prompt", "hi"])
     assert llama.generate(model, prompt, 2, device="cpu").shape == (1, 2)
 
 
@@ -147,6 +151,8 @@ def test_training_entry_points_raise_without_a_card(no_card):
         train_llama.main(["--smoke", "--ring", "--steps", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         next(train_llama.lm_batches(1, 8, 16, seed=0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_llama.token_record_pipeline("unused", 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         bridge.init_params(llama.tiny(n_layers=1), seed=0, train=True)
     meta = torch.empty((1, 8, 2, 4), device="meta")

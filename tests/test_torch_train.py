@@ -416,8 +416,6 @@ def test_train_llama_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--ep", "2"],
                                   ["--ring", "--tp", "2"],
-                                  ["--ckpt-dir", "x"], ["--data-dir", "x"],
-                                  ["--model", "mistral"],
                                   ["--model", "mixtral"]])
 def test_train_llama_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -10,7 +10,8 @@ What is ported so far is the Llama family's paged serving path (slot and
 continuous schedulers, bf16 or int8 weights and KV, speculation, serving
 telemetry), its decoding over dense ring caches (generate,
 speculative_generate, serve_loop(paged=False)) and its training step,
-with attention on one device or split over a sequence ring:
+with attention on one device or split over a sequence ring, checkpointed
+and resumable, over synthetic tokens or record shards:
 
   - models/llama.py           config, rotary, RMSNorm, SwiGLU, GQA
                               attention, the decoder (paged decode, dense
@@ -53,9 +54,13 @@ with attention on one device or split over a sequence ring:
   - parallel/mesh.py          mesh sizing
   - ops/blocked_ce.py         cross-entropy fused with the (tied) head
   - runtime/                  adafactor, train state and step, the
-                              training loop, the profiler
-  - train_llama.py            the training entry point
-  - generate_llama.py         the inference entry point
+                              checkpointer (torch.save, atomic renames,
+                              async), the training loop, the profiler
+  - data/loader.py            the TPUREC01 record format and its reader
+  - train_llama.py            the training entry point (records,
+                              checkpoints, resume)
+  - generate_llama.py         the inference entry point (checkpoints)
+  - serve_llama.py            the serving entry point over serve_loop
 
 Entry points take `device=` and default to "cuda"; without a card they
 raise instead of running on the CPU (device.py).

@@ -11,8 +11,8 @@ train state and profiler:
   - profiler hooks (runtime/profiler.py) + metrics lines on stdout.
 
 `checkpointer` is any object with latest_step(), restore(state),
-save(step, state, wait=False) and wait_until_finished(): the JAX
-package's orbax `Checkpointer` is not ported yet (ROADMAP Queue 1).
+save(step, state, wait=False) and wait_until_finished(), such as
+runtime/train.Checkpointer.
 """
 from __future__ import annotations
 
