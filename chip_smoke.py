@@ -214,6 +214,28 @@ Phases, in order, none of them caught:
               the tensor cores); serve_llama --smoke --ckpt-dir dense,
               --paged (K1) and --paged --int8-kv (K1q), and generate_llama
               --smoke --ckpt-dir: dense = paged = generate tokens.
+ 20. mixtral-parity: mixtral_8x7b at full width (8 experts of 14336,
+              top-2), 2 layers, f32 (TF32 off): the sparse MoE forward
+              (parallel/ep.grouped_moe) equals the dense dispatch on the
+              card within 1e-4; paged serve_loop's greedy tokens and
+              schedule on the card equal the CPU's under the slot and the
+              continuous scheduler (prefill_chunk 16), with int8 KV (K1q)
+              and speculatively (the first layer as the draft).
+ 21. mixtral-serve: mixtral_8x7b at full depth and width with int8
+              weights (the router in f32) drawn and quantized leaf by
+              leaf, bf16 KV, tied: 8 prompts of 64-1024 tokens, 32 new,
+              8 slots, blocks of 16, slot and continuous (chunk 512); K1
+              launches equal layers x model calls, all on the tensor
+              cores; tokens/s, TTFT, TPOT, quantized_bytes, the peak and
+              the share of tokens the two schedulers agree on.
+ 22. mixtral-train: mixtral_8x7b at full width cut to 4 layers (tied,
+              remat, flash attention, f32 masters, adafactor), 1 x 2048,
+              3 steps: losses finite, K2 launched 2 x 4 / 4 / 4 times a
+              step on the tensor cores; step time, tokens/s, MFU over
+              the active FLOPs, the peak.
+ 23. entry-mixtral: train_llama --smoke --model mixtral with a checkpoint,
+              then serve_llama --int8 (dense, and --paged through K1) and
+              generate_llama --int8 from it: equal greedy tokens.
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
@@ -223,8 +245,11 @@ Prints the kernel table as one JSON line, then the device line, and last
 instead builds the kernels and prints where the time goes at full width
 (device time by kernel under torch.profiler, and the device's idle share)
 for one decode block and one prefill segment (bf16, then int8 weights and
-KV), one training step, one ring training step and one mistral_7b
-training step at 1 x 8192.
+KV), one training step, one ring training step, one mistral_7b
+training step at 1 x 8192, and one decode block and one prefill segment
+of mixtral_8x7b at full depth with int8 weights (its elementwise time
+split into the weights' dequantization, the experts' SwiGLU and the
+routing and grouping).
 """
 from __future__ import annotations
 
@@ -3374,8 +3399,9 @@ def ring_entry_phase() -> None:
 ENTRY_PROMPTS = ["hello", "the quick brown fox", "hi"]
 
 
-def _run_main(main, argv) -> str:
-    """main(argv)'s standard output (it must exit 0); echoed to the log."""
+def _run_main(main, argv, tag: str = "entry-ckpt") -> str:
+    """main(argv)'s standard output (it must exit 0); echoed to the log
+    under `tag`."""
     import contextlib
     import io
 
@@ -3384,9 +3410,9 @@ def _run_main(main, argv) -> str:
         rc = main(argv)
     out = buf.getvalue()
     for line in out.splitlines():
-        log(f"[entry-ckpt]   | {line}")
+        log(f"[{tag}]   | {line}")
     if rc != 0:
-        raise AssertionError(f"[entry-ckpt] {argv}: exit {rc}")
+        raise AssertionError(f"[{tag}] {argv}: exit {rc}")
     return out
 
 
@@ -3490,6 +3516,374 @@ def entry_ckpt_phase() -> None:
         f"{json.dumps(launches)}; int8-KV tokens {seen[2]}")
 
 
+# ---------------------------------------------------------- mixtral phases
+# mixtral_8x7b on the card: the parity cut (2 layers, f32), serving at
+# full depth with int8 weights, training at full width cut to 4 layers
+MIX_PARITY_LAYERS, MIX_TRAIN_LAYERS, MIX_TRAIN_STEPS = 2, 4, 3
+MIX_REQUESTS, MIX_NEW, MIX_CHUNK = 8, 32, 512
+
+
+def _k1_line(launches: dict) -> str:
+    return (f"K1 {launches['k1']} ({launches['k1_mma']} on the tensor "
+            f"cores), K1q {launches['k1q']} ({launches['k1q_mma']})")
+
+
+def _k1_counts() -> dict:
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    torch.cuda.synchronize()
+    return {"k1": pa.launches, "k1_mma": pa.launches_mma,
+            "k1q": pa.launches_int8, "k1q_mma": pa.launches_int8_mma}
+
+
+def mixtral_parity_phase() -> dict:
+    """mixtral_8x7b at full width (8 experts of 14336, top-2), 2 layers,
+    f32 (TF32 off), seeded weights on the card and their copy on the
+    CPU: the sparse MoE forward (parallel/ep.grouped_moe) equals the
+    dense dispatch (dense_switch_dispatch) on the card within 1e-4, at
+    prefill and at a decode step; then paged serve_loop on the card (K1,
+    K1q) gives the CPU's greedy tokens and schedule under the slot
+    scheduler, the continuous one (prefill_chunk 16), with int8 KV, and
+    speculatively with the first layer as the draft (accepted/proposed
+    drafts too); continuous gives slot's tokens."""
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.parallel import ep
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.mixtral_8x7b(n_layers=MIX_PARITY_LAYERS, dtype=torch.float32)
+    params = bridge.init_params(cfg, SEED + 51, device="cuda")
+    m_gpu = llama.Llama.from_params(cfg, params, device="cuda")
+    m_cpu = llama.Llama.from_params(
+        cfg, {k: v.cpu() for k, v in params.items()}, device="cpu")
+    del params
+    d_gpu, d_cpu = early_exit_draft(m_gpu, 1), early_exit_draft(m_cpu, 1)
+
+    # the sparse forward against the dense dispatch, same inputs, on the card
+    moe = m_gpu.blocks[0].moe
+    g = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    errs = {}
+    with torch.inference_mode():
+        for label, shape in (("prefill", (1, 64)), ("decode", (8, 1))):
+            x = torch.randn(*shape, cfg.d_model, generator=g, device="cuda")
+            logits = x @ moe.router
+            want, aux_want = ep.dense_switch_dispatch(
+                x, logits, moe.wi, moe.wo, activation="swiglu",
+                dtype=cfg.dtype, top_k=cfg.moe_top_k)
+            got, aux = ep.grouped_moe(x, logits, moe.wi, moe.wo,
+                                      top_k=cfg.moe_top_k, dtype=cfg.dtype)
+            errs[label] = (float((got - want).abs().max()),
+                           float((aux - aux_want).abs()))
+    log(f"[mixtral-parity] grouped (sparse) MoE vs dense_switch_dispatch on "
+        f"cuda, f32, max abs err (out, aux): {json.dumps(errs)} (limit 1e-4)")
+    if not all(o <= 1e-4 and a <= 1e-4 for o, a in errs.values()):
+        raise AssertionError(f"[mixtral-parity] sparse != dense: {errs}")
+
+    prompts = prompts_for(cfg, 3, 16, 48, SEED + 53)
+    kw = dict(slots=2, max_new_tokens=[8, 12, 6], block_size=BS,
+              steps_per_sync=4)
+    sched = lambda rs: [(r.tokens, r.admitted_at_step, r.finished_at_step,
+                         r.slot, r.accepted_drafts, r.proposed_drafts)
+                        for r in rs]
+    runs, launches = {}, {}
+    for tag, extra in (("slot", {}),
+                       ("continuous", dict(scheduler="continuous",
+                                           prefill_chunk=16)),
+                       ("int8-kv", dict(kv_quant=True)),
+                       ("speculative", dict(spec_k=3))):
+        spec = "spec_k" in extra
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        got = serve_loop(m_gpu, prompts, device="cuda",
+                         draft=d_gpu if spec else None, **kw, **extra)
+        launches[tag] = _k1_counts()
+        t1 = time.perf_counter()
+        want = serve_loop(m_cpu, prompts, device="cpu",
+                          draft=d_cpu if spec else None, **kw, **extra)
+        t2 = time.perf_counter()
+        if sched(got) != sched(want):
+            raise AssertionError(f"[mixtral-parity] ({tag}) cuda "
+                                 f"{sched(got)} != cpu {sched(want)}")
+        runs[tag] = got
+        log(f"[mixtral-parity] ({tag}) tokens and schedule identical on "
+            f"cuda and cpu: {[r.tokens for r in got]}; "
+            f"{_k1_line(launches[tag])}; cuda {t1 - t0:.1f} s, cpu "
+            f"{t2 - t1:.1f} s")
+    if [r.tokens for r in runs["continuous"]] != \
+            [r.tokens for r in runs["slot"]]:
+        raise AssertionError("[mixtral-parity] continuous tokens differ from "
+                             "slot tokens")
+    if not (launches["slot"]["k1"] > 0 and launches["int8-kv"]["k1q"] > 0
+            and launches["int8-kv"]["k1"] == 0):
+        raise AssertionError(f"[mixtral-parity] launches {launches}")
+    acc = [(r.accepted_drafts, r.proposed_drafts) for r in runs["speculative"]]
+    log(f"[mixtral-parity] 2 layers f32 at full width: every run identical "
+        f"on cuda and cpu, continuous == slot; speculative drafts "
+        f"accepted/proposed {acc}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del m_gpu, m_cpu, d_gpu, d_cpu, moe
+    torch.cuda.empty_cache()
+    return dict(launches=sum(v["k1"] for v in launches.values()),
+                launches_int8=launches["int8-kv"]["k1q"])
+
+
+def mixtral_serve_model():
+    """mixtral_8x7b at full depth and width, tied, int8 weights (the
+    router in f32) drawn and quantized leaf by leaf on the card
+    (bridge.init_int8_params: quantize_params of init_params(train=True)
+    without the 186 GB f32 tree); returns (model, quantized_bytes, the
+    build's seconds and memory peak)."""
+    from tf_operator_tpu_torch.models import bridge, llama, quant
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.mixtral_8x7b(tie_embeddings=True)
+    t0 = time.perf_counter()
+    params = bridge.init_int8_params(cfg, SEED, device="cuda")
+    qbytes = quant.quantized_bytes(params)
+    model = llama.Llama.from_params(cfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    return model, qbytes, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+
+
+def mixtral_serve_phase() -> dict:
+    """mixtral_8x7b at full depth (32 layers) and width, int8 weights,
+    bf16 KV, tied: 8 prompts of 64-1024 tokens, 32 new each, greedy, 8
+    slots, blocks of 16, under the slot scheduler and the continuous one
+    (prefill_chunk 512).  K1 launches equal layers x model calls in each
+    run, all on the tensor cores.  Prints tokens/s, TTFT p50/p99, TPOT,
+    quantized_bytes, the memory peak, and the share of tokens on which
+    the two schedulers agree (bf16 routing near ties may flip; equality
+    is asserted in mixtral-parity)."""
+    from tf_operator_tpu_torch.models.serving import serve_loop
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    model, qbytes, t_build, build_peak = mixtral_serve_model()
+    cfg = model.cfg
+    log(f"[mixtral-serve] mixtral_8x7b {cfg.n_layers} layers, "
+        f"{cfg.n_experts} experts of {cfg.d_ff}, top-{cfg.moe_top_k}, int8 "
+        f"weights drawn and quantized leaf by leaf in {t_build:.1f} s (peak "
+        f"{build_peak / 2**30:.3f} GiB); quantized_bytes {qbytes} "
+        f"({qbytes / 2**30:.3f} GiB), resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; compute "
+        f"{cfg.dtype}, KV bf16")
+    prompts = prompts_for(cfg, MIX_REQUESTS, 64, MAX_CTX, SEED + 54)
+    kw = dict(slots=8, block_size=BS, steps_per_sync=8, device="cuda",
+              max_new_tokens=MIX_NEW)
+    serve_loop(model, [p[:64] for p in prompts[:2]], **dict(
+        kw, max_new_tokens=4))                       # warm-up
+    calls = [0]
+    hook = model.register_forward_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    out = {}
+    try:
+        for sched, extra in (("slot", {}),
+                             ("continuous", dict(scheduler="continuous",
+                                                 prefill_chunk=MIX_CHUNK))):
+            calls[0] = 0
+            torch.cuda.reset_peak_memory_stats()
+            pa.reset_launches()
+            results, stats = serve_loop(model, prompts, return_stats=True,
+                                        **kw, **extra)
+            k = _k1_counts()
+            peak = torch.cuda.max_memory_allocated()
+            if not (k["k1"] == cfg.n_layers * calls[0] > 0
+                    and k["k1_mma"] == k["k1"] and k["k1q"] == 0):
+                raise AssertionError(
+                    f"[mixtral-serve] ({sched}) {_k1_line(k)} for "
+                    f"{calls[0]} model calls x {cfg.n_layers} layers")
+            for i, r in enumerate(results):
+                if len(r.tokens) != MIX_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in r.tokens):
+                    raise AssertionError(f"[mixtral-serve] ({sched}) request "
+                                         f"{i}: tokens {r.tokens}")
+            p50, p99 = ttft_pcts(stats)
+            log(f"[mixtral-serve] ({sched}) tokens={stats.total_tokens} "
+                f"wall_s={stats.wall_time_s:.4f} "
+                f"tokens_per_s={stats.tokens_per_sec:.2f} "
+                f"ttft_p50_s={p50:.4f} ttft_p99_s={p99:.4f} "
+                f"prefill_s={stats.prefill_time_s:.4f} "
+                f"decode_s={stats.decode_time_s:.4f} model_calls={calls[0]} "
+                f"k1_launches={k['k1']} tensor_core_launches={k['k1_mma']} "
+                f"quantized_bytes={qbytes} "
+                f"max_memory_allocated_gib={peak / 2**30:.3f}")
+            log(f"[mixtral-serve] ({sched}) telemetry: {tel_line(stats)}")
+            out[sched] = (results, k["k1"])
+    finally:
+        hook.remove()
+    a, b = ([r.tokens for r in out[s][0]] for s in ("slot", "continuous"))
+    same = sum(x == y for ta, tb in zip(a, b) for x, y in zip(ta, tb))
+    log(f"[mixtral-serve] slot and continuous agree on {same} of "
+        f"{sum(map(len, a))} tokens ({same / sum(map(len, a)):.4f}); prompts "
+        f"{[int(p.shape[0]) for p in prompts]}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=out["slot"][1] + out["continuous"][1])
+
+
+def mixtral_train_phase() -> dict:
+    """mixtral_8x7b at full width cut to 4 layers as train_llama builds it
+    (tied, remat, flash attention, blocked CE with the routers' aux
+    loss), f32 masters, bf16 compute, adafactor, batch 1 x 2048, 3 steps
+    through run_training: every loss finite, the first within 1.5 of
+    ln(vocab); K2f launched 2 x 4 times a step, K2q and K2kv 4 times, all
+    on the tensor cores.  Step seconds, tokens/s, MFU over the active
+    FLOPs (router + top-2 experts: params_flops_per_token) and the
+    memory peak."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.models.llama import params_flops_per_token
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.mixtral_8x7b(n_layers=MIX_TRAIN_LAYERS, tie_embeddings=True,
+                             remat=True, attention_fn=flash_attention)
+    t0 = time.perf_counter()
+    model, state, step = train_model(cfg, SEED + 55)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[mixtral-train] mixtral_8x7b tied, remat, flash attention, "
+        f"{cfg.n_layers} layers of {cfg.n_experts} experts (top-"
+        f"{cfg.moe_top_k}), {n_params / 1e9:.4f} B f32 master params in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB); compute "
+        f"{cfg.dtype}; batch {TB} x {TS}")
+    losses, times = [], []
+
+    def timed_step(state, tokens):
+        t = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 56,
+                                     device="cuda")
+    fa.reset_launches()
+    res = run_training(state, timed_step, batches,
+                       num_steps=MIX_TRAIN_STEPS,
+                       profiler=Profiler(batch_size=TB), log_interval_steps=1,
+                       metrics_sink=lambda line: log(f"[mixtral-train] "
+                                                     f"metrics {line}"))
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    aux = [float(b.moe.aux_loss.detach()) for b in model.blocks]
+    del model, state, step, res
+    torch.cuda.empty_cache()
+    if len(losses) != MIX_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[mixtral-train] losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"[mixtral-train] first loss {losses[0]} is not "
+                             f"within 1.5 of ln({cfg.vocab_size})")
+    n = cfg.n_layers * MIX_TRAIN_STEPS
+    want = {"flash_fwd": 2 * n, "flash_fwd_mma": 2 * n, "flash_dq": n,
+            "flash_dq_mma": n, "flash_dkv": n, "flash_dkv_mma": n}
+    if launches != want:
+        raise AssertionError(f"[mixtral-train] kernel launches {launches}, "
+                             f"expected {want}")
+    steady = sorted(times[1:])
+    step_s = steady[len(steady) // 2]
+    tokens_per_s = TB * TS / step_s
+    mfu = tokens_per_s * params_flops_per_token(cfg) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    log(f"[mixtral-train] losses {[round(x, 4) for x in losses]} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}); last aux losses "
+        f"{[round(x, 4) for x in aux]}; step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{MIX_TRAIN_STEPS}) {step_s:.4f}, tokens_per_s "
+        f"{tokens_per_s:.2f}, mfu {mfu:.4f} (active FLOPs), "
+        f"max_memory_allocated_gib {peak / 2**30:.3f}, kernel_launches "
+        f"{json.dumps(launches)}")
+    return dict(launches=launches, losses=losses)
+
+
+def entry_mixtral_phase() -> dict:
+    """The CLIs with --model mixtral on the card: train_llama --smoke
+    (4 experts, top-2, in every block) for 2 steps with a checkpoint;
+    serve_llama --smoke --model mixtral --ckpt-dir --int8, dense and
+    --paged (K1), and generate_llama --smoke --model mixtral --ckpt-dir
+    --int8 on each prompt: greedy tokens equal across dense, paged and
+    generate."""
+    import shutil
+    import tempfile
+
+    from tf_operator_tpu_torch import generate_llama, serve_llama, train_llama
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mixtral_")
+    try:
+        fa.reset_launches()
+        out = _run_main(train_llama.main, [
+            "--smoke", "--model", "mixtral", "--ckpt-dir", root,
+            "--save-interval", "1", "--steps", "2", "--seq-len", "64"],
+            "entry-mixtral")
+        torch.cuda.synchronize()
+        k2 = dict(fa.launches)
+        want = {n: 4 for n in fa.launches}   # 2 layers x 2 steps, bf16
+        if "model mixtral (smoke)" not in out or "complete: steps=2" \
+                not in out or k2 != want:
+            raise AssertionError(f"[entry-mixtral] train: K2 {k2}, "
+                                 f"expected {want}")
+        seen = []
+        inner = serve_llama.serve_loop
+
+        def recording(*a, **kw):
+            res = inner(*a, **kw)
+            seen.append([[int(t) for t in r.tokens] for r in res])
+            return res
+
+        serve_llama.serve_loop = recording
+        base = ["--smoke", "--model", "mixtral", "--ckpt-dir", root,
+                "--int8", "--max-new", "16"]
+        launches = {}
+        try:
+            for label, extra in (("dense", []),
+                                 ("paged", ["--paged", "--block-size",
+                                            "16"])):
+                pa.reset_launches()
+                out = _run_main(serve_llama.main, base + [
+                    "--slots", "2"] + extra + [
+                        a for p in ENTRY_PROMPTS for a in ("--prompt", p)],
+                    "entry-mixtral")
+                launches[label] = _k1_counts()
+                if "restored step 2 from" not in out or \
+                        "weights: int8" not in out:
+                    raise AssertionError(f"[entry-mixtral] serve {label}")
+        finally:
+            serve_llama.serve_loop = inner
+        gen = []
+        for p in ENTRY_PROMPTS:
+            out = _run_main(generate_llama.main, base + ["--prompt", p],
+                            "entry-mixtral")
+            line = [l for l in out.splitlines() if l.startswith("tokens: ")]
+            gen.append(json.loads(line[-1][len("tokens: "):]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    dense, paged = seen
+    same = all(g[:len(d)] == d for g, d in zip(gen, dense))
+    if (dense != paged or not same or launches["dense"]["k1"] != 0
+            or launches["paged"]["k1"] == 0):
+        raise AssertionError(f"[entry-mixtral] dense {dense}, paged {paged}, "
+                             f"generate {gen}; launches {launches}")
+    log(f"[entry-mixtral] train_llama --smoke --model mixtral K2 "
+        f"{json.dumps(k2)}; serve_llama --int8 dense = paged = "
+        f"generate_llama tokens {dense}; paged {_k1_line(launches['paged'])}")
+    return dict(launches=launches["paged"]["k1"])
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
@@ -3509,9 +3903,14 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _profile(fn, label: str, steps: int) -> None:
+def _profile(fn, label: str, steps: int, ranges=()) -> None:
     """Device time of fn() by kernel under torch.profiler, per step, and
-    the device's idle share of the host-clock window."""
+    the device's idle share of the host-clock window.  `ranges`: names of
+    record_function ranges (see _annotated), which the profiler also
+    marks on the device's timeline; a kernel the name table calls "other"
+    goes to the innermost such range whose device interval holds it."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3528,12 +3927,31 @@ def _profile(fn, label: str, steps: int) -> None:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, by_class = {}, {}
+    spans = {r: [] for r in ranges}
+    others = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        us = e.time_range.elapsed_us()
+        t = e.time_range
+        if e.name in spans:   # a range's mark on the device, no kernel
+            spans[e.name].append((t.start, t.end))
+            continue
+        us = t.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         cls = _kernel_class(e.name)
+        if cls == "other" and ranges:
+            others.append((t.start, t.end, us))
+            continue
+        by_class[cls] = by_class.get(cls, 0.0) + us
+    for r in spans:
+        spans[r].sort()
+    for start, end, us in others:
+        best, cls = None, "other"
+        for r, iv in spans.items():   # one range's marks never overlap
+            i = bisect.bisect_right(iv, (start, float("inf"))) - 1
+            if i >= 0 and iv[i][1] >= end and (
+                    best is None or iv[i][1] - iv[i][0] < best):
+                best, cls = iv[i][1] - iv[i][0], r
         by_class[cls] = by_class.get(cls, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     # the profiler slows the host side, not the kernels: the idle share
@@ -3580,6 +3998,72 @@ def profile_phase(int8: bool = False) -> None:
         _profile(lambda: serving.chunk_fill(model, cache, segment, 0,
                                             table[:1]),
                  f"{tag}prefill 1 lane x {ctx} tokens", 1)
+
+
+@contextlib.contextmanager
+def _annotated(patches):
+    """Wrap each (module, function name, label) in a record_function range
+    of that label for the span of the block (the profile's attribution of
+    elementwise kernels to the step's parts); the functions are put back
+    after."""
+    saved = []
+    for mod, name, label in patches:
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield [label for _, _, label in patches]
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_mixtral_phase() -> None:
+    """Where an int8 Mixtral serving step's time goes: mixtral_8x7b at
+    full depth and width with int8 weights (mixtral_serve_model), one
+    8-step decode block for 8 lanes at 512 positions and one 512-token
+    prefill segment under torch.profiler; elementwise kernels split into
+    the weights' dequantization (dense projections and routed experts),
+    the experts' SwiGLU and the MoE routing and grouping (softmax, top-k,
+    sort, gathers, index_add_)."""
+    from tf_operator_tpu_torch.models import llama, paging, serving
+    from tf_operator_tpu_torch.parallel import ep
+
+    model, qbytes, _, _ = mixtral_serve_model()
+    cfg = model.cfg
+    lanes, ctx, steps = 8, 512, 8
+    per_lane = paging.blocks_for(ctx + steps, BS)
+    cache = paging.init_block_pool(cfg, lanes * per_lane, BS, device="cuda")
+    table = (torch.arange(lanes * per_lane, dtype=torch.int32,
+                          device="cuda").view(lanes, per_lane) + 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 57)
+    tok = torch.randint(0, cfg.vocab_size, (lanes,), device="cuda",
+                        generator=g)
+    pos = torch.full((lanes,), ctx, dtype=torch.int32, device="cuda")
+    frozen = torch.zeros(lanes, dtype=torch.bool, device="cuda")
+    greedy = lambda logits: torch.argmax(logits, dim=-1)
+    segment = torch.randint(0, cfg.vocab_size, (1, ctx), device="cuda",
+                            generator=g)
+    patches = [(ep, "grouped_moe", "moe routing and grouping"),
+               (ep, "_expert_ffn", "moe expert swiglu"),
+               (ep, "_expert", "dequantize (experts)"),
+               (llama, "_dense", "dequantize (dense weights)")]
+    log(f"[profile] mixtral_8x7b int8: quantized_bytes {qbytes}")
+    with torch.inference_mode(), _annotated(patches) as ranges:
+        _profile(lambda: serving.decode_block(model, cache, tok, pos, frozen,
+                                              table, steps, greedy),
+                 f"mixtral int8 decode {lanes} lanes x ctx {ctx}", steps,
+                 ranges)
+        _profile(lambda: serving.chunk_fill(model, cache, segment, 0,
+                                            table[:1]),
+                 f"mixtral int8 prefill 1 lane x {ctx} tokens", 1, ranges)
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 def profile_train_phase(ring: bool = False, mistral: bool = False) -> None:
@@ -3634,6 +4118,7 @@ def main() -> int:
         profile_train_phase()
         profile_train_phase(ring=True)
         profile_train_phase(mistral=True)
+        profile_mixtral_phase()
         return 0
     t_lap = [time.perf_counter()]
 
@@ -3673,6 +4158,12 @@ def main() -> int:
     lap("ring-parity", ring_parity_phase())
     lap("entry", ring_entry_phase())
     lap("entry-ckpt", entry_ckpt_phase())
+    # Mixtral: every llama model above is freed; the card starts empty
+    torch.cuda.empty_cache()
+    lap("mixtral-parity", mixtral_parity_phase())
+    lap("mixtral-serve", mixtral_serve_phase())
+    lap("mixtral-train", mixtral_train_phase())
+    lap("entry-mixtral", entry_mixtral_phase())
 
     def paged_row(name, line, kern, launches, verify=False):
         """K1's or K1q's row: decode times, prefill times beside them;

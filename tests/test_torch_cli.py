@@ -202,15 +202,31 @@ def test_serve_llama_refuses_tpu_read_paths(kernel):
 @pytest.mark.parametrize("argv,exc,match", [
     ([], SystemExit, "no requests: pass --prompt"),
     (["--prompt", "hi", "--no-smoke"], SystemExit, "no weights: pass"),
-    (["--prompt", "hi", "--hf-dir", "x"], NotImplementedError, "item 10"),
-    (["--prompt", "hi", "--model", "mixtral"], NotImplementedError,
-     "item 10"),
+    (["--prompt", "hi", "--hf-dir", "x"], OSError, "from_pretrained"),
+    (["--prompt", "hi", "--model", "mixtral"], None, "1 requests, "),
 ])
-def test_serve_llama_refusals(argv, exc, match):
+def test_serve_llama_refusals(argv, exc, match, capsys):
+    """JAX's words for what it refuses; a missing --hf-dir raises what
+    transformers' from_pretrained(local_files_only=True) raises, and
+    --model mixtral (smoke: 4 experts, top-2) serves."""
     smoke = ["--smoke"] if "--no-smoke" not in argv else []
-    argv = [a for a in argv if a != "--no-smoke"]
+    argv = smoke + ["--device", "cpu"] + [a for a in argv
+                                          if a != "--no-smoke"]
+    if exc is None:
+        assert serve_llama.main(argv) == 0
+        assert match in capsys.readouterr().out
+        return
+    if exc is OSError:
+        transformers = pytest.importorskip("transformers")
+        with pytest.raises(OSError) as want:
+            transformers.AutoConfig.from_pretrained("x",
+                                                    local_files_only=True)
+        with pytest.raises(OSError) as got:
+            serve_llama.main(argv)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(exc, match=match):
-        serve_llama.main(smoke + ["--device", "cpu"] + argv)
+        serve_llama.main(argv)
 
 
 def test_checkpoint_loaders_refuse_an_empty_directory(tmp_path):

@@ -509,14 +509,33 @@ def test_generate_llama_smoke_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--hf-dir", "x"], NotImplementedError, "item 10"),
-    (["--tokenizer", "x"], NotImplementedError, "item 10"),
-    (["--model", "mixtral"], NotImplementedError, "item 10"),
+    (["--hf-dir", "x"], OSError, "from_pretrained"),
+    (["--tokenizer", "x"], SystemExit,
+     "--tokenizer must be 'byte' or a local tokenizer directory, got 'x'"),
+    (["--model", "mixtral"], None, "tokens: "),
 ])
-def test_generate_llama_refusals_name_their_items(argv, exc, match):
+def test_generate_llama_refusals_name_their_items(argv, exc, match, capsys):
+    """What the JAX script does with each flag: a missing --hf-dir raises
+    what transformers' from_pretrained(local_files_only=True) raises, an
+    unknown --tokenizer JAX's SystemExit, and --model mixtral (smoke: the
+    tiny model with 4 experts, top-2) decodes."""
+    argv = ["--smoke", "--device", "cpu", "--prompt", "hi"] + argv
+    if exc is None:
+        assert generate_llama.main(argv) == 0
+        assert match in capsys.readouterr().out
+        return
+    if exc is OSError:
+        transformers = pytest.importorskip("transformers")
+        with pytest.raises(OSError) as want:
+            transformers.AutoConfig.from_pretrained("x",
+                                                    local_files_only=True)
+        with pytest.raises(OSError) as got:
+            generate_llama.main(argv)
+        assert type(got.value) is type(want.value)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(exc, match=match):
-        generate_llama.main(["--smoke", "--device", "cpu", "--prompt", "hi"]
-                            + argv)
+        generate_llama.main(argv)
 
 
 def test_generate_llama_without_weights_and_the_tokenizer():

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
                  "parallel.ring", "parallel.mesh", "engine.metrics",
                  "engine.tracing", "models.telemetry",
                  "models.speculative", "generate_llama", "serve_llama",
-                 "data.loader"):
+                 "data.loader", "data.tokenize", "models.convert",
+                 "parallel.ep"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

@@ -3,9 +3,13 @@ card (or the CPU).
 
 The port of examples/llama/generate_llama.py.  Weights come from a
 training checkpoint (--ckpt-dir: runtime/train.Checkpointer, as
-train_llama saves it; only the parameters are read) or, with --smoke
-alone, from a seed (models/bridge.init_params).  The prompt is tokenized
-with the byte tokenizer and decoded over dense ring caches by
+train_llama saves it; only the parameters are read), from a local
+Hugging Face LlamaForCausalLM or MixtralForCausalLM directory (--hf-dir:
+its config through models/convert.config_from_hf, its weights through
+import_hf_llama) or, with --smoke alone, from a seed
+(models/bridge.init_params).  The prompt is tokenized with the byte
+tokenizer or a local tokenizer directory (--tokenizer,
+data/tokenize.load_tokenizer) and decoded over dense ring caches by
 llama.generate, or, with --draft-layers / --draft-ckpt-dir, by
 speculative.speculative_generate (greedy tokens equal plain decoding).
 --int8 serves int8 weights (quantized from the f32 parameters after the
@@ -15,79 +19,75 @@ torch.Generator seeded by --seed; --prefill-chunk streams the prompt.
     python -m tf_operator_tpu_torch.generate_llama --smoke --device cpu --prompt hi
     python -m tf_operator_tpu_torch.generate_llama --smoke --prompt hello --max-new 16 --draft-layers 1
     python -m tf_operator_tpu_torch.generate_llama --smoke --ckpt-dir C --prompt hi
+    python -m tf_operator_tpu_torch.generate_llama --device cpu --hf-dir D --tokenizer D --prompt hi
 
 `resolve_config`, `load_params` and `build_draft` are shared with the
 serving CLI (serve_llama.py), as the JAX package's two scripts share
-them.  Hugging Face directories and tokenizers, and the mixtral preset,
-are not ported yet; each raises NotImplementedError naming its ROADMAP
-item.
+them.  One difference: --smoke --model mixtral is the tiny model with
+train_llama's smoke experts (4, top-2, in every block), so that a
+checkpoint of `train_llama --smoke --model mixtral` serves; the JAX
+script's --smoke ignores --model.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
-from typing import Iterable, List
 
 import torch
 
+from tf_operator_tpu_torch.data.tokenize import (  # noqa: F401
+    ByteTokenizer, load_tokenizer)
 from tf_operator_tpu_torch.device import resolve_device
-from tf_operator_tpu_torch.models import bridge, llama, quant
+from tf_operator_tpu_torch.models import bridge, convert, llama, quant
 from tf_operator_tpu_torch.models.speculative import speculative_generate
 from tf_operator_tpu_torch.runtime.train import Checkpointer
+from tf_operator_tpu_torch.train_llama import SMOKE_MOE
 
 NO_WEIGHTS = ("no weights: pass --ckpt-dir, --hf-dir, or --smoke "
               "(random tiny weights, testing only)")
-_NOT_PORTED = {
-    "hf_dir": "ROADMAP Queue 1 item 10 (Hugging Face checkpoints)",
-    "tokenizer": "ROADMAP Queue 1 item 10 (Hugging Face tokenizers)",
-    "mixtral": "ROADMAP Queue 1 item 10 (mixtral preset)",
-}
-
-
-class ByteTokenizer:
-    """Reversible byte-level tokenizer: token i is byte i.  NUL (0)
-    doubles as EOS: it never occurs in text, so the vocabulary stays
-    exactly 256 (a copy of the JAX package's data.tokenize.ByteTokenizer)."""
-
-    vocab_size = 256
-    eos_id = 0
-
-    def encode(self, text: str) -> List[int]:
-        return [b or 32 for b in text.encode("utf-8")]  # NUL -> space
-
-    def decode(self, ids: Iterable[int]) -> str:
-        return bytes(i for i in ids if i > 0).decode("utf-8", "replace")
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag the port does not take yet."""
-    for flag, on in (("hf_dir", bool(args.hf_dir)),
-                     ("tokenizer", args.tokenizer != "byte"),
-                     ("mixtral", args.model == "mixtral")):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
 
 
 def resolve_config(args) -> llama.LlamaConfig:
-    """The preset (tied embeddings, as the JAX script builds it), or the
-    tiny f32 model of --smoke — shared with serve_llama."""
-    if args.smoke:
-        return llama.tiny(tie_embeddings=True, dtype=torch.float32,
-                          max_len=256)
+    """The preset (tied embeddings, as the JAX script builds it), the
+    tiny f32 model of --smoke (with train_llama's smoke experts for
+    --model mixtral), or the config of a local Hugging Face directory
+    (--hf-dir, which overrides both) — shared with serve_llama."""
     presets = {"llama3": llama.llama3_8b, "llama31": llama.llama31_8b,
-               "mistral": llama.mistral_7b}
-    return presets[args.model](tie_embeddings=True)
+               "mistral": llama.mistral_7b, "mixtral": llama.mixtral_8x7b}
+    if args.smoke:
+        moe = SMOKE_MOE if args.model == "mixtral" else {}
+        cfg = llama.tiny(tie_embeddings=True, dtype=torch.float32,
+                         max_len=256, **moe)
+    else:
+        cfg = presets[args.model](tie_embeddings=True)
+    if args.hf_dir:
+        import transformers
+
+        cfg = convert.config_from_hf(transformers.AutoConfig.from_pretrained(
+            args.hf_dir, local_files_only=True))
+    return cfg
 
 
 def load_params(cfg: llama.LlamaConfig, ckpt_dir: str, dev: torch.device,
-                smoke: bool = False, int8: bool = False) -> dict:
-    """The model's parameters from a training checkpoint's newest step, or
-    random ones from seed 0 (--smoke ONLY: decoding an 8B model from
-    fresh random weights is never what a user without a checkpoint flag
-    meant), in the serving storage dtypes on `dev`; int8=True quantizes
-    the f32 parameters after the load (quant.quantize_params)."""
+                smoke: bool = False, int8: bool = False,
+                hf_dir: str = "") -> dict:
+    """The model's parameters from a local Hugging Face directory, a
+    training checkpoint's newest step, or random ones from seed 0
+    (--smoke ONLY: decoding an 8B model from fresh random weights is
+    never what a user without a checkpoint flag meant), in the serving
+    storage dtypes on `dev`; int8=True quantizes the f32 parameters after
+    the load (quant.quantize_params)."""
+    if hf_dir:
+        import transformers
+
+        hf = transformers.AutoModelForCausalLM.from_pretrained(
+            hf_dir, local_files_only=True)
+        params = {k: v.to(dev) for k, v in convert.params_from_hf(
+            hf.state_dict(), cfg, train=int8).items()}
+        del hf
+        print(f"imported {cfg.n_layers} layers from {hf_dir}")
+        return quant.quantize_params(params) if int8 else params
     if not ckpt_dir and not smoke:
         raise SystemExit(NO_WEIGHTS)
     if ckpt_dir:
@@ -107,10 +107,12 @@ def load_params(cfg: llama.LlamaConfig, ckpt_dir: str, dev: torch.device,
 
 
 def build_model(cfg: llama.LlamaConfig, ckpt_dir: str, dev: torch.device,
-                smoke: bool = False, int8: bool = False) -> llama.Llama:
+                smoke: bool = False, int8: bool = False,
+                hf_dir: str = "") -> llama.Llama:
     """A serving Llama around load_params' weights."""
     return llama.Llama.from_params(
-        cfg, load_params(cfg, ckpt_dir, dev, smoke=smoke, int8=int8),
+        cfg, load_params(cfg, ckpt_dir, dev, smoke=smoke, int8=int8,
+                         hf_dir=hf_dir),
         device=dev)
 
 
@@ -134,8 +136,10 @@ def main(argv=None) -> int:
                     choices=["llama3", "llama31", "mistral", "mixtral"])
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory from train_llama")
-    ap.add_argument("--hf-dir", default="")
-    ap.add_argument("--tokenizer", default="byte")
+    ap.add_argument("--hf-dir", default="",
+                    help="LOCAL Hugging Face checkpoint directory")
+    ap.add_argument("--tokenizer", default="byte",
+                    help="'byte' or a local HF tokenizer directory")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -159,18 +163,17 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    check_ported(args)
     dev = resolve_device(args.device)
     cfg = resolve_config(args)
     model = build_model(cfg, args.ckpt_dir, dev, smoke=args.smoke,
-                        int8=args.int8)
+                        int8=args.int8, hf_dir=args.hf_dir)
     xform = quant.make_dequantizer(cfg.dtype) if args.int8 else None
     if args.int8:
         print("weights: int8 + per-channel scales")
     if args.int8_kv:
         print("kv cache: int8 + per-head scales")
 
-    tok = ByteTokenizer()
+    tok = load_tokenizer(args.tokenizer)
     ids = tok.encode(args.prompt)
     if not ids:
         raise SystemExit("empty prompt after tokenization")

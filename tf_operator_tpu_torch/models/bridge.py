@@ -8,8 +8,11 @@ the map is a rename plus the storage dtype.  For serving: cfg.dtype for
 the embedding and every projection (flax's DenseGeneral(dtype=...) casts
 its f32 kernel to that before each product, so casting once gives the
 same bits), f32 for the RMSNorm scales and the lm_head (flax runs it as
-an f32 Dense).  For training (`train=True`): every parameter in f32, the
-master weights flax's `model.init` holds.  A tied tree
+an f32 Dense).  A sparse block's `moe` subtree (the f32 router kernel,
+the raw expert matrices wi and wo) maps to `blocks.{i}.moe.{router,wi,
+wo}`: the router stays f32, as flax's Dense(dtype=f32) runs it, and the
+experts take cfg.dtype.  For training (`train=True`): every parameter
+in f32, the master weights flax's `model.init` holds.  A tied tree
 (cfg.tie_embeddings) has no lm_head: the head is the embedding.  A
 quantized tree (the JAX package's quant.quantize_params: leaves that
 carry an int8 `q` and an f32 `scale`) bridges to models/quant.QTensor
@@ -19,20 +22,29 @@ an int8-weight model from it.
 `init_params(cfg, seed, device)` draws the same state dict on the device
 with flax's default initializers — truncated-normal lecun (variance
 1/fan_in) for every projection, normal(1/sqrt(d_model)) for the
-embedding, ones for the norm scales — so a full-depth bf16 model of
-random weights keeps finite activations through all its layers.  The
+embedding, ones for the norm scales; the fan-in of a raw [X, D, 2F] or
+[X, F, D] expert parameter is X·D or X·F, as flax's variance scaling
+folds the leading axis into the receptive field — so a full-depth bf16
+model of random weights keeps finite activations through all its
+layers.  The
 draws come from a torch.Generator seeded with `seed`: the same seed gives
 the same weights on the same device, not the JAX package's weights.
+`init_int8_params(cfg, seed, device)` gives
+quant.quantize_params(init_params(cfg, seed, device, train=True)), bit
+for bit, drawing and quantizing one leaf at a time: a model whose f32
+tree does not fit the card (mixtral_8x7b's is 186 GB) is built in int8
+without it.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Union
+from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.llama import Llama, LlamaConfig
 from tf_operator_tpu_torch.models.quant import QTensor
 
@@ -44,14 +56,13 @@ _TRUNC_STD = 0.87962566103423978
 def params_from_jax(cfg: LlamaConfig, tree: Mapping,
                     train: bool = False) -> Dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors) from a flax Llama param tree
-    of numpy arrays, in serving storage dtypes or (train=True) all f32.
-    Raises KeyError naming the missing flax path for trees the port does
-    not take (MoE blocks)."""
+    of numpy arrays, in serving storage dtypes or (train=True) all f32."""
     def t(a, dtype):
         if hasattr(a, "q") and hasattr(a, "scale"):  # a quantized leaf
             return QTensor(q=torch.tensor(np.asarray(a.q)),
                            scale=torch.tensor(np.asarray(a.scale)))
-        return torch.tensor(a).to(dtype)  # a copy: flax arrays are read-only
+        # a contiguous copy: flax arrays are read-only, imported ones views
+        return torch.tensor(np.ascontiguousarray(a)).to(dtype)
 
     f32 = torch.float32
     dt = f32 if train else cfg.dtype
@@ -65,14 +76,47 @@ def params_from_jax(cfg: LlamaConfig, tree: Mapping,
         sd[p + "ln2.scale"] = t(blk["ln2"]["scale"], f32)
         for name in ("wq", "wkv", "out"):
             sd[p + "attn." + name] = t(blk["attn"][name]["kernel"], dt)
-        for name in ("wi", "wo"):
-            sd[p + "mlp." + name] = t(blk["mlp"][name]["kernel"], dt)
+        if "moe" in blk:
+            moe = blk["moe"]
+            sd[p + "moe.router"] = t(moe["router"]["kernel"], f32)
+            for name in ("wi", "wo"):
+                sd[p + "moe." + name] = t(moe[name], dt)
+        else:
+            for name in ("wi", "wo"):
+                sd[p + "mlp." + name] = t(blk["mlp"][name]["kernel"], dt)
     return sd
 
 
+def params_to_tree(cfg: LlamaConfig, params: Mapping) -> Dict:
+    """The inverse of params_from_jax for float state dicts: the flax
+    Llama param tree of f32 numpy arrays (models/convert.export_hf_llama
+    takes it)."""
+    a = lambda name: params[name].detach().to(torch.float32).cpu().numpy()
+    tree = {"embed": {"embedding": a("embed")},
+            "ln_f": {"scale": a("ln_f.scale")}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": a("lm_head")}
+    for i in range(cfg.n_layers):
+        p = f"blocks.{i}."
+        blk = {"ln1": {"scale": a(p + "ln1.scale")},
+               "ln2": {"scale": a(p + "ln2.scale")},
+               "attn": {n: {"kernel": a(p + "attn." + n)}
+                        for n in ("wq", "wkv", "out")}}
+        if cfg.use_moe(i):
+            blk["moe"] = {"router": {"kernel": a(p + "moe.router")},
+                          "wi": a(p + "moe.wi"), "wo": a(p + "moe.wo")}
+        else:
+            blk["mlp"] = {n: {"kernel": a(p + "mlp." + n)}
+                          for n in ("wi", "wo")}
+        tree[f"block{i}"] = blk
+    return tree
+
+
 def _fan_in(name: str, shape) -> int:
-    if name.endswith("attn.out"):
-        return shape[0] * shape[1]  # [H, D, E] contracts H and D
+    # [H, D, E] out contracts H and D; a raw [X, D, 2F] / [X, F, D]
+    # expert parameter has fan-in X·D / X·F under flax's lecun_normal
+    if name.endswith(("attn.out", "moe.wi", "moe.wo")):
+        return shape[0] * shape[1]
     return shape[0]
 
 
@@ -88,23 +132,20 @@ def _trunc_normal_(t: torch.Tensor, std: float,
     return t.clamp_(-2.0 * std, 2.0 * std)
 
 
-def init_params(cfg: LlamaConfig, seed: int,
-                device: Union[str, torch.device, None] = None,
-                train: bool = False) -> Dict[str, torch.Tensor]:
-    """Random weights for `cfg` drawn on `device` (default "cuda") from
-    a generator seeded with `seed`, in the port's serving storage dtypes
-    or (train=True) as f32 masters.  The draws are the same either way:
-    the serving weights are the training ones cast to cfg.dtype."""
+def _draws(cfg: LlamaConfig, seed: int, device, train: bool
+           ) -> Iterator[Tuple[str, torch.Tensor, torch.dtype]]:
+    """(name, f32 draw, storage dtype) of each leaf in state-dict order,
+    one leaf at a time, from one generator seeded with `seed`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.device("meta"):
         spec = {k: (tuple(v.shape), v.dtype)
                 for k, v in Llama(cfg, train=train).state_dict().items()}
-    sd = {}
     for name, (shape, dtype) in spec.items():
         if name.endswith(".scale"):
-            sd[name] = torch.ones(shape, dtype=dtype, device=dev)
+            yield name, torch.ones(shape, dtype=torch.float32,
+                                   device=dev), dtype
             continue
         w = torch.empty(shape, dtype=torch.float32, device=dev)
         if name == "embed":
@@ -112,5 +153,25 @@ def init_params(cfg: LlamaConfig, seed: int,
         else:
             std = 1.0 / math.sqrt(_fan_in(name, shape)) / _TRUNC_STD
             _trunc_normal_(w, std, gen)
-        sd[name] = w.to(dtype)
-    return sd
+        yield name, w, dtype
+
+
+def init_params(cfg: LlamaConfig, seed: int,
+                device: Union[str, torch.device, None] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+    """Random weights for `cfg` drawn on `device` (default "cuda") from
+    a generator seeded with `seed`, in the port's serving storage dtypes
+    or (train=True) as f32 masters.  The draws are the same either way:
+    the serving weights are the training ones cast to cfg.dtype."""
+    return {name: w.to(dtype)
+            for name, w, dtype in _draws(cfg, seed, device, train)}
+
+
+def init_int8_params(cfg: LlamaConfig, seed: int,
+                     device: Union[str, torch.device, None] = None
+                     ) -> Dict[str, object]:
+    """quant.quantize_params(init_params(cfg, seed, device, train=True)),
+    bit for bit, with one f32 leaf alive at a time: each leaf is drawn,
+    quantized (quant.quantize_leaf) and freed before the next."""
+    return {name: quant.quantize_leaf(name, w)
+            for name, w, _ in _draws(cfg, seed, device, train=True)}

@@ -16,14 +16,19 @@ three modes:
     None), optional recompute of each block in the backward pass
     (cfg.remat, torch.utils.checkpoint), and tied or untied logits.
 
+Mixtral-style blocks (cfg.n_experts > 0, every moe_every-th block)
+replace the MLP by MoeSwiGlu: an f32 router and top-k SwiGLU experts,
+computed sparsely by parallel/ep.grouped_moe.
+
 Parameter layouts are the flax ones ([E, H, D] wq, fused [E, 2, KV, D]
-wkv, [H, D, E] out, fused [E, 2, F] wi), so models/bridge.params_from_jax
-is a rename.  Numerics follow the JAX package: every projection runs in
-cfg.dtype (flax's DenseGeneral(dtype=...) casts its kernel to that before
-the product, whether the parameter is stored in cfg.dtype for serving or
+wkv, [H, D, E] out, fused [E, 2, F] wi; the experts' raw [X, E, 2F] wi
+and [X, F, E] wo), so models/bridge.params_from_jax is a rename.
+Numerics follow the JAX package: every projection runs in cfg.dtype
+(flax's DenseGeneral(dtype=...) casts its kernel to that before the
+product, whether the parameter is stored in cfg.dtype for serving or
 kept as an f32 master for training), RoPE and RMSNorm in f32, attention
 scores and softmax in f32, the untied lm_head in f32 on an upcast hidden
-state and the tied head (flax's Embed.attend) in cfg.dtype.  The large
+state and the tied head (flax's Embed.attend) in cfg.dtype. The large
 projections are plain torch.matmul, as the JAX package left them to XLA.
 """
 from __future__ import annotations
@@ -43,6 +48,7 @@ from tf_operator_tpu_torch.models import paging
 from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
+from tf_operator_tpu_torch.parallel import ep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +88,16 @@ class LlamaConfig:
     # the full-sequence path; the paged path writes through modular
     # (ring) block tables and passes it to paged_attention
     sliding_window: Optional[int] = None
+    # Mixtral-style sparse FFN: switch-routed SwiGLU experts replace the
+    # MLP every `moe_every` blocks (0 experts = dense)
+    n_experts: int = 0
+    moe_every: int = 2
+    # experts per token: 1 = Switch (gate by the raw argmax prob), 2 =
+    # Mixtral (top-2, gates renormalized over the selected experts)
+    moe_top_k: int = 1
+    # the JAX package's all-to-all expert-parallel dispatch; the port has
+    # none yet (a config that sets it is refused)
+    moe_dispatch_fn: Optional[Callable] = None
 
     def __post_init__(self):
         if self.d_model % self.n_heads:
@@ -94,6 +110,23 @@ class LlamaConfig:
                 f"n_kv_heads {self.n_kv_heads}")
         if self.head_dim % 2:
             raise ValueError(f"head_dim {self.head_dim} must be even for RoPE")
+        if self.n_experts > 0 and self.moe_every < 1:
+            raise ValueError(
+                f"moe_every must be >= 1 when n_experts > 0, got "
+                f"{self.moe_every}")
+        if self.n_experts > 0 and not 1 <= self.moe_top_k <= self.n_experts:
+            raise ValueError(
+                f"moe_top_k {self.moe_top_k} out of range "
+                f"[1, {self.n_experts}]")
+        if self.moe_dispatch_fn is not None:
+            raise NotImplementedError(
+                "moe_dispatch_fn (expert-parallel all-to-all dispatch) is "
+                "not ported yet (ROADMAP Queue 1, item 11: distributed)")
+
+    def use_moe(self, layer: int) -> bool:
+        """Is block `layer` a sparse (MoE) block?"""
+        return (self.n_experts > 0
+                and layer % self.moe_every == self.moe_every - 1)
 
     @property
     def head_dim(self) -> int:
@@ -135,6 +168,17 @@ def mistral_7b(**kw) -> LlamaConfig:
         vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
         n_layers=32, d_ff=14336, max_len=8192, rope_theta=1000000.0,
         sliding_window=4096,
+    ), kw)
+
+
+def mixtral_8x7b(**kw) -> LlamaConfig:
+    """Mixtral-class sparse config: 8 SwiGLU experts in every block,
+    top-2 routing with renormalized gates (about 12.75 B active
+    parameters a token)."""
+    return _config(dict(
+        vocab_size=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+        n_layers=32, d_ff=14336, max_len=8192, rope_theta=1000000.0,
+        n_experts=8, moe_every=1, moe_top_k=2,
     ), kw)
 
 
@@ -359,6 +403,49 @@ class SwiGlu(nn.Module):
                                                               self.dtype)
 
 
+class MoeSwiGlu(nn.Module):
+    """Mixtral-style sparse FFN: top-k routed SwiGLU experts.
+
+    The router is an f32 [D, E] matrix applied to x in f32 (flax's
+    Dense(dtype=f32) on x.astype(f32)), kept in f32 for serving and never
+    quantized; the experts are wi [E, D, 2F] (gate and up packed on the
+    last axis) and wo [E, F, D], stored in `wdt` (or int8 with per-expert,
+    per-output scales) and used in cfg.dtype.  The forward is
+    parallel/ep.grouped_moe: the JAX package's dense dispatch computed
+    over the chosen experts only.  The load-balancing aux loss of the
+    last call stays in `aux_loss` (flax's sow): 0 at a single-token
+    decode step, as JAX sows there.  The tied model's blocked training
+    loss (ops/blocked_ce.lm_blocked_loss) adds it, weighted, as the JAX
+    package's does; the untied LM loss does not, as JAX's lm_loss does
+    not."""
+
+    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.top_k = cfg.moe_top_k
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.router = _weight(d, e, dtype=torch.float32)
+        self.wi = _weight(e, d, 2 * f, dtype=wdt)
+        self.wo = _weight(e, f, d, dtype=wdt)
+        self.aux_loss: Optional[torch.Tensor] = None
+
+    def _experts(self, name: str):
+        w = getattr(self, name)
+        if w.dtype == torch.int8:
+            return QTensor(w, getattr(self, name + "_scale"))
+        return w
+
+    def forward(self, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
+        logits = x.float() @ self.router                       # [B, L, E]
+        step = decode and x.shape[1] == 1
+        out, aux = ep.grouped_moe(x, logits, self._experts("wi"),
+                                  self._experts("wo"), top_k=self.top_k,
+                                  dtype=self.dtype, with_aux=not step)
+        self.aux_loss = (torch.zeros((), dtype=torch.float32, device=x.device)
+                         if step else aux)
+        return out
+
+
 class GqaAttention(nn.Module):
     """Grouped-query attention with rotary embeddings.
 
@@ -429,18 +516,25 @@ class GqaAttention(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
+    def __init__(self, cfg: LlamaConfig, wdt: torch.dtype,
+                 use_moe: bool = False) -> None:
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         self.attn = GqaAttention(cfg, wdt)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
-        self.mlp = SwiGlu(cfg, wdt)
+        if use_moe:
+            self.moe = MoeSwiGlu(cfg, wdt)
+        else:
+            self.mlp = SwiGlu(cfg, wdt)
 
     def forward(self, x, cos, sin, cache=None, pos=None, block_table=None,
                 write_index=None):
         x = x + self.attn(self.ln1(x), cos, sin, cache, pos, block_table,
                           write_index)
-        return x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h, decode=cache is not None)
+        return x + self.mlp(h)
 
 
 class Llama(nn.Module):
@@ -482,8 +576,8 @@ class Llama(nn.Module):
         self.cfg = cfg
         wdt = torch.float32 if train else cfg.dtype
         self.embed = _weight(cfg.vocab_size, cfg.d_model, dtype=wdt)
-        self.blocks = nn.ModuleList(LlamaBlock(cfg, wdt)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(LlamaBlock(cfg, wdt, cfg.use_moe(i))
+                                    for i in range(cfg.n_layers))
         self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype)
         if not cfg.tie_embeddings:
             # f32 like flax's Dense(dtype=f32) lm_head on the upcast x
@@ -638,13 +732,18 @@ class Llama(nn.Module):
 
 
 def params_flops_per_token(cfg: LlamaConfig) -> float:
-    """~6 * matmul-params FLOPs/token for a train step (fwd+bwd): q, k, v
-    and out projections, the SwiGLU MLP and the (tied or untied) vocab
-    projection."""
+    """~6 * ACTIVE matmul-params FLOPs/token for a train step (fwd+bwd):
+    q, k, v and out projections, the SwiGLU MLP and the (tied or untied)
+    vocab projection.  A sparse block counts its router and moe_top_k
+    experts' FFNs, the products a token runs (MFU is defined over
+    those)."""
     attn = (cfg.n_heads + 2 * cfg.n_kv_heads + cfg.n_heads) * (
         cfg.d_model * cfg.head_dim)
-    mlp = 3 * cfg.d_model * cfg.d_ff
-    p = cfg.vocab_size * cfg.d_model + cfg.n_layers * (attn + mlp)
+    dense_mlp = 3 * cfg.d_model * cfg.d_ff
+    n_moe = sum(1 for i in range(cfg.n_layers) if cfg.use_moe(i))
+    moe_mlp = cfg.moe_top_k * dense_mlp + cfg.d_model * cfg.n_experts
+    mlp_total = (cfg.n_layers - n_moe) * dense_mlp + n_moe * moe_mlp
+    p = cfg.vocab_size * cfg.d_model + cfg.n_layers * attn + mlp_total
     return 6.0 * p
 
 

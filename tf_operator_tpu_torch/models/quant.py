@@ -10,12 +10,15 @@ pools (models/paging.init_block_pool(kv_quant=True)): one scale per
 
 `quantize_params` walks the port's state dict (models/bridge names) and
 replaces every matmul weight with a QTensor; 1-D leaves (the RMSNorm
-scales) stay as they are.  The contraction axes follow the JAX tree's
-tags, not the port's names: `attn.out` [H, D, E] contracts over (H, D),
-the embedding [V, E] over E (one scale per row, since a lookup reads one
-row at a time), every other projection over its first axis.  Quantize
-from f32 weights, as the JAX package does: quantizing the bf16-cast
-serving weights gives other scales.
+scales) and the MoE router (its logits run in f32 because near-tied
+experts flip under small errors) stay as they are. The contraction axes
+follow the JAX tree's tags, not the port's names: `attn.out` [H, D, E]
+contracts over (H, D), the embedding [V, E] over E (one scale per row,
+since a lookup reads one row at a time), the raw expert matrices
+`moe.wi` [X, D, 2F] and `moe.wo` [X, F, D] over their middle axis (one
+scale per expert and output), every other projection over its first
+axis. Quantize from f32 weights, as the JAX package does: quantizing the
+bf16-cast serving weights gives other scales.
 
 A model built from a quantized state dict (models/llama.Llama
 .from_params) keeps the int8 payloads and scales and dequantizes each
@@ -77,27 +80,37 @@ _CONTRACT_AXES = {
     "wo": (1,),
     "embedding": (1,),
 }
+# left as they are: the MoE router's f32 kernel
+_SKIP = {"router.kernel"}
 
 
 def _tag(name: str) -> str:
     """The JAX tree's tag of a port state-dict name: the embedding table
-    is flax's `embed.embedding`, every other matrix a `<module>.kernel`."""
+    is flax's `embed.embedding`, a sparse block's raw expert matrices
+    are `wi` / `wo` and its router `router.kernel`, every other matrix a
+    `<module>.kernel`."""
     if name == "embed":
         return "embedding"
-    return name.rsplit(".", 1)[-1] + ".kernel"
+    module, _, leaf = name.rpartition(".")
+    if module.endswith("moe"):
+        return "router.kernel" if leaf == "router" else leaf
+    return leaf + ".kernel"
+
+
+def quantize_leaf(name: str, w: torch.Tensor):
+    """One state-dict leaf as quantize_params leaves it: a QTensor for a
+    matmul weight, else the tensor itself."""
+    tag = _tag(name)
+    if w.dim() < 2 or tag in _SKIP:
+        return w
+    return quantize_tensor(w, _CONTRACT_AXES.get(tag, (0,)))
 
 
 def quantize_params(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The state dict with every matmul weight (2-D or more) replaced by
-    a QTensor; 1-D leaves stay as they are.  Pass f32 weights."""
-    out = {}
-    for name, w in params.items():
-        if w.dim() < 2:
-            out[name] = w
-        else:
-            out[name] = quantize_tensor(w, _CONTRACT_AXES.get(_tag(name),
-                                                              (0,)))
-    return out
+    a QTensor; 1-D leaves and the MoE router stay as they are.  Pass f32
+    weights."""
+    return {name: quantize_leaf(name, w) for name, w in params.items()}
 
 
 def dequantize_params(qparams: Mapping[str, Any],

@@ -121,8 +121,9 @@ def lm_blocked_loss(model, tokens: torch.Tensor,
     """The causal-LM loss of a tied-embedding Llama with the head fused
     into the loss: the body without the logits projection, then the
     blocked CE of hidden[:, :-1] against tokens[:, 1:] over the f32
-    embedding matrix.  The port has no MoE blocks yet, so the
-    load-balancing aux term the JAX loss adds is 0.
+    embedding matrix, plus MOE_AUX_WEIGHT times the sum of the sparse
+    blocks' load-balancing losses of this forward (MoeSwiGlu.aux_loss,
+    what flax sows and the JAX loss adds; 0 for a dense model).
 
     perm ([S] ids, e.g. ops/zigzag.storage_perm): the model runs on the
     tokens in storage order tokens[:, perm] with positions=perm, and its
@@ -138,6 +139,9 @@ def lm_blocked_loss(model, tokens: torch.Tensor,
         hidden = model(tokens[:, perm], return_hidden=True, positions=perm)
         hidden = hidden[:, torch.argsort(perm)]
     aux = hidden.new_zeros((), dtype=torch.float32)
+    for blk in model.blocks:
+        if hasattr(blk, "moe"):
+            aux = aux + blk.moe.aux_loss
     x = hidden[:, :-1].reshape(-1, cfg.d_model)
     labels = tokens[:, 1:].reshape(-1)
     loss = blocked_cross_entropy(x.float(), model.embed.float().T, labels,

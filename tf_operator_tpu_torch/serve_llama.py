@@ -26,11 +26,14 @@ feature composes here:
 Prompts come one per line from --prompts-file, or from repeated --prompt
 flags.  Outputs print in request order with their schedule (slot,
 admitted/finished step) and the aggregate tokens/sec, in the JAX
-script's words.  Weights (--ckpt-dir, --smoke) and the draft come from
-generate_llama's shared loaders.
+script's words.  Weights (--ckpt-dir, --hf-dir, --smoke), the config
+(a preset, --smoke, or --hf-dir's) and the draft come from
+generate_llama's shared loaders; --tokenizer takes 'byte' or a local
+tokenizer directory.
 
     python -m tf_operator_tpu_torch.serve_llama --smoke --device cpu --prompt hello --prompt "the quick brown fox" --max-new 16
     python -m tf_operator_tpu_torch.serve_llama --smoke --ckpt-dir C --paged --int8-kv --prompt hi
+    python -m tf_operator_tpu_torch.serve_llama --device cpu --hf-dir D --int8 --prompt hi
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ import time
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.data.tokenize import load_tokenizer
 from tf_operator_tpu_torch.generate_llama import (
-    ByteTokenizer, build_draft, build_model, check_ported, resolve_config)
+    build_draft, build_model, resolve_config)
 from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.serving import serve_loop
 
@@ -66,8 +70,10 @@ def main(argv=None) -> int:
                     choices=["llama3", "llama31", "mistral", "mixtral"])
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory from train_llama")
-    ap.add_argument("--hf-dir", default="")
-    ap.add_argument("--tokenizer", default="byte")
+    ap.add_argument("--hf-dir", default="",
+                    help="LOCAL Hugging Face checkpoint directory")
+    ap.add_argument("--tokenizer", default="byte",
+                    help="'byte' or a local HF tokenizer directory")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -121,13 +127,12 @@ def main(argv=None) -> int:
             prompts += [line.rstrip("\n") for line in f if line.strip()]
     if not prompts:
         raise SystemExit("no requests: pass --prompt or --prompts-file")
-    check_ported(args)
     dev = resolve_device(args.device)
     cfg = resolve_config(args)
     model = build_model(cfg, args.ckpt_dir, dev, smoke=args.smoke,
-                        int8=args.int8)
+                        int8=args.int8, hf_dir=args.hf_dir)
 
-    tok = ByteTokenizer()
+    tok = load_tokenizer(args.tokenizer)
     requests = []
     for i, p in enumerate(prompts):
         ids = tok.encode(p)

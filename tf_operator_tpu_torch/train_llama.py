@@ -1,8 +1,8 @@
 """LLaMA-class GQA decoder pretraining on one CUDA card (or the CPU).
 
 The port of examples/llama/train_llama.py on one device: the llama3_8b
-(llama31_8b, or mistral_7b with its 4096-token sliding window) recipe
-with tied embeddings, recompute of every block (remat), GQA-native flash
+(llama31_8b, mistral_7b with its 4096-token sliding window, or
+mixtral_8x7b's top-2 sparse experts) recipe with tied embeddings, recompute of every block (remat), GQA-native flash
 attention (ops/flash_attention: the CUDA kernels K2f/K2q/K2kv on the
 card, windowed for mistral), the blocked large-vocab cross-entropy over
 the tied embedding, adafactor(1e-3), and runtime/loop.run_training with a
@@ -23,9 +23,10 @@ script sizes its ring over tp: one member in one process.
     python -m tf_operator_tpu_torch.train_llama --steps 100 --per-host-batch 1 --seq-len 2048
     python -m tf_operator_tpu_torch.train_llama --smoke --ring --steps 2
     python -m tf_operator_tpu_torch.train_llama --smoke --data-dir D --ckpt-dir C --save-interval 1
+    python -m tf_operator_tpu_torch.train_llama --smoke --device cpu --model mixtral --steps 3
 
-The JAX script's multi-device options and the mixtral preset are not
-ported yet; each raises NotImplementedError naming its ROADMAP item.
+The JAX script's multi-device options are not ported yet; each raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from tf_operator_tpu_torch.data.loader import FieldSpec, host_record_batches
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models import bridge
 from tf_operator_tpu_torch.models.llama import (
-    Llama, llama3_8b, llama31_8b, mistral_7b, tiny)
+    Llama, llama3_8b, llama31_8b, mistral_7b, mixtral_8x7b, tiny)
 from tf_operator_tpu_torch.models.transformer import lm_loss
 from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
@@ -59,8 +60,11 @@ _NOT_PORTED = {
     "ep": "ROADMAP Queue 1 item 11 (expert parallelism)",
     "world": "ROADMAP Queue 1 item 11 (a training step split across "
              "processes)",
-    "mixtral": "ROADMAP Queue 1 item 10 (the mixtral preset)",
 }
+
+
+# the JAX script's --smoke --model mixtral: 4 experts in every block, top-2
+SMOKE_MOE = dict(n_experts=4, moe_every=1, moe_top_k=2)
 
 
 def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
@@ -137,7 +141,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="llama3",
                     choices=["llama3", "llama31", "mistral", "mixtral"],
                     help="llama3 = 8B GQA; llama31 = +128k rope scaling; "
-                         "mistral = +4k sliding window")
+                         "mistral = +4k sliding window; mixtral = 8x "
+                         "top-2 experts")
     ap.add_argument("--smoke", action="store_true", help="tiny model, CPU ok")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -145,8 +150,7 @@ def main(argv=None) -> int:
 
     world = world_size()
     for flag, on in (("tp", args.tp > 1), ("ep", args.ep > 1),
-                     ("world", world > 1),
-                     (args.model, args.model in _NOT_PORTED)):
+                     ("world", world > 1)):
         if on:
             raise NotImplementedError(
                 f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
@@ -158,9 +162,10 @@ def main(argv=None) -> int:
         attention_fn = make_ring_flash_attention_fn(ring)
         print(f"ring attention over {ring}")
     presets = {"llama3": llama3_8b, "llama31": llama31_8b,
-               "mistral": mistral_7b}
+               "mistral": mistral_7b, "mixtral": mixtral_8x7b}
     if args.smoke:
-        extra = {"sliding_window": 16} if args.model == "mistral" else {}
+        extra = {"mistral": {"sliding_window": 16},
+                 "mixtral": SMOKE_MOE}.get(args.model, {})
         cfg = tiny(tie_embeddings=True, attention_fn=attention_fn, **extra)
     else:
         cfg = presets[args.model](tie_embeddings=True, remat=True,
