@@ -237,6 +237,48 @@ Phases, in order, none of them caught:
               then serve_llama --int8 (dense, and --paged through K1) and
               generate_llama --int8 from it: equal greedy tokens.
 
+ 24. transformer-parity: bert_large at full width, 2 layers, f32 (TF32
+              off), flash attention (the scalar K2 kernels), masked-LM
+              loss and adamw; the same with 4 experts in its second
+              block; t5_3b_decoder at full width, 2 layers, remat,
+              lm_train_loss and then the blocked CE with adafactor: 3
+              steps of 2 x 128 each on the card and on the CPU from the
+              same weights, every loss within 1e-5 and every gradient
+              norm within 1e-4.
+ 25. kernel2-zoo: K2f, K2q and K2kv in bf16 at bert_large's attention
+              (B=32, S=512, H=KV=16, D=64, non-causal) and the
+              t5_3b_decoder's (B=8, S=512, H=KV=32, D=64, causal) against
+              their plain versions, elementwise and by each output's
+              relative error norm, two launches bit-equal; their times
+              beside the plain versions, SDPA and the bound, and the
+              kernels' and SDPA's device time alone.
+ 26. bert-train: bert_large at full width and depth (24 layers, remat,
+              K2), f32 masters, bf16 compute, adamw, masked-LM batches of
+              32 x 512, 4 steps: losses finite, K2f 2 x 24 launches a
+              step, K2q and K2kv 24, all on the tensor cores; tokens/s,
+              MFU and the memory peak.
+ 27. t5-train: t5_3b_decoder at full width and depth (48 layers, 2.48 B
+              parameters, remat, K2 causal), adafactor, 8 x 512, 3 steps
+              of lm_train_loss and 2 of the blocked CE: the same checks
+              and numbers.
+ 28. vision-parity: a small f32 ResNet (4 stages of 1 block, width 16,
+              64² images, SGD with momentum) and MnistCNN (adam) on the
+              card (cuDNN, TF32 off) and on the CPU: logits, running
+              stats, and 2 train steps' losses and gradient norms agree
+              (and SGD's parameter updates).
+ 29. resnet-train: ResNet50 at 256 x 224² bf16 (channels_last, cuDNN),
+              SGD with momentum, 4 steps: losses and running stats
+              finite; images/s, MFU and the memory peak; then the entry
+              point's flagship forward (ResNet50, eval, 8 x 224²) timed.
+              bert-train, t5-train and resnet-train also print one
+              more step's device time by kernel class and its idle
+              share (torch.profiler), and resnet-train the flagship
+              forward's.
+ 30. entry-zoo: train_bert --smoke, train_t5 --smoke --blocked-ce with a
+              checkpoint and a resume, train_resnet at 64² (synthetic and
+              from .rec shards), train_mnist and train_dist_mnist (worker
+              and ps under TF_CONFIG) on the card.
+
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
 
@@ -653,14 +695,15 @@ TB, TS, TH, TKV, TD = 1, 2048, 32, 8, 128
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
-def flash_case(dtype, s: int, seed: int, d: int = TD):
+def flash_case(dtype, s: int, seed: int, d: int = TD, b: int = TB,
+               h: int = TH, kv_heads: int = TKV):
     """q [B, S, H, D], and k, v as the two halves of one fused
     [B, S, 2, KV, D] projection (strided views, as the model hands them
     over), and dO."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn((TB, s, TH, d), generator=g)
-    kv = torch.randn((TB, s, 2, TKV, d), generator=g)
-    do = torch.randn((TB, s, TH, d), generator=g)
+    q = torch.randn((b, s, h, d), generator=g)
+    kv = torch.randn((b, s, 2, kv_heads, d), generator=g)
+    do = torch.randn((b, s, h, d), generator=g)
     q, kv, do = (t.to("cuda", dtype) for t in (q, kv, do))
     return q, kv[:, :, 0], kv[:, :, 1], do
 
@@ -669,7 +712,9 @@ def flash_delta(out, do):
     return (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_bound_ms(which: str, dtype, s: int, causal: bool, window) -> tuple:
+def flash_bound_ms(which: str, dtype, s: int, causal: bool, window,
+                   b: int = TB, h: int = TH, kv_heads: int = TKV,
+                   d: int = TD) -> tuple:
     """The least time the card could take for one kernel's work: the
     larger of its bytes (each input read once, each output written once)
     over HBM bandwidth and its products over the dtype's peak.  Products:
@@ -683,10 +728,10 @@ def flash_bound_ms(which: str, dtype, s: int, causal: bool, window) -> tuple:
         w = window or s
         pairs = sum(min(i + 1, w) for i in range(s))
     mm = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[which]
-    flops = mm * 2 * TB * TH * pairs * TD
-    qo = TB * s * TH * TD * esz
-    kv = TB * s * TKV * TD * esz
-    stat = TB * TH * s * 4
+    flops = mm * 2 * b * h * pairs * d
+    qo = b * s * h * d * esz
+    kv = b * s * kv_heads * d * esz
+    stat = b * h * s * 4
     nbytes = {"flash_fwd": 2 * qo + 2 * kv + stat,           # q k v o lse
               "flash_dq": 3 * qo + 2 * kv + 2 * stat,        # + do delta dq
               "flash_dkv": 2 * qo + 4 * kv + 2 * stat}[which]  # + dk dv
@@ -3884,6 +3929,678 @@ def entry_mixtral_phase() -> dict:
     return dict(launches=launches["paged"]["k1"])
 
 
+# ------------------------------------------ the BERT/T5 and vision model zoo
+# kernel2-zoo's shapes, the attention of the two transformer configs as
+# their training runs call it: bert_large (B=32, S=512, H=KV=16, D=64,
+# non-causal) and t5_3b_decoder (B=8, S=512, H=KV=32, D=64, causal)
+ZOO_FLASH = {"bert": dict(b=32, s=512, h=16, kv_heads=16, d=64, causal=False),
+             "t5": dict(b=8, s=512, h=32, kv_heads=32, d=64, causal=True)}
+ZOO_PARITY_STEPS = 3
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 4
+T5_BATCH, T5_SEQ, T5_STEPS, T5_BLOCKED_STEPS = 8, 512, 3, 2
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 4
+
+
+def _zoo_parity_batches(cfg, kind: str, seed: int) -> list:
+    """ZOO_PARITY_STEPS batches of 2 x 128 tokens on the CPU: (tokens,)
+    for an LM, (inputs, labels) with train_bert's 15 % masking for MLM."""
+    from tf_operator_tpu_torch import train_bert
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for _ in range(ZOO_PARITY_STEPS):
+        tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+        if kind != "mlm":
+            out.append((tokens,))
+            continue
+        mask = torch.rand((2, 128), generator=g) < 0.15
+        out.append((torch.where(mask, train_bert.MASK_ID, tokens),
+                    torch.where(mask, tokens, -100)))
+    return out
+
+
+def transformer_parity_phase() -> None:
+    """The transformer family at full width, 2 layers, f32 (TF32 off),
+    flash attention: a BERT-style model (masked-LM loss, adamw), the same
+    with a mixture of experts in its second block, and the T5 decoder
+    with remat (lm_train_loss, then the blocked CE; adafactor), each
+    ZOO_PARITY_STEPS steps of 2 x 128 on the card (the scalar K2
+    kernels) and on the CPU (their plain versions) from the same seeded
+    weights: every step's loss within 1e-5 and every parameter's
+    gradient norm within 1e-4, relative."""
+    from tf_operator_tpu_torch import train_bert
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        init_transformer_params, transformer_from_params)
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
+    from tf_operator_tpu_torch.runtime.optim import Adafactor, AdamW
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(n_layers=2, dtype=torch.float32,
+               attention_fn=fa.flash_attention)
+    runs = [("bert", tfm.bert_large(**f32), "mlm"),
+            ("bert-moe", tfm.bert_large(n_experts=4, **f32), "mlm"),
+            ("t5", tfm.t5_3b_decoder(remat=True, **f32), "lm"),
+            ("t5-blocked", tfm.t5_3b_decoder(remat=True, **f32), "blocked")]
+    card = device_line()
+    for i, (label, cfg, kind) in enumerate(runs):
+        params = init_transformer_params(cfg, SEED + 71 + i, device="cpu")
+        batches = _zoo_parity_batches(cfg, kind, SEED + 75 + i)
+        fa.reset_launches()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            # a copy each: a CPU model would train `params` in place
+            model = transformer_from_params(
+                cfg, {k: v.clone() for k, v in params.items()}, device=dev)
+            tx = AdamW(1e-4, weight_decay=0.01) if kind == "mlm" else \
+                Adafactor(1e-3)
+            state = TrainState.create(model, tx)
+            losses, norms = [], []
+            for batch in batches:
+                batch = [t.to(dev) for t in batch]
+                if kind == "mlm":
+                    loss = train_bert.mlm_loss(model(batch[0]), batch[1])
+                elif kind == "lm":
+                    loss = tfm.lm_train_loss(model, batch[0])
+                else:
+                    loss = lm_blocked_loss(model, batch[0])
+                loss.backward()
+                losses.append(loss.item())
+                # norms in f64 (train-parity: torch's f32 norm of a large
+                # tensor on the CPU is off by more than the limit)
+                norms.append({k: torch.linalg.vector_norm(
+                    p.grad, dtype=torch.float64).item()
+                    for k, p in model.named_parameters()})
+                state.apply_gradients()
+            out[dev] = (losses, norms)
+            del model, state
+        launches = dict(fa.launches)
+        torch.cuda.empty_cache()
+        (l_gpu, n_gpu), (l_cpu, n_cpu) = out["cuda"], out["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        norm_rel, worst = 0.0, None
+        for t, (ng, nc) in enumerate(zip(n_gpu, n_cpu)):
+            for k in nc:
+                r = abs(ng[k] - nc[k]) / max(nc[k], 1e-30)
+                if r >= norm_rel:
+                    norm_rel, worst = r, f"step {t + 1} {k}"
+        n = cfg.n_layers * ZOO_PARITY_STEPS
+        want = {"flash_fwd": (2 if cfg.remat else 1) * n, "flash_dq": n,
+                "flash_dkv": n, "flash_fwd_mma": 0, "flash_dq_mma": 0,
+                "flash_dkv_mma": 0}
+        log(f"[transformer-parity] {label}: full width, {cfg.n_layers} "
+            f"layers f32, batch 2 x 128, {ZOO_PARITY_STEPS} steps: losses "
+            f"cuda {[round(x, 7) for x in l_gpu]} cpu "
+            f"{[round(x, 7) for x in l_cpu]} (worst rel {loss_rel:.2e}, "
+            f"limit 1e-5); {len(n_cpu[0])} gradient norms a step, worst "
+            f"rel {norm_rel:.2e} ({worst}, limit 1e-4); launches "
+            f"{json.dumps(launches)}; {card}")
+        if not (all(map(math.isfinite, l_gpu)) and loss_rel <= 1e-5
+                and norm_rel <= 1e-4):
+            raise AssertionError(f"[transformer-parity] {label}: the card "
+                                 f"and the CPU disagree")
+        # f32: the scalar kernels, never the tensor cores (TF32)
+        if launches != want:
+            raise AssertionError(f"[transformer-parity] {label}: launches "
+                                 f"{launches}, expected {want}")
+
+
+def kernel2_zoo_phase() -> dict:
+    """K2f, K2q and K2kv in bf16 at the two D=64 shapes of ZOO_FLASH
+    against their plain versions (the backward kernels on the plain
+    forward's lse and delta): the elementwise band 2e-2 + 2e-2 |ref| and
+    each output's relative error norm (WIN_NORM_TOL), two launches
+    bit-equal; then each kernel's time beside its plain version, SDPA
+    (forward, or its autograd backward for dQ and dK/dV together) and the
+    bound (every visible pair: all S² non-causal), and the device time
+    of the kernel and of SDPA alone."""
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    card = device_line()
+    res = {}
+    for i, (label, sh) in enumerate(ZOO_FLASH.items()):
+        b, s, h, kvh, d, causal = (sh["b"], sh["s"], sh["h"],
+                                   sh["kv_heads"], sh["d"], sh["causal"])
+        q, k, v, do = flash_case(torch.bfloat16, s, SEED + 80 + i, d, b, h,
+                                 kvh)
+        out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+        delta = flash_delta(out_p, do)
+        bwd = (q, k, v, do, lse_p, delta, causal)
+        want = {"flash_fwd": (out_p, lse_p),
+                "flash_dq": (fa.flash_dq_plain(*bwd),),
+                "flash_dkv": fa.flash_dkv_plain(*bwd)}
+        runs = [{"flash_fwd": fa.flash_fwd(q, k, v, causal),
+                 "flash_dq": (fa.flash_dq(*bwd),),
+                 "flash_dkv": fa.flash_dkv(*bwd)} for _ in range(2)]
+        torch.cuda.synchronize()
+        errs, norms, line = {}, {}, []
+        for name in FLASH:
+            same = all(torch.equal(x, y)
+                       for x, y in zip(runs[0][name], runs[1][name]))
+            err, ok = 0.0, same
+            for o, got, ref in zip(FLASH_OUTS[name], runs[0][name],
+                                   want[name]):
+                diff = (got.float() - ref.float()).abs()
+                err = max(err, float(diff.max()))
+                ok &= bool(torch.isfinite(got).all())
+                ok &= bool((diff <= 2e-2 * (1 + ref.float().abs())).all())
+                norms[o] = rel_l2(got, ref)
+                ok &= norms[o] <= WIN_NORM_TOL[o]
+            errs[name] = err
+            line.append(f"{name} err={err:.3e} repeat={same}")
+            if not ok:
+                raise AssertionError(
+                    f"[kernel2-zoo] {name} at {label}'s shape disagrees with "
+                    f"its plain version or does not repeat: err={err} "
+                    f"norms={norms} bit_identical={same}")
+        log(f"[kernel2-zoo] {label}: bf16 B={b} S={s} H={h} KV={kvh} D={d} "
+            f"causal={causal}: " + ", ".join(line) + "; rel_l2 "
+            + json.dumps({o: float(f"{x:.3e}") for o, x in norms.items()})
+            + f" (limits {json.dumps(WIN_NORM_TOL)})")
+        del runs, want, bwd, out_p, lse_p
+
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        delta = flash_delta(out, do)
+        bwd = (q, k, v, do, lse, delta, causal)
+        fns = {"flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                             lambda: fa.flash_fwd_plain(q, k, v, causal)),
+               "flash_dq": (lambda: fa.flash_dq(*bwd),
+                            lambda: fa.flash_dq_plain(*bwd)),
+               "flash_dkv": (lambda: fa.flash_dkv(*bwd),
+                             lambda: fa.flash_dkv_plain(*bwd))}
+        qt, kt, vt = (x.transpose(1, 2).detach() for x in (q, k, v))
+        sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=causal)
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa_fwd)
+            lib_fwd_q = time_ms(sdpa_fwd, queued=True)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+        o_s = sdpa(qg, kg, vg, is_causal=causal)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
+                                               retain_graph=True)
+        lib_bwd = time_ms(sdpa_bwd)
+        lib_bwd_q = time_ms(sdpa_bwd, queued=True)
+        timings = {}
+        for name, (kern, plain) in fns.items():
+            p1 = time_ms(plain, reps=5)
+            k1 = time_ms(kern)
+            k2 = time_ms(kern)
+            p2 = time_ms(plain, reps=5)
+            kq = time_ms(kern, queued=True)
+            bnd, by = flash_bound_ms(name, torch.bfloat16, s, causal, None,
+                                     b, h, kvh, d)
+            fwd = name == "flash_fwd"
+            lib, lib_q = (lib_fwd, lib_fwd_q) if fwd else (lib_bwd, lib_bwd_q)
+            timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                 library_ms=lib, bound_ms=bnd, bound_by=by,
+                                 device_ms=kq, library_device_ms=lib_q)
+            log(f"[kernel2-zoo] timing {name} {label} bf16 B={b} S={s} H={h} "
+                f"KV={kvh} D={d} causal={causal}: kernel {k1:.4f}/{k2:.4f} "
+                f"ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
+                f"{'fwd' if fwd else 'bwd'} {lib:.4f} ms, bound {bnd:.4f} ms "
+                f"({by}); device time alone: kernel {kq:.4f} ms, sdpa "
+                f"{lib_q:.4f} ms; {card}")
+        pair = timings["flash_dq"]["device_ms"] + \
+            timings["flash_dkv"]["device_ms"]
+        log(f"[kernel2-zoo] {label}: K2q + K2kv, device time alone: "
+            f"{pair:.4f} ms against sdpa bwd {lib_bwd_q:.4f} ms "
+            f"({pair / lib_bwd_q:.2f}x); K2f {timings['flash_fwd']['device_ms']:.4f}"
+            f" ms against sdpa fwd {lib_fwd_q:.4f} ms "
+            f"({timings['flash_fwd']['device_ms'] / lib_fwd_q:.2f}x)")
+        res[label] = dict(errs=errs, norms=norms, timings=timings)
+        del q, k, v, do, out, lse, bwd, fns, qg, kg, vg, o_s
+        torch.cuda.empty_cache()
+    return res
+
+
+def _zoo_train(tag: str, step, state, batches, num_steps: int,
+               batch_size: int, times: list, losses: list):
+    """run_training over `step` to `num_steps` with every step timed and
+    synchronized and its loss kept."""
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+
+    def timed_step(state, *batch):
+        t = time.perf_counter()
+        state, metrics = step(state, *batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    return run_training(state, timed_step, batches, num_steps=num_steps,
+                        profiler=Profiler(batch_size=batch_size),
+                        log_interval_steps=1,
+                        metrics_sink=lambda line: log(f"[{tag}] metrics "
+                                                      f"{line}")).state
+
+
+def _steady_s(times: list) -> float:
+    """The median of the step times after the first."""
+    steady = sorted(times[1:])
+    return steady[len(steady) // 2]
+
+
+def _k2_want(n_layers: int, steps: int) -> dict:
+    """K2 launches of `steps` remat steps of bf16 blocks: the forward
+    twice (forward and recompute), dQ and dK/dV once, all on the tensor
+    cores."""
+    n = n_layers * steps
+    return {"flash_fwd": 2 * n, "flash_fwd_mma": 2 * n, "flash_dq": n,
+            "flash_dq_mma": n, "flash_dkv": n, "flash_dkv_mma": n}
+
+
+def _zoo_transformer(cfg, seed: int):
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        init_transformer_params, transformer_from_params)
+
+    t0 = time.perf_counter()
+    model = transformer_from_params(
+        cfg, init_transformer_params(cfg, seed, device="cuda"),
+        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    return model, n_params, time.perf_counter() - t0
+
+
+def bert_train_phase() -> dict:
+    """bert_large at full width and depth as train_bert builds it (remat,
+    flash attention: K2 non-causal at D=64), f32 masters from a seed,
+    bf16 compute, adamw, masked-LM batches of 32 x 512, BERT_STEPS steps
+    through run_training: every loss finite, the first within 1.5 of
+    ln(vocab); K2f launched 2 x 24 times a step, K2q and K2kv 24, all on
+    the tensor cores; tokens/s, MFU (params_flops_per_token) and the
+    memory peak."""
+    from tf_operator_tpu_torch import train_bert
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.runtime.optim import AdamW
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tfm.bert_large(remat=True, attention_fn=fa.flash_attention)
+    model, n_params, init_s = _zoo_transformer(cfg, SEED + 90)
+    log(f"[bert-train] bert_large remat, flash attention, {cfg.n_layers} "
+        f"layers, {n_params / 1e9:.4f} B f32 master params in {init_s:.1f} "
+        f"s; compute {cfg.dtype}; batch {BERT_BATCH} x {BERT_SEQ}; adamw")
+    state = TrainState.create(model, AdamW(1e-4, weight_decay=0.01))
+    losses, times = [], []
+    fa.reset_launches()
+    step = train_bert.make_mlm_step(model)
+    batches = train_bert.mlm_batches(BERT_BATCH, BERT_SEQ, cfg.vocab_size,
+                                     SEED + 91, device="cuda")
+    state = _zoo_train("bert-train", step, state, batches, BERT_STEPS,
+                       BERT_BATCH, times, losses)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # where a step's time goes (three more steps: warm, timed, profiled)
+    _profile(lambda: step(state, *next(batches)), "bert-train step", 1)
+    del model, state, step
+    torch.cuda.empty_cache()
+    if len(losses) != BERT_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[bert-train] losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"[bert-train] first loss {losses[0]} is not "
+                             f"within 1.5 of ln({cfg.vocab_size})")
+    want = _k2_want(cfg.n_layers, BERT_STEPS)
+    if launches != want:
+        raise AssertionError(f"[bert-train] kernel launches {launches}, "
+                             f"expected {want}")
+    step_s = _steady_s(times)
+    tokens_per_s = BERT_BATCH * BERT_SEQ / step_s
+    mfu = tokens_per_s * tfm.params_flops_per_token(cfg) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    log(f"[bert-train] losses {[round(x, 4) for x in losses]} (ln V = "
+        f"{math.log(cfg.vocab_size):.4f}); step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{BERT_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
+        f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
+        f"kernel_launches {json.dumps(launches)}; {device_line()}")
+    return dict(launches=launches, losses=losses)
+
+
+def t5_train_phase() -> dict:
+    """t5_3b_decoder at full width and depth as train_t5 builds it (48
+    layers, remat, flash attention: K2 causal at D=64), f32 masters from a
+    seed (about 10 GB, and as much again of gradients), bf16 compute,
+    adafactor, 8 x 512: T5_STEPS steps of lm_train_loss, then
+    T5_BLOCKED_STEPS of the blocked CE on the same state, through
+    run_training: losses finite, the first within 1.5 of ln(vocab); K2f
+    launched 2 x 48 times a step, K2q and K2kv 48, all on the tensor
+    cores; tokens/s and MFU of each loss, the memory peak."""
+    from tf_operator_tpu_torch import train_t5
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tfm.t5_3b_decoder(remat=True, attention_fn=fa.flash_attention)
+    model, n_params, init_s = _zoo_transformer(cfg, SEED + 95)
+    log(f"[t5-train] t5_3b_decoder remat, flash attention, {cfg.n_layers} "
+        f"layers, {n_params / 1e9:.4f} B f32 master params in {init_s:.1f} "
+        f"s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB); compute "
+        f"{cfg.dtype}; batch {T5_BATCH} x {T5_SEQ}; adafactor")
+    state = TrainState.create(model, Adafactor(1e-3))
+    batches = train_t5.lm_batches(T5_BATCH, T5_SEQ, cfg.vocab_size,
+                                  SEED + 96, device="cuda")
+    fa.reset_launches()
+    runs = {}
+    total = 0
+    for label, blocked, steps in (("lm_train_loss", False, T5_STEPS),
+                                  ("blocked_ce", True, T5_BLOCKED_STEPS)):
+        losses, times = [], []
+        total += steps
+        state = _zoo_train("t5-train", train_t5.make_lm_step(
+            model, blocked_ce=blocked), state, batches, total, T5_BATCH,
+            times, losses)
+        runs[label] = (losses, times)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _profile(lambda: train_t5.make_lm_step(model)(state, *next(batches)),
+             "t5-train step (lm_train_loss)", 1)
+    del model, state
+    torch.cuda.empty_cache()
+    first = runs["lm_train_loss"][0][0]
+    if not all(len(l) == n and all(map(math.isfinite, l)) for (l, _), n in
+               zip(runs.values(), (T5_STEPS, T5_BLOCKED_STEPS))):
+        raise AssertionError(f"[t5-train] losses {runs}")
+    if abs(first - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"[t5-train] first loss {first} is not within "
+                             f"1.5 of ln({cfg.vocab_size})")
+    want = _k2_want(cfg.n_layers, T5_STEPS + T5_BLOCKED_STEPS)
+    if launches != want:
+        raise AssertionError(f"[t5-train] kernel launches {launches}, "
+                             f"expected {want}")
+    card = device_line()
+    for label, (losses, times) in runs.items():
+        # the blocked steps' first is a steady step too: the model is warm
+        step_s = (_steady_s(times) if label == "lm_train_loss"
+                  else sorted(times)[len(times) // 2])
+        tokens_per_s = T5_BATCH * T5_SEQ / step_s
+        mfu = tokens_per_s * tfm.params_flops_per_token(cfg) / \
+            PEAK_OPS_PER_S[torch.bfloat16]
+        log(f"[t5-train] {label}: losses {[round(x, 4) for x in losses]} "
+            f"(ln V = {math.log(cfg.vocab_size):.4f}); step_s "
+            f"{[round(x, 4) for x in times]}; steady step_s {step_s:.4f}, "
+            f"tokens_per_s {tokens_per_s:.2f}, mfu {mfu:.4f}; {card}")
+    log(f"[t5-train] max_memory_allocated_gib {peak / 2**30:.3f}, "
+        f"kernel_launches {json.dumps(launches)}")
+    return dict(launches=launches)
+
+
+class _GradNorms:
+    """An optimizer wrapper that keeps each step's gradient norms (f64)
+    before the optimizer consumes the gradients."""
+
+    def __init__(self, tx) -> None:
+        self.tx, self.norms = tx, []
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update_(self, params, state):
+        self.norms.append({k: torch.linalg.vector_norm(
+            p.grad, dtype=torch.float64).item() for k, p in params.items()})
+        return self.tx.update_(params, state)
+
+
+def vision_parity_phase() -> None:
+    """A small f32 ResNet (4 stages of 1 block, width 16, 64² images,
+    SGD with momentum) and MnistCNN (28², adam) on the card (cuDNN, TF32
+    off) and on the CPU from the same seeded weights: the training-mode
+    logits within 1e-4 (relative error norm) and the running stats
+    within 1e-5; then 2 steps of make_train_step: losses within 1e-5,
+    every gradient norm of each step within 1e-4 (as train-parity), the
+    running stats after them within 1e-5, and, under SGD, whose update
+    is linear in the gradient, each parameter's update within 1e-3
+    (relative error norm).  Adam's first update is about lr·sign(g), so
+    an element whose gradient is near zero flips between the two on
+    rounding: its updates are not compared."""
+    from tf_operator_tpu_torch.models import flax_layers
+    from tf_operator_tpu_torch.models.mnist import MnistCNN
+    from tf_operator_tpu_torch.models.resnet import ResNet
+    from tf_operator_tpu_torch.runtime.optim import SGD, Adam
+    from tf_operator_tpu_torch.runtime.train import (
+        TrainState, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device_line()
+    cases = [("resnet", lambda: ResNet(stage_sizes=[1, 1, 1, 1], width=16,
+                                       num_classes=10, dtype=torch.float32),
+              lambda: SGD(0.1, momentum=0.9), (8, 64, 64, 3)),
+             ("mnist-cnn", lambda: MnistCNN(dtype=torch.float32),
+              lambda: Adam(1e-3), (8, 28, 28, 1))]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    for i, (label, build_model, opt, shape) in enumerate(cases):
+        g = torch.Generator(device="cpu").manual_seed(SEED + 110 + i)
+        batches = [(torch.randn(shape, generator=g),
+                    torch.randint(0, 10, (shape[0],), generator=g))
+                   for _ in range(3)]
+        start = flax_layers.init_(build_model(), SEED + 115 + i,
+                                  "cpu").state_dict()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model()
+            model.load_state_dict(start)
+            model.to(dev).train()
+            with torch.no_grad():
+                logits = model(batches[0][0].to(dev)).cpu()
+            stats = {k: b.cpu().clone() for k, b in model.named_buffers()}
+            tx = _GradNorms(opt())
+            state = TrainState.create(model, tx)
+            step = make_train_step(model)
+            losses = []
+            for x, y in batches[1:]:
+                state, m = step(state, x.to(dev), y.to(dev))
+                losses.append(float(m["loss"]))
+            out[dev] = (logits, stats, losses, tx.norms,
+                        {k: v.detach().cpu() for k, v in
+                         model.state_dict().items()})
+            del model, state
+        (lg, sg, lossg, ng, endg), (lc, sc, lossc, nc, endc) = \
+            out["cuda"], out["cpu"]
+        logit_rel = rel(lg, lc)
+        stat_err = max([float((sg[k] - sc[k]).abs().max()) for k in sc]
+                       + [float((endg[k] - endc[k]).abs().max()) for k in sc]
+                       or [0.0])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lossg, lossc))
+        norm_rel = max(abs(a[k] - b[k]) / max(b[k], 1e-30)
+                       for a, b in zip(ng, nc) for k in b)
+        sgd = label == "resnet"
+        upd_rel = max((rel(endg[k] - start[k], endc[k] - start[k])
+                       for k in endc if k not in sc), default=0.0) \
+            if sgd else None
+        log(f"[vision-parity] {label} f32 {shape}: logits rel "
+            f"{logit_rel:.2e} (limit 1e-4); batch stats max err "
+            f"{stat_err:.2e} over {len(sc)} buffers (limit 1e-5); losses "
+            f"cuda {lossg} cpu {lossc} (rel {loss_rel:.2e}, limit 1e-5); "
+            f"{len(nc[0])} gradient norms a step, worst rel {norm_rel:.2e} "
+            f"(limit 1e-4)"
+            + (f"; parameter updates worst rel {upd_rel:.2e} (limit 1e-3)"
+               if sgd else "") + f"; {card}")
+        if not (logit_rel <= 1e-4 and stat_err <= 1e-5 and loss_rel <= 1e-5
+                and norm_rel <= 1e-4 and (not sgd or upd_rel <= 1e-3)):
+            raise AssertionError(f"[vision-parity] {label}: the card and "
+                                 f"the CPU disagree")
+
+
+def resnet_train_phase() -> dict:
+    """ResNet50 at the JAX defaults as train_resnet builds it (bf16
+    convolutions on cuDNN in channels_last, flax's BatchNorm), seeded,
+    SGD(0.1, momentum 0.9), synthetic 256 x 224² bf16 batches,
+    RESNET_STEPS steps through run_training: losses finite, the first
+    within 1.5 of ln(1000), every running stat finite; images/s, MFU (3 x
+    flops_per_image x images/s over the bf16 peak) and the memory peak.
+    Then __graft_entry__.entry()'s flagship forward on the port: a seeded
+    ResNet50 in eval mode over 8 x 224² bf16 images, timed."""
+    from tf_operator_tpu_torch import train_resnet
+    from tf_operator_tpu_torch.models.resnet import ResNet50, flops_per_image
+    from tf_operator_tpu_torch.runtime.optim import SGD
+    from tf_operator_tpu_torch.runtime.train import (
+        create_train_state, make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ResNet50(num_classes=1000)
+    sample = torch.zeros((RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3),
+                         dtype=torch.bfloat16)
+    state = create_train_state(model, sample, SGD(0.1, momentum=0.9),
+                               seed=SEED + 100, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[resnet-train] ResNet50, {n_params / 1e6:.3f} M f32 params, "
+        f"{len(state.batch_stats)} running stats, in "
+        f"{time.perf_counter() - t0:.1f} s; compute bf16 channels_last; "
+        f"batch {RESNET_BATCH} x {RESNET_IMAGE}²; sgd momentum 0.9")
+    losses, times = [], []
+    step = make_train_step(model)
+    batches = train_resnet.synthetic_imagenet(RESNET_BATCH, RESNET_IMAGE,
+                                              SEED + 101, device="cuda")
+    state = _zoo_train("resnet-train", step, state, batches, RESNET_STEPS,
+                       RESNET_BATCH, times, losses)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _profile(lambda: step(state, *next(batches)), "resnet-train step", 1)
+    finite = all(bool(torch.isfinite(b).all())
+                 for b in state.batch_stats.values())
+    moved = sum(not torch.equal(b, torch.zeros_like(b))
+                for k, b in state.batch_stats.items() if k.endswith(".mean"))
+    del model, state
+    torch.cuda.empty_cache()
+    if len(losses) != RESNET_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[resnet-train] losses {losses}")
+    if abs(losses[0] - math.log(1000)) > 1.5:
+        raise AssertionError(f"[resnet-train] first loss {losses[0]} is not "
+                             f"within 1.5 of ln(1000)")
+    if not finite or moved == 0:
+        raise AssertionError(f"[resnet-train] batch stats finite={finite}, "
+                             f"{moved} means moved")
+    step_s = _steady_s(times)
+    images_per_s = RESNET_BATCH / step_s
+    mfu = 3 * flops_per_image(RESNET_IMAGE) * images_per_s / \
+        PEAK_OPS_PER_S[torch.bfloat16]
+    card = device_line()
+    log(f"[resnet-train] losses {[round(x, 4) for x in losses]} (ln 1000 = "
+        f"{math.log(1000):.4f}); step_s {[round(x, 4) for x in times]}; "
+        f"steady step_s (median of steps 2-{RESNET_STEPS}) {step_s:.4f}, "
+        f"images_per_s {images_per_s:.2f}, mfu {mfu:.4f}, "
+        f"max_memory_allocated_gib {peak / 2**30:.3f}; batch stats finite, "
+        f"{moved} running means moved; {card}")
+
+    # __graft_entry__.entry(): ResNet50 forward, eval mode, 8 x 224² bf16
+    flagship = ResNet50(num_classes=1000)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.randn((8, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    create_train_state(flagship, images, SGD(0.1), seed=SEED, device="cuda")
+    flagship.eval()
+    with torch.no_grad():
+        logits = flagship(images)
+        ms = time_ms(lambda: flagship(images))
+        # its device time: under the profiler (its host enqueue, about
+        # 160 launches, outlasts time_ms's checked hold)
+        _profile(lambda: flagship(images), "flagship forward", 1)
+    if logits.shape != (8, 1000) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[resnet-train] flagship forward {logits.shape}")
+    log(f"[resnet-train] flagship forward (the entry point's ResNet50, eval, "
+        f"8 x 224² bf16): {ms:.4f} ms ({8 / ms * 1e3:.1f} images/s); logits "
+        f"finite; {card}")
+    del flagship, images
+    torch.cuda.empty_cache()
+    return dict(images_per_s=images_per_s, mfu=mfu)
+
+
+def entry_zoo_phase() -> None:
+    """The five CLIs on the card: train_bert --smoke; train_t5 --smoke
+    --blocked-ce --ckpt-dir (a save a step) for 2 steps, then to 3,
+    resuming from 2; train_resnet at 64² x 8 for 2 steps, synthetic and
+    from two seeded .rec shards of (uint8 image, label) records;
+    train_mnist for 2 steps; train_dist_mnist as a worker and as a ps
+    under TF_CONFIG."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tf_operator_tpu_torch import (
+        train_bert, train_dist_mnist, train_mnist, train_resnet, train_t5)
+    from tf_operator_tpu_torch.data.loader import FieldSpec, write_records
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    saved = os.environ.get("TF_CONFIG")
+    try:
+        out = _run_main(train_bert.main, ["--smoke", "--steps", "2"],
+                        "entry-zoo")
+        if "done: steps=2 loss=" not in out or "device cuda" not in out:
+            raise AssertionError("[entry-zoo] train_bert")
+        ckpt = os.path.join(root, "t5")
+        t5 = ["--smoke", "--blocked-ce", "--ckpt-dir", ckpt,
+              "--save-interval", "1"]
+        out = _run_main(train_t5.main, t5 + ["--steps", "2"], "entry-zoo")
+        if "complete: steps=2 resumed_from=None" not in out:
+            raise AssertionError("[entry-zoo] train_t5")
+        out = _run_main(train_t5.main, t5 + ["--steps", "3"], "entry-zoo")
+        if "complete: steps=1 resumed_from=2" not in out:
+            raise AssertionError("[entry-zoo] train_t5 resume")
+        resnet = ["--image-size", "64", "--per-host-batch", "8", "--steps",
+                  "2"]
+        out = _run_main(train_resnet.main, resnet, "entry-zoo")
+        if "data: synthetic" not in out or \
+                "done: steps=2 preempted=False" not in out:
+            raise AssertionError("[entry-zoo] train_resnet")
+        data = os.path.join(root, "images")
+        os.makedirs(data)
+        rng = np.random.default_rng(SEED + 120)
+        fields = [FieldSpec("image", (64, 64, 3), np.uint8),
+                  FieldSpec("label", (), np.int32)]
+        for i in range(2):
+            write_records(os.path.join(data, f"shard-{i}.rec"), fields, {
+                "image": rng.integers(0, 256, (16, 64, 64, 3)).astype(
+                    np.uint8),
+                "label": rng.integers(0, 1000, (16,)).astype(np.int32)})
+        out = _run_main(train_resnet.main, resnet + ["--data-dir", data],
+                        "entry-zoo")
+        if "data: records x32 (shard 0/1)" not in out or \
+                "done: steps=2 preempted=False" not in out:
+            raise AssertionError("[entry-zoo] train_resnet --data-dir")
+        out = _run_main(train_mnist.main, ["--steps", "2"], "entry-zoo")
+        if "done: steps=2 loss=" not in out:
+            raise AssertionError("[entry-zoo] train_mnist")
+        cluster = {"ps": ["ps-0:2222"], "worker": ["worker-0:2222"]}
+        for role, want in (("worker", "worker 0 done: steps=2"),
+                           ("ps", "ps replica: parameter serving")):
+            os.environ["TF_CONFIG"] = json.dumps(
+                {"cluster": cluster, "task": {"type": role, "index": 0}})
+            out = _run_main(train_dist_mnist.main, ["--steps", "2"],
+                            "entry-zoo")
+            if want not in out:
+                raise AssertionError(f"[entry-zoo] train_dist_mnist {role}")
+    finally:
+        if saved is None:
+            os.environ.pop("TF_CONFIG", None)
+        else:
+            os.environ["TF_CONFIG"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[entry-zoo] train_bert, train_t5 (blocked CE, resumed from 2), "
+        f"train_resnet (synthetic and records), train_mnist and "
+        f"train_dist_mnist (worker, ps) ran on the card; {device_line()}")
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
@@ -3898,6 +4615,8 @@ def _kernel_class(name: str) -> str:
                           ("ring_dkv", "ring dkv (K3kv)")):
         if kernel in name:
             return label
+    if any(k in name for k in ("cudnn", "fprop", "dgrad", "wgrad")):
+        return "convolution (cuDNN)"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     return "other"
@@ -4164,6 +4883,15 @@ def main() -> int:
     lap("mixtral-serve", mixtral_serve_phase())
     lap("mixtral-train", mixtral_train_phase())
     lap("entry-mixtral", entry_mixtral_phase())
+    # the BERT/T5 and vision model zoo
+    torch.cuda.empty_cache()
+    lap("transformer-parity", transformer_parity_phase())
+    zoo = lap("kernel2-zoo", kernel2_zoo_phase())
+    bert = lap("bert-train", bert_train_phase())
+    t5 = lap("t5-train", t5_train_phase())
+    lap("vision-parity", vision_parity_phase())
+    lap("resnet-train", resnet_train_phase())
+    lap("entry-zoo", entry_zoo_phase())
 
     def paged_row(name, line, kern, launches, verify=False):
         """K1's or K1q's row: decode times, prefill times beside them;
@@ -4229,6 +4957,26 @@ def main() -> int:
                     sdpa_band_ms=t["sdpa_band_ms"],
                     sdpa_band_device_ms=t["sdpa_band_device_ms"],
                     rel_l2={o: kern["norms"][o][0] for o in FLASH_OUTS[name]})
+    # the same kernels at D = 64: bert_large's non-causal attention and the
+    # t5_3b_decoder's causal one, launched by the bert-train and t5-train
+    # phases
+    for label, run in (("bert", bert), ("t5", t5)):
+        for name, line in (("flash_fwd", 112), ("flash_dq", 217),
+                           ("flash_dkv", 256)):
+            t = zoo[label]["timings"][name]
+            rows.append({
+                "name": f"{name}_{label}", "route": "cuda",
+                "source": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
+                "launches": run["launches"][name],
+                "max_abs_err": zoo[label]["errs"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "rel_l2": {o: zoo[label]["norms"][o]
+                           for o in FLASH_OUTS[name]}})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel)
     for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):

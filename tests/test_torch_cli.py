@@ -13,6 +13,7 @@ show decoded.
 """
 import dataclasses
 import importlib.util
+import json
 import os
 import signal
 
@@ -352,3 +353,103 @@ def test_train_llama_mistral_smoke_trains_windowed(capsys, monkeypatch):
     assert "model mistral (smoke), 2 layers, batch 2 x 48" in out
     assert "complete: steps=2 resumed_from=None loss=" in out
     assert seen == [16]
+
+
+# ------------------------------------------- the BERT/T5 and vision CLIs
+def test_train_bert_smoke_trains(capsys):
+    """train_bert --smoke: the tiny bidirectional model, adamw, masked-LM
+    batches; JAX's done line."""
+    from tf_operator_tpu_torch import train_bert
+
+    assert train_bert.main(["--smoke", "--device", "cpu", "--steps", "2",
+                            "--per-host-batch", "4", "--seq-len", "32"]) == 0
+    out = capsys.readouterr().out
+    assert "host 0/1, device cpu, 2 layers, batch 4 x 32" in out
+    done = [l for l in out.splitlines() if l.startswith("done: steps=2 loss=")]
+    assert len(done) == 1 and np.isfinite(float(done[0].split("loss=")[1]))
+
+
+def test_train_t5_blocked_ce_checkpoints_resumes_and_refuses_tp(
+        tmp_path, capsys, monkeypatch):
+    """train_t5 --smoke --blocked-ce with --ckpt-dir: a save a step, then
+    a resume from step 2; SIGTERM exits 143 with JAX's words; --tp 2
+    names its ROADMAP item."""
+    from tf_operator_tpu_torch import train_t5
+
+    argv = ["--smoke", "--device", "cpu", "--blocked-ce", "--ckpt-dir",
+            str(tmp_path), "--save-interval", "1", "--per-host-batch", "2",
+            "--seq-len", "32"]
+    assert train_t5.main(argv + ["--steps", "2"]) == 0
+    assert "complete: steps=2 resumed_from=None" in capsys.readouterr().out
+    assert Checkpointer(str(tmp_path)).all_steps() == [1, 2]
+    assert train_t5.main(argv + ["--steps", "3"]) == 0
+    assert "complete: steps=1 resumed_from=2" in capsys.readouterr().out
+
+    class Guard(PreemptionGuard):
+        def __init__(self, install=True):
+            super().__init__(install=install)
+            self.trigger()
+
+    monkeypatch.setattr(train_t5, "PreemptionGuard", Guard)
+    assert train_t5.main(argv + ["--steps", "9"]) == 143
+    assert "preempted (checkpointed): steps=0 resumed_from=3" in \
+        capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train_t5.main(["--smoke", "--device", "cpu", "--tp", "2"])
+
+
+def test_train_resnet_synthetic_and_records(tmp_path, capsys):
+    """train_resnet (ResNet50 at 32²) on synthetic batches and on .rec
+    shards of (uint8 image, int32 label) records."""
+    from tf_operator_tpu_torch import train_resnet
+
+    argv = ["--device", "cpu", "--image-size", "32", "--per-host-batch", "2",
+            "--steps", "2"]
+    assert train_resnet.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "data: synthetic" in out
+    assert "done: steps=2 preempted=False" in out
+    fields = [FieldSpec("image", (32, 32, 3), np.uint8),
+              FieldSpec("label", (), np.int32)]
+    rng = np.random.default_rng(0)
+    write_records(str(tmp_path / "a.rec"), fields, {
+        "image": rng.integers(0, 256, (6, 32, 32, 3)).astype(np.uint8),
+        "label": rng.integers(0, 1000, (6,)).astype(np.int32)})
+    x, y = next(train_resnet.record_pipeline(str(tmp_path), 2, 32,
+                                             device="cpu"))
+    assert x.dtype == torch.bfloat16 and x.shape == (2, 32, 32, 3)
+    assert float(x.min()) >= -1.0 and float(x.max()) <= 1.0
+    assert y.dtype == torch.long and y.shape == (2,)
+    capsys.readouterr()
+    assert train_resnet.main(argv + ["--data-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "data: records x6 (shard 0/1)" in out
+    assert "done: steps=2 preempted=False" in out
+
+
+def test_train_mnist_and_dist_mnist(capsys, monkeypatch):
+    """train_mnist (MnistCNN, adam) with a metrics line a step;
+    train_dist_mnist under TF_CONFIG as a worker (MnistMLP, sgd) and as a
+    ps (exits 0 without training)."""
+    from tf_operator_tpu_torch import train_dist_mnist, train_mnist
+
+    assert train_mnist.main(["--device", "cpu", "--steps", "2",
+                             "--batch-size", "8", "--log-interval", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "done: steps=2 loss=" in out
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    assert [m["step"] for m in lines] == [1, 2]
+    assert all(np.isfinite(m["loss"]) for m in lines)
+    cluster = {"ps": ["ps-0:2222"], "worker": ["w-0:2222", "w-1:2222"]}
+    monkeypatch.setenv("TF_CONFIG", json.dumps(
+        {"cluster": cluster, "task": {"type": "worker", "index": 1}}))
+    assert train_dist_mnist.main(["--device", "cpu", "--steps", "2",
+                                  "--batch-size", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "role=worker index=1 cluster_keys=['ps', 'worker']" in out
+    assert "worker 1 done: steps=2" in out
+    monkeypatch.setenv("TF_CONFIG", json.dumps(
+        {"cluster": cluster, "task": {"type": "ps", "index": 0}}))
+    assert train_dist_mnist.main([]) == 0
+    assert "ps replica: parameter serving is framework-internal; idling" \
+        in capsys.readouterr().out

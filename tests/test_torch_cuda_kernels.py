@@ -544,7 +544,7 @@ def _flash_case(seed, *, s, h, kv, d, dtype, b=2):
     (300, 6, 2, 128, True, 100), (77, 8, 1, 8, True, None),
     (127, 4, 2, 128, True, None), (129, 8, 1, 128, True, None),
     (192, 4, 2, 128, False, None), (256, 8, 1, 128, True, 64),
-    (6144, 32, 8, 128, True, 4096)])
+    (6144, 32, 8, 128, True, 4096), (512, 16, 16, 64, False, None)])
 def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     """Each kernel against its plain version on the same inputs (the
     backward kernels take the plain forward's lse and delta), with
@@ -555,7 +555,9 @@ def test_flash_kernels_match_plain(dtype, s, h, kv, d, causal, window):
     units to K2kv's two warpgroups; S = 6144 at window 4096 has
     mistral_7b's heads and window over one and a half windows, where the
     band skips whole tiles (the plain versions' S x S scores bound S
-    here; chip_smoke.py holds the kernels at S = 8192).  bf16 outputs
+    here; chip_smoke.py holds the kernels at S = 8192); S = 512 with
+    H = KV = 16 at D = 64, non-causal, is bert_large's attention.  bf16
+    outputs
     are also held by their relative error norm.  Every bf16 launch counts
     on the tensor cores, no f32 one."""
     q, k, v, do = _flash_case(s + d, s=s, h=h, kv=kv, d=d, dtype=dtype)

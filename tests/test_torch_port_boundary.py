@@ -37,7 +37,11 @@ def test_every_module_imports_without_jax():
                  "engine.tracing", "models.telemetry",
                  "models.speculative", "generate_llama", "serve_llama",
                  "data.loader", "data.tokenize", "models.convert",
-                 "parallel.ep"):
+                 "parallel.ep", "models.transformer",
+                 "models.transformer_bridge", "models.flax_layers",
+                 "models.resnet", "models.mnist", "models.vision_bridge",
+                 "train_bert", "train_t5", "train_resnet", "train_mnist",
+                 "train_dist_mnist"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"
@@ -162,6 +166,43 @@ def test_training_entry_points_raise_without_a_card(no_card):
     ring_fn = rf.make_ring_flash_attention_fn(LocalRing(2))
     with pytest.raises(ValueError, match="cuda or cpu"):
         ring_fn(meta, meta, meta, True)
+
+
+def test_model_zoo_entry_points_raise_without_a_card(no_card, monkeypatch):
+    """The BERT/T5 and vision CLIs, their data and weights run on the
+    card unless asked for the CPU, and raise without one."""
+    from tf_operator_tpu_torch import (
+        train_bert, train_dist_mnist, train_mnist, train_resnet, train_t5)
+    from tf_operator_tpu_torch.models import flax_layers, mnist, transformer
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        init_transformer_params)
+    from tf_operator_tpu_torch.runtime.optim import SGD
+    from tf_operator_tpu_torch.runtime.train import create_train_state
+
+    for main in (train_bert.main, train_t5.main):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_resnet.main(["--image-size", "32", "--per-host-batch", "1",
+                           "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_mnist.main(["--steps", "1"])
+    monkeypatch.setenv("TF_CONFIG", '{"task": {"type": "worker"}}')
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_dist_mnist.main(["--steps", "1"])
+    for batches in (train_bert.mlm_batches(1, 8, 16, 0),
+                    train_t5.lm_batches(1, 8, 16, 0),
+                    train_resnet.synthetic_imagenet(1, 8, 0),
+                    train_mnist.synthetic_mnist(1)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            next(batches)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_transformer_params(transformer.tiny(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        flax_layers.init_(mnist.MnistMLP(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(mnist.MnistMLP(), torch.zeros((1, 28, 28, 1)),
+                           SGD(0.1))
 
 
 def test_flash_kernels_need_nvcc(no_card, tmp_path, monkeypatch):

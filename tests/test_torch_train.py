@@ -100,6 +100,52 @@ def test_adafactor_matches_optax_three_steps():
                                    np.asarray(js[0].v_col[k]), rtol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd_momentum", "sgd"])
+def test_optimizer_matches_optax_three_steps(name):
+    """AdamW, Adam and SGD (with and without momentum) as the JAX entry
+    points build them (optax.adamw(1e-4, weight_decay=0.01) for BERT,
+    adam(1e-3) for MNIST, sgd(0.1, momentum=0.9) for ResNet, sgd(0.01)
+    for dist-mnist): parameters and optimizer state after each of three
+    steps, 1e-6."""
+    tx, opt = {
+        "adamw": (optax.adamw(1e-4, weight_decay=0.01),
+                  optim.AdamW(1e-4, weight_decay=0.01)),
+        "adam": (optax.adam(1e-3), optim.Adam(1e-3)),
+        "sgd_momentum": (optax.sgd(0.1, momentum=0.9),
+                         optim.SGD(0.1, momentum=0.9)),
+        "sgd": (optax.sgd(0.01), optim.SGD(0.01)),
+    }[name]
+    rng = np.random.default_rng(1)
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in SHAPES.items()}
+    grads = [{k: (rng.standard_normal(p.shape) * 10 ** rng.uniform(-3, 1))
+              .astype(np.float32) for k, p in params.items()}
+             for _ in range(3)]
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    js = tx.init(jp)
+    update = jax.jit(tx.update)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    ts = opt.init(tp)
+    for g in grads:
+        upd, js = update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        ts = opt.update_(tp, ts)
+        assert all(p.grad is None for p in tp.values())
+        for k in params:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+    assert ts["count"] == 3
+    state = ({"mu": js[0].mu, "nu": js[0].nu} if name.startswith("adam")
+             else {"trace": js[0].trace} if name == "sgd_momentum" else {})
+    for slot, want in state.items():
+        for k in params:
+            ref = np.asarray(want[k])
+            np.testing.assert_allclose(ts[slot][k].numpy(), ref, rtol=1e-6,
+                                       atol=1e-12, err_msg=f"{slot} {k}")
+
+
 # ------------------------------------------------------- the llama3 step
 def _tiny_pair(seq):
     """The tiny tied f32 llama with flash attention and remat, on both

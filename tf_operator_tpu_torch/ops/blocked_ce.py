@@ -17,7 +17,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from tf_operator_tpu_torch.models.transformer import MOE_AUX_WEIGHT
+from tf_operator_tpu_torch.models.transformer import MOE_AUX_WEIGHT, moe_aux
 
 
 def _pick_chunk(v: int, chunk: Optional[int]) -> int:
@@ -118,12 +118,15 @@ def blocked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
 def lm_blocked_loss(model, tokens: torch.Tensor,
                     chunk: Optional[int] = None,
                     perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The causal-LM loss of a tied-embedding Llama with the head fused
-    into the loss: the body without the logits projection, then the
-    blocked CE of hidden[:, :-1] against tokens[:, 1:] over the f32
-    embedding matrix, plus MOE_AUX_WEIGHT times the sum of the sparse
-    blocks' load-balancing losses of this forward (MoeSwiGlu.aux_loss,
-    what flax sows and the JAX loss adds; 0 for a dense model).
+    """The causal-LM loss of a tied-embedding Llama or Transformer
+    (models/llama.py, models/transformer.py) with the head fused into
+    the loss: the body without the logits projection, then the blocked
+    CE of hidden[:, :-1] against tokens[:, 1:] over the f32 embedding
+    matrix (not the cfg.dtype product the tied logits take, as in the
+    JAX package), plus MOE_AUX_WEIGHT times the sum of the sparse
+    blocks' load-balancing losses of this forward (MoeSwiGlu.aux_loss or
+    MoeMlp.aux_loss, what flax sows and the JAX loss adds; 0 for a dense
+    model).
 
     perm ([S] ids, e.g. ops/zigzag.storage_perm): the model runs on the
     tokens in storage order tokens[:, perm] with positions=perm, and its
@@ -138,10 +141,7 @@ def lm_blocked_loss(model, tokens: torch.Tensor,
         perm = torch.as_tensor(perm, device=tokens.device).long()
         hidden = model(tokens[:, perm], return_hidden=True, positions=perm)
         hidden = hidden[:, torch.argsort(perm)]
-    aux = hidden.new_zeros((), dtype=torch.float32)
-    for blk in model.blocks:
-        if hasattr(blk, "moe"):
-            aux = aux + blk.moe.aux_loss
+    aux = moe_aux(model)
     x = hidden[:, :-1].reshape(-1, cfg.d_model)
     labels = tokens[:, 1:].reshape(-1)
     loss = blocked_cross_entropy(x.float(), model.embed.float().T, labels,

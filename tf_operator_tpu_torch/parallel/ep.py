@@ -27,6 +27,7 @@ descending sort (`_topk`), which keeps the lower index first.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -106,6 +107,17 @@ def switch_route(router_logits: torch.Tensor, capacity: int,
     return dispatch, combine.sum(dim=(1, 2)), aux
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x) (the tanh approximation, flax's nn.gelu) in x's
+    dtype, op for op as JAX writes it: x · 0.5·(1 + tanh(sqrt(2/π)·(x +
+    0.044715·x³))), each step rounded to the dtype (F.gelu rounds once,
+    from f32)."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=torch.float32).to(
+        x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
 def _expert_ffn(h: torch.Tensor, act: str) -> torch.Tensor:
     """The nonlinearity after wi: 'swiglu' splits the packed gate and up
     halves of the last axis (silu(gate) * up); 'gelu' is jax.nn.gelu's
@@ -113,7 +125,7 @@ def _expert_ffn(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
         return F.silu(gate) * up
-    return F.gelu(h, approximate="tanh")
+    return gelu(h)
 
 
 def _aux(probs: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:

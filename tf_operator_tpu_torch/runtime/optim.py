@@ -1,9 +1,16 @@
-"""Adafactor as optax.adafactor builds it, for the port's training step.
+"""The optimizers of the JAX training entry points, as optax builds them.
 
-The JAX training entry point (examples/llama/train_llama.py) trains with
-`optax.adafactor(1e-3)` and its defaults.  This is that chain, in optax's
-order and arithmetic (optax 0.2.6, `_src/alias.py`, `_src/factorized.py`,
-`_src/clipping.py`, `_src/transform.py`):
+Each class keeps optax's chain, order and arithmetic (optax 0.2.6,
+`_src/alias.py`, `_src/factorized.py`, `_src/clipping.py`,
+`_src/transform.py`) and updates in place (`update_(params, state)`):
+
+  - `Adafactor`: `optax.adafactor(1e-3)` (examples/llama, examples/t5);
+  - `AdamW`: `optax.adamw(1e-4, weight_decay=0.01)` (examples/bert);
+  - `Adam`: `optax.adam(1e-3)` (examples/mnist);
+  - `SGD`: `optax.sgd(lr, momentum=0.9)` (examples/resnet50) and
+    `optax.sgd(0.01)` (examples/dist-mnist).
+
+Adafactor's chain:
 
   1. scale_by_factored_rms: with t the update count, β₂ = 1 - (t+1)^-0.8
      and g² + 1e-30, an f32 parameter whose two largest dims (the last two
@@ -19,7 +26,20 @@ order and arithmetic (optax 0.2.6, `_src/alias.py`, `_src/factorized.py`,
 `torch.optim.Adafactor` is a different algorithm (relative step sizes,
 another clipping) and is not used.
 
-Unlike optax, the update runs in place, one parameter at a time: each
+Adam's chain (`scale_by_adam`, then for AdamW `add_decayed_weights`,
+then `scale_by_learning_rate`): with t the update count,
+mu = (1-b1)·g + b1·mu and nu = (1-b2)·g² + b2·nu; u = mu_hat /
+(sqrt(nu_hat) + eps) with mu_hat = mu / (1 - b1^t) and nu_hat =
+nu / (1 - b2^t), the corrections in f32; AdamW adds weight_decay·p to
+u (every parameter: optax's mask is None); then u·(-lr) is added to p.
+torch.optim.AdamW decays p by lr·wd before the Adam step and divides
+by the corrections in another order, so it is not used either.
+SGD: optax.trace (t = g + momentum·t, the update is t) when momentum
+is set, then u·(-lr).  XLA fuses each moment's update into one
+multiply-add (fma((1-b1), g, b1·mu), fma((1-b2), g², b2·nu),
+fma(momentum, t, g)); `add_(..., alpha=)` rounds once the same way.
+
+Unlike optax, every update runs in place, one parameter at a time: each
 parameter's gradient is read, turned into its update, added, and then
 dropped (`p.grad = None`), so no whole-tree temporary is ever held — at
 llama3_8b's 7.5 B f32 parameters a second copy of the tree would not fit
@@ -121,6 +141,97 @@ class Adafactor:
             u.mul_(torch.where(rms <= MIN_PARAM_RMS,
                                torch.full_like(rms, MIN_PARAM_RMS), rms))
             u.mul_(-1.0)
+            p.add_(u)
+        state["count"] += 1
+        return state
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """p's gradient (zeros when it has none), dropped from p."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    p.grad = None
+    return g
+
+
+class AdamW:
+    """optax.adamw(learning_rate, b1, b2, eps, weight_decay) with
+    eps_root 0 and no mask (Adam: weight_decay 0, as optax.adam's chain
+    has no decay step).  `init(params)` returns {"count", "mu", "nu"};
+    `update_(params, state)` applies one step in place from each
+    parameter's `.grad` and returns the state."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4) -> None:
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
+        zeros = lambda: {k: torch.zeros_like(
+            p, memory_format=torch.contiguous_format)
+            for k, p in params.items()}
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def update_(self, params: Mapping[str, torch.Tensor], state: Dict) -> Dict:
+        t = torch.tensor(state["count"] + 1, dtype=torch.float32)
+        # 1 - decay**count in f32, as optax's bias correction
+        bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** t
+        bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** t
+        for name, p in params.items():
+            g = _grad(p)
+            mu, nu = state["mu"][name], state["nu"][name]
+            # XLA fuses each moment's b·m + (1-b)·g (g²) into one multiply-add;
+            # add_(alpha=) rounds once the same way
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
+            del g
+            dev = p.device
+            u = torch.sqrt(nu / bc2.to(dev)).add_(self.eps)
+            u = torch.div(mu / bc1.to(dev), u, out=u)
+            if self.weight_decay:
+                u.add_(p * self.weight_decay)
+            p.add_(u.mul_(-self.learning_rate))
+        state["count"] += 1
+        return state
+
+
+class Adam(AdamW):
+    """optax.adam(learning_rate, b1, b2, eps): AdamW's chain without the
+    decay step."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8) -> None:
+        super().__init__(learning_rate, b1, b2, eps, weight_decay=0.0)
+
+
+class SGD:
+    """optax.sgd(learning_rate, momentum) (no Nesterov).  `init(params)`
+    returns {"count", "trace"} ("trace" empty without momentum)."""
+
+    def __init__(self, learning_rate: float,
+                 momentum: Optional[float] = None) -> None:
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
+        trace = {} if self.momentum is None else {
+            k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+            for k, p in params.items()}
+        return {"count": 0, "trace": trace}
+
+    @torch.no_grad()
+    def update_(self, params: Mapping[str, torch.Tensor], state: Dict) -> Dict:
+        for name, p in params.items():
+            g = _grad(p)
+            if self.momentum is None:
+                u = g * (-self.learning_rate)
+            else:
+                tr = state["trace"][name]
+                # g + momentum·t as one multiply-add, as XLA fuses it
+                torch.add(g, tr, alpha=self.momentum, out=tr)
+                u = tr * (-self.learning_rate)
             p.add_(u)
         state["count"] += 1
         return state

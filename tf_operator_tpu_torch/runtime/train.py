@@ -2,12 +2,13 @@
 
 The port of what tf_operator_tpu/runtime/train.py does on one device:
 `TrainState` (step, params, optimizer state, batch stats),
-`cross_entropy_loss` and `make_train_step` with gradient accumulation.
-PyTorch runs eagerly, so there is no jit, no donation and no mesh; the
-step updates the state IN PLACE (the parameters are the model's own
-tensors and the optimizer writes them) and returns it, where the JAX step
-returns a new state.  Meshes and shardings are ROADMAP Queue 1 item 11;
-`create_train_state` (flax-style models with batch statistics) is item 10.
+`create_train_state`, `cross_entropy_loss`, `make_train_step` with
+gradient accumulation and `make_eval_step`.  PyTorch runs eagerly, so
+there is no jit, no donation and no mesh; the step updates the state IN
+PLACE (the parameters are the model's own tensors and the optimizer
+writes them; the batch statistics are the model's BatchNorm buffers,
+which its training forward updates) and returns it, where the JAX step
+returns a new state.  Meshes and shardings are ROADMAP Queue 1 item 11.
 
 `Checkpointer` is the port of the JAX package's orbax checkpoint manager,
 on torch.save / torch.load: one directory per step under the checkpoint
@@ -26,12 +27,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.models.flax_layers import init_
+
 
 @dataclass
 class TrainState:
     """step + params (the model's parameters by name, the f32 masters the
-    optimizer updates) + opt state + batch stats (an empty slot: no model
-    of the port keeps running statistics)."""
+    optimizer updates) + opt state + batch stats (the model's buffers by
+    name: the running mean and var of each BatchNorm layer
+    (models/flax_layers), which a forward in training mode updates in
+    place; empty for models without them)."""
 
     step: int
     params: Dict[str, torch.Tensor]
@@ -42,7 +48,8 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, tx) -> "TrainState":
         params = dict(model.named_parameters())
-        return cls(step=0, params=params, opt_state=tx.init(params), tx=tx)
+        return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
+                   batch_stats=dict(model.named_buffers()))
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer step from the parameters' .grad, in place; the
@@ -52,6 +59,24 @@ class TrainState:
         return self
 
 
+def create_train_state(model: nn.Module, sample_input: torch.Tensor, tx,
+                       seed: int = 0, device=None) -> TrainState:
+    """The train state of a flax-style model (models/resnet.py,
+    models/mnist.py): its parameters and running stats drawn on `device`
+    (default "cuda") with flax's initializers from `seed`
+    (models/flax_layers.init_), checked by one eval-mode forward of the
+    first row of `sample_input` (where flax's init runs the model on
+    it), and the optimizer state of `tx`.  The model is left on the
+    device in training mode."""
+    dev = resolve_device(device)
+    init_(model, seed, dev)
+    model.eval()
+    with torch.no_grad():
+        model(sample_input[:1].to(dev))
+    model.train()
+    return TrainState.create(model, tx)
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """Integer-label cross-entropy, averaged (no one-hot temporary)."""
@@ -59,16 +84,29 @@ def cross_entropy_loss(logits: torch.Tensor,
                            labels.reshape(-1).long())
 
 
+def _check_batch_stats(model: nn.Module, has_batch_stats: bool) -> None:
+    if not has_batch_stats and next(model.buffers(), None) is not None:
+        raise ValueError("has_batch_stats=False, but the model keeps "
+                         "running statistics (buffers)")
+
+
 def make_train_step(model: nn.Module,
                     loss_fn: Callable = cross_entropy_loss,
+                    has_batch_stats: bool = True,
                     accum_steps: int = 1) -> Callable:
-    """(state, inputs, labels) -> (state, {"loss", "accuracy"}).
+    """(state, inputs, labels) -> (state, {"loss", "accuracy"}), the model
+    in training mode: a model with batch statistics normalizes by each
+    batch's and updates its running stats in place (state.batch_stats
+    holds them).  has_batch_stats=False refuses a model that keeps
+    running stats (buffers), as flax's apply does without them.
 
     `accum_steps > 1` splits the batch into that many equal micro-batches,
     runs forward and backward on each (their gradients sum in .grad), and
     applies ONE optimizer update with the mean gradient: activation memory
     scales with the micro-batch, and for models without batch statistics
-    the update is the full-batch one."""
+    the update is the full-batch one.  The running stats are updated
+    micro-batch after micro-batch, as the JAX step's scan chains them."""
+    _check_batch_stats(model, has_batch_stats)
 
     def forward_backward(x, y):
         logits = model(x)
@@ -78,6 +116,7 @@ def make_train_step(model: nn.Module,
         return loss.detach(), accuracy
 
     def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
+        model.train()
         if accum_steps == 1:
             loss, accuracy = forward_backward(inputs, labels)
             return state.apply_gradients(), {"loss": loss,
@@ -100,6 +139,27 @@ def make_train_step(model: nn.Module,
                     p.grad.div_(accum_steps)
         return state.apply_gradients(), {"loss": loss_sum / accum_steps,
                                          "accuracy": acc_sum / accum_steps}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, has_batch_stats: bool = True
+                   ) -> Callable:
+    """(state, inputs, labels) -> {"loss", "accuracy"} without gradients,
+    the model in eval mode (normalized by its running stats); the model's
+    mode is put back after."""
+    _check_batch_stats(model, has_batch_stats)
+
+    @torch.no_grad()
+    def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
+        was = model.training
+        model.eval()
+        try:
+            logits = model(inputs)
+        finally:
+            model.train(was)
+        return {"loss": cross_entropy_loss(logits, labels),
+                "accuracy": (logits.argmax(dim=-1) == labels).float().mean()}
 
     return step
 
@@ -287,8 +347,9 @@ class Checkpointer:
         """`state` restored from `step` (default the newest), or `state`
         unchanged when there is no checkpoint.  The parameters are the
         model's own tensors, so they are overwritten in place; the
-        optimizer state, the step and the batch statistics are replaced
-        (the optimizer state on the parameters' device)."""
+        optimizer state and the step are replaced
+        (the optimizer state on the parameters' device).  The batch
+        statistics are the model's buffers too: overwritten in place."""
         step = self._resolve(step)
         if step is None:
             return state
@@ -301,11 +362,17 @@ class Checkpointer:
                 f"missing {sorted(set(state.params) - set(saved))[:5]}, "
                 f"unexpected {sorted(set(saved) - set(state.params))[:5]}")
         rest = torch.load(os.path.join(path, STATE_FILE), weights_only=True)
+        stats = rest["batch_stats"]
+        if set(stats) != set(state.batch_stats):
+            raise ValueError(
+                f"step {step}'s batch stats do not match the state: saved "
+                f"{sorted(stats)[:5]}, state {sorted(state.batch_stats)[:5]}")
         device = next(iter(state.params.values())).device
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(saved[k])
+            for k, b in state.batch_stats.items():
+                b.copy_(stats[k])
         state.step = rest["step"]
         state.opt_state = _to_device(rest["opt_state"], device)
-        state.batch_stats = _to_device(rest["batch_stats"], device)
         return state
