@@ -279,6 +279,29 @@ Phases, in order, none of them caught:
               from .rec shards), train_mnist and train_dist_mnist (worker
               and ps under TF_CONFIG) on the card.
 
+ 31. lora-train: llama3_8b at full width and depth as train_llama builds
+              it, f32 masters frozen, rank-16 adapters (alpha 16) on its
+              160 projections (models/lora, attached as parametrizations),
+              Adam over the adapters alone, 1 x 2048, 4 steps: the adapter
+              count and size from the shapes, the base held once, the
+              first loss = the base model's, K2 64 / 32 / 32 a step on the
+              tensor cores, the base bit-equal after the steps, the
+              adapters merged in place = the attached model; step time,
+              tokens/s, MFU, the peak and one step's device time by class.
+ 32. lora-parity: 2 layers f32, adapters with a random B: the loss and
+              every adapter's gradient norm on the card = the CPU's.
+ 33. dp-train: train_resnet (128 x 224² a rank) and train_bert (bert_large,
+              16 x 512 a rank) as jobs of two ranks on the one card (the
+              PyTorchJob env, --backend gloo; `chip_smoke.py --dp-worker`
+              runs each rank's entry points), against one process on the
+              whole batch: losses, gradient norms and running stats within
+              bf16 tolerances, both ranks' parameters bit-equal; images/s,
+              tokens/s and the all-reduce's seconds a step (two ranks on
+              one card: the collective's cost, not scaling).
+ 34. dp-parity: train_llama --smoke and --smoke --model mixtral in f32 as
+              two-rank jobs = one process on the whole batch within 1e-5;
+              rank 0's checkpoints, and both ranks resumed from them.
+
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
 
@@ -4601,6 +4624,735 @@ def entry_zoo_phase() -> None:
         f"train_dist_mnist (worker, ps) ran on the card; {device_line()}")
 
 
+# ------------------------------------------------------------------- LoRA
+LORA_RANK, LORA_ALPHA, LORA_STEPS, LORA_LR = 16, 16.0, 4, 1e-4
+
+
+def _checksum(t: torch.Tensor) -> tuple:
+    """(sum, 2-norm) of a tensor in f64: equal bits give equal sums."""
+    return (torch.sum(t, dtype=torch.float64).item(),
+            torch.linalg.vector_norm(t, dtype=torch.float64).item())
+
+
+def lora_expected(cfg, rank: int) -> tuple:
+    """(adapters, adapter parameters) of DEFAULT_TARGETS on a dense
+    llama config, from the kernels' shapes: per layer wq [E, H·D], wkv
+    [E, 2·KV·D], out [H·D, E], wi [E, 2F], wo [F, E], each r·(in + out)."""
+    e, hd = cfg.d_model, cfg.head_dim
+    kernels = [(e, cfg.n_heads * hd), (e, 2 * cfg.n_kv_heads * hd),
+               (cfg.n_heads * hd, e), (e, 2 * cfg.d_ff), (cfg.d_ff, e)]
+    per_layer = sum(rank * (i + o) for i, o in kernels)
+    return len(kernels) * cfg.n_layers, per_layer * cfg.n_layers
+
+
+def lora_flops(cfg, rank: int) -> dict:
+    """A LoRA step's FLOPs on the tied llama with the adapters on every
+    projection, as (FLOPs a token, FLOPs a step besides).
+
+    "model": the work of the finetune itself.  Each frozen matmul
+    parameter (the adapted kernels and the tied head) costs 4 a token:
+    the forward and the input gradient, with no weight gradient.  Each
+    adapter parameter costs 6, as in full training.  Forming A@B once a
+    step costs 2·r·in·out a kernel.  MFU is counted over these.
+
+    "executed": what the parametrization runs besides.  The products run
+    on W + s·A@B, and the adapters' gradients come from that weight's
+    gradient, so each adapted kernel costs 6 a token; forming A@B and
+    its two gradients costs 6·r·in·out a step.
+
+    Remat's recompute is counted in neither."""
+    from tf_operator_tpu_torch.models.llama import params_flops_per_token
+
+    vocab = cfg.vocab_size * cfg.d_model
+    matmul = params_flops_per_token(cfg) / 6.0
+    adapted = matmul - vocab  # Σ in·out over the adapted kernels
+    _, n_lora = lora_expected(cfg, rank)
+    return dict(model=(4.0 * matmul + 6.0 * n_lora, 2.0 * rank * adapted),
+                executed=(6.0 * adapted + 4.0 * vocab, 6.0 * rank * adapted))
+
+
+def lora_train_phase() -> dict:
+    """The slice's full-width path: llama3_8b at full width and depth as
+    train_llama builds it (tied, remat, K2 flash attention), f32 masters
+    from a seed, frozen; rank-16 adapters (alpha 16) on every projection
+    attached (models/lora), Adam(1e-4) over the adapters alone, batch
+    1 x 2048, LORA_STEPS steps through run_training.  Checks: the adapter
+    count and size from the shapes, the optimizer's moments 2 x the
+    adapters, the base kept once (same storage, no copy), the first
+    step's loss = the base model's on that batch (B = 0), every loss
+    finite, K2f 2 x 32 a step and K2q/K2kv 32, all on the tensor cores;
+    one more step's device time by kernel class and idle share
+    (torch.profiler); every base weight unchanged (f64 checksums, bit
+    for bit); then the
+    adapters merged in place (lora.merge_into) give the attached model's
+    final hidden states within the bf16 tolerance (max abs diff <= 2e-2
+    x max |h|) and its loss within 1e-3.  Prints step time, tokens/s,
+    MFU (lora_flops) and the memory peak."""
+    import itertools
+
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import bridge, llama, lora
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
+    from tf_operator_tpu_torch.runtime.optim import Adam
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_train_cfg()
+    t0 = time.perf_counter()
+    model = llama.Llama.from_params(
+        cfg, bridge.init_params(cfg, SEED + 160, device="cuda", train=True),
+        device="cuda", train=True)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    init_s = time.perf_counter() - t0
+    sums = {k: _checksum(v) for k, v in model.state_dict().items()}
+    ptrs = {k: v.data_ptr() for k, v in model.state_dict().items()}
+    batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 161,
+                                     device="cuda")
+    first = next(batches)
+    with torch.no_grad():
+        base_loss = float(lm_blocked_loss(model, *first))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 162)
+    params = lora.attach(model, lora.init(gen, model.state_dict(),
+                                          rank=LORA_RANK), alpha=LORA_ALPHA)
+    state = TrainState.create(model, Adam(LORA_LR), params=params)
+    torch.cuda.synchronize()
+    n_adapters = len(params) // 2
+    n_lora = sum(p.numel() for p in params.values())
+    moments = sum(t.numel() for m in ("mu", "nu")
+                  for t in state.opt_state[m].values())
+    added = torch.cuda.memory_allocated() - base_mem
+    want_n, want_p = lora_expected(cfg, LORA_RANK)
+    log(f"[lora-train] llama3_8b tied, remat, flash attention, "
+        f"{cfg.n_layers} layers, base {base_mem / 2**30:.2f} GiB f32 frozen "
+        f"(drawn in {init_s:.1f} s); {n_adapters} adapters of rank "
+        f"{LORA_RANK} (alpha {LORA_ALPHA}), {n_lora} adapter params, "
+        f"adam moments {moments}; attach + optimizer state added "
+        f"{added / 2**20:.1f} MiB; batch {TB} x {TS}")
+    if (n_adapters, n_lora) != (want_n, want_p) or moments != 2 * n_lora:
+        raise AssertionError(f"[lora-train] {n_adapters} adapters, {n_lora} "
+                             f"params, {moments} moments; expected "
+                             f"{want_n}, {want_p}, {2 * want_p}")
+    # one copy of the base: the originals are the drawn tensors, and the
+    # attach added the adapters and their moments alone (f32: 3 x 4 B)
+    if any(v.data_ptr() != ptrs[k]
+           for k, v in lora.base_params(model).items()) or \
+            added > 3 * 4 * n_lora + (64 << 20):
+        raise AssertionError(f"[lora-train] the base was copied "
+                             f"({added} bytes added)")
+    losses, times = [], []
+    step = train_llama.make_lm_step(model)
+
+    def timed_step(state, tokens):
+        t = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    fa.reset_launches()
+    res = run_training_quiet(state, timed_step,
+                             itertools.chain([first], batches), LORA_STEPS,
+                             "lora-train")
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # where a step's time goes (three more steps: warm, timed, profiled)
+    _profile(lambda: step(state, *next(batches)), "lora-train step", 1)
+    changed = [k for k, v in lora.base_params(model).items()
+               if _checksum(v) != sums[k]]
+    moved = sum(bool(p.any()) for k, p in params.items() if k.endswith(".b"))
+    with torch.no_grad():
+        h_att = model(first[0], return_hidden=True)
+        loss_att = float(lm_blocked_loss(model, first[0]))
+        lora.merge_into(model)
+        h_mrg = model(first[0], return_hidden=True)
+        loss_mrg = float(lm_blocked_loss(model, first[0]))
+        h_err = float((h_att.float() - h_mrg.float()).abs().max())
+        h_max = float(h_att.float().abs().max())
+    del model, state, step, res, params, h_att, h_mrg
+    torch.cuda.empty_cache()
+
+    if len(losses) != LORA_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[lora-train] losses {losses}")
+    if abs(losses[0] - base_loss) > 1e-6 * abs(base_loss):
+        raise AssertionError(f"[lora-train] first loss {losses[0]} is not "
+                             f"the base model's {base_loss} (B = 0)")
+    want = _k2_want(cfg.n_layers, LORA_STEPS)
+    if launches != want:
+        raise AssertionError(f"[lora-train] kernel launches {launches}, "
+                             f"expected {want}")
+    if changed or moved != n_adapters:
+        raise AssertionError(f"[lora-train] base leaves changed: "
+                             f"{changed[:5]}; {moved} of {n_adapters} B moved")
+    if h_err > 2e-2 * h_max or abs(loss_mrg - loss_att) > 1e-3 * loss_att:
+        raise AssertionError(f"[lora-train] merged model: hidden max abs "
+                             f"diff {h_err} (max |h| {h_max}), loss "
+                             f"{loss_mrg} vs attached {loss_att}")
+    step_s = _steady_s(times)
+    tokens_per_s = TB * TS / step_s
+    flops = {k: per_token * TB * TS + per_step
+             for k, (per_token, per_step) in lora_flops(cfg,
+                                                        LORA_RANK).items()}
+    peak_ops = PEAK_OPS_PER_S[torch.bfloat16]
+    mfu = flops["model"] / step_s / peak_ops
+    executed = flops["executed"] / step_s / peak_ops
+    log(f"[lora-train] losses {[round(x, 4) for x in losses]} (base loss on "
+        f"the first batch {base_loss:.6f}); step_s "
+        f"{[round(x, 4) for x in times]}; steady step_s (median of steps "
+        f"2-{LORA_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
+        f"mfu {mfu:.4f} (model FLOPs {flops['model'] / 1e12:.3f} T a "
+        f"step; executed {flops['executed'] / 1e12:.3f} T a step, "
+        f"{executed:.4f} of peak), max_memory_allocated_gib "
+        f"{peak / 2**30:.3f}, kernel_launches {json.dumps(launches)}; base "
+        f"unchanged ({len(sums)} leaves, f64 checksums); merged in place: "
+        f"hidden max abs diff {h_err:.3e} (max |h| {h_max:.3f}), loss "
+        f"{loss_mrg:.6f} vs attached {loss_att:.6f}; {device_line()}")
+    return dict(launches=launches, losses=losses, step_s=step_s,
+                tokens_per_s=tokens_per_s, mfu=mfu, executed_share=executed)
+
+
+def run_training_quiet(state, step, batches, num_steps: int, tag: str):
+    from tf_operator_tpu_torch.runtime.loop import run_training
+    from tf_operator_tpu_torch.runtime.profiler import Profiler
+
+    return run_training(state, step, batches, num_steps=num_steps,
+                        profiler=Profiler(batch_size=TB),
+                        log_interval_steps=1,
+                        metrics_sink=lambda line: log(f"[{tag}] metrics "
+                                                      f"{line}"))
+
+
+def lora_parity_phase() -> None:
+    """llama3_8b at full width, 2 layers, f32 (TF32 off), tied, remat, K2
+    (the scalar f32 kernels), rank-16 adapters with a random B (so A's
+    gradient is not zero) attached on the card and on the CPU from the
+    same draws, batch 2 x 128: the loss within 1e-5 and every adapter's
+    gradient norm (f64) within 1e-4 relative, as the train-parity
+    phase holds a full step's."""
+    from tf_operator_tpu_torch.models import bridge, llama, lora
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama3_train_cfg(n_layers=2, dtype=torch.float32)
+    params = bridge.init_params(cfg, SEED + 163, device="cpu", train=True)
+    gen = torch.Generator().manual_seed(SEED + 164)
+    adapters = lora.init(gen, params, rank=LORA_RANK)
+    for ad in adapters.values():
+        ad["b"].normal_(0.0, 0.02, generator=gen)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 165)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    fa.reset_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = llama.Llama.from_params(cfg, params, device=dev, train=True)
+        ps = lora.attach(model, adapters, alpha=LORA_ALPHA)
+        loss = lm_blocked_loss(model, tokens.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {
+            k: torch.linalg.vector_norm(p.grad, dtype=torch.float64).item()
+            for k, p in ps.items()})
+        del model, ps, loss
+    launches = dict(fa.launches)
+    torch.cuda.empty_cache()
+    (l_gpu, n_gpu), (l_cpu, n_cpu) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    norm_rel = {k: abs(n_gpu[k] - n_cpu[k]) / max(n_cpu[k], 1e-30)
+                for k in n_cpu}
+    worst = max(norm_rel, key=norm_rel.get)
+    log(f"[lora-parity] 2 layers f32, {len(adapters)} adapters of rank "
+        f"{LORA_RANK}, batch 2 x 128: loss cuda {l_gpu:.7f} cpu {l_cpu:.7f} "
+        f"(rel {loss_rel:.2e}, limit 1e-5); {len(norm_rel)} adapter "
+        f"gradient norms, worst rel {norm_rel[worst]:.2e} ({worst}, limit "
+        f"1e-4); launches {json.dumps(launches)}")
+    if not (math.isfinite(l_gpu) and loss_rel <= 1e-5
+            and norm_rel[worst] <= 1e-4 and min(n_cpu.values()) > 0):
+        raise AssertionError("[lora-parity] the card and the CPU disagree")
+    if launches != F32_K2_LAUNCHES:
+        raise AssertionError(f"[lora-parity] launches {launches}")
+
+
+# ------------------------------------------------------- data parallelism
+# dp-parity's f32 ResNet-50 (images a rank, image side) and f32 bert tiny
+# (sequences of 64 a rank)
+DP_RESNET_B, DP_RESNET_S, DP_BERT_B = 8, 64, 4
+# the jobs a dp worker runs: (entry point, argv, f32 swap); {ckpt} is the
+# worker's checkpoint directory; the swap names the entry point's model
+# factory that the worker rebuilds in f32 (DP_F32)
+DP_JOBS = {
+    "resnet": ("train_resnet", ["--steps", "3", "--per-host-batch", "128",
+                                "--image-size", "224"], None),
+    "bert": ("train_bert", ["--steps", "3", "--per-host-batch", "16",
+                            "--seq-len", "512"], None),
+    "llama": ("train_llama", ["--smoke", "--steps", "2", "--per-host-batch",
+                              "2", "--ckpt-dir", "{ckpt}",
+                              "--save-interval", "1"], "llama"),
+    "llama-resume": ("train_llama", ["--smoke", "--steps", "3",
+                                     "--per-host-batch", "2", "--ckpt-dir",
+                                     "{ckpt}", "--save-interval", "1"],
+                     "llama"),
+    "mixtral": ("train_llama", ["--smoke", "--model", "mixtral", "--steps",
+                                "2", "--per-host-batch", "2"], "llama"),
+    "resnet-f32": ("train_resnet", ["--steps", "2", "--per-host-batch",
+                                    str(DP_RESNET_B), "--image-size",
+                                    str(DP_RESNET_S)], "resnet"),
+    "bert-f32": ("train_bert", ["--smoke", "--steps", "2",
+                                "--per-host-batch", str(DP_BERT_B),
+                                "--seq-len", "64"], "transformer"),
+}
+# (attribute of the entry point, module of the port, factory) a swap
+# replaces with the factory at dtype f32
+DP_F32 = {"llama": ("tiny", "models.llama", "tiny"),
+          "transformer": ("tiny", "models.transformer", "tiny"),
+          "resnet": ("ResNet50", "models.resnet", "ResNet50")}
+# a job name ending in LOCAL runs that job with every batch statistic
+# taken over the rank's own rows (dp.replicas(None)): the fault the
+# global-batch statistics exist to avoid, which dp-parity must catch
+LOCAL = "-local"
+
+
+def dp_worker(out_dir: str, jobs: list) -> int:
+    """One rank of a two-rank job on the card (`python3 chip_smoke.py
+    --dp-worker DIR JOB...`, the PyTorchJob env set by _spawn_dp): each
+    job is its entry point's main() over gloo, with parallel/dp's
+    gradient mean, metrics mean and replicate_ wrapped to record every
+    step's global gradient norm (f64, after the mean), the all-reduce's
+    seconds, the global loss and the model; K2's launches are read
+    around each job.  A job named <job>-local runs <job> with
+    dp.replicas(None) (local batch statistics).  Writes
+    DIR/rank<r>.pt."""
+    import functools
+    import importlib
+    import os
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import dp
+
+    rec = {}
+    real = {n: getattr(dp, n) for n in
+            ("mean_gradients_", "mean_metrics", "replicate_", "replicas")}
+
+    def mean_gradients_(params, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real["mean_gradients_"](params, group)
+        torch.cuda.synchronize()
+        rec["reduce_s"].append(time.perf_counter() - t)
+        rec["stamps"].append(time.perf_counter())
+        rec["gnorm"].append(math.sqrt(sum(
+            torch.linalg.vector_norm(p.grad, dtype=torch.float64).item() ** 2
+            for p in params.values() if p.grad is not None)))
+
+    def mean_metrics(metrics, group):
+        out = real["mean_metrics"](metrics, group)
+        rec["loss"].append(float(out["loss"]))
+        return out
+
+    def replicate_(module):
+        rec["module"] = module
+        return real["replicate_"](module)
+
+    dp.mean_gradients_, dp.mean_metrics = mean_gradients_, mean_metrics
+    dp.replicate_ = replicate_
+    # no TF32, as the reference process runs after lora-parity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    results = {}
+    for job in jobs:
+        local = job.endswith(LOCAL)
+        name, argv, f32 = DP_JOBS[job.removesuffix(LOCAL)]
+        argv = [a.format(ckpt=os.path.join(out_dir, "ckpt")) for a in argv]
+        mod = importlib.import_module(f"tf_operator_tpu_torch.{name}")
+        if f32:
+            attr, src, fn = DP_F32[f32]
+            factory = getattr(importlib.import_module(
+                f"tf_operator_tpu_torch.{src}"), fn)
+            setattr(mod, attr, functools.partial(factory,
+                                                 dtype=torch.float32))
+        dp.replicas = ((lambda group: real["replicas"](None)) if local
+                       else real["replicas"])
+        rec.clear()
+        rec.update(reduce_s=[], stamps=[], gnorm=[], loss=[])
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        rc = mod.main(argv + ["--backend", "gloo"])
+        torch.cuda.synchronize()
+        results[job] = dict(
+            rc=rc, wall_s=time.perf_counter() - t0, loss=rec["loss"],
+            gnorm=rec["gnorm"], reduce_s=rec["reduce_s"],
+            stamps=rec["stamps"], launches=dict(fa.launches),
+            state={k: v.detach().cpu()
+                   for k, v in rec["module"].state_dict().items()})
+        print(f"[dp-worker] rank {rank} {job}: exit {rc}", flush=True)
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_dp(jobs: list, tag: str, timeout_s: float = 400.0):
+    """Two ranks of dp_worker on the one card, as a PyTorchJob's two
+    replicas see it (MASTER_ADDR 127.0.0.1, a free MASTER_PORT,
+    WORLD_SIZE 2, RANK); waits for both (killing both at the deadline)
+    and returns (each rank's results, the step directories the jobs'
+    checkpoints left); the work directory is removed."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        logf = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", work,
+             *jobs], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + timeout_s
+    try:
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, logf in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+                logf.close()
+        for r, (p, _) in enumerate(procs):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                lines = f.read().splitlines()
+            for line in lines[-12:]:
+                log(f"[{tag}]   rank {r} | {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"[{tag}] rank {r} exit {p.returncode}")
+        ckpt = os.path.join(work, "ckpt")
+        steps = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        return [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)], steps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _whole(gens: list):
+    """Each step's batch of every rank's rows: rank 0's first."""
+    while True:
+        parts = [next(g) for g in gens]
+        yield tuple(torch.cat(ts) for ts in zip(*parts))
+
+
+def _dp_readings(tag: str, ranks: list, job: str, ref: dict) -> dict:
+    """Rank 0's losses, gradient norms, buffers and parameters against
+    one process on the whole batch: worst relative loss and gradient
+    norm, worst buffer difference over 1 + |ref|, worst parameter
+    difference (and its tensor), the parameter elements off by more than
+    1e-5, the error of the steps' update over all parameters relative
+    to the update (2-norms, f64); and the tensors on which the two ranks
+    differ."""
+    r0, r1 = (r[job] for r in ranks)
+    if r0["rc"] != 0 or r1["rc"] != 0:
+        raise AssertionError(f"[{tag}] {job}: exit {r0['rc']} / {r1['rc']}")
+    if len(r0["loss"]) != len(ref["loss"]):
+        raise AssertionError(f"[{tag}] {job}: {len(r0['loss'])} steps, "
+                             f"expected {len(ref['loss'])}")
+    unequal = [k for k in r0["state"]
+               if not torch.equal(r0["state"][k], r1["state"][k])]
+    loss = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
+    gnorm = max(abs(a - b) / b for a, b in zip(r0["gnorm"], ref["gnorm"]))
+    stats = max([float(((r0["state"][k] - v).abs() / (1 + v.abs())).max())
+                 for k, v in ref["stats"].items()] or [0.0])
+    diffs = {k: (r0["state"][k] - v).double()
+             for k, v in ref["params"].items()}
+    worst = max(diffs, key=lambda k: float(diffs[k].abs().max()))
+    off = sum(int((d.abs() > 1e-5).sum()) for d in diffs.values())
+    moved = math.sqrt(sum(
+        float(torch.sum((v.double() - ref["start"][k]) ** 2))
+        for k, v in ref["params"].items()))
+    update = math.sqrt(sum(float(torch.sum(d * d))
+                           for d in diffs.values())) / moved
+    return dict(loss=loss, gnorm=gnorm, stats=stats,
+                params=float(diffs[worst].abs().max()), worst=worst, off=off,
+                update=update, unequal=unequal)
+
+
+def _compare_dp(tag: str, ranks: list, job: str, ref: dict,
+                tol: dict) -> dict:
+    """Both ranks' parameters and buffers bit-equal, and rank 0's losses,
+    gradient norms and buffers against one process on the whole batch
+    within `tol` ({"loss", "gnorm"} relative, "stats" max abs over
+    1 + |ref|)."""
+    r0 = ranks[0][job]
+    out = _dp_readings(tag, ranks, job, ref)
+    unequal, loss, gnorm, stats, params, worst = (
+        out.pop("unequal"), out["loss"], out["gnorm"], out["stats"],
+        out["params"], out.pop("worst"))
+    log(f"[{tag}] {job}: ranks bit-equal: {not unequal} ({len(r0['state'])} "
+        f"tensors); losses {[round(x, 6) for x in r0['loss']]} vs one "
+        f"process {[round(x, 6) for x in ref['loss']]} (worst rel "
+        f"{loss:.2e}, limit {tol['loss']}); gradient norms "
+        f"{[round(x, 6) for x in r0['gnorm']]} vs "
+        f"{[round(x, 6) for x in ref['gnorm']]} (worst rel {gnorm:.2e}, "
+        f"limit {tol['gnorm']}); running stats worst {stats:.2e} (limit "
+        f"{tol['stats']}); parameters max abs diff {params:.2e} ({worst}; "
+        f"{out['off']} elements over 1e-5), update rel err "
+        f"{out['update']:.2e}")
+    if unequal or loss > tol["loss"] or gnorm > tol["gnorm"] or \
+            stats > tol["stats"]:
+        raise AssertionError(f"[{tag}] {job}: two ranks and one process "
+                             f"disagree (unequal {unequal[:3]})")
+    return out
+
+
+class _Recorder:
+    """An optimizer wrapper that keeps each step's global gradient norm
+    (f64) before the optimizer consumes the gradients."""
+
+    def __init__(self, tx) -> None:
+        self.tx, self.norms = tx, []
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update_(self, params, state):
+        self.norms.append(math.sqrt(sum(
+            torch.linalg.vector_norm(p.grad, dtype=torch.float64).item() ** 2
+            for p in params.values() if p.grad is not None)))
+        return self.tx.update_(params, state)
+
+
+def _reference_run(model, state_tx, step, batches, steps: int) -> dict:
+    losses = []
+    state = state_tx
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.named_parameters()}
+    for _ in range(steps):
+        state, m = step(state, *next(batches))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    buffers = {k for k, _ in model.named_buffers()}
+    return dict(loss=losses, gnorm=state.tx.norms, start=start,
+                params={k: v for k, v in sd.items() if k not in buffers},
+                stats={k: v for k, v in sd.items() if k in buffers})
+
+
+def _dp_rates(tag: str, res: dict, global_batch: int, unit: str) -> dict:
+    """Steady step seconds (median of the intervals between the
+    gradient means after the first), the global rate and the
+    all-reduce's seconds a step (median over steps 2+)."""
+    stamps = res["stamps"]
+    steps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    step_s = steps[len(steps) // 2]
+    red = sorted(res["reduce_s"][1:])
+    reduce_s = red[len(red) // 2]
+    rate = global_batch / step_s
+    log(f"[{tag}] two ranks on one card over gloo: step_s "
+        f"{[round(x, 4) for x in steps]} (median {step_s:.4f}), {unit} "
+        f"{rate:.2f} (global batch {global_batch}), all-reduce "
+        f"{[round(x, 4) for x in res['reduce_s']]} s a step (median of "
+        f"steps 2+ {reduce_s:.4f}), K2 launches a rank "
+        f"{json.dumps(res['launches'])}")
+    return dict(step_s=step_s, rate=rate, reduce_s=reduce_s)
+
+
+def dp_train_phase() -> dict:
+    """train_resnet (ResNet50, 128 x 224² a rank: the flagship's 256
+    global) and train_bert (bert_large at full width and depth, 16 x 512
+    a rank) as jobs of two ranks on the one card, spawned through the
+    entry points with the PyTorchJob env and --backend gloo, 3 steps
+    each; held against one process on the whole batch (rank 0's rows,
+    then rank 1's; the same seeded weights and optimizer): every step's
+    loss within 1e-3 and global gradient norm within 5e-3 (bf16 compute,
+    whose products take other algorithms at another batch), ResNet's
+    running stats within 5e-3 of 1 + |ref|; both ranks' parameters and
+    buffers bit-equal.  At these sizes batch statistics taken locally
+    would stay within such limits: dp-parity holds them in f32.  bert's
+    K2 launches a rank: 2 x 24 a step forward, 24 dQ and 24 dK/dV, all
+    on the tensor cores.  Prints images/s,
+    tokens/s and the all-reduce's seconds a step: both ranks share one
+    card, so these are the collective's cost, not scaling."""
+    from tf_operator_tpu_torch import train_bert, train_resnet
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.models.resnet import ResNet50
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        init_transformer_params, transformer_from_params)
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.runtime.optim import SGD, AdamW
+    from tf_operator_tpu_torch.runtime.train import (
+        TrainState, create_train_state, make_train_step)
+
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_dp(["resnet", "bert"], "dp-train")
+    tol = dict(loss=1e-3, gnorm=5e-3, stats=5e-3)
+
+    model = ResNet50(num_classes=1000)
+    sample = torch.zeros((128, 224, 224, 3), dtype=torch.bfloat16)
+    state = create_train_state(model, sample,
+                               _Recorder(SGD(0.1 * 2, momentum=0.9)), seed=0,
+                               device="cuda")
+    batches = _whole([train_resnet.synthetic_imagenet(128, 224, r,
+                                                      device="cuda")
+                      for r in range(2)])
+    ref = _reference_run(model, state, make_train_step(model),
+                         batches, 3)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    resnet = _compare_dp("dp-train", ranks, "resnet", ref, tol)
+    resnet.update(_dp_rates("dp-train", ranks[0]["resnet"], 256,
+                            "images_per_s"))
+
+    cfg = tfm.bert_large(remat=True, attention_fn=fa.flash_attention)
+    model = transformer_from_params(
+        cfg, init_transformer_params(cfg, 0, device="cuda"), device="cuda")
+    state = TrainState.create(model, _Recorder(AdamW(1e-4,
+                                                     weight_decay=0.01)))
+    batches = _whole([train_bert.mlm_batches(16, 512, cfg.vocab_size, r,
+                                             device="cuda")
+                      for r in range(2)])
+    ref = _reference_run(model, state,
+                         train_bert.make_mlm_step(model),
+                         batches, 3)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    bert = _compare_dp("dp-train", ranks, "bert", ref, tol)
+    bert.update(_dp_rates("dp-train", ranks[0]["bert"], 32 * 512,
+                          "tokens_per_s"))
+    want = _k2_want(cfg.n_layers, 3)
+    for r, res in enumerate(ranks):
+        if res["bert"]["launches"] != want or \
+                res["resnet"]["launches"].get("flash_fwd", 0):
+            raise AssertionError(f"[dp-train] rank {r} K2 launches "
+                                 f"{res['bert']['launches']}, expected "
+                                 f"{want}")
+    log(f"[dp-train] {device_line()}")
+    return dict(resnet=resnet, bert=bert,
+                launches=ranks[0]["bert"]["launches"])
+
+
+def dp_parity_phase() -> dict:
+    """Jobs of two ranks on the card over gloo, each held against one
+    process on the whole batch in f32 (TF32 off): train_llama --smoke
+    (the tiny tied model) and --smoke --model mixtral (4 experts, top-2:
+    the aux loss over the global tokens), 2 steps; train_resnet with
+    ResNet-50 in f32 at DP_RESNET_B x DP_RESNET_S² a rank (BatchNorm's
+    statistics and running stats over the global batch) and train_bert
+    --smoke in f32 at DP_BERT_B x 64 a rank (the masked-LM mean over the
+    global masked count, which differs from rank to rank), 2 steps.
+    Every loss and global gradient norm within 1e-5 relative, ResNet's
+    running stats within 1e-5 of 1 + |ref| (other buffers equal), both
+    ranks bit-equal; parameters within 1e-5, but ResNet's by the steps'
+    update within 1e-3 relative (2-norm over all parameters): a ReLU or
+    max-pool input within rounding of its edge goes either way with the
+    convolutions' algorithm, and moves one element by lr x its gradient
+    (1.41e-4 on two elements of 25.6 M with cuDNN's deterministic
+    algorithms).  The ResNet and BERT jobs run again with local batch
+    statistics (dp.replicas(None)), and each must then miss a limit by
+    more than 10x: the fault these limits exist to catch.  The first
+    llama job checkpoints every step (rank 0 writes) and a second
+    resumes both ranks from step 2 to 3.  Returns the readings."""
+    from tf_operator_tpu_torch import train_bert, train_llama, train_resnet
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.models.resnet import ResNet50
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        init_transformer_params, transformer_from_params)
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    from tf_operator_tpu_torch.runtime.optim import SGD, Adafactor, AdamW
+    from tf_operator_tpu_torch.runtime.train import (
+        TrainState, create_train_state, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ranks, steps = _spawn_dp(["llama", "llama-resume", "mixtral",
+                              "resnet-f32", "bert-f32", "resnet-f32" + LOCAL,
+                              "bert-f32" + LOCAL], "dp-parity")
+    tol = dict(loss=1e-5, gnorm=1e-5, stats=1e-5)
+    refs = {}
+    for job, extra in (("llama", {}), ("mixtral", train_llama.SMOKE_MOE)):
+        cfg = llama.tiny(tie_embeddings=True, dtype=torch.float32,
+                         attention_fn=flash_attention, **extra)
+        model = llama.Llama.from_params(
+            cfg, bridge.init_params(cfg, 0, device="cuda", train=True),
+            device="cuda", train=True)
+        state = TrainState.create(model, _Recorder(Adafactor(1e-3)))
+        batches = _whole([train_llama.lm_batches(2, cfg.max_len,
+                                                 cfg.vocab_size, r,
+                                                 device="cuda")
+                          for r in range(2)])
+        refs[job] = _reference_run(model, state,
+                                   train_llama.make_lm_step(model),
+                                   batches, 2)
+    model = ResNet50(num_classes=1000, dtype=torch.float32)
+    sample = torch.zeros((DP_RESNET_B, DP_RESNET_S, DP_RESNET_S, 3),
+                         dtype=torch.bfloat16)
+    state = create_train_state(model, sample,
+                               _Recorder(SGD(0.1 * 2, momentum=0.9)), seed=0,
+                               device="cuda")
+    batches = _whole([train_resnet.synthetic_imagenet(
+        DP_RESNET_B, DP_RESNET_S, r, device="cuda") for r in range(2)])
+    refs["resnet-f32"] = _reference_run(model, state, make_train_step(model),
+                                        batches, 2)
+    cfg = tfm.tiny(dtype=torch.float32)
+    model = transformer_from_params(
+        cfg, init_transformer_params(cfg, 0, device="cuda"), device="cuda")
+    state = TrainState.create(model, _Recorder(AdamW(1e-4,
+                                                     weight_decay=0.01)))
+    batches = _whole([train_bert.mlm_batches(DP_BERT_B, 64, cfg.vocab_size,
+                                             r, device="cuda")
+                      for r in range(2)])
+    refs["bert-f32"] = _reference_run(model, state,
+                                      train_bert.make_mlm_step(model),
+                                      batches, 2)
+    del model, state, batches
+    torch.cuda.empty_cache()
+
+    out = {}
+    for job, ref in refs.items():
+        # only ResNet carries buffers a step changes: elsewhere they match
+        got = _compare_dp("dp-parity", ranks, job, ref,
+                          tol if job == "resnet-f32" else dict(tol, stats=0.0))
+        if (got["update"] > 1e-3 if job == "resnet-f32"
+                else got["params"] > 1e-5):
+            raise AssertionError(f"[dp-parity] {job}: parameters "
+                                 f"{got['params']} (update rel err "
+                                 f"{got['update']})")
+        out[job] = got
+    for job in ("resnet-f32", "bert-f32"):
+        bad = _dp_readings("dp-parity", ranks, job + LOCAL, refs[job])
+        worst = max(bad[k] / tol[k] for k in tol)
+        log(f"[dp-parity] {job} with local batch statistics (the fault): "
+            f"worst rel loss {bad['loss']:.2e}, gradient norm "
+            f"{bad['gnorm']:.2e}, running stats {bad['stats']:.2e}, "
+            f"update rel err {bad['update']:.2e}; "
+            f"{worst:.1f} x its limit; ranks differ on "
+            f"{len(bad.pop('unequal'))} tensors")
+        if worst <= 10:
+            raise AssertionError(f"[dp-parity] {job}: local batch "
+                                 f"statistics pass the limits {tol}")
+        out[job + LOCAL] = bad
+    resumed = [len(r["llama-resume"]["loss"]) for r in ranks]
+    if steps != ["1", "2", "3"] or resumed != [1, 1]:
+        raise AssertionError(f"[dp-parity] checkpoint steps {steps}, "
+                             f"resumed steps a rank {resumed}")
+    log(f"[dp-parity] rank 0 wrote steps {steps}; both ranks resumed from "
+        f"step 2 and ran 1 step; {device_line()}")
+    return out
+
+
 # ----------------------------------------------------------- profile phase
 def _kernel_class(name: str) -> str:
     if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
@@ -4823,6 +5575,8 @@ def main() -> int:
         return 1
     import tf_operator_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2], sys.argv[3:])
     t_start = time.perf_counter()
     card = device_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
@@ -4892,6 +5646,12 @@ def main() -> int:
     lap("vision-parity", vision_parity_phase())
     lap("resnet-train", resnet_train_phase())
     lap("entry-zoo", entry_zoo_phase())
+    # LoRA and data parallelism across processes
+    torch.cuda.empty_cache()
+    lora_run = lap("lora-train", lora_train_phase())
+    lap("lora-parity", lora_parity_phase())
+    lap("dp-train", dp_train_phase())
+    lap("dp-parity", dp_parity_phase())
 
     def paged_row(name, line, kern, launches, verify=False):
         """K1's or K1q's row: decode times, prefill times beside them;
@@ -4935,7 +5695,9 @@ def main() -> int:
                       spec_parity["launches_int8"], verify=True)]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
     # _dkv_kernel); the _window rows: the same kernels at mistral_7b's
-    # training shape, launched by the mistral-train phase
+    # training shape, launched by the mistral-train phase.  The
+    # lora-train phase runs them at the train phase's shape: its launches
+    # stand in the base rows as lora_launches
     for suffix, kern, run in (("", kern2, train),
                               ("_window", kern2_win, mistral)):
         for name, line in (("flash_fwd", 112), ("flash_dq", 217),
@@ -4952,7 +5714,9 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
-            if suffix:  # flex_attention is library_ms; SDPA beside it
+            if not suffix:
+                rows[-1]["lora_launches"] = lora_run["launches"][name]
+            if suffix == "_window":  # flex_attention is library_ms
                 rows[-1].update(
                     sdpa_band_ms=t["sdpa_band_ms"],
                     sdpa_band_device_ms=t["sdpa_band_device_ms"],

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax():
                  "models.transformer_bridge", "models.flax_layers",
                  "models.resnet", "models.mnist", "models.vision_bridge",
                  "train_bert", "train_t5", "train_resnet", "train_mnist",
-                 "train_dist_mnist"):
+                 "train_dist_mnist", "models.lora", "runtime.bootstrap",
+                 "parallel.dp"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

@@ -274,10 +274,14 @@ def test_train_llama_ring_smoke_on_cpu(capsys):
     assert "complete: steps=2" in out
 
 
-@pytest.mark.parametrize("argv,env", [(["--tp", "2"], {}),
-                                      ([], {"WORLD_SIZE": "2"})])
-def test_train_llama_ring_refuses_tp_and_processes(argv, env, monkeypatch):
+@pytest.mark.parametrize("argv,env,error,match", [
+    (["--tp", "2"], {}, NotImplementedError, "item 11"),
+    # a job of several processes is data parallel (a ring of one member
+    # each); without its rendezvous address the bootstrap names it
+    ([], {"WORLD_SIZE": "2"}, ValueError, "MASTER_ADDR")])
+def test_train_llama_ring_refuses_tp_and_processes(argv, env, error, match,
+                                                   monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(error, match=match):
         ttl.main(["--smoke", "--ring", "--device", "cpu"] + argv)

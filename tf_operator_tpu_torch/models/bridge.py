@@ -112,12 +112,25 @@ def params_to_tree(cfg: LlamaConfig, params: Mapping) -> Dict:
     return tree
 
 
-def _fan_in(name: str, shape) -> int:
-    # [H, D, E] out contracts H and D; a raw [X, D, 2F] / [X, F, D]
-    # expert parameter has fan-in X·D / X·F under flax's lecun_normal
-    if name.endswith(("attn.out", "moe.wi", "moe.wo")):
-        return shape[0] * shape[1]
-    return shape[0]
+def kernel_dims(name: str) -> Tuple[int, int]:
+    """(bank, contracted): how many leading dims of the kernel `name`
+    (a state-dict name of the Llama or Transformer family) index a bank
+    of experts, and how many after them its product contracts; the rest
+    are its fan-out.  The [H, D, E] attention out contracts H and D; an
+    [X, D, F] / [X, F, D] expert bank is X kernels contracting D / F;
+    every other kernel contracts its first dim."""
+    if name.endswith("attn.out"):
+        return 0, 2
+    if name.endswith(("moe.wi", "moe.wo")):
+        return 1, 1
+    return 0, 1
+
+
+def init_fan_in(name: str, shape) -> int:
+    """The fan-in of flax's lecun_normal for the kernel `name`: every
+    dim before the fan-out, the expert bank's included (a raw [X, D, F]
+    parameter has fan-in X·D)."""
+    return math.prod(shape[:sum(kernel_dims(name))])
 
 
 def _trunc_normal_(t: torch.Tensor, std: float,
@@ -151,7 +164,7 @@ def _draws(cfg: LlamaConfig, seed: int, device, train: bool
         if name == "embed":
             w.normal_(0.0, 1.0 / math.sqrt(cfg.d_model), generator=gen)
         else:
-            std = 1.0 / math.sqrt(_fan_in(name, shape)) / _TRUNC_STD
+            std = 1.0 / math.sqrt(init_fan_in(name, shape)) / _TRUNC_STD
             _trunc_normal_(w, std, gen)
         yield name, w, dtype
 

@@ -43,6 +43,7 @@ from torch import nn
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.bridge import _TRUNC_STD, _trunc_normal_
+from tf_operator_tpu_torch.parallel import dp
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -141,18 +142,32 @@ def _bcast(t: torch.Tensor) -> torch.Tensor:
 class _BatchNormTrain(torch.autograd.Function):
     """BatchNorm's training forward on NCHW x: (y, batch mean, batch
     var).  Saves x and the f32 statistics; the backward is the closed
-    form dx = scale·inv·(dy - mean(dy) - x̂·mean(dy·x̂)) in f32."""
+    form dx = scale·inv·(dy - mean(dy) - x̂·mean(dy·x̂)) in f32.
+
+    Under data parallelism (`group` set: parallel/dp) the batch is every
+    rank's rows, as JAX's jit over the global batch takes it: the
+    forward sums (Σx, Σx², count) over the ranks, and the backward sums
+    (Σdy, Σdy·x̂) before it takes their means.  The scale's and bias's
+    gradients stay this rank's sums; the step's gradient mean joins
+    them."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, dtype):
+    def forward(ctx, x, scale, bias, eps: float, dtype, group):
         xf = x.float()
         dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        c = x.shape[1]
+        sums = torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                          xf.new_full((1,), x.numel() // c)])
+        if group is not None:
+            dp.all_reduce_(sums, group)
+        n = sums[-1]
+        mean, sq = sums[:c] / n, sums[c:2 * c] / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
         y = ((xf - _bcast(mean)) * _bcast(inv * scale)
              + _bcast(bias)).to(dtype)
         ctx.save_for_backward(x, mean, inv, scale)
+        ctx.group, ctx.n = group, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -160,14 +175,18 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, scale = ctx.saved_tensors
         dims = (0, 2, 3)
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         dyf = dy.float()
         xhat = (x.float() - _bcast(mean)) * _bcast(inv)
         dbias = dyf.sum(dim=dims)
         dscale = (dyf * xhat).sum(dim=dims)
-        dx = (dyf - _bcast(dbias / n) - xhat * _bcast(dscale / n)) \
+        sum_dy, sum_dyx = dbias, dscale
+        if ctx.group is not None:
+            both = dp.all_reduce_(torch.cat([dbias, dscale]), ctx.group)
+            sum_dy, sum_dyx = both.chunk(2)
+        dx = (dyf - _bcast(sum_dy / n) - xhat * _bcast(sum_dyx / n)) \
             * _bcast(scale * inv)
-        return dx.to(x.dtype), dscale, dbias, None, None
+        return dx.to(x.dtype), dscale, dbias, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -192,7 +211,8 @@ class BatchNorm(nn.Module):
             return ((x.float() - _bcast(self.mean)) * _bcast(inv * self.scale)
                     + _bcast(self.bias)).to(self.dtype)
         y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias,
-                                             self.epsilon, self.dtype)
+                                             self.epsilon, self.dtype,
+                                             dp.active())
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from tf_operator_tpu_torch.device import resolve_device
-from tf_operator_tpu_torch.models.bridge import _TRUNC_STD, _trunc_normal_
+from tf_operator_tpu_torch.models.bridge import (
+    _TRUNC_STD, _trunc_normal_, init_fan_in)
 from tf_operator_tpu_torch.models.transformer import (
     Transformer, TransformerConfig)
 
@@ -65,14 +66,6 @@ def transformer_params_from_jax(cfg: TransformerConfig, tree: Mapping
     return sd
 
 
-def _fan_in(name: str, shape) -> int:
-    # [H, D, E] out contracts H and D; a raw [X, E, F] / [X, F, E] expert
-    # parameter has fan-in X·E / X·F under flax's lecun_normal
-    if name.endswith(("attn.out", "moe.wi", "moe.wo")):
-        return shape[0] * shape[1]
-    return shape[0]
-
-
 def init_transformer_params(cfg: TransformerConfig, seed: int,
                             device: Union[str, torch.device, None] = None
                             ) -> Dict[str, torch.Tensor]:
@@ -94,7 +87,7 @@ def init_transformer_params(cfg: TransformerConfig, seed: int,
         elif name == "pos_embed":
             w.normal_(0.0, 0.02, generator=gen)
         else:
-            std = 1.0 / math.sqrt(_fan_in(name, shape)) / _TRUNC_STD
+            std = 1.0 / math.sqrt(init_fan_in(name, shape)) / _TRUNC_STD
             _trunc_normal_(w, std, gen)
         sd[name] = w
     return sd

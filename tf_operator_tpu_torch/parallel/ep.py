@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from tf_operator_tpu_torch.models.quant import QTensor
+from tf_operator_tpu_torch.parallel import dp
 
 
 def _topk(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,9 +132,25 @@ def _expert_ffn(h: torch.Tensor, act: str) -> torch.Tensor:
 def _aux(probs: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
     """The Switch/Mixtral load-balancing loss: n_experts x the dot of
     each expert's share of the top-k selections and its mean router
-    probability.  probs [T, E]; counts [E] selections an expert."""
-    density = counts.to(torch.float32) / (probs.shape[0] * k)
-    return probs.shape[-1] * torch.sum(density * probs.mean(dim=0))
+    probability.  probs [T, E]; counts [E] selections an expert.
+
+    Under data parallelism (parallel/dp.active()) both span every rank's
+    tokens, as JAX's jit over the global batch takes them: the counts and
+    the probabilities' sums are summed over the ranks.  The value is the
+    global loss on every rank; its gradient reaches this rank's probs
+    scaled so that the mean of the ranks' gradients is the global one."""
+    group = dp.active()
+    local = probs.sum(dim=0)
+    sums = torch.cat([counts.to(torch.float32), local.detach(),
+                      local.new_full((1,), probs.shape[0])])
+    if group is not None:
+        dp.all_reduce_(sums, group)
+    n_e = probs.shape[-1]
+    counts_g, sum_g, tokens = sums[:n_e], sums[n_e:2 * n_e], sums[-1]
+    # the global mean's value; this rank's share of its gradient
+    mine = local * dp.size(group) / tokens
+    mean = mine + (sum_g / tokens - mine).detach()
+    return n_e * torch.sum(counts_g / (tokens * k) * mean)
 
 
 def dense_switch_dispatch(x: torch.Tensor, router_logits: torch.Tensor,

@@ -8,7 +8,11 @@ train state and profiler:
   - preemption-aware save: SIGTERM latches a flag and the loop makes one
     final checkpoint before it returns, so a gang restart loses at most the
     in-flight step, not the save interval;
-  - profiler hooks (runtime/profiler.py) + metrics lines on stdout.
+  - profiler hooks (runtime/profiler.py) + metrics lines on stdout;
+  - in a job of several processes (parallel/dp), the stop decision is
+    agreed across the ranks at every step boundary, so every rank saves
+    or stops at the same step and none waits in a collective another
+    has left.
 
 `checkpointer` is any object with latest_step(), restore(state),
 save(step, state, wait=False) and wait_until_finished(), such as
@@ -21,6 +25,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Optional
 
+from tf_operator_tpu_torch.parallel import dp
 from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import TrainState
 from tf_operator_tpu_torch.utils.logging import get_logger
@@ -34,10 +39,15 @@ class PreemptionGuard:
     Preemption or maintenance deletes the pod; kubelet delivers SIGTERM
     and waits terminationGracePeriodSeconds — enough for one save. The
     guard only latches a flag; the loop decides when to act (never save
-    mid-step)."""
+    mid-step).
+
+    In a job of several processes (parallel/dp.job_group), should_stop()
+    is the flag agreed across the ranks, True on every rank once any
+    rank has latched it."""
 
     def __init__(self, install: bool = True) -> None:
         self._preempted = threading.Event()
+        self.group = dp.job_group()
         self._prev_handlers: Dict[int, Any] = {}
         if install and threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
@@ -54,6 +64,13 @@ class PreemptionGuard:
     @property
     def preempted(self) -> bool:
         return self._preempted.is_set()
+
+    def should_stop(self) -> bool:
+        """The flag agreed across the ranks (a collective: every rank
+        calls it at the same step), latched here when any rank set it."""
+        if dp.agree(self.preempted, self.group):
+            self._preempted.set()
+        return self.preempted
 
     def uninstall(self) -> None:
         for sig, handler in self._prev_handlers.items():
@@ -120,7 +137,7 @@ def run_training(
     try:
         try:
             while step < num_steps:
-                if guard.preempted:
+                if guard.should_stop():
                     break
                 profiler.maybe_trace(step)
                 try:
@@ -144,7 +161,7 @@ def run_training(
             # flush an unfinished trace window even when a step raises mid-
             # window: leaving the profiler started loses the capture
             profiler.stop_trace()
-        preempted = guard.preempted
+        preempted = guard.should_stop()
         if checkpointer is not None and steps_run > 0 and step != last_saved_step:
             # final save unless this exact step is already on disk (interval
             # save this iteration, or a recreated pod that restored an

@@ -1,19 +1,24 @@
-"""Training runtime on one device: the train state and the train step.
+"""Training runtime: the train state and the train step.
 
-The port of what tf_operator_tpu/runtime/train.py does on one device:
+The port of what tf_operator_tpu/runtime/train.py does:
 `TrainState` (step, params, optimizer state, batch stats),
 `create_train_state`, `cross_entropy_loss`, `make_train_step` with
 gradient accumulation and `make_eval_step`.  PyTorch runs eagerly, so
-there is no jit, no donation and no mesh; the step updates the state IN
-PLACE (the parameters are the model's own tensors and the optimizer
-writes them; the batch statistics are the model's BatchNorm buffers,
-which its training forward updates) and returns it, where the JAX step
-returns a new state.  Meshes and shardings are ROADMAP Queue 1 item 11.
+there is no jit and no donation; the step updates the state IN PLACE
+(the parameters are the model's own tensors and the optimizer writes
+them; the batch statistics are the model's BatchNorm buffers, which its
+training forward updates) and returns it, where the JAX step returns a
+new state.  The JAX step's dp mesh axis is a process group here
+(parallel/dp): params replicated, each process a shard of the batch, the
+gradients averaged over the processes before the update.  Tensor, FSDP
+and expert sharding are ROADMAP Queue 1 item 11.
 
 `Checkpointer` is the port of the JAX package's orbax checkpoint manager,
 on torch.save / torch.load: one directory per step under the checkpoint
 directory, written under a temporary name and renamed into place, so a
-cut save leaves the newest complete step as the latest.
+cut save leaves the newest complete step as the latest.  In a job of
+several processes the params are replicated: rank 0 writes, every rank
+restores from the shared directory.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from torch import nn
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.flax_layers import init_
+from tf_operator_tpu_torch.parallel import dp
 
 
 @dataclass
@@ -46,8 +52,14 @@ class TrainState:
     batch_stats: Dict = field(default_factory=dict)
 
     @classmethod
-    def create(cls, model: nn.Module, tx) -> "TrainState":
-        params = dict(model.named_parameters())
+    def create(cls, model: nn.Module, tx,
+               params: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> "TrainState":
+        """The state of `model` under `tx`: the optimizer holds `params`
+        (default every parameter of the model; models/lora passes its
+        adapters alone, so the frozen base keeps no optimizer state)."""
+        params = dict(model.named_parameters() if params is None
+                      else params.items())
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
                    batch_stats=dict(model.named_buffers()))
 
@@ -93,12 +105,20 @@ def _check_batch_stats(model: nn.Module, has_batch_stats: bool) -> None:
 def make_train_step(model: nn.Module,
                     loss_fn: Callable = cross_entropy_loss,
                     has_batch_stats: bool = True,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    data_parallel: bool = True) -> Callable:
     """(state, inputs, labels) -> (state, {"loss", "accuracy"}), the model
     in training mode: a model with batch statistics normalizes by each
     batch's and updates its running stats in place (state.batch_stats
     holds them).  has_batch_stats=False refuses a model that keeps
     running stats (buffers), as flax's apply does without them.
+
+    In a job of several processes (parallel/dp) with `data_parallel`,
+    `inputs` are this rank's rows of the global batch; the batch
+    statistics span every rank's, and the gradients and metrics are
+    averaged over the ranks before the update, as the JAX step under a
+    dp mesh does.  data_parallel=False trains each process's replica
+    alone, as the JAX step without a mesh does (train_mnist).
 
     `accum_steps > 1` splits the batch into that many equal micro-batches,
     runs forward and backward on each (their gradients sum in .grad), and
@@ -107,11 +127,13 @@ def make_train_step(model: nn.Module,
     the update is the full-batch one.  The running stats are updated
     micro-batch after micro-batch, as the JAX step's scan chains them."""
     _check_batch_stats(model, has_batch_stats)
+    group = dp.job_group() if data_parallel else None
 
     def forward_backward(x, y):
-        logits = model(x)
-        loss = loss_fn(logits, y)
-        loss.backward()
+        with dp.replicas(group):
+            logits = model(x)
+            loss = loss_fn(logits, y)
+            loss.backward()
         accuracy = (logits.argmax(dim=-1) == y).float().mean()
         return loss.detach(), accuracy
 
@@ -119,8 +141,8 @@ def make_train_step(model: nn.Module,
         model.train()
         if accum_steps == 1:
             loss, accuracy = forward_backward(inputs, labels)
-            return state.apply_gradients(), {"loss": loss,
-                                             "accuracy": accuracy}
+            return dp.finish_step(state, {"loss": loss,
+                                          "accuracy": accuracy}, group)
         b = inputs.shape[0]
         if b % accum_steps != 0:
             raise ValueError(
@@ -137,8 +159,9 @@ def make_train_step(model: nn.Module,
             for p in state.params.values():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
-        return state.apply_gradients(), {"loss": loss_sum / accum_steps,
-                                         "accuracy": acc_sum / accum_steps}
+        return dp.finish_step(state, {"loss": loss_sum / accum_steps,
+                                      "accuracy": acc_sum / accum_steps},
+                              group)
 
     return step
 
@@ -228,13 +251,22 @@ class Checkpointer:
     mode does.  The port's step updates the parameters IN PLACE, so save()
     first copies every tensor to the host, and only the write runs on a
     background thread; a second save waits for the one in flight, and
-    wait_until_finished() joins it and re-raises any error it met."""
+    wait_until_finished() joins it and re-raises any error it met.
+
+    In a job of several processes (parallel/dp.job_group; the directory
+    shared): every rank calls save() and restore() at the same steps;
+    rank 0 alone copies and writes, and every rank passes a barrier once
+    the step's rename is durable (at the save, or at wait_until_finished
+    for an async one), so no rank goes on to read a step that is not yet
+    on disk."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  async_save: bool = False) -> None:
         self.directory = os.fspath(directory)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        self.group = dp.job_group()
+        self.primary = dp.rank(self.group) == 0
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._pending: Optional[int] = None
@@ -272,18 +304,22 @@ class Checkpointer:
         payload = (_to_host(dict(state.params)),
                    _to_host({"step": int(state.step),
                              "opt_state": state.opt_state,
-                             "batch_stats": dict(state.batch_stats)}))
+                             "batch_stats": dict(state.batch_stats)})
+                   ) if self.primary else None
         self._pending = step
         if wait or not self.async_save:
             try:
-                self._write(step, *payload)
+                if self.primary:
+                    self._write(step, *payload)
             finally:
                 self._pending = None
+            dp.barrier(self.group)
             return True
-        self._thread = threading.Thread(
-            target=self._write_async, args=(step,) + payload,
-            name=f"checkpoint-save-{step}", daemon=True)
-        self._thread.start()
+        if self.primary:
+            self._thread = threading.Thread(
+                target=self._write_async, args=(step,) + payload,
+                name=f"checkpoint-save-{step}", daemon=True)
+            self._thread.start()
         return True
 
     def _write_async(self, step: int, params, rest) -> None:
@@ -307,10 +343,13 @@ class Checkpointer:
 
     def wait_until_finished(self) -> None:
         """Block until the save in flight is durable; re-raise its error."""
+        in_flight = self._pending is not None
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-            self._pending = None
+        self._pending = None
+        if in_flight:
+            dp.barrier(self.group)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

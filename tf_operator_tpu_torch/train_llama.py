@@ -1,6 +1,6 @@
-"""LLaMA-class GQA decoder pretraining on one CUDA card (or the CPU).
+"""LLaMA-class GQA decoder pretraining on CUDA cards (or the CPU).
 
-The port of examples/llama/train_llama.py on one device: the llama3_8b
+The port of examples/llama/train_llama.py: the llama3_8b
 (llama31_8b, mistral_7b with its 4096-token sliding window, or
 mixtral_8x7b's top-2 sparse experts) recipe with tied embeddings, recompute of every block (remat), GQA-native flash
 attention (ops/flash_attention: the CUDA kernels K2f/K2q/K2kv on the
@@ -14,30 +14,38 @@ pre-tokenized .rec shards ([seq-len] int32 rows, data/loader).
 SIGTERM (runtime/train.Checkpointer, async), and a restarted run resumes
 from the newest step there.
 
+A job of several processes (the PyTorchJob env MASTER_ADDR /
+MASTER_PORT / WORLD_SIZE / RANK, or the TPUJob's; runtime/bootstrap) is
+data parallel, as the JAX script's mesh {"tp": 1, "dp": n} is: every
+rank starts from rank 0's weights, draws its own tokens (seed = rank) or
+reads its own record shard (rank of world), and the gradients are
+averaged over the ranks before each update (parallel/dp); rank 0 writes
+the checkpoints.  --backend picks the process group's backend (default
+nccl on the card, gloo on the CPU).
+
 `--ring` runs attention as sequence-parallel ring flash attention
 (ops/ring_flash: the CUDA kernels K3f/K3q/K3kv on the card) over a ring
 of local_mesh_axes(world size, prefer_tp=--tp)["tp"] members, as the JAX
-script sizes its ring over tp: one member in one process.
+script sizes its ring over tp: one member a process at --tp 1.
 
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
     python -m tf_operator_tpu_torch.train_llama --steps 100 --per-host-batch 1 --seq-len 2048
     python -m tf_operator_tpu_torch.train_llama --smoke --ring --steps 2
     python -m tf_operator_tpu_torch.train_llama --smoke --data-dir D --ckpt-dir C --save-interval 1
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu --model mixtral --steps 3
+    WORLD_SIZE=2 RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
 
-The JAX script's multi-device options are not ported yet; each raises
-NotImplementedError naming its ROADMAP item.
+Tensor (--tp) and expert (--ep) parallelism are not ported yet; each
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 from typing import Iterator, Tuple
 
 import torch
-import torch.distributed as dist
 
 from tf_operator_tpu_torch.data.loader import FieldSpec, host_record_batches
 from tf_operator_tpu_torch.device import resolve_device
@@ -48,8 +56,10 @@ from tf_operator_tpu_torch.models.transformer import lm_loss
 from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 from tf_operator_tpu_torch.ops.ring_flash import make_ring_flash_attention_fn
+from tf_operator_tpu_torch.parallel import dp
 from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes
 from tf_operator_tpu_torch.parallel.ring import LocalRing
+from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
@@ -58,10 +68,7 @@ from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
 _NOT_PORTED = {
     "tp": "ROADMAP Queue 1 item 11 (tensor parallelism)",
     "ep": "ROADMAP Queue 1 item 11 (expert parallelism)",
-    "world": "ROADMAP Queue 1 item 11 (a training step split across "
-             "processes)",
 }
-
 
 # the JAX script's --smoke --model mixtral: 4 experts in every block, top-2
 SMOKE_MOE = dict(n_experts=4, moe_every=1, moe_top_k=2)
@@ -104,24 +111,21 @@ def token_record_pipeline(data_dir: str, batch: int, seq_len: int,
 def make_lm_step(model: Llama):
     """(state, tokens) -> (state, {"loss"}): the causal-LM loss (the
     blocked CE over a tied embedding, so no [B, S, V] logits exist), its
-    gradients, and one optimizer step in place."""
+    gradients, and one optimizer step in place.  In a job of several
+    processes `tokens` are this rank's rows; the MoE aux loss spans
+    every rank's tokens, and the gradients and the loss are averaged
+    over the ranks (parallel/dp)."""
     loss_of = lm_blocked_loss if model.cfg.tie_embeddings else (
         lambda m, t: lm_loss(m(t), t))
+    group = dp.job_group()
 
     def step(state: TrainState, tokens: torch.Tensor):
-        loss = loss_of(model, tokens)
-        loss.backward()
-        return state.apply_gradients(), {"loss": loss.detach()}
+        with dp.replicas(group):
+            loss = loss_of(model, tokens)
+            loss.backward()
+        return dp.finish_step(state, {"loss": loss.detach()}, group)
 
     return step
-
-
-def world_size() -> int:
-    """Processes of this job: the default process group's size, else the
-    launcher's WORLD_SIZE (1 when unset)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def main(argv=None) -> int:
@@ -146,19 +150,19 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true", help="tiny model, CPU ok")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    world = world_size()
-    for flag, on in (("tp", args.tp > 1), ("ep", args.ep > 1),
-                     ("world", world > 1)):
+    for flag, on in (("tp", args.tp > 1), ("ep", args.ep > 1)):
         if on:
             raise NotImplementedError(
                 f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
-    dev = resolve_device(args.device)
+    job = bootstrap.initialize(device=args.device, backend=args.backend)
+    dev = job.device
 
     attention_fn = flash_attention
     if args.ring:
-        ring = LocalRing(local_mesh_axes(world, prefer_tp=args.tp)["tp"])
+        ring = LocalRing(local_mesh_axes(job.world, prefer_tp=args.tp)["tp"])
         attention_fn = make_ring_flash_attention_fn(ring)
         print(f"ring attention over {ring}")
     presets = {"llama3": llama3_8b, "llama31": llama31_8b,
@@ -174,20 +178,22 @@ def main(argv=None) -> int:
             # extend the RoPE table rather than clamp positions
             cfg = dataclasses.replace(cfg, max_len=args.seq_len)
     seq_len = min(args.seq_len, cfg.max_len)
-    print(f"device {dev}, model {args.model}{' (smoke)' if args.smoke else ''}"
-          f", {cfg.n_layers} layers, batch {args.per_host_batch} x {seq_len}")
+    print(f"host {job.rank}/{job.world}, device {dev}, model {args.model}"
+          f"{' (smoke)' if args.smoke else ''}, {cfg.n_layers} layers, "
+          f"batch {args.per_host_batch} x {seq_len}")
 
     model = Llama.from_params(
         cfg, bridge.init_params(cfg, 0, device=dev, train=True),
         device=dev, train=True)
+    dp.replicate_(model)
     state = TrainState.create(model, Adafactor(1e-3))
     if args.data_dir:
-        # one process: shard 0 of 1 (a job of several is refused above)
         batches = token_record_pipeline(args.data_dir, args.per_host_batch,
-                                        seq_len, (0, 1), device=dev)
+                                        seq_len, (job.rank, job.world),
+                                        device=dev)
     else:
         batches = lm_batches(args.per_host_batch, seq_len, cfg.vocab_size,
-                             seed=0, device=dev)
+                             seed=job.rank, device=dev)
     guard = PreemptionGuard()
     try:
         res = run_training(
@@ -198,7 +204,7 @@ def main(argv=None) -> int:
             checkpointer=(Checkpointer(args.ckpt_dir, async_save=True)
                           if args.ckpt_dir else None),
             save_interval_steps=args.save_interval,
-            profiler=Profiler(batch_size=args.per_host_batch),
+            profiler=Profiler(batch_size=args.per_host_batch * job.world),
             guard=guard,
             metrics_sink=print,
         )

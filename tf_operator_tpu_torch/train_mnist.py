@@ -4,7 +4,9 @@ The port of examples/mnist/train_mnist.py: MnistCNN from a seed
 (runtime/train.create_train_state), adam(1e-3), runtime/train's train
 step, checkpoint/resume and metrics lines every --log-interval steps.
 Synthetic MNIST-shaped data from a seeded torch.Generator keeps it
-hermetic.
+hermetic.  The job's env is read as the JAX script reads it
+(runtime/bootstrap) and the process reports its rank, but each process
+trains its own replica, as the JAX script's step without a mesh does.
 
     python -m tf_operator_tpu_torch.train_mnist --device cpu --steps 2
 """
@@ -18,6 +20,7 @@ import torch
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.mnist import MnistCNN
+from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adam
 from tf_operator_tpu_torch.runtime.profiler import Profiler
@@ -48,8 +51,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    print(f"process 0/1, device={dev}")
+    job = bootstrap.initialize(device=args.device)
+    dev = job.device
+    print(f"process {job.rank}/{job.world}, device={dev}")
 
     model = MnistCNN()
     sample = torch.zeros((args.batch_size, 28, 28, 1))
@@ -58,7 +62,7 @@ def main(argv=None) -> int:
     try:
         res = run_training(
             state,
-            make_train_step(model),
+            make_train_step(model, data_parallel=False),
             synthetic_mnist(args.batch_size, device=dev),
             num_steps=args.steps,
             checkpointer=Checkpointer(args.ckpt_dir) if args.ckpt_dir

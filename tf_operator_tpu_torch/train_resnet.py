@@ -1,6 +1,6 @@
-"""Config #3: ResNet-50 training on one CUDA card (or the CPU).
+"""Config #3: ResNet-50 training on CUDA cards (or the CPU).
 
-The port of examples/resnet50/train_resnet.py on one device: ResNet50
+The port of examples/resnet50/train_resnet.py: ResNet50
 (models/resnet.py: NHWC input, bf16 convolutions on cuDNN in
 channels_last memory, flax's BatchNorm with running stats) from a seed
 (runtime/train.create_train_state), sgd(0.1 x world, momentum=0.9),
@@ -10,11 +10,16 @@ with --data-dir, .rec shards of (uint8 [S, S, 3] image, int32 label)
 records (data/loader.write_records), scaled to [-1, 1] in bf16.
 --trace-dir captures a torch.profiler trace of steps 10-30.
 
+A job of several processes is data parallel over every process, as the
+JAX script's mesh {"dp": -1} is (runtime/bootstrap, parallel/dp): each
+rank draws its own images (seed = rank) or reads its own record shard,
+BatchNorm's statistics span every rank's images (so the running stats
+stay equal on every rank), and the gradients are averaged over the
+ranks before each update.
+
     python -m tf_operator_tpu_torch.train_resnet --device cpu --image-size 32 --per-host-batch 2 --steps 2
     python -m tf_operator_tpu_torch.train_resnet --steps 100
-
-A job of several processes is not ported yet: it raises
-NotImplementedError naming its ROADMAP item.
+    WORLD_SIZE=2 RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 python -m tf_operator_tpu_torch.train_resnet --device cpu --image-size 32 --per-host-batch 2 --steps 2
 """
 from __future__ import annotations
 
@@ -28,12 +33,13 @@ import torch
 from tf_operator_tpu_torch.data.loader import FieldSpec, host_record_batches
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.resnet import ResNet50
+from tf_operator_tpu_torch.parallel import dp
+from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import SGD
 from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import (
     Checkpointer, create_train_state, make_train_step)
-from tf_operator_tpu_torch.train_llama import _NOT_PORTED, world_size
 
 
 def synthetic_imagenet(batch: int, image_size: int, seed: int, device=None
@@ -83,14 +89,12 @@ def main(argv=None) -> int:
                     help="capture a torch.profiler trace of steps 10-30 "
                          "(runtime/profiler.py bounded window)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    world = world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"world: not ported yet ({_NOT_PORTED['world']})")
-    dev = resolve_device(args.device)
-    print(f"host 0/{world}: 1 device ({dev})")
+    job = bootstrap.initialize(device=args.device, backend=args.backend)
+    world, dev = job.world, job.device
+    print(f"host {job.rank}/{world}: 1 device ({dev}), dp {world}")
 
     model = ResNet50(num_classes=1000)
     sample = torch.zeros((args.per_host_batch, args.image_size,
@@ -98,15 +102,15 @@ def main(argv=None) -> int:
     state = create_train_state(model, sample,
                                SGD(0.1 * world, momentum=0.9), seed=0,
                                device=dev)
+    dp.replicate_(model)
     step_fn = make_train_step(model)
     if args.data_dir:
-        # one process: shard 0 of 1 (a job of several is refused above)
         data = record_pipeline(args.data_dir, args.per_host_batch,
-                               args.image_size, (0, 1), device=dev)
+                               args.image_size, (job.rank, world), device=dev)
     else:
         print("data: synthetic")
         data = synthetic_imagenet(args.per_host_batch, args.image_size,
-                                  seed=0, device=dev)
+                                  seed=job.rank, device=dev)
     guard = PreemptionGuard()
     try:
         res = run_training(
@@ -117,7 +121,7 @@ def main(argv=None) -> int:
             checkpointer=Checkpointer(args.ckpt_dir) if args.ckpt_dir
             else None,
             profiler=Profiler(trace_dir=args.trace_dir or None,
-                              batch_size=args.per_host_batch),
+                              batch_size=args.per_host_batch * world),
             guard=guard,
             metrics_sink=print,
         )

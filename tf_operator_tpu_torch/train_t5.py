@@ -1,7 +1,7 @@
-"""Config #5: T5-3B-scale decoder LM on one CUDA card (or the CPU), with
+"""Config #5: T5-3B-scale decoder LM on CUDA cards (or the CPU), with
 checkpoints every save interval and on SIGTERM.
 
-The port of examples/t5/train_t5.py on one device: `t5_3b_decoder` with
+The port of examples/t5/train_t5.py: `t5_3b_decoder` with
 recompute of every block (remat) and causal flash attention
 (ops/flash_attention: the CUDA kernels K2f/K2q/K2kv on the card, head
 dim 64), the causal-LM loss plus the weighted MoE aux loss
@@ -11,13 +11,16 @@ adafactor(1e-3), and runtime/loop.run_training.  --ckpt-dir checkpoints
 every --save-interval steps and once more on SIGTERM (async), a
 restarted run resumes from the newest step there, and a preempted run
 exits 143 (retryable: the gang restarts).  Weights come from a seed;
-tokens from a seeded torch.Generator.
+tokens from a torch.Generator seeded with the process's rank.  A job of
+several processes is data parallel (runtime/bootstrap, parallel/dp):
+rank 0 writes the checkpoints, every rank resumes from them, and every
+rank stops at the same step on SIGTERM.
 
     python -m tf_operator_tpu_torch.train_t5 --smoke --device cpu --steps 2 --blocked-ce
     python -m tf_operator_tpu_torch.train_t5 --steps 100 --ckpt-dir C
 
-Tensor parallelism (--tp > 1) and a job of several processes are not
-ported yet: each raises NotImplementedError naming its ROADMAP item.
+Tensor parallelism (--tp > 1) is not ported yet: it raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,11 +37,13 @@ from tf_operator_tpu_torch.models.transformer_bridge import (
     init_transformer_params, transformer_from_params)
 from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+from tf_operator_tpu_torch.parallel import dp
+from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
-from tf_operator_tpu_torch.train_llama import _NOT_PORTED, world_size
+from tf_operator_tpu_torch.train_llama import _NOT_PORTED
 
 
 def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
@@ -56,13 +61,17 @@ def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
 def make_lm_step(model: Transformer, blocked_ce: bool = False):
     """(state, tokens) -> (state, {"loss"}): the causal-LM loss (fused
     with the tied head by the blocked CE when `blocked_ce`), its
-    gradients, and one optimizer step in place."""
+    gradients, and one optimizer step in place; in a job of several
+    processes, the global batch's loss and mean gradients
+    (parallel/dp)."""
     loss_of = lm_blocked_loss if blocked_ce else lm_train_loss
+    group = dp.job_group()
 
     def step(state: TrainState, tokens: torch.Tensor):
-        loss = loss_of(model, tokens)
-        loss.backward()
-        return state.apply_gradients(), {"loss": loss.detach()}
+        with dp.replicas(group):
+            loss = loss_of(model, tokens)
+            loss.backward()
+        return dp.finish_step(state, {"loss": loss.detach()}, group)
 
     return step
 
@@ -79,24 +88,25 @@ def main(argv=None) -> int:
                     help="fused large-vocab CE (no [B,S,V] logits)")
     ap.add_argument("--smoke", action="store_true", help="tiny model, CPU ok")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    world = world_size()
-    for flag, on in (("tp", args.tp > 1), ("world", world > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
-    dev = resolve_device(args.device)
+    if args.tp > 1:
+        raise NotImplementedError(f"tp: not ported yet ({_NOT_PORTED['tp']})")
+    job = bootstrap.initialize(device=args.device, backend=args.backend)
+    dev = job.device
     if args.smoke:
         cfg = tiny(causal=True)
     else:
         cfg = t5_3b_decoder(remat=True, attention_fn=flash_attention)
     seq_len = min(args.seq_len, cfg.max_len)
-    print(f"host 0/{world} slice 0/1, device {dev}, {cfg.n_layers} layers, "
+    print(f"host {job.rank}/{job.world} slice {job.slice.slice_id}/"
+          f"{job.slice.num_slices}, device {dev}, {cfg.n_layers} layers, "
           f"batch {args.per_host_batch} x {seq_len}")
 
     model = transformer_from_params(
         cfg, init_transformer_params(cfg, 0, device=dev), device=dev)
+    dp.replicate_(model)
     state = TrainState.create(model, Adafactor(1e-3))
     guard = PreemptionGuard()
     try:
@@ -104,12 +114,12 @@ def main(argv=None) -> int:
             state,
             make_lm_step(model, blocked_ce=args.blocked_ce),
             lm_batches(args.per_host_batch, seq_len, cfg.vocab_size,
-                       seed=0, device=dev),
+                       seed=job.rank, device=dev),
             num_steps=args.steps,
             checkpointer=(Checkpointer(args.ckpt_dir, async_save=True)
                           if args.ckpt_dir else None),
             save_interval_steps=args.save_interval,
-            profiler=Profiler(batch_size=args.per_host_batch),
+            profiler=Profiler(batch_size=args.per_host_batch * job.world),
             guard=guard,
             metrics_sink=print,
         )
