@@ -301,6 +301,30 @@ Phases, in order, none of them caught:
  34. dp-parity: train_llama --smoke and --smoke --model mixtral in f32 as
               two-rank jobs = one process on the whole batch within 1e-5;
               rank 0's checkpoints, and both ranks resumed from them.
+ 35. sharded-probe: each collective on 16 MB CUDA tensors between two
+              gloo ranks on the one card (`--sharded-worker`), timed;
+              fails if gloo refuses one the port calls.
+ 36. kernel2-tp: kernel2-zoo's checks and times at the tp-local shapes
+              of sharded-train: B=1 S=2048 H=16 KV=4 D=128 and B=4 S=512
+              H=KV=16 D=64, causal.
+ 37. sharded-train: `train_llama --tp 2` (llama3_8b at full width and
+              depth, 1 x 2048, adafactor) as a job of two ranks, and
+              t5_3b_decoder on a tp 2 x fsdp 2 mesh of four ranks
+              through make_mesh / state_sharding / placement.place, 8 x
+              512 global, 3 steps each, over gloo on the one card: the
+              first loss within 2e-2 of the one-process phase's on the
+              same weights and tokens, every rank's losses equal, K2 at
+              the tp-local heads on the tensor cores; step time,
+              tokens/s, each rank's peak and the collectives' seconds.
+ 38. sharded-parity: tests/test_torch_sharded.py's cases in f32 on eight
+              ranks (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2) = one
+              process on the card; the sharded job's checkpoint resumed
+              in one process.
+
+The parity phases 6, 6b, 6c, 8, 14, 20 and 24 (their CPU halves most
+of their time) run in a process of their own (`--parity-worker OUT
+PHASE...`, PARITY_CHILD), started after the build beside the card's
+phases and joined at the end; its log is replayed.
 
 Prints the kernel table as one JSON line, then the device line, and last
 {"ok": true, "device": {...}}.
@@ -2485,7 +2509,7 @@ def train_phase() -> dict:
         f"2-{TRAIN_STEPS}) {step_s:.4f}, tokens_per_s {tokens_per_s:.2f}, "
         f"mfu {mfu:.4f}, max_memory_allocated_gib {peak / 2**30:.3f}, "
         f"kernel_launches {json.dumps(launches)}")
-    return dict(launches=launches, losses=losses)
+    return dict(launches=launches, losses=losses, peak_gib=peak / 2**30)
 
 
 MISTRAL_STEPS = 3
@@ -4071,9 +4095,11 @@ def transformer_parity_phase() -> None:
                                  f"{launches}, expected {want}")
 
 
-def kernel2_zoo_phase() -> dict:
-    """K2f, K2q and K2kv in bf16 at the two D=64 shapes of ZOO_FLASH
-    against their plain versions (the backward kernels on the plain
+def kernel2_zoo_phase(shapes=None, tag: str = "kernel2-zoo",
+                      seed: int = SEED + 80) -> dict:
+    """K2f, K2q and K2kv in bf16 at the shapes of `shapes` (default the
+    two D=64 shapes of ZOO_FLASH; TP_FLASH's tp-local shapes as
+    kernel2-tp) against their plain versions (the backward kernels on the plain
     forward's lse and delta): the elementwise band 2e-2 + 2e-2 |ref| and
     each output's relative error norm (WIN_NORM_TOL), two launches
     bit-equal; then each kernel's time beside its plain version, SDPA
@@ -4085,10 +4111,10 @@ def kernel2_zoo_phase() -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     card = device_line()
     res = {}
-    for i, (label, sh) in enumerate(ZOO_FLASH.items()):
+    for i, (label, sh) in enumerate((shapes or ZOO_FLASH).items()):
         b, s, h, kvh, d, causal = (sh["b"], sh["s"], sh["h"],
                                    sh["kv_heads"], sh["d"], sh["causal"])
-        q, k, v, do = flash_case(torch.bfloat16, s, SEED + 80 + i, d, b, h,
+        q, k, v, do = flash_case(torch.bfloat16, s, seed + i, d, b, h,
                                  kvh)
         out_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
         delta = flash_delta(out_p, do)
@@ -4117,10 +4143,10 @@ def kernel2_zoo_phase() -> dict:
             line.append(f"{name} err={err:.3e} repeat={same}")
             if not ok:
                 raise AssertionError(
-                    f"[kernel2-zoo] {name} at {label}'s shape disagrees with "
+                    f"[{tag}] {name} at {label}'s shape disagrees with "
                     f"its plain version or does not repeat: err={err} "
                     f"norms={norms} bit_identical={same}")
-        log(f"[kernel2-zoo] {label}: bf16 B={b} S={s} H={h} KV={kvh} D={d} "
+        log(f"[{tag}] {label}: bf16 B={b} S={s} H={h} KV={kvh} D={d} "
             f"causal={causal}: " + ", ".join(line) + "; rel_l2 "
             + json.dumps({o: float(f"{x:.3e}") for o, x in norms.items()})
             + f" (limits {json.dumps(WIN_NORM_TOL)})")
@@ -4136,12 +4162,14 @@ def kernel2_zoo_phase() -> dict:
                "flash_dkv": (lambda: fa.flash_dkv(*bwd),
                              lambda: fa.flash_dkv_plain(*bwd))}
         qt, kt, vt = (x.transpose(1, 2).detach() for x in (q, k, v))
-        sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=causal)
+        gqa = h != kvh
+        sdpa_fwd = lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                enable_gqa=gqa)
         with torch.no_grad():
             lib_fwd = time_ms(sdpa_fwd)
             lib_fwd_q = time_ms(sdpa_fwd, queued=True)
         qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
-        o_s = sdpa(qg, kg, vg, is_causal=causal)
+        o_s = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
         dot = do.transpose(1, 2)
         sdpa_bwd = lambda: torch.autograd.grad(o_s, (qg, kg, vg), dot,
                                                retain_graph=True)
@@ -4161,7 +4189,7 @@ def kernel2_zoo_phase() -> dict:
             timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                                  library_ms=lib, bound_ms=bnd, bound_by=by,
                                  device_ms=kq, library_device_ms=lib_q)
-            log(f"[kernel2-zoo] timing {name} {label} bf16 B={b} S={s} H={h} "
+            log(f"[{tag}] timing {name} {label} bf16 B={b} S={s} H={h} "
                 f"KV={kvh} D={d} causal={causal}: kernel {k1:.4f}/{k2:.4f} "
                 f"ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
                 f"{'fwd' if fwd else 'bwd'} {lib:.4f} ms, bound {bnd:.4f} ms "
@@ -4169,7 +4197,7 @@ def kernel2_zoo_phase() -> dict:
                 f"{lib_q:.4f} ms; {card}")
         pair = timings["flash_dq"]["device_ms"] + \
             timings["flash_dkv"]["device_ms"]
-        log(f"[kernel2-zoo] {label}: K2q + K2kv, device time alone: "
+        log(f"[{tag}] {label}: K2q + K2kv, device time alone: "
             f"{pair:.4f} ms against sdpa bwd {lib_bwd_q:.4f} ms "
             f"({pair / lib_bwd_q:.2f}x); K2f {timings['flash_fwd']['device_ms']:.4f}"
             f" ms against sdpa fwd {lib_fwd_q:.4f} ms "
@@ -4357,7 +4385,7 @@ def t5_train_phase() -> dict:
             f"tokens_per_s {tokens_per_s:.2f}, mfu {mfu:.4f}; {card}")
     log(f"[t5-train] max_memory_allocated_gib {peak / 2**30:.3f}, "
         f"kernel_launches {json.dumps(launches)}")
-    return dict(launches=launches)
+    return dict(launches=launches, first_loss=first, peak_gib=peak / 2**30)
 
 
 class _GradNorms:
@@ -4998,54 +5026,8 @@ def dp_worker(out_dir: str, jobs: list) -> int:
 
 
 def _spawn_dp(jobs: list, tag: str, timeout_s: float = 400.0):
-    """Two ranks of dp_worker on the one card, as a PyTorchJob's two
-    replicas see it (MASTER_ADDR 127.0.0.1, a free MASTER_PORT,
-    WORLD_SIZE 2, RANK); waits for both (killing both at the deadline)
-    and returns (each rank's results, the step directories the jobs'
-    checkpoints left); the work directory is removed."""
-    import os
-    import shutil
-    import socket
-    import tempfile
-
-    work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for r in range(2):
-        env = dict(os.environ, WORLD_SIZE="2", RANK=str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        logf = open(os.path.join(work, f"rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-worker", work,
-             *jobs], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
-    deadline = time.monotonic() + timeout_s
-    try:
-        try:
-            for p, _ in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            for p, logf in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(30)
-                logf.close()
-        for r, (p, _) in enumerate(procs):
-            with open(os.path.join(work, f"rank{r}.log")) as f:
-                lines = f.read().splitlines()
-            for line in lines[-12:]:
-                log(f"[{tag}]   rank {r} | {line}")
-            if p.returncode != 0:
-                raise AssertionError(f"[{tag}] rank {r} exit {p.returncode}")
-        ckpt = os.path.join(work, "ckpt")
-        steps = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
-        return [torch.load(os.path.join(work, f"rank{r}.pt"),
-                           weights_only=False) for r in range(2)], steps
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    """Two ranks of dp_worker on the one card (_spawn_ranks)."""
+    return _spawn_ranks("--dp-worker", jobs, tag, 2, timeout_s)
 
 
 def _whole(gens: list):
@@ -5354,6 +5336,507 @@ def dp_parity_phase() -> dict:
 
 
 # ----------------------------------------------------------- profile phase
+# --------------------------------------------------------------- sharded
+# the tp x fsdp x dp training mesh (parallel/mesh, parallel/tp,
+# parallel/placement).  Two or more ranks share the one card over gloo.
+SHARDED_STEPS = 3
+T5_MESH = {"tp": 2, "fsdp": 2}
+PROBE_BYTES = 16 << 20
+# K2 at the tp-local shapes the sharded-train phase gives it: llama3_8b's
+# 32 query / 8 kv heads and t5_3b_decoder's 32 heads over tp = 2
+TP_FLASH = {"llama3_tp2": dict(b=TB, s=TS, h=16, kv_heads=4, d=128,
+                               causal=True),
+            "t5_tp2": dict(b=4, s=512, h=16, kv_heads=16, d=64,
+                           causal=True)}
+# the CPU tests' cases (tests/torch_sharded_util.py) in f32 on the card:
+# tag -> (case, mesh axes, keyword arguments)
+SHARDED_PARITY = {
+    "llama": ("llama", {"tp": 2, "fsdp": 2, "dp": 2}, {}),
+    "llama_adam": ("llama", {"tp": 2, "fsdp": 2, "dp": 2},
+                   dict(tied=False, opt="adam", min_fsdp_size=2**14)),
+    "blocked_ce": ("transformer", {"tp": 2, "fsdp": 2, "dp": 2},
+                   dict(opt="adam", blocked_chunk=64,
+                        cfg_kw=dict(vocab_size=192, max_len=16))),
+    "lora": ("llama", {"tp": 2, "fsdp": 2, "dp": 2},
+             dict(tied=False, opt="adam", min_fsdp_size=2**14,
+                  lora_rank=2)),
+    "t5_adamw": ("transformer", {"tp": 2, "fsdp": 2, "dp": 2},
+                 dict(opt="adamw")),
+    "t5_adafactor": ("transformer", {"tp": 2, "fsdp": 2, "dp": 2}, {}),
+    "mixtral": ("llama", {"tp": 2, "fsdp": 2, "dp": 2}, dict(moe=True)),
+    "tp4_wkv": ("llama", {"tp": 4, "fsdp": 2}, dict(d_ff=256)),
+    "train_step": ("train_step", {"tp": 2, "fsdp": 2, "dp": 2}, {}),
+}
+ADAM_CASES = ("llama_adam", "blocked_ce", "lora", "t5_adamw", "train_step")
+
+
+def _spawn_ranks(flag: str, jobs: list, tag: str, n: int = 2,
+                 timeout_s: float = 400.0, extra_env=None):
+    """n ranks of `python3 chip_smoke.py <flag> DIR JOB...` on the one
+    card, as a PyTorchJob's replicas see it (MASTER_ADDR 127.0.0.1, a
+    free MASTER_PORT, WORLD_SIZE n, RANK); waits for all (killing them at
+    the deadline) and returns (each rank's results, the step directories
+    the jobs' checkpoints left); the work directory is removed."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   **(extra_env or {}))
+        logf = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, work, *jobs],
+            env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + timeout_s
+    try:
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, logf in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+                logf.close()
+        for r, (p, _) in enumerate(procs):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                lines = f.read().splitlines()
+            for line in lines[-12:]:
+                log(f"[{tag}]   rank {r} | {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"[{tag}] rank {r} exit {p.returncode}")
+        ckpt = os.path.join(work, "ckpt")
+        steps = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        return [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(n)], steps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _probe_job() -> dict:
+    """Each collective the sharded step could use, on 16 MB CUDA tensors
+    over gloo: its seconds (the second call), or what gloo answers.  A
+    probe reports; sharded_probe_phase fails on a collective the port
+    calls that gloo refused."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.runtime import bootstrap
+
+    n = bootstrap.initialize(device="cuda", backend="gloo").world
+    x = torch.randn(PROBE_BYTES // 4, device="cuda")
+    sub = dist.new_group(list(range(n)))
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "barrier": lambda: dist.barrier(),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "subgroup_all_reduce": lambda: dist.all_reduce(x.clone(), group=sub),
+        "subgroup_all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x, group=sub),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(n * x.numel(), device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(x.numel() // n, device="cuda"), x),
+    }
+    res = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            res[name] = {"ok": True, "s": time.perf_counter() - t}
+        except Exception as e:  # noqa: BLE001  (the probe's reading)
+            res[name] = {"ok": False, "error": f"{type(e).__name__}: "
+                         f"{str(e).splitlines()[0][:200]}"}
+    return res
+
+
+def _timed_steps(rec: dict):
+    """A wrapper of a step: each step timed with the card synchronized,
+    its loss, and the collectives' calls, bytes and seconds
+    (parallel/comm.STATS, timed around each collective)."""
+    from tf_operator_tpu_torch.parallel import comm
+
+    def wrap(step):
+        def timed(state, *batch):
+            torch.cuda.synchronize()
+            comm.reset_stats(timing=True)
+            t = time.perf_counter()
+            state, m = step(state, *batch)
+            rec["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["comm_s"].append(comm.STATS["seconds"])
+            rec["comm_calls"].append(comm.STATS["calls"])
+            rec["comm_bytes"].append(comm.STATS["bytes"])
+            return state, m
+        return timed
+
+    return wrap
+
+
+def _new_rec() -> dict:
+    return dict(step_s=[], loss=[], comm_s=[], comm_calls=[], comm_bytes=[])
+
+
+def _llama_tp_job() -> dict:
+    """`train_llama --tp 2` (llama3_8b at full width and depth, 1 x 2048,
+    SHARDED_STEPS steps) as this rank of the job, with the train phase's
+    tokens (data member 0 reads the stream seeded SEED + 4) and weights
+    (seed 0 = SEED)."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    rec = _new_rec()
+    wrap, real_step = _timed_steps(rec), train_llama.make_lm_step
+    real_batches = train_llama.lm_batches
+    train_llama.make_lm_step = lambda model: wrap(real_step(model))
+    train_llama.lm_batches = (
+        lambda b, s, v, seed, device=None:
+        real_batches(b, s, v, seed + SEED + 4, device))
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = train_llama.main(["--tp", "2", "--steps", str(SHARDED_STEPS),
+                           "--per-host-batch", str(TB), "--seq-len", str(TS),
+                           "--backend", "gloo"])
+    torch.cuda.synchronize()
+    return dict(rc=rc, wall_s=time.perf_counter() - t0,
+                launches=dict(fa.launches),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+
+
+def _t5_tp_job() -> dict:
+    """t5_3b_decoder at full width and depth on a tp 2 x fsdp 2 mesh of
+    four ranks through the library: make_mesh, state_sharding of the
+    train state, parallel/placement.place over the weights drawn leaf by
+    leaf (the t5-train phase's seed), train_t5's step over this data
+    member's rows of the t5-train phase's first 8 x 512 batches,
+    adafactor, SHARDED_STEPS steps."""
+    from tf_operator_tpu_torch import train_t5
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        iter_transformer_params)
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import placement, tp
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime import bootstrap
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh(T5_MESH)
+    cfg = tfm.t5_3b_decoder(remat=True, attention_fn=fa.flash_attention)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = tfm.Transformer(cfg)
+        specs = tp.state_sharding(TrainState.create(model, Adafactor(1e-3)),
+                                  mesh)
+    pl = placement.place(model, mesh, specs.params, iter_transformer_params(
+        cfg, SEED + 95, device="cuda"), device="cuda")
+    state = TrainState.create(model, Adafactor(1e-3))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() / 2**30
+    i, n = pl.data_index()
+    per = T5_BATCH // n
+    batches = train_t5.lm_batches(T5_BATCH, T5_SEQ, cfg.vocab_size,
+                                  SEED + 96, device="cuda")
+    rec = _new_rec()
+    step = _timed_steps(rec)(train_t5.make_lm_step(model))
+    fa.reset_launches()
+    for _ in range(SHARDED_STEPS):
+        (tokens,) = next(batches)
+        state, _ = step(state, tokens[i * per:(i + 1) * per])
+    torch.cuda.synchronize()
+    return dict(launches=dict(fa.launches), init_s=init_s, held_gib=held,
+                mesh=dict(mesh.shape), data_member=(i, n),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+
+
+def _parity_job() -> dict:
+    """tests/torch_sharded_util.py's cases in f32 on the card, this rank
+    of an eight-rank job (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2), then
+    the smoke llama's first step saved under $SHARDED_CKPT."""
+    import os
+
+    from tests import torch_sharded_util as u
+    from tf_operator_tpu_torch.runtime import bootstrap
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {tag: u.CASES[case](axes, device="cuda", **kw)
+           for tag, (case, axes, kw) in SHARDED_PARITY.items()}
+    u.ckpt_case(SHARDED_PARITY["llama"][1],
+                save_dir=os.environ["SHARDED_CKPT"], device="cuda")
+    return out
+
+
+SHARDED_JOBS = {"probe": _probe_job, "llama-tp": _llama_tp_job,
+                "t5-tp": _t5_tp_job, "parity": _parity_job}
+
+
+def sharded_worker(out_dir: str, jobs: list) -> int:
+    """One rank of a sharded job on the card (`python3 chip_smoke.py
+    --sharded-worker DIR JOB...`, the PyTorchJob env set by
+    _spawn_ranks): runs each job of SHARDED_JOBS, writes
+    DIR/rank<r>.pt."""
+    import os
+
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    results = {}
+    for job in jobs:
+        results[job] = SHARDED_JOBS[job]()
+        print(f"[sharded-worker] rank {rank} {job}: done", flush=True)
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_probe_phase() -> dict:
+    """The gloo probe: each collective on CUDA tensors between two ranks
+    on the one card.  Fails when gloo refuses one the port calls
+    (parallel/comm: all_reduce, all_gather_into_tensor,
+    reduce_scatter_tensor, over the world and a subgroup; broadcast and
+    barrier in parallel/dp and the Checkpointer)."""
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_ranks("--sharded-worker", ["probe"], "sharded-probe",
+                            timeout_s=240.0)
+    res = ranks[0]["probe"]
+    for name, r in res.items():
+        log(f"[sharded-probe] {name}: " + (
+            f"ok, {r['s'] * 1e3:.3f} ms for {PROBE_BYTES >> 20} MB"
+            if r["ok"] else f"REFUSED: {r['error']}"))
+    # what parallel/comm calls (the other two are read for the record)
+    used = ("all_reduce", "all_reduce_max", "broadcast", "barrier",
+            "subgroup_all_reduce", "all_gather_into_tensor",
+            "reduce_scatter_tensor")
+    bad = [k for k in used if not res[k]["ok"]]
+    if bad:
+        raise AssertionError(f"[sharded-probe] gloo refuses {bad} on CUDA "
+                             f"tensors")
+    return res
+
+
+def _sharded_line(tag: str, r: dict, tokens: int) -> str:
+    step_s = _steady_s(r["step_s"])
+    return (f"step_s {[round(x, 4) for x in r['step_s']]} (steady "
+            f"{step_s:.4f}, tokens_per_s {tokens / step_s:.2f}); "
+            f"collectives a step: {[round(x, 4) for x in r['comm_s']]} s, "
+            f"{r['comm_calls'][-1]} calls, "
+            f"{r['comm_bytes'][-1] / 2**30:.3f} GiB; peak "
+            f"{r['peak_gib']:.3f} GiB")
+
+
+def sharded_train_phase(llama_first: float, llama_peak: float,
+                        t5_first: float, t5_peak: float) -> dict:
+    """(a) `train_llama --tp 2 --steps 3` as a job of two ranks on the one
+    card (llama3_8b, 1 x 2048, adafactor, gloo), launched as dp-train
+    launches its ranks; (b) t5_3b_decoder on a tp 2 x fsdp 2 mesh of four
+    ranks through the library, 8 x 512 global.  Each: every loss finite,
+    the first within 2e-2 of the one-process phase's on the same weights
+    and tokens (bf16: the tp partial sums round before they add), the
+    tp peers' losses equal; K2 launches a rank a step: forward 2 x layers
+    (remat), dQ and dK/dV layers, all on the tensor cores, at the
+    tp-local heads; each rank's peak beside the one-process phase's, the
+    collectives' seconds a step."""
+    card = device_line()
+    out = {}
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_ranks("--sharded-worker", ["llama-tp"],
+                            "sharded-train", n=2, timeout_s=500.0)
+    rs = [r["llama-tp"] for r in ranks]
+    for r, res in enumerate(rs):
+        log(f"[sharded-train] (a) llama3_8b tp 2, rank {r}: exit "
+            f"{res['rc']}, losses {[round(x, 4) for x in res['loss']]} "
+            f"(one process: first {llama_first:.4f}); "
+            + _sharded_line("a", res, TB * TS)
+            + f" (one process {llama_peak:.3f}); K2 "
+            + json.dumps(res["launches"]) + f"; wall {res['wall_s']:.1f} s;"
+            f" {card}")
+    out["llama"] = _check_sharded("(a)", rs, llama_first, 32)
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_ranks("--sharded-worker", ["t5-tp"], "sharded-train",
+                            n=4, timeout_s=500.0)
+    rs = [r["t5-tp"] for r in ranks]
+    for r, res in enumerate(rs):
+        log(f"[sharded-train] (b) t5_3b_decoder mesh {res['mesh']}, rank "
+            f"{r} (data member {res['data_member']}): losses "
+            f"{[round(x, 4) for x in res['loss']]} (one process: first "
+            f"{t5_first:.4f}); " + _sharded_line("b", res, T5_BATCH * T5_SEQ)
+            + f" (one process {t5_peak:.3f}); init {res['init_s']:.1f} s, "
+            f"{res['held_gib']:.3f} GiB held; K2 "
+            + json.dumps(res["launches"]) + f"; {card}")
+    out["t5"] = _check_sharded("(b)", rs, t5_first, 48)
+    return out
+
+
+def _check_sharded(tag: str, rs: list, first: float, n_layers: int) -> dict:
+    for r, res in enumerate(rs):
+        if res.get("rc", 0) != 0 or len(res["loss"]) != SHARDED_STEPS \
+                or not all(map(math.isfinite, res["loss"])):
+            raise AssertionError(f"[sharded-train] {tag} rank {r}: {res}")
+        if abs(res["loss"][0] - first) > 2e-2:
+            raise AssertionError(
+                f"[sharded-train] {tag} rank {r}: first loss "
+                f"{res['loss'][0]} is not within 2e-2 of one process's "
+                f"{first}")
+        want = _k2_want(n_layers, SHARDED_STEPS)
+        if res["launches"] != want:
+            raise AssertionError(f"[sharded-train] {tag} rank {r}: K2 "
+                                 f"launches {res['launches']}, expected "
+                                 f"{want}")
+    for res in rs[1:]:
+        if any(abs(a - b) > 1e-6 * abs(b)
+               for a, b in zip(res["loss"], rs[0]["loss"])):
+            raise AssertionError(
+                f"[sharded-train] {tag}: the ranks' global losses differ: "
+                f"{[res['loss'] for res in rs]}")
+    return {name: sum(res["launches"][name] for res in rs)
+            for name in rs[0]["launches"]}
+
+
+def sharded_parity_phase() -> None:
+    """tests/test_torch_sharded.py's cases in f32 on the card: eight
+    ranks on tp 2 x fsdp 2 x dp 2 (and tp 4 x fsdp 2) against one process
+    on the card, after 2 steps: losses and gradient norms within 1e-5,
+    parameters within rtol 1e-5 + atol 1e-5 (under Adam and AdamW each
+    leaf's update within 1e-3 relative error norm; the test file says
+    why).  Then the sharded job's checkpoint of its first step, resumed
+    in one process: its second step equals one process's two."""
+    import shutil
+    import tempfile
+
+    from tests import torch_sharded_util as u
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_sharded_ckpt_")
+    try:
+        ranks, _ = _spawn_ranks("--sharded-worker", ["parity"],
+                                "sharded-parity", n=8, timeout_s=400.0,
+                                extra_env={"SHARDED_CKPT": ckpt})
+        got = ranks[0]["parity"]
+        for tag, (case, axes, kw) in SHARDED_PARITY.items():
+            want = u.CASES[case](None, device="cuda", **kw)
+            worst = u.check(got[tag], want, adam=tag in ADAM_CASES, tag=tag)
+            log(f"[sharded-parity] {tag} on {axes} = one process: worst "
+                f"rel loss {worst['loss']:.2e}, gnorm {worst['gnorm']:.2e}, "
+                f"params {worst['param']:.2e}"
+                + (" (update rel err norm)" if tag in ADAM_CASES else ""))
+        whole = u.llama_case(None, device="cuda")
+        res = u.ckpt_case(None, load_dir=ckpt, device="cuda")
+        if res["restored_step"] != 1:
+            raise AssertionError(f"[sharded-parity] restored {res}")
+        err = abs(res["losses"][0] - whole["losses"][1]) / whole["losses"][1]
+        perr = max(float((res["params"][k] - p).abs().max())
+                   for k, p in whole["params"].items())
+        if err >= 1e-5 or perr > 1e-5:
+            raise AssertionError(f"[sharded-parity] resumed in one process: "
+                                 f"loss err {err}, params {perr}")
+        log(f"[sharded-parity] the sharded job's step-1 checkpoint resumed "
+            f"in one process: second loss rel err {err:.2e}, parameters "
+            f"max abs err {perr:.2e}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# ------------------------------------------------- the parity process
+# phases whose CPU halves run in a process of their own, started with
+# the script, beside the card's phases: one process, so that only one
+# of them holds card memory beside the card's largest phases (two
+# overflowed the train phase's 60 GiB); mixtral-parity, the largest,
+# first, beside the serving phases
+PARITY_CHILD = ("mixtral-parity", "transformer-parity", "parity",
+                "spec-parity", "dense-parity", "window-parity",
+                "parity-int8")
+
+
+def parity_child(out_path: str, names: list) -> int:
+    """`python3 chip_smoke.py --parity-worker OUT PHASE...`: the named
+    parity phases in order, each lapped; writes their results the rows
+    need and the laps to OUT."""
+    torch.set_num_threads(4)
+    phases = {"mixtral-parity": mixtral_parity_phase,
+              "transformer-parity": transformer_parity_phase,
+              "parity": parity_phase, "spec-parity": spec_parity_phase,
+              "dense-parity": dense_parity_phase,
+              "window-parity": window_parity_phase,
+              "parity-int8": parity_int8_phase}
+    res, laps = {}, {}
+    for name in names:
+        t = time.perf_counter()
+        r = phases[name]()
+        laps[name] = time.perf_counter() - t
+        log(f"[time] {name}: {laps[name]:.1f} s (parity process)")
+        if name in ("spec-parity", "window-parity"):
+            res[name] = {"launches_int8": r["launches_int8"]}
+    torch.save({"results": res, "laps": laps}, out_path)
+    return 0
+
+
+def start_parity_child(names: tuple):
+    """Start a parity process over the phases `names`; its output goes
+    to a file that join_parity_child replays."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    logf = open(f"{work}/parity.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parity-worker",
+         f"{work}/parity.pt", *names], stdout=logf, stderr=subprocess.STDOUT)
+    return proc, logf, work, time.perf_counter()
+
+
+def join_parity_child(child, timeout_s: float = 900.0) -> dict:
+    """Wait for the parity process, replay its log, and fail if it did."""
+    import shutil
+
+    proc, logf, work, t0 = child
+    try:
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+    finally:
+        logf.close()
+    try:
+        with open(f"{work}/parity.log") as f:
+            for line in f.read().splitlines():
+                log(f"[parity-process] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[parity-process] exit {proc.returncode}")
+        out = torch.load(f"{work}/parity.pt", weights_only=False)
+        laps = {k: round(v, 1) for k, v in out["laps"].items()}
+        log(f"[parity-process] done {time.perf_counter() - t0:.1f} s after "
+            f"it started; laps {json.dumps(laps)}")
+        return out["results"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _kernel_class(name: str) -> str:
     if any(k in name for k in ("paged_attention", "paged_mma", "paged_merge")):
         # the merge of the decode split is K1's or K1q's second pass
@@ -5577,6 +6060,11 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        return sharded_worker(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--parity-worker"]:
+        build()
+        return parity_child(sys.argv[2], sys.argv[3:])
     t_start = time.perf_counter()
     card = device_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
@@ -5593,6 +6081,20 @@ def main() -> int:
         profile_train_phase(mistral=True)
         profile_mixtral_phase()
         return 0
+    # the parity phases' CPU halves run beside the card's phases
+    child = start_parity_child(PARITY_CHILD)
+    try:
+        return _phases(card, t_start, child)
+    finally:
+        if child[0].poll() is None:  # a phase failed: stop the process
+            child[0].kill()
+            child[0].wait(30)
+
+
+def _phases(card: str, t_start: float, child) -> int:
+    """Every phase in order (main, after the build), the parity process
+    `child` running beside them; then the kernel table and the last
+    line."""
     t_lap = [time.perf_counter()]
 
     def lap(name: str, result=None):
@@ -5610,11 +6112,7 @@ def main() -> int:
     lap("dense", dense_phase(serve["model"], serve["prompts"],
                              serve["tokens"]))
     lap("handoff", handoff_phase(serve.pop("model")))
-    lap("parity", parity_phase())
-    spec_parity = lap("spec-parity", spec_parity_phase())
-    lap("dense-parity", dense_parity_phase())
     win = lap("window", window_phase())
-    win_parity = lap("window-parity", window_parity_phase())
     kern_win = lap("window kernel", window_kernel_phase())
     kern_win_q = lap("window kernel int8", window_kernel_phase(int8=True))
     kern2 = lap("kernel2", kernel2_phase())
@@ -5625,7 +6123,6 @@ def main() -> int:
     lap("checkpoint", checkpoint_phase())
     kern1q = lap("kernel1q", kernel_phase(int8=True))
     serve_int8 = lap("serve-int8", serve_int8_phase())
-    lap("parity-int8", parity_int8_phase())
     kern3 = lap("kernel3", kernel3_phase())
     ring_train = lap("ring-train", ring_train_phase(train["losses"][0]))
     lap("ring-parity", ring_parity_phase())
@@ -5633,13 +6130,11 @@ def main() -> int:
     lap("entry-ckpt", entry_ckpt_phase())
     # Mixtral: every llama model above is freed; the card starts empty
     torch.cuda.empty_cache()
-    lap("mixtral-parity", mixtral_parity_phase())
     lap("mixtral-serve", mixtral_serve_phase())
     lap("mixtral-train", mixtral_train_phase())
     lap("entry-mixtral", entry_mixtral_phase())
     # the BERT/T5 and vision model zoo
     torch.cuda.empty_cache()
-    lap("transformer-parity", transformer_parity_phase())
     zoo = lap("kernel2-zoo", kernel2_zoo_phase())
     bert = lap("bert-train", bert_train_phase())
     t5 = lap("t5-train", t5_train_phase())
@@ -5652,6 +6147,18 @@ def main() -> int:
     lap("lora-parity", lora_parity_phase())
     lap("dp-train", dp_train_phase())
     lap("dp-parity", dp_parity_phase())
+    # the tp x fsdp x dp training mesh: ranks share the card over gloo
+    torch.cuda.empty_cache()
+    lap("sharded-probe", sharded_probe_phase())
+    k2tp = lap("kernel2-tp", kernel2_zoo_phase(TP_FLASH, "kernel2-tp",
+                                               SEED + 85))
+    sharded = lap("sharded-train", sharded_train_phase(
+        train["losses"][0], train["peak_gib"], t5["first_loss"],
+        t5["peak_gib"]))
+    lap("sharded-parity", sharded_parity_phase())
+    parity = lap("parity process (wait)", join_parity_child(child))
+    spec_parity = parity["spec-parity"]
+    win_parity = parity["window-parity"]
 
     def paged_row(name, line, kern, launches, verify=False):
         """K1's or K1q's row: decode times, prefill times beside them;
@@ -5740,6 +6247,27 @@ def main() -> int:
                 "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"],
                 "rel_l2": {o: zoo[label]["norms"][o]
+                           for o in FLASH_OUTS[name]}})
+    # the same kernels at the tp-local shapes of the sharded-train phase:
+    # llama3_8b at tp 2 (16 query, 4 kv heads) and t5_3b_decoder at tp 2
+    # (16 heads); launches: every rank's in that phase's run, summed
+    for label, run in (("llama3_tp2", sharded["llama"]),
+                       ("t5_tp2", sharded["t5"])):
+        for name, line in (("flash_fwd", 112), ("flash_dq", 217),
+                           ("flash_dkv", 256)):
+            t = k2tp[label]["timings"][name]
+            rows.append({
+                "name": f"{name}_{label}", "route": "cuda",
+                "source": "tf_operator_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
+                "launches": run[name],
+                "max_abs_err": k2tp[label]["errs"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"],
+                "rel_l2": {o: k2tp[label]["norms"][o]
                            for o in FLASH_OUTS[name]}})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel)

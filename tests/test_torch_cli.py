@@ -372,8 +372,9 @@ def test_train_bert_smoke_trains(capsys):
 def test_train_t5_blocked_ce_checkpoints_resumes_and_refuses_tp(
         tmp_path, capsys, monkeypatch):
     """train_t5 --smoke --blocked-ce with --ckpt-dir: a save a step, then
-    a resume from step 2; SIGTERM exits 143 with JAX's words; --tp 2
-    names its ROADMAP item."""
+    a resume from step 2; SIGTERM exits 143 with JAX's words; --tp 2 in
+    one process is the mesh {"tp": 1}, as JAX's local_mesh_axes clamps
+    it (it refused --tp before tensor parallelism was ported)."""
     from tf_operator_tpu_torch import train_t5
 
     argv = ["--smoke", "--device", "cpu", "--blocked-ce", "--ckpt-dir",
@@ -394,8 +395,16 @@ def test_train_t5_blocked_ce_checkpoints_resumes_and_refuses_tp(
     assert train_t5.main(argv + ["--steps", "9"]) == 143
     assert "preempted (checkpointed): steps=0 resumed_from=3" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_t5.main(["--smoke", "--device", "cpu", "--tp", "2"])
+    # --tp clamps to the job's size, as the JAX script's mesh does: one
+    # process trains at tp 1 (tests/test_torch_sharded.py runs tp 2)
+    monkeypatch.setattr(train_t5, "PreemptionGuard", PreemptionGuard)
+    assert train_t5.main(["--smoke", "--device", "cpu", "--tp", "2",
+                          "--steps", "1", "--per-host-batch", "2",
+                          "--seq-len", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh {'dcn': 1, 'pp': 1, 'dp': 1, 'fsdp': 1, 'ep': 1, " \
+        "'tp': 1}" in out
+    assert "complete: steps=1 resumed_from=None" in out
 
 
 def test_train_resnet_synthetic_and_records(tmp_path, capsys):

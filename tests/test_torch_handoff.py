@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_serving_util import (int8_models, pool_pair, prompts,
-                                      tiny_models)
+from tests.torch_serving_util import (int8_models, one_torch_thread, pool_pair,
+                                      prompts, tiny_models)
 from tests.torch_serving_util import handoff_to_jax as _to_jax
 from tests.torch_serving_util import handoff_to_port as _to_port
 from tests.torch_serving_util import row_to_jax as _row_to_jax
@@ -34,6 +34,14 @@ from tf_operator_tpu_torch.models import bridge
 from tf_operator_tpu_torch.models import llama as tl
 from tf_operator_tpu_torch.models import paging as tp
 from tf_operator_tpu_torch.models.serving import KVHandoff, serve_loop
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 KW = dict(slots=2, max_new_tokens=10, block_size=4)
 

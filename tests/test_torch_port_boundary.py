@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax():
                  "models.resnet", "models.mnist", "models.vision_bridge",
                  "train_bert", "train_t5", "train_resnet", "train_mnist",
                  "train_dist_mnist", "models.lora", "runtime.bootstrap",
-                 "parallel.dp"):
+                 "parallel.dp", "parallel.tp", "parallel.comm",
+                 "parallel.placement"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

@@ -19,12 +19,20 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_serving_util import (int8_models, pool_pair, prompts,
-                                      tiny_models)
+from tests.torch_serving_util import (int8_models, one_torch_thread, pool_pair,
+                                      prompts, tiny_models)
 from tf_operator_tpu.models import paging as jp
 from tf_operator_tpu.models.serving import serve_loop as jax_serve
 from tf_operator_tpu_torch.models import paging as tp
 from tf_operator_tpu_torch.models.serving import serve_loop
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 COUNTERS = ("cow_copies", "prefix_block_hits", "fused_prefill_tokens",
             "preemptions", "admissions_blocked_on_memory",

@@ -42,6 +42,16 @@ from tf_operator_tpu_torch.ops import zigzag as tzz
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 from tf_operator_tpu_torch.parallel.ring import LocalRing
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # the package re-exports functions under the modules' names
 jra = importlib.import_module("tf_operator_tpu.ops.ring_attention")
 jrf = importlib.import_module("tf_operator_tpu.ops.ring_flash")
@@ -200,9 +210,9 @@ def _tiny_pair(layout):
                         LocalRing(N), layout=layout))
     model_j = jl.Llama(cfg_j)
     # attention holds no parameters: init through the einsum default
-    params = jl.Llama(jl.tiny(tie_embeddings=True, dtype=jnp.float32)).init(
-        jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32),
-        train=False)["params"]
+    init = jl.Llama(jl.tiny(tie_embeddings=True, dtype=jnp.float32)).init
+    params = jax.jit(lambda r, t: init(r, t, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((2, SEQ), jnp.int32))["params"]
     model_t = tl.Llama.from_params(
         cfg_t, bridge.params_from_jax(cfg_t, jax.tree.map(np.asarray, params),
                                       train=True),
@@ -275,7 +285,7 @@ def test_train_llama_ring_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,env,error,match", [
-    (["--tp", "2"], {}, NotImplementedError, "item 11"),
+    (["--tp", "2"], {}, NotImplementedError, "item 11g"),
     # a job of several processes is data parallel (a ring of one member
     # each); without its rendezvous address the bootstrap names it
     ([], {"WORLD_SIZE": "2"}, ValueError, "MASTER_ADDR")])

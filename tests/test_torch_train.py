@@ -466,9 +466,17 @@ def test_train_llama_smoke_on_cpu(capsys):
                                    "--per-host-batch", "1",
                                    "--seq-len", "16"]])
 def test_train_llama_refuses_what_is_not_ported(flag, capsys):
-    """The multi-device options name their ROADMAP item; --model mixtral
-    (ported) trains, as the JAX script does."""
+    """--ep and --tp with --ring name their ROADMAP item; --model mixtral
+    (ported) trains, as the JAX script does, and so does --tp 2 in one
+    process: the mesh {"tp": 1}, as JAX's local_mesh_axes clamps it
+    (tests/test_torch_sharded.py trains tp 2 in a job of two)."""
     argv = ["--smoke", "--device", "cpu"] + flag
+    if flag == ["--tp", "2"]:
+        assert ttl.main(argv + ["--steps", "2", "--per-host-batch", "1",
+                                "--seq-len", "16"]) == 0
+        out = capsys.readouterr().out
+        assert "'tp': 1}" in out and "complete: steps=2" in out
+        return
     if "mixtral" in flag:
         assert ttl.main(argv) == 0
         assert "complete: steps=2" in capsys.readouterr().out

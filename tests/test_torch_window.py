@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from tests.torch_serving_util import (handoff_to_jax, handoff_to_port,
-                                      int8_models, prompts, schedule,
-                                      tiny_models)
+                                      int8_models, one_torch_thread, prompts,
+                                      schedule, tiny_models)
 from tf_operator_tpu.models import llama as jl
 from tf_operator_tpu.models import paging as jp
 from tf_operator_tpu.models import quant as jq
@@ -35,6 +35,14 @@ from tf_operator_tpu_torch.models import llama as tl
 from tf_operator_tpu_torch.models import paging as tp
 from tf_operator_tpu_torch.models import quant as tq
 from tf_operator_tpu_torch.models.serving import serve_loop
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 STATS = ("window_evicted_blocks", "cow_copies", "prefix_block_hits",
          "kv_blocks_peak_used", "admissions_blocked_on_memory",

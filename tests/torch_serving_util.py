@@ -4,6 +4,7 @@ numpy, the numpy bridge of tensors (bf16 by its bits), the same block
 pools built in both frameworks, and a handoff carried across the two
 frameworks (the block table and the blake2b hashes are the wire
 format)."""
+import contextlib
 import dataclasses
 
 import jax
@@ -37,8 +38,10 @@ def tiny_models(**cfg_kw):
     cfg_kw overrides both configs alike (e.g. sliding_window)."""
     jmodel = jl.Llama(jl.tiny(**{"dtype": jnp.float32, "max_len": 128,
                                  **cfg_kw}))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-                         train=False)["params"]
+    # flax's init, jitted: both frameworks then run on the same drawn
+    # weights, whatever their last bits, without init's eager trace
+    params = jax.jit(lambda r, t: jmodel.init(r, t, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
     return jmodel, params, port_model(params, **cfg_kw)
 
 
@@ -48,6 +51,18 @@ def int8_models(params, **cfg_kw):
     qp = jq.quantize_params(params)
     return qp, port_model(qp, **cfg_kw), dict(
         params_transform=jq.make_dequantizer(jnp.float32))
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Tiny tensors run faster on one torch thread than across all the
+    cores several test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def schedule(results):

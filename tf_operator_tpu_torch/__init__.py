@@ -51,7 +51,14 @@ and resumable, over synthetic tokens or record shards:
   - ops/zigzag.py             the load-balanced sequence layout
   - parallel/ring.py          the rings: LocalRing (members in one
                               process) and ProcessRing (torch.distributed)
-  - parallel/mesh.py          mesh sizing
+  - parallel/mesh.py          the job's ranks on JAX's device mesh, the
+                              sharding rules and specs
+  - parallel/tp.py            JAX's rule table: transformer_param_sharding,
+                              state_sharding
+  - parallel/placement.py     each rank its block of every leaf; tp on
+                              local slices, fsdp gathered at each use;
+                              the step's gradient reductions
+  - parallel/comm.py          the collectives and the tp regions' edges
   - ops/blocked_ce.py         cross-entropy fused with the (tied) head
   - runtime/                  adafactor, train state and step, the
                               checkpointer (torch.save, atomic renames,

@@ -169,6 +169,16 @@ def _draws(cfg: LlamaConfig, seed: int, device, train: bool
         yield name, w, dtype
 
 
+def iter_params(cfg: LlamaConfig, seed: int,
+                device: Union[str, torch.device, None] = None,
+                train: bool = False) -> Iterator[Tuple[str, torch.Tensor]]:
+    """init_params's (name, tensor) pairs one leaf at a time, each drawn
+    on `device` and freed by the caller before the next: what a sharded
+    model keeps its block of (parallel/placement.place)."""
+    for name, w, dtype in _draws(cfg, seed, device, train):
+        yield name, w.to(dtype)
+
+
 def init_params(cfg: LlamaConfig, seed: int,
                 device: Union[str, torch.device, None] = None,
                 train: bool = False) -> Dict[str, torch.Tensor]:

@@ -48,7 +48,7 @@ from tf_operator_tpu_torch.models import paging
 from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
-from tf_operator_tpu_torch.parallel import ep
+from tf_operator_tpu_torch.parallel import comm, ep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,9 +385,19 @@ class RMSNorm(nn.Module):
         return (xf * (torch.rsqrt(var + self.eps) * self.scale)).to(self.dtype)
 
 
+def _refuse_tp_decode() -> None:
+    raise NotImplementedError(
+        "decoding a tensor-parallel model is not ported yet (ROADMAP "
+        "Queue 1 item 11h: TP serving)")
+
+
 class SwiGlu(nn.Module):
     """silu(x W_gate) * (x W_up) -> W_down, gate and up fused as
-    wi [E, 2, F].  Weights stored in `wdt`, used in cfg.dtype."""
+    wi [E, 2, F].  Weights stored in `wdt`, used in cfg.dtype.  Under
+    tensor parallelism (parallel/placement) wi holds this rank's F
+    columns and wo its rows: column- then row-parallel."""
+
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
@@ -396,11 +406,14 @@ class SwiGlu(nn.Module):
         self.wo = _weight(cfg.d_ff, cfg.d_model, dtype=wdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e, _, f = self.wi.shape
-        h = (x @ _dense(self, "wi", self.dtype).view(e, 2 * f)).unflatten(
-            -1, (2, f))
-        return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ _dense(self, "wo",
-                                                              self.dtype)
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        wi = _dense(self, "wi", self.dtype)
+        e, _, f = wi.shape
+        h = (x @ wi.view(e, 2 * f)).unflatten(-1, (2, f))
+        out = (F.silu(h[..., 0, :]) * h[..., 1, :]) @ _dense(self, "wo",
+                                                             self.dtype)
+        return out if self.tp is None else self.tp.exit(out)
 
 
 class MoeSwiGlu(nn.Module):
@@ -418,6 +431,9 @@ class MoeSwiGlu(nn.Module):
     loss (ops/blocked_ce.lm_blocked_loss) adds it, weighted, as the JAX
     package's does; the untied LM loss does not, as JAX's lm_loss does
     not."""
+
+    tp = None
+    packed_swiglu = True  # wi's last axis is [gate | up]
 
     def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
@@ -437,6 +453,16 @@ class MoeSwiGlu(nn.Module):
 
     def forward(self, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
         logits = x.float() @ self.router                       # [B, L, E]
+        if self.tp is not None:
+            # the experts' F columns are this rank's (wi: its gate and up
+            # columns); the router and its aux loss stay whole on every
+            # rank, outside the parallel region
+            tp = self.tp
+            out, _ = ep.grouped_moe(tp.enter(x), tp.enter(logits), self.wi,
+                                    self.wo, top_k=self.top_k,
+                                    dtype=self.dtype, with_aux=False)
+            self.aux_loss = ep.route_aux(logits, self.top_k)
+            return tp.exit(out)
         step = decode and x.shape[1] == 1
         out, aux = ep.grouped_moe(x, logits, self._experts("wi"),
                                   self._experts("wo"), top_k=self.top_k,
@@ -460,7 +486,14 @@ class GqaAttention(nn.Module):
     mask.  Full-sequence
     path (cache None): causal attention through cfg.attention_fn over
     compact kv when the backend takes GQA natively, else over kv
-    repeated to H heads."""
+    repeated to H heads.
+
+    Under tensor parallelism (parallel/placement; full-sequence path
+    only) wq and out hold this rank's query heads and wkv its kv heads;
+    a wkv that the placement keeps whole (n_kv_heads does not divide
+    tp) is read for the kv heads of this rank's query groups."""
+
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
         super().__init__()
@@ -479,10 +512,18 @@ class GqaAttention(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         b, l, e = x.shape
-        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ _dense(self, "wq", dt).view(e, h * d)).view(b, l, h, d)
-        kvp = (x @ _dense(self, "wkv", dt).view(e, 2 * kv * d)).view(
-            b, l, 2, kv, d)
+        tp = self.tp
+        if tp is not None:
+            if cache is not None:
+                _refuse_tp_decode()
+            x = tp.enter(x)
+        wq, wkv = _dense(self, "wq", dt), _dense(self, "wkv", dt)
+        h, kv, d = wq.shape[1], wkv.shape[2], cfg.head_dim
+        q = (x @ wq.view(e, h * d)).view(b, l, h, d)
+        kvp = (x @ wkv.view(e, 2 * kv * d)).view(b, l, 2, kv, d)
+        if tp is not None and kv == cfg.n_kv_heads:
+            kvp = kvp.index_select(3, _tp_kv_heads(cfg, tp, h, kvp.device))
+            kv = kvp.shape[3]
         q = _rotate(q, cos, sin)
         k = _rotate(kvp[:, :, 0], cos, sin)
         v = kvp[:, :, 1]
@@ -504,15 +545,29 @@ class GqaAttention(nn.Module):
                                    window=cfg.sliding_window)
         else:
             attn = cfg.attention_fn or dot_product_attention
-            if cfg.q_per_kv > 1 and not _supports_gqa(attn):
-                k = k.repeat_interleave(cfg.q_per_kv, dim=2)
-                v = v.repeat_interleave(cfg.q_per_kv, dim=2)
+            group = h // kv
+            if group > 1 and not _supports_gqa(attn):
+                k = k.repeat_interleave(group, dim=2)
+                v = v.repeat_interleave(group, dim=2)
             kw = {}
             if cfg.sliding_window is not None:
                 kw["window"] = cfg.sliding_window
             out = attn(q, k, v, True, **kw)
-        return out.reshape(b, l, h * d) @ _dense(self, "out", dt).view(h * d,
-                                                                      e)
+        out = out.reshape(b, l, h * d) @ _dense(self, "out", dt).view(h * d,
+                                                                     e)
+        return out if tp is None else tp.exit(out)
+
+
+def _tp_kv_heads(cfg: LlamaConfig, tp, h: int, device) -> torch.Tensor:
+    """The kv heads this rank's h query heads read from a whole wkv: one
+    per query group, compact when every kv head serves the same number
+    of them, else one per query head."""
+    ids = (tp.rank * h + torch.arange(h)) // cfg.q_per_kv
+    uniq = torch.unique(ids)
+    if h % len(uniq) == 0 and torch.equal(
+            ids, uniq.repeat_interleave(h // len(uniq))):
+        ids = uniq
+    return ids.to(device)
 
 
 class LlamaBlock(nn.Module):
@@ -585,6 +640,8 @@ class Llama(nn.Module):
                                    dtype=torch.float32)
         self._rope: Optional[torch.Tensor] = None
 
+    tp = None  # parallel/placement: the tp group of a sharded model
+
     @classmethod
     def from_params(cls, cfg: LlamaConfig, params: dict,
                     device: Union[str, torch.device, None] = None,
@@ -634,7 +691,7 @@ class Llama(nn.Module):
 
     def rope(self) -> torch.Tensor:
         """The [max_len, D/2] angle table on the parameters' device."""
-        dev = self.embed.device
+        dev = next(self.parameters()).device
         if self._rope is None or self._rope.device != dev:
             cfg = self.cfg
             self._rope = rope_table(cfg.max_len, cfg.head_dim,
@@ -642,8 +699,11 @@ class Llama(nn.Module):
         return self._rope
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """f32 logits of final-norm hidden states."""
+        """f32 logits of final-norm hidden states (under tensor
+        parallelism, this rank's vocab columns gathered over tp)."""
         dt = self.cfg.dtype
+        if self.tp is not None:
+            return self._tp_logits(h)
         if self.cfg.tie_embeddings:
             # flax Embed.attend promotes both operands to cfg.dtype
             return (h.to(dt) @ _dense(self, "embed", dt).t()).float()
@@ -653,16 +713,33 @@ class Llama(nn.Module):
             return h.float() @ _dense(self, "lm_head", dt).float()
         return h.float() @ self.lm_head
 
+    def _tp_logits(self, h: torch.Tensor) -> torch.Tensor:
+        cfg, tp = self.cfg, self.tp
+        w = self.embed if cfg.tie_embeddings else self.lm_head
+        split = w.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size
+        if split:
+            h = tp.enter(h)
+        if cfg.tie_embeddings:
+            out = (h.to(cfg.dtype) @ w.to(cfg.dtype).t()).float()
+        else:
+            out = h.float() @ w
+        return tp.gather_out(out) if split else out
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         # flax Embed(dtype=...) looks up in cfg.dtype: cast after the
         # gather, which gives the same bits as casting the table first;
         # an int8 table gathers its rows and their scales, then
         # dequantizes them
         idx = tokens.to(torch.long)
-        if self.embed.dtype == torch.int8:
-            return QTensor(self.embed[idx], self.embed_scale[idx]).dequantize(
+        table = self.embed
+        if table.dtype == torch.int8:
+            return QTensor(table[idx], self.embed_scale[idx]).dequantize(
                 self.cfg.dtype)
-        return F.embedding(idx, self.embed).to(self.cfg.dtype)
+        if self.tp is not None and table.shape[0] != self.cfg.vocab_size:
+            # a vocab-parallel table: this rank's rows
+            return comm.vocab_parallel_embedding(idx, table, self.tp).to(
+                self.cfg.dtype)
+        return F.embedding(idx, table).to(self.cfg.dtype)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
@@ -672,6 +749,8 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         if cache is None:
             return self._forward_full(tokens, return_hidden, positions)
+        if self.tp is not None:
+            _refuse_tp_decode()
         cfg = self.cfg
         b, l = tokens.shape
         table = self.rope()

@@ -155,17 +155,25 @@ def adapters_from_jax(tree: Mapping) -> Adapters:
 # ------------------------------------------------------------ training form
 class LoraDelta(nn.Module):
     """The parametrization of one adapted weight: W -> W + scale·(A@B)
-    reshaped to W's shape and cast to its dtype, at every read."""
+    reshaped to W's shape and cast to its dtype, at every read.  On a
+    sharded model (parallel/placement) W is this rank's part of the
+    weight: the delta is formed at the whole shape `whole` and `view`
+    takes the same part of it (its tp slice)."""
 
     def __init__(self, a: torch.Tensor, b: torch.Tensor,
-                 alpha: float) -> None:
+                 alpha: float, whole=None, view=None) -> None:
         super().__init__()
         self.a = nn.Parameter(a)
         self.b = nn.Parameter(b)
         self.alpha = alpha
+        self.whole, self.view = whole, view
 
     def forward(self, w: torch.Tensor) -> torch.Tensor:
-        return _effective(w, self.a, self.b, self.alpha)
+        if self.view is None:
+            return _effective(w, self.a, self.b, self.alpha)
+        delta = (_delta(self.a, self.b).reshape(self.whole)
+                 * (self.alpha / self.a.shape[-1])).to(w.dtype)
+        return w + self.view(delta)
 
 
 def attach(model: nn.Module, adapters: Adapters, alpha: float = 16.0
@@ -173,18 +181,32 @@ def attach(model: nn.Module, adapters: Adapters, alpha: float = 16.0
     """Attach `adapters` to `model` in place: every parameter of the base
     is frozen (requires_grad off, no copy), and each adapted weight reads
     W + (alpha/r)·(A@B) at its use.  The adapters become parameters of
-    the model on the base's device; returns adapter_params(model)."""
-    _check_names(dict(model.named_parameters()), adapters)
+    the model on the base's device; returns adapter_params(model).
+
+    On a sharded model (parallel/placement) the base stays sharded and
+    the adapters are whole on every rank: each rank's W + s·A@B takes
+    the part of A@B its block of W covers, and since every tp rank sees
+    only its part, A's and B's gradients sum over tp."""
+    placement = getattr(model, "placement", None)
+    base = (placement.params(model) if placement is not None
+            else dict(model.named_parameters()))
+    _check_names(base, adapters)
     for p in model.parameters():
         p.requires_grad_(False)
     for name, ad in adapters.items():
         mod_name, _, attr = name.rpartition(".")
         mod = model.get_submodule(mod_name)
-        dev = getattr(mod, attr).device
+        dev = base[name].device
+        extra = {}
+        if placement is not None:
+            extra = dict(whole=placement.shapes[name],
+                         view=placement.views[name])
+            if placement.tp is not None:
+                placement.tp_partial |= {f"{name}.a", f"{name}.b"}
         parametrize.register_parametrization(
             mod, attr, LoraDelta(ad["a"].detach().to(dev, torch.float32),
                                  ad["b"].detach().to(dev, torch.float32),
-                                 alpha), unsafe=True)
+                                 alpha, **extra), unsafe=True)
     return adapter_params(model)
 
 

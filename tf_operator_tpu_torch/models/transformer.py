@@ -46,7 +46,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from tf_operator_tpu_torch.parallel.ep import dense_switch_dispatch, gelu
+from tf_operator_tpu_torch.parallel import comm
+from tf_operator_tpu_torch.parallel.ep import (
+    dense_switch_dispatch, gelu, route_aux)
 
 # Switch Transformer aux-loss weight (paper default 1e-2)
 MOE_AUX_WEIGHT = 0.01
@@ -177,7 +179,10 @@ class LayerNorm(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Fused qkv projection [E, 3, H, D] -> attention -> out [H, D, E],
-    every product in cfg.dtype."""
+    every product in cfg.dtype.  Under tensor parallelism
+    (parallel/placement) qkv and out hold this rank's heads."""
+
+    tp = None
 
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
@@ -190,15 +195,20 @@ class MultiHeadAttention(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         b, s, e = x.shape
-        h, d = cfg.n_heads, cfg.head_dim
-        qkv = (x.to(dt) @ self.qkv.to(dt).view(e, 3 * h * d)).view(
-            b, s, 3, h, d)
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        w = self.qkv.to(dt)
+        h, d = w.shape[2], cfg.head_dim
+        qkv = (x.to(dt) @ w.view(e, 3 * h * d)).view(b, s, 3, h, d)
         attn = cfg.attention_fn or dot_product_attention
         out = attn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], cfg.causal)
-        return out.reshape(b, s, h * d) @ self.out.to(dt).view(h * d, e)
+        out = out.reshape(b, s, h * d) @ self.out.to(dt).view(h * d, e)
+        return out if self.tp is None else self.tp.exit(out)
 
 
 class Mlp(nn.Module):
+    tp = None  # parallel/placement: wi's columns and wo's rows split
+
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
         self.dtype = cfg.dtype
@@ -207,8 +217,11 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.tp is not None:
+            x = self.tp.enter(x)
         h = gelu(x.to(dt) @ self.wi.to(dt))
-        return h @ self.wo.to(dt)
+        out = h @ self.wo.to(dt)
+        return out if self.tp is None else self.tp.exit(out)
 
 
 class MoeMlp(nn.Module):
@@ -216,7 +229,10 @@ class MoeMlp(nn.Module):
     over x in f32, every token through the dense masked dispatch
     (parallel/ep.dense_switch_dispatch, GELU experts, capacity = tokens)
     in cfg.dtype.  The load-balancing loss of the last call stays in
-    `aux_loss`."""
+    `aux_loss`.  Under tensor parallelism the experts hold this rank's
+    F columns; the router and the aux loss stay whole on every rank."""
+
+    tp = None
 
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
@@ -230,6 +246,13 @@ class MoeMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         logits = x.float() @ self.router                        # [B, S, X]
+        if self.tp is not None:
+            tp = self.tp
+            out, _ = dense_switch_dispatch(
+                tp.enter(x), tp.enter(logits), self.wi.to(dt),
+                self.wo.to(dt), activation="gelu", dtype=dt)
+            self.aux_loss = route_aux(logits)
+            return tp.exit(out)
         out, self.aux_loss = dense_switch_dispatch(
             x, logits, self.wi.to(dt), self.wo.to(dt), activation="gelu",
             dtype=dt)
@@ -264,7 +287,11 @@ class Transformer(nn.Module):
     State-dict names: `embed` [V, E], `pos_embed` [max_len, E],
     `blocks.{i}.{ln1,ln2}.scale`, `blocks.{i}.attn.{qkv,out}`,
     `blocks.{i}.mlp.{wi,wo}` or `blocks.{i}.moe.{router,wi,wo}`,
-    `ln_f.scale` and, untied, `lm_head` [E, V]."""
+    `ln_f.scale` and, untied, `lm_head` [E, V].  Under tensor
+    parallelism the embedding (and an untied lm_head) hold this rank's
+    vocab slice."""
+
+    tp = None  # parallel/placement: the tp group of a sharded model
 
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
@@ -278,12 +305,21 @@ class Transformer(nn.Module):
             self.lm_head = _param(cfg.d_model, cfg.vocab_size)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """f32 logits of final-norm hidden states."""
+        """f32 logits of final-norm hidden states (under tensor
+        parallelism, this rank's vocab columns gathered over tp)."""
         dt = self.cfg.dtype
-        if self.cfg.tie_embeddings:
+        tied = self.cfg.tie_embeddings
+        w = self.embed if tied else self.lm_head
+        split = (self.tp is not None
+                 and w.shape[0 if tied else 1] != self.cfg.vocab_size)
+        if split:
+            h = self.tp.enter(h)
+        if tied:
             # flax Embed.attend promotes both operands to cfg.dtype
-            return (h.to(dt) @ self.embed.to(dt).t()).float()
-        return h.float() @ self.lm_head
+            out = (h.to(dt) @ w.to(dt).t()).float()
+        else:
+            out = h.float() @ w
+        return self.tp.gather_out(out) if split else out
 
     def forward(self, tokens: torch.Tensor, train: bool = True,
                 return_hidden: bool = False,
@@ -303,7 +339,13 @@ class Transformer(nn.Module):
                 pos = pos[None]
         # flax Embed(dtype=...) gathers from the table cast to cfg.dtype:
         # the same bits as casting the gathered rows
-        x = F.embedding(tokens.to(torch.long), self.embed).to(dt) + pos.to(dt)
+        table = self.embed
+        if self.tp is not None and table.shape[0] != cfg.vocab_size:
+            rows = comm.vocab_parallel_embedding(tokens.to(torch.long), table,
+                                                 self.tp)
+        else:
+            rows = F.embedding(tokens.to(torch.long), table)
+        x = rows.to(dt) + pos.to(dt)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:

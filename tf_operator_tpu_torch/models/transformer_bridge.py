@@ -24,7 +24,7 @@ weights on the same device, not the JAX package's weights.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Union
+from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,13 +71,21 @@ def init_transformer_params(cfg: TransformerConfig, seed: int,
                             ) -> Dict[str, torch.Tensor]:
     """f32 random weights for `cfg` drawn on `device` (default "cuda")
     from a generator seeded with `seed`, with flax's initializers."""
+    return dict(iter_transformer_params(cfg, seed, device))
+
+
+def iter_transformer_params(cfg: TransformerConfig, seed: int,
+                            device: Union[str, torch.device, None] = None
+                            ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """init_transformer_params's (name, tensor) pairs, drawn one leaf at
+    a time in state-dict order (a sharded model keeps its block of each:
+    parallel/placement.place)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     with torch.device("meta"):
         spec = {k: tuple(v.shape)
                 for k, v in Transformer(cfg).state_dict().items()}
-    sd = {}
     for name, shape in spec.items():
         w = torch.empty(shape, dtype=torch.float32, device=dev)
         if name.endswith(".scale"):
@@ -89,8 +97,7 @@ def init_transformer_params(cfg: TransformerConfig, seed: int,
         else:
             std = 1.0 / math.sqrt(init_fan_in(name, shape)) / _TRUNC_STD
             _trunc_normal_(w, std, gen)
-        sd[name] = w
-    return sd
+        yield name, w
 
 
 def transformer_from_params(cfg: TransformerConfig, params: Mapping,

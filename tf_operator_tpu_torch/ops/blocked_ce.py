@@ -45,8 +45,11 @@ def _chunks(w: torch.Tensor, chunk: int
 
 class _BlockedCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, labels, chunk):
+    def forward(ctx, x, w, labels, chunk, tp):
         n = x.shape[0]
+        if tp is not None:
+            # w holds this rank's vocab slice: labels in its columns
+            labels = labels - tp.rank * w.shape[1]
         x32 = x.float()
         m = torch.full((n,), -torch.inf, device=x.device)
         s = torch.zeros((n,), device=x.device)
@@ -59,10 +62,17 @@ class _BlockedCE(torch.autograd.Function):
             m = m_new
             # pick out the label's logit if it falls in this chunk
             local = labels - start
-            in_chunk = (local >= 0) & (local < chunk)
+            in_chunk = (local >= 0) & (local < min(chunk, w.shape[1] - start))
             picked = logits.gather(
                 1, local.clamp(0, chunk - 1)[:, None])[:, 0]
             label_logit = torch.where(in_chunk, picked, label_logit)
+        if tp is not None:
+            # combine the slices: the max, the rescaled sums and the one
+            # slice's label logit (0 on the others) over tp
+            m_all = tp.all_reduce_(m.clone(), torch.distributed.ReduceOp.MAX)
+            s = tp.all_reduce_(s * torch.exp(m - m_all))
+            label_logit = tp.all_reduce_(label_logit)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(x, w, labels, lse)
         ctx.chunk = chunk
@@ -94,25 +104,31 @@ class _BlockedCE(torch.autograd.Function):
             dx = dx + dlogits @ wc.T
             width = min(chunk, v - start)
             dw_t[start:start + width] = (x32.T @ dlogits)[:, :width].T
-        return dx.to(x.dtype), dw_t.T.to(w.dtype), None, None
+        return dx.to(x.dtype), dw_t.T.to(w.dtype), None, None, None
 
 
 def blocked_cross_entropy(x: torch.Tensor, w: torch.Tensor,
                           labels: torch.Tensor,
-                          chunk: Optional[int] = None) -> torch.Tensor:
+                          chunk: Optional[int] = None, tp=None
+                          ) -> torch.Tensor:
     """Mean CE of softmax(x @ w) against integer `labels`, without ever
     materializing the [N, V] logits.
 
     x: [N, D] final-layer activations (flatten [B, S, D] first)
     w: [D, V] lm-head weights (pass `embedding.T` for tied embeddings)
     labels: [N] int targets
-    chunk: vocab tile width (default 8192; the tail chunk is padded)."""
+    chunk: vocab tile width (default 8192; the tail chunk is padded)
+    tp: parallel/comm.Tp when w is this rank's slice of a vocab split
+    over tp (rank r's columns r·V/tp onwards): each rank streams its
+    slice, the max, the sum of exponentials and the label's logit
+    combine over tp, and the caller enters x into the parallel region
+    (Tp.enter), which sums its gradient over tp."""
     if x.dim() != 2 or w.dim() != 2 or labels.dim() != 1:
         raise ValueError(
             f"expected x[N,D], w[D,V], labels[N]; got {tuple(x.shape)}, "
             f"{tuple(w.shape)}, {tuple(labels.shape)}")
     return _BlockedCE.apply(x, w, labels.to(torch.long),
-                            _pick_chunk(w.shape[1], chunk))
+                            _pick_chunk(w.shape[1], chunk), tp)
 
 
 def lm_blocked_loss(model, tokens: torch.Tensor,
@@ -144,6 +160,13 @@ def lm_blocked_loss(model, tokens: torch.Tensor,
     aux = moe_aux(model)
     x = hidden[:, :-1].reshape(-1, cfg.d_model)
     labels = tokens[:, 1:].reshape(-1)
-    loss = blocked_cross_entropy(x.float(), model.embed.float().T, labels,
-                                 chunk)
+    table = model.embed
+    tp = getattr(model, "tp", None)
+    if tp is not None and table.shape[0] != cfg.vocab_size:
+        # the vocab-parallel tied embedding: each rank its slice
+        loss = blocked_cross_entropy(tp.enter(x.float()), table.float().T,
+                                     labels, chunk, tp=tp)
+    else:
+        loss = blocked_cross_entropy(x.float(), table.float().T, labels,
+                                     chunk)
     return loss + MOE_AUX_WEIGHT * aux

@@ -46,6 +46,16 @@ def job_group():
     return None
 
 
+def data_group(model=None):
+    """The group a step's batch spans: a sharded model's batch axes
+    (dcn, dp, fsdp: parallel/placement; its tp peers read the same
+    rows), else the job's (job_group)."""
+    placement = getattr(model, "placement", None)
+    if placement is not None:
+        return placement.batch_group
+    return job_group()
+
+
 def size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
@@ -130,7 +140,10 @@ def mean_metrics(metrics: Dict[str, torch.Tensor], group
 def finish_step(state, metrics: Dict[str, torch.Tensor], group):
     """A step's end after backward: the gradients' and the metrics' means
     over `group`, then one optimizer step in place.  Returns (state,
-    metrics)."""
+    metrics).  A sharded state (state.layout) completes its gradients
+    over its mesh instead (parallel/placement)."""
+    if getattr(state, "layout", None) is not None:
+        return state.layout.finish_step(state, metrics)
     if group is not None:
         mean_gradients_(state.params, group)
         metrics = mean_metrics(metrics, group)

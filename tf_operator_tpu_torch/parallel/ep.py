@@ -153,6 +153,18 @@ def _aux(probs: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
     return n_e * torch.sum(counts_g / (tokens * k) * mean)
 
 
+def route_aux(router_logits: torch.Tensor, top_k: int = 1) -> torch.Tensor:
+    """The load-balancing loss of a routing alone (what grouped_moe and
+    dense_switch_dispatch return beside their outputs): the f32 softmax,
+    the top-k selections' counts, then _aux.  A tensor-parallel MoE
+    block takes it here, outside its parallel region."""
+    n_e = router_logits.shape[-1]
+    probs = torch.softmax(router_logits.reshape(-1, n_e), dim=-1)
+    _, top_i = topk_gates(probs, top_k)
+    counts = torch.bincount(top_i.reshape(-1), minlength=n_e)
+    return _aux(probs, counts, top_k)
+
+
 def dense_switch_dispatch(x: torch.Tensor, router_logits: torch.Tensor,
                           wi: torch.Tensor, wo: torch.Tensor,
                           activation: str = "gelu",

@@ -14,11 +14,13 @@ calls jax.distributed.initialize.  It reads either contract:
   - the TPUJob's, through `global_rendezvous` (one coordinator for every
     slice, global ranks slice-major).
 
-A job of one process initializes nothing.  A job of several with a
-variable missing raises, naming it; the group it joins is destroyed at
-the process's exit.  The backend is NCCL on the card and
-gloo on the CPU unless the caller names one; a rank's card is
-cuda:LOCAL_RANK (cuda:0 without it).  Nothing falls back on its own.
+`default_mesh` and `multislice_mesh` lay the job's ranks out as the
+JAX package's do (parallel/mesh).  A job of one process initializes
+nothing.  A job of several with a variable missing raises, naming it;
+the group it joins is destroyed at the process's exit.  The backend is
+NCCL on the card and gloo on the CPU unless the caller names one; a
+rank's card is cuda:LOCAL_RANK (cuda:0 without it).  Nothing falls back
+on its own.
 """
 from __future__ import annotations
 
@@ -170,6 +172,37 @@ def initialize(env: Optional[Dict[str, str]] = None,
     # are torn down unjoined) once its peer's store is gone
     atexit.register(_shutdown)
     return Job(rank, world, dev, backend, info)
+
+
+def default_mesh(axes: Optional[Dict[str, int]] = None,
+                 world: Optional[int] = None):
+    """The mesh over every rank of the job (parallel/mesh.make_mesh; call
+    after initialize).  Without `axes`, everything lands on the dp
+    axis."""
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes if axes is not None else {"dp": -1}, world=world)
+
+
+def multislice_mesh(info: SliceInfo,
+                    ici_axes: Optional[Dict[str, int]] = None,
+                    world: Optional[int] = None):
+    """The dcn x ici mesh of a (possibly) multislice job: one dcn row per
+    slice, `ici_axes` (tp/fsdp/dp/ep/pp) laid out inside each slice.
+    global_rendezvous numbers the ranks slice-major, so make_mesh's
+    dcn-outermost grid puts each slice's ranks in one dcn row, and only
+    what the caller maps to dcn (the batch and its gradients, by
+    DEFAULT_RULES) crosses slices.  A single-slice job gets dcn=1, which
+    is default_mesh."""
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+
+    axes = dict(ici_axes if ici_axes is not None else {"dp": -1})
+    if "dcn" in axes and axes["dcn"] not in (1, info.num_slices):
+        raise ValueError(
+            f"dcn axis {axes['dcn']} conflicts with numSlices "
+            f"{info.num_slices}")
+    axes["dcn"] = info.num_slices
+    return make_mesh(axes, world=world)
 
 
 def _shutdown() -> None:

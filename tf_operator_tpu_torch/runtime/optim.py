@@ -49,6 +49,8 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
+import math
+
 import numpy as np
 import torch
 
@@ -72,8 +74,13 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(x * x))
+def _rms(x: torch.Tensor, name: str = "", layout=None) -> torch.Tensor:
+    """sqrt(mean(x²)); under a layout x is a block of the whole leaf
+    `name`, and the mean spans the whole."""
+    if layout is None:
+        return torch.sqrt(torch.mean(x * x))
+    return layout.rms(x, layout.spec(name),
+                      math.prod(layout.shape(name, x)))
 
 
 class Adafactor:
@@ -102,42 +109,76 @@ class Adafactor:
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
     def _scaled(self, name: str, g: torch.Tensor, state: Dict,
-                decay: torch.Tensor) -> torch.Tensor:
+                decay: torch.Tensor, layout=None) -> torch.Tensor:
         """Step 1: g scaled by its factored (or full) second-moment
-        estimate; updates the statistics in `state` in place."""
+        estimate; updates the statistics in `state` in place.  Under a
+        layout (parallel/placement) g is this rank's block of the whole
+        gradient: the factoring follows the whole shape, the means over
+        sharded dims sum over the ranks holding the pieces, and each
+        statistic is held as its own spec places it."""
         g2 = (g * g).add_(EPS)
-        dims = factored_dims(g.shape)
+        whole = tuple(g.shape) if layout is None else layout.shape(name, g)
+        sp = () if layout is None else layout.spec(name)
+        dims = factored_dims(whole)
         if dims is None:
+            sv = () if layout is None else layout.opt_spec("v", name)
+            g2 = g2 if layout is None else layout.redistribute(g2, sp, sv)
             v = decay * state["v"][name] + (1.0 - decay) * g2
             state["v"][name] = v
+            v = v if layout is None else layout.redistribute(v, sv, sp)
             return g * torch.pow(v, -0.5)
         d1, d0 = dims
-        v_row = decay * state["v_row"][name] + (1.0 - decay) * g2.mean(dim=d0)
-        v_col = decay * state["v_col"][name] + (1.0 - decay) * g2.mean(dim=d1)
+        if layout is None:
+            r, c = g2.mean(dim=d0), g2.mean(dim=d1)
+        else:
+            sp = sp + (None,) * (len(whole) - len(sp))
+            r = layout.mean(g2, d0, sp, whole[d0])
+            c = layout.mean(g2, d1, sp, whole[d1])
+            sr = sp[:d0] + sp[d0 + 1:]
+            sc = sp[:d1] + sp[d1 + 1:]
+            svr = layout.opt_spec("v_row", name)
+            svc = layout.opt_spec("v_col", name)
+            r, c = layout.redistribute(r, sr, svr), layout.redistribute(
+                c, sc, svc)
         del g2
+        v_row = decay * state["v_row"][name] + (1.0 - decay) * r
+        v_col = decay * state["v_col"][name] + (1.0 - decay) * c
         state["v_row"][name], state["v_col"][name] = v_row, v_col
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+        if layout is None:
+            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+        else:
+            svr = svr + (None,) * (v_row.dim() - len(svr))
+            row_whole = whole[:d0] + whole[d0 + 1:]
+            row_col_mean = layout.mean(v_row, reduced_d1, svr,
+                                       row_whole[reduced_d1], keepdim=True)
         row_factor = torch.pow(v_row / row_col_mean, -0.5)
         col_factor = torch.pow(v_col, -0.5)
+        if layout is not None:
+            row_factor = layout.redistribute(row_factor, svr, sr)
+            col_factor = layout.redistribute(col_factor, svc, sc)
         u = g * row_factor.unsqueeze(d0)
         return u.mul_(col_factor.unsqueeze(d1))
 
     @torch.no_grad()
-    def update_(self, params: Mapping[str, torch.Tensor], state: Dict) -> Dict:
+    def update_(self, params: Mapping[str, torch.Tensor], state: Dict,
+                layout=None) -> Dict:
         """One step on every parameter, in place, from p.grad (a missing
         gradient counts as zeros); each gradient is dropped once used.
-        The largest parameters go last, when most gradients are freed."""
+        The largest parameters go last, when most gradients are freed.
+        Under a layout each parameter is this rank's block, and the RMS
+        of the update and of the parameter span the whole leaf."""
         t = torch.tensor(state["count"] + 1, dtype=torch.float32)
         decay = 1.0 - t ** (-DECAY_RATE)
         for name, p in sorted(params.items(), key=lambda kv: kv[1].numel()):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
-            u = self._scaled(name, g, state, decay.to(p.device))
+            u = self._scaled(name, g, state, decay.to(p.device), layout)
             del g
-            u.div_(torch.clamp(_rms(u) / CLIPPING_THRESHOLD, min=1.0))
+            u.div_(torch.clamp(_rms(u, name, layout) / CLIPPING_THRESHOLD,
+                               min=1.0))
             u.mul_(self.learning_rate)
-            rms = _rms(p)
+            rms = _rms(p, name, layout)
             u.mul_(torch.where(rms <= MIN_PARAM_RMS,
                                torch.full_like(rms, MIN_PARAM_RMS), rms))
             u.mul_(-1.0)
@@ -151,6 +192,20 @@ def _grad(p: torch.Tensor) -> torch.Tensor:
     g = p.grad if p.grad is not None else torch.zeros_like(p)
     p.grad = None
     return g
+
+
+def _to_state(layout, t: torch.Tensor, name: str, kind: str
+              ) -> torch.Tensor:
+    """A block under the parameter's spec as the block of the state leaf
+    `kind` (the first parameter of its shape may be placed otherwise)."""
+    return layout.redistribute(t, layout.spec(name),
+                               layout.opt_spec(kind, name))
+
+
+def _from_state(layout, t: torch.Tensor, name: str, kind: str
+                ) -> torch.Tensor:
+    return layout.redistribute(t, layout.opt_spec(kind, name),
+                               layout.spec(name))
 
 
 class AdamW:
@@ -174,13 +229,19 @@ class AdamW:
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
-    def update_(self, params: Mapping[str, torch.Tensor], state: Dict) -> Dict:
+    def update_(self, params: Mapping[str, torch.Tensor], state: Dict,
+                layout=None) -> Dict:
+        """One step in place; under a layout (parallel/placement) every
+        tensor is this rank's block, elementwise, with each moment held
+        as its spec places it."""
         t = torch.tensor(state["count"] + 1, dtype=torch.float32)
         # 1 - decay**count in f32, as optax's bias correction
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** t
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** t
         for name, p in params.items():
             g = _grad(p)
+            if layout is not None:
+                g = _to_state(layout, g, name, "mu")
             mu, nu = state["mu"][name], state["nu"][name]
             # XLA fuses each moment's b·m + (1-b)·g (g²) into one multiply-add;
             # add_(alpha=) rounds once the same way
@@ -190,6 +251,8 @@ class AdamW:
             dev = p.device
             u = torch.sqrt(nu / bc2.to(dev)).add_(self.eps)
             u = torch.div(mu / bc1.to(dev), u, out=u)
+            if layout is not None:
+                u = _from_state(layout, u, name, "mu")
             if self.weight_decay:
                 u.add_(p * self.weight_decay)
             p.add_(u.mul_(-self.learning_rate))
@@ -222,16 +285,21 @@ class SGD:
         return {"count": 0, "trace": trace}
 
     @torch.no_grad()
-    def update_(self, params: Mapping[str, torch.Tensor], state: Dict) -> Dict:
+    def update_(self, params: Mapping[str, torch.Tensor], state: Dict,
+                layout=None) -> Dict:
         for name, p in params.items():
             g = _grad(p)
             if self.momentum is None:
                 u = g * (-self.learning_rate)
             else:
                 tr = state["trace"][name]
+                if layout is not None:
+                    g = _to_state(layout, g, name, "trace")
                 # g + momentum·t as one multiply-add, as XLA fuses it
                 torch.add(g, tr, alpha=self.momentum, out=tr)
                 u = tr * (-self.learning_rate)
+                if layout is not None:
+                    u = _from_state(layout, u, name, "trace")
             p.add_(u)
         state["count"] += 1
         return state

@@ -10,8 +10,10 @@ them; the batch statistics are the model's BatchNorm buffers, which its
 training forward updates) and returns it, where the JAX step returns a
 new state.  The JAX step's dp mesh axis is a process group here
 (parallel/dp): params replicated, each process a shard of the batch, the
-gradients averaged over the processes before the update.  Tensor, FSDP
-and expert sharding are ROADMAP Queue 1 item 11.
+gradients averaged over the processes before the update.  Under a
+dp x fsdp x tp mesh (parallel/mesh, parallel/placement) the state is
+this rank's blocks of JAX's layout and the step completes the gradients
+over the mesh; expert sharding is ROADMAP Queue 1 item 11d.
 
 `Checkpointer` is the port of the JAX package's orbax checkpoint manager,
 on torch.save / torch.load: one directory per step under the checkpoint
@@ -50,6 +52,9 @@ class TrainState:
     opt_state: Any
     tx: Any
     batch_stats: Dict = field(default_factory=dict)
+    # a sharded model's parallel/placement.Placement: params and
+    # opt_state are then this rank's blocks of the whole state
+    layout: Any = None
 
     @classmethod
     def create(cls, model: nn.Module, tx,
@@ -57,16 +62,29 @@ class TrainState:
                ) -> "TrainState":
         """The state of `model` under `tx`: the optimizer holds `params`
         (default every parameter of the model; models/lora passes its
-        adapters alone, so the frozen base keeps no optimizer state)."""
-        params = dict(model.named_parameters() if params is None
-                      else params.items())
-        return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
-                   batch_stats=dict(model.named_buffers()))
+        adapters alone, so the frozen base keeps no optimizer state).
+        For a sharded model (parallel/placement.place) the parameters
+        are this rank's shards by their plain names, and the optimizer
+        state is this rank's block of the state JAX's state_sharding
+        places."""
+        layout = getattr(model, "placement", None)
+        if params is None:
+            params = (layout.params(model) if layout is not None
+                      else dict(model.named_parameters()))
+        params = dict(params.items())
+        opt_state = (tx.init(params) if layout is None
+                     else layout.init_opt_state(tx, params))
+        return cls(step=0, params=params, opt_state=opt_state, tx=tx,
+                   batch_stats=dict(model.named_buffers()), layout=layout)
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer step from the parameters' .grad, in place; the
         gradients are dropped as they are used."""
-        self.opt_state = self.tx.update_(self.params, self.opt_state)
+        if self.layout is None:
+            self.opt_state = self.tx.update_(self.params, self.opt_state)
+        else:
+            self.opt_state = self.tx.update_(self.params, self.opt_state,
+                                             self.layout)
         self.step += 1
         return self
 
@@ -96,6 +114,25 @@ def cross_entropy_loss(logits: torch.Tensor,
                            labels.reshape(-1).long())
 
 
+def fsdp_param_sharding(params: Mapping[str, Any], mesh,
+                        min_size: int = 2**14) -> Dict[str, tuple]:
+    """{name: spec}: each large parameter sharded along its largest
+    fsdp-divisible dim, the small ones replicated (the JAX package's
+    generic fsdp placement; parallel/placement applies it)."""
+    from tf_operator_tpu_torch.parallel.mesh import pick_fsdp_dim
+
+    fsdp = mesh.shape.get("fsdp", 1)
+    out = {}
+    for name, x in params.items():
+        shape = tuple(getattr(x, "shape", x))
+        d = pick_fsdp_dim(shape, fsdp, min_size)
+        spec = [None] * len(shape)
+        if d is not None:
+            spec[d] = "fsdp"
+        out[name] = tuple(spec) if d is not None else ()
+    return out
+
+
 def _check_batch_stats(model: nn.Module, has_batch_stats: bool) -> None:
     if not has_batch_stats and next(model.buffers(), None) is not None:
         raise ValueError("has_batch_stats=False, but the model keeps "
@@ -106,7 +143,9 @@ def make_train_step(model: nn.Module,
                     loss_fn: Callable = cross_entropy_loss,
                     has_batch_stats: bool = True,
                     accum_steps: int = 1,
-                    data_parallel: bool = True) -> Callable:
+                    data_parallel: bool = True,
+                    rules=None, mesh=None,
+                    state_shardings=None) -> Callable:
     """(state, inputs, labels) -> (state, {"loss", "accuracy"}), the model
     in training mode: a model with batch statistics normalizes by each
     batch's and updates its running stats in place (state.batch_stats
@@ -125,9 +164,28 @@ def make_train_step(model: nn.Module,
     applies ONE optimizer update with the mean gradient: activation memory
     scales with the micro-batch, and for models without batch statistics
     the update is the full-batch one.  The running stats are updated
-    micro-batch after micro-batch, as the JAX step's scan chains them."""
+    micro-batch after micro-batch, as the JAX step's scan chains them.
+
+    A sharded model (parallel/placement.place over `mesh`) splits the
+    batch over `rules`' "batch" axes (default DEFAULT_RULES: dcn, dp,
+    fsdp): `inputs` are this data member's rows, which its tp peers read
+    too.  `state_shardings` (parallel/tp.state_sharding; requires
+    `mesh`) pins the state's placement: every step checks that each
+    parameter is still the block its spec gives this rank."""
     _check_batch_stats(model, has_batch_stats)
-    group = dp.job_group() if data_parallel else None
+    if state_shardings is not None and mesh is None:
+        raise ValueError("state_shardings requires mesh")
+    group = dp.data_group(model) if data_parallel else None
+    placement = getattr(model, "placement", None)
+    if placement is not None and rules is not None and mesh is not None:
+        group = mesh.group(rules.mesh_axes("batch"))
+    pinned = None
+    if state_shardings is not None:
+        from tf_operator_tpu_torch.parallel.mesh import local_shape
+
+        shapes = placement.shapes if placement is not None else {}
+        pinned = {k: local_shape(shapes.get(k, ()), spec, mesh)
+                  for k, spec in state_shardings.params.items()}
 
     def forward_backward(x, y):
         with dp.replicas(group):
@@ -137,12 +195,21 @@ def make_train_step(model: nn.Module,
         accuracy = (logits.argmax(dim=-1) == y).float().mean()
         return loss.detach(), accuracy
 
+    def finish(state, metrics):
+        out = dp.finish_step(state, metrics, group)
+        if pinned is not None:
+            moved = [k for k, shape in pinned.items()
+                     if tuple(state.params[k].shape) != shape]
+            if moved:
+                raise RuntimeError(f"the step moved {moved[:5]} off their "
+                                   f"pinned shardings")
+        return out
+
     def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
         model.train()
         if accum_steps == 1:
             loss, accuracy = forward_backward(inputs, labels)
-            return dp.finish_step(state, {"loss": loss,
-                                          "accuracy": accuracy}, group)
+            return finish(state, {"loss": loss, "accuracy": accuracy})
         b = inputs.shape[0]
         if b % accum_steps != 0:
             raise ValueError(
@@ -159,9 +226,8 @@ def make_train_step(model: nn.Module,
             for p in state.params.values():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
-        return dp.finish_step(state, {"loss": loss_sum / accum_steps,
-                                      "accuracy": acc_sum / accum_steps},
-                              group)
+        return finish(state, {"loss": loss_sum / accum_steps,
+                              "accuracy": acc_sum / accum_steps})
 
     return step
 
@@ -217,6 +283,29 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
+def _whole_to_host(tree, specs, layout, keep: bool):
+    """The whole of every leaf of a sharded tree (parallel/placement:
+    every rank gathers one leaf at a time), copied to the host where
+    `keep` (the writing rank) and dropped elsewhere."""
+    if isinstance(tree, torch.Tensor):
+        whole = layout.full(tree.detach(), specs)
+        return whole.to("cpu", copy=True) if keep else None
+    if isinstance(tree, dict):
+        return {k: _whole_to_host(v, specs[k], layout, keep)
+                for k, v in tree.items()}
+    return tree
+
+
+def _shards(tree, specs, layout, device: torch.device):
+    """This rank's block of every whole leaf of a saved tree."""
+    if isinstance(tree, torch.Tensor):
+        return layout.shard(tree, specs).to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: _shards(v, specs[k], layout, device)
+                for k, v in tree.items()}
+    return tree
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
@@ -252,6 +341,12 @@ class Checkpointer:
     first copies every tensor to the host, and only the write runs on a
     background thread; a second save waits for the one in flight, and
     wait_until_finished() joins it and re-raises any error it met.
+
+    A sharded state (TrainState.layout: parallel/placement) is saved in
+    the same files as a one-process job's: every rank gathers each leaf
+    whole, one at a time, and rank 0 keeps and writes it; restore() reads
+    the whole leaves and keeps this rank's block, so a checkpoint moves
+    between a one-process job and any mesh, either way.
 
     In a job of several processes (parallel/dp.job_group; the directory
     shared): every rank calls save() and restore() at the same steps;
@@ -301,11 +396,23 @@ class Checkpointer:
         latest = self.latest_step()
         if latest is not None and latest >= step:
             return False
-        payload = (_to_host(dict(state.params)),
-                   _to_host({"step": int(state.step),
-                             "opt_state": state.opt_state,
-                             "batch_stats": dict(state.batch_stats)})
-                   ) if self.primary else None
+        lay = state.layout
+        if lay is not None:
+            # every rank gathers each leaf; rank 0 keeps the whole
+            params = {k: _whole_to_host(p, lay.spec(k), lay, self.primary)
+                      for k, p in state.params.items()}
+            opt = _whole_to_host(state.opt_state, lay.opt_specs, lay,
+                                 self.primary)
+            payload = (params, {"step": int(state.step), "opt_state": opt,
+                                "batch_stats": _to_host(
+                                    dict(state.batch_stats))}
+                       ) if self.primary else None
+        else:
+            payload = (_to_host(dict(state.params)),
+                       _to_host({"step": int(state.step),
+                                 "opt_state": state.opt_state,
+                                 "batch_stats": dict(state.batch_stats)})
+                       ) if self.primary else None
         self._pending = step
         if wait or not self.async_save:
             try:
@@ -407,11 +514,15 @@ class Checkpointer:
                 f"step {step}'s batch stats do not match the state: saved "
                 f"{sorted(stats)[:5]}, state {sorted(state.batch_stats)[:5]}")
         device = next(iter(state.params.values())).device
+        lay = state.layout
         with torch.no_grad():
             for k, p in state.params.items():
-                p.copy_(saved[k])
+                p.copy_(saved[k] if lay is None
+                        else lay.shard(saved[k], lay.spec(k)))
             for k, b in state.batch_stats.items():
                 b.copy_(stats[k])
         state.step = rest["step"]
-        state.opt_state = _to_device(rest["opt_state"], device)
+        state.opt_state = (
+            _to_device(rest["opt_state"], device) if lay is None
+            else _shards(rest["opt_state"], lay.opt_specs, lay, device))
         return state

@@ -84,7 +84,7 @@ def make_mlm_step(model: Transformer):
     its gradients, and one optimizer step in place; in a job of several
     processes, the global batch's loss and mean gradients
     (parallel/dp)."""
-    group = dp.job_group()
+    group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor):
         with dp.replicas(group):

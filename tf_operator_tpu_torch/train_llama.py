@@ -15,13 +15,21 @@ SIGTERM (runtime/train.Checkpointer, async), and a restarted run resumes
 from the newest step there.
 
 A job of several processes (the PyTorchJob env MASTER_ADDR /
-MASTER_PORT / WORLD_SIZE / RANK, or the TPUJob's; runtime/bootstrap) is
-data parallel, as the JAX script's mesh {"tp": 1, "dp": n} is: every
-rank starts from rank 0's weights, draws its own tokens (seed = rank) or
-reads its own record shard (rank of world), and the gradients are
-averaged over the ranks before each update (parallel/dp); rank 0 writes
-the checkpoints.  --backend picks the process group's backend (default
-nccl on the card, gloo on the CPU).
+MASTER_PORT / WORLD_SIZE / RANK, or the TPUJob's; runtime/bootstrap)
+lays its ranks out as the JAX script lays its devices out:
+make_mesh(local_mesh_axes(world, prefer_tp=--tp)), printed as JAX prints
+it.  At --tp 1 it is data parallel: every rank starts from rank 0's
+weights, draws its own tokens (seed = rank) or reads its own record
+shard (rank of world), and the gradients are averaged over the ranks
+before each update (parallel/dp).  At --tp N > 1 the state is sharded
+as JAX's state_sharding places it (parallel/tp, parallel/placement):
+every rank draws the weights leaf by leaf and keeps its block, the tp
+ranks of a data member read the same rows (seed = its index over the
+batch axes, or that index's record shard), --per-host-batch is one data
+member's rows, and attention runs on each rank's heads.  Rank 0 writes
+the checkpoints (whole tensors, so a run resumes under another --tp).
+--backend picks the process group's backend (default nccl on the card,
+gloo on the CPU).
 
 `--ring` runs attention as sequence-parallel ring flash attention
 (ops/ring_flash: the CUDA kernels K3f/K3q/K3kv on the card) over a ring
@@ -35,8 +43,9 @@ script sizes its ring over tp: one member a process at --tp 1.
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu --model mixtral --steps 3
     WORLD_SIZE=2 RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
 
-Tensor (--tp) and expert (--ep) parallelism are not ported yet; each
-raises NotImplementedError naming its ROADMAP item.
+Expert parallelism (--ep) and --tp N > 1 with --ring (a ring over the
+tp ranks of several processes) are not ported yet; each raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,7 +66,8 @@ from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 from tf_operator_tpu_torch.ops.ring_flash import make_ring_flash_attention_fn
 from tf_operator_tpu_torch.parallel import dp
-from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes
+from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes, make_mesh
+from tf_operator_tpu_torch.parallel.placement import shard_model
 from tf_operator_tpu_torch.parallel.ring import LocalRing
 from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
@@ -66,8 +76,9 @@ from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
 
 _NOT_PORTED = {
-    "tp": "ROADMAP Queue 1 item 11 (tensor parallelism)",
-    "ep": "ROADMAP Queue 1 item 11 (expert parallelism)",
+    "ring": "ROADMAP Queue 1 item 11g (--tp with --ring: a ring over the "
+            "tp ranks of several processes)",
+    "ep": "ROADMAP Queue 1 item 11d (expert parallelism)",
 }
 
 # the JAX script's --smoke --model mixtral: 4 experts in every block, top-2
@@ -117,7 +128,7 @@ def make_lm_step(model: Llama):
     over the ranks (parallel/dp)."""
     loss_of = lm_blocked_loss if model.cfg.tie_embeddings else (
         lambda m, t: lm_loss(m(t), t))
-    group = dp.job_group()
+    group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor):
         with dp.replicas(group):
@@ -126,6 +137,24 @@ def make_lm_step(model: Llama):
         return dp.finish_step(state, {"loss": loss.detach()}, group)
 
     return step
+
+
+def build_model(cfg, mesh, job, dev):
+    """(the model, (this rank's data member, the member count)): at tp 1
+    the one-process model, every rank from rank 0's weights, a member a
+    rank; under tp the model sharded over `mesh` (parallel/placement),
+    its weights drawn leaf by leaf and this rank's block kept."""
+    if mesh.shape["tp"] == 1:
+        model = Llama.from_params(
+            cfg, bridge.init_params(cfg, 0, device=dev, train=True),
+            device=dev, train=True)
+        dp.replicate_(model)
+        return model, (job.rank, job.world)
+    with torch.device("meta"):
+        model = Llama(cfg, train=True)
+    pl = shard_model(model, mesh, bridge.iter_params(cfg, 0, device=dev,
+                                                     train=True), device=dev)
+    return model, pl.data_index()
 
 
 def main(argv=None) -> int:
@@ -153,12 +182,15 @@ def main(argv=None) -> int:
     bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    for flag, on in (("tp", args.tp > 1), ("ep", args.ep > 1)):
+    for flag, on in (("ring", args.ring and args.tp > 1),
+                     ("ep", args.ep > 1)):
         if on:
             raise NotImplementedError(
                 f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
     job = bootstrap.initialize(device=args.device, backend=args.backend)
     dev = job.device
+    mesh = make_mesh(local_mesh_axes(job.world, prefer_tp=args.tp))
+    print(f"mesh {mesh.shape}")
 
     attention_fn = flash_attention
     if args.ring:
@@ -182,18 +214,14 @@ def main(argv=None) -> int:
           f"{' (smoke)' if args.smoke else ''}, {cfg.n_layers} layers, "
           f"batch {args.per_host_batch} x {seq_len}")
 
-    model = Llama.from_params(
-        cfg, bridge.init_params(cfg, 0, device=dev, train=True),
-        device=dev, train=True)
-    dp.replicate_(model)
+    model, member = build_model(cfg, mesh, job, dev)
     state = TrainState.create(model, Adafactor(1e-3))
     if args.data_dir:
         batches = token_record_pipeline(args.data_dir, args.per_host_batch,
-                                        seq_len, (job.rank, job.world),
-                                        device=dev)
+                                        seq_len, member, device=dev)
     else:
         batches = lm_batches(args.per_host_batch, seq_len, cfg.vocab_size,
-                             seed=job.rank, device=dev)
+                             seed=member[0], device=dev)
     guard = PreemptionGuard()
     try:
         res = run_training(
@@ -204,7 +232,7 @@ def main(argv=None) -> int:
             checkpointer=(Checkpointer(args.ckpt_dir, async_save=True)
                           if args.ckpt_dir else None),
             save_interval_steps=args.save_interval,
-            profiler=Profiler(batch_size=args.per_host_batch * job.world),
+            profiler=Profiler(batch_size=args.per_host_batch * member[1]),
             guard=guard,
             metrics_sink=print,
         )

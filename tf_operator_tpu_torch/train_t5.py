@@ -11,16 +11,18 @@ adafactor(1e-3), and runtime/loop.run_training.  --ckpt-dir checkpoints
 every --save-interval steps and once more on SIGTERM (async), a
 restarted run resumes from the newest step there, and a preempted run
 exits 143 (retryable: the gang restarts).  Weights come from a seed;
-tokens from a torch.Generator seeded with the process's rank.  A job of
-several processes is data parallel (runtime/bootstrap, parallel/dp):
-rank 0 writes the checkpoints, every rank resumes from them, and every
-rank stops at the same step on SIGTERM.
+tokens from a torch.Generator seeded with the process's data member.  A
+job of several processes lays its ranks out on
+make_mesh(local_mesh_axes(world, prefer_tp=--tp)) as the JAX script
+does (runtime/bootstrap): at --tp 1 it is data parallel (parallel/dp),
+at --tp N > 1 the state is sharded as JAX's state_sharding places it
+(parallel/tp, parallel/placement; the tp ranks of a data member read
+the same rows, --per-host-batch is a member's rows).  Rank 0 writes the
+checkpoints, every rank resumes from them, and every rank stops at the
+same step on SIGTERM.
 
     python -m tf_operator_tpu_torch.train_t5 --smoke --device cpu --steps 2 --blocked-ce
     python -m tf_operator_tpu_torch.train_t5 --steps 100 --ckpt-dir C
-
-Tensor parallelism (--tp > 1) is not ported yet: it raises
-NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,16 +36,18 @@ from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.transformer import (
     Transformer, lm_train_loss, t5_3b_decoder, tiny)
 from tf_operator_tpu_torch.models.transformer_bridge import (
-    init_transformer_params, transformer_from_params)
+    init_transformer_params, iter_transformer_params,
+    transformer_from_params)
 from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 from tf_operator_tpu_torch.parallel import dp
+from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes, make_mesh
+from tf_operator_tpu_torch.parallel.placement import shard_model
 from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
-from tf_operator_tpu_torch.train_llama import _NOT_PORTED
 
 
 def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
@@ -65,7 +69,7 @@ def make_lm_step(model: Transformer, blocked_ce: bool = False):
     processes, the global batch's loss and mean gradients
     (parallel/dp)."""
     loss_of = lm_blocked_loss if blocked_ce else lm_train_loss
-    group = dp.job_group()
+    group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor):
         with dp.replicas(group):
@@ -91,10 +95,10 @@ def main(argv=None) -> int:
     bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    if args.tp > 1:
-        raise NotImplementedError(f"tp: not ported yet ({_NOT_PORTED['tp']})")
     job = bootstrap.initialize(device=args.device, backend=args.backend)
     dev = job.device
+    mesh = make_mesh(local_mesh_axes(job.world, prefer_tp=args.tp))
+    print(f"mesh {mesh.shape}")
     if args.smoke:
         cfg = tiny(causal=True)
     else:
@@ -104,9 +108,16 @@ def main(argv=None) -> int:
           f"{job.slice.num_slices}, device {dev}, {cfg.n_layers} layers, "
           f"batch {args.per_host_batch} x {seq_len}")
 
-    model = transformer_from_params(
-        cfg, init_transformer_params(cfg, 0, device=dev), device=dev)
-    dp.replicate_(model)
+    if mesh.shape["tp"] == 1:
+        model = transformer_from_params(
+            cfg, init_transformer_params(cfg, 0, device=dev), device=dev)
+        dp.replicate_(model)
+        member = (job.rank, job.world)
+    else:
+        with torch.device("meta"):
+            model = Transformer(cfg)
+        member = shard_model(model, mesh, iter_transformer_params(
+            cfg, 0, device=dev), device=dev).data_index()
     state = TrainState.create(model, Adafactor(1e-3))
     guard = PreemptionGuard()
     try:
@@ -114,12 +125,12 @@ def main(argv=None) -> int:
             state,
             make_lm_step(model, blocked_ce=args.blocked_ce),
             lm_batches(args.per_host_batch, seq_len, cfg.vocab_size,
-                       seed=job.rank, device=dev),
+                       seed=member[0], device=dev),
             num_steps=args.steps,
             checkpointer=(Checkpointer(args.ckpt_dir, async_save=True)
                           if args.ckpt_dir else None),
             save_interval_steps=args.save_interval,
-            profiler=Profiler(batch_size=args.per_host_batch * job.world),
+            profiler=Profiler(batch_size=args.per_host_batch * member[1]),
             guard=guard,
             metrics_sink=print,
         )
