@@ -320,6 +320,31 @@ Phases, in order, none of them caught:
               ranks (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2) = one
               process on the card; the sharded job's checkpoint resumed
               in one process.
+ 39. kernel-tp: K1 and K1q against their plain versions at llama3_8b's
+              tp 2 local shape (H=16, KV=4, D=128, bs=16, 8 lanes up to
+              the serve phase's contexts, a frozen lane), decode L=1 and
+              prefill L=512, bf16 (the tensor cores) and f32 (the scalar
+              design); then timed as the kernel phase times them.
+ 40. tp-serve: llama3_8b at full width and depth served at tp 2 by two
+              ranks sharing the card over gloo (`--sharded-worker`, the
+              weights drawn leaf by leaf from the serve phase's seed, each
+              rank its block; parallel/tp.kv_cache_sharding), with
+              serve_loop(scheduler="continuous") on the serve phase's 16
+              prompts, 8 slots: (a) bf16 weights and KV, (b) int8 weights
+              quantized from the same draws and int8 KV (K1q).  Both
+              ranks' tokens equal, every budget met and in the
+              vocabulary, K1 (K1q) launches a rank = layers x model calls,
+              all on the tensor cores, the first prefill's last-position
+              logits within TP_LOGITS_TOL (relative error norm) of one
+              process's on the same weights and prompt; tokens/s, TTFT,
+              TPOT, each rank's peak beside the one-process phase's, the
+              collectives a decode step, and the share of requests whose
+              tokens equal the one-process phase's.
+ 41. tp-serve-parity: tests/test_torch_tp_serving.py's cases in f32 on
+              eight ranks (tp 2 x dp 4, dp 2 x fsdp 2 x tp 2, tp 4 x dp 2,
+              tp 2 and dp 2 x tp 2) = one process on the card: tokens,
+              schedules, draft counts, each rank's cache its block, the
+              handoff's exports and adoptions both ways.
 
 The parity phases 6, 6b, 6c, 8, 14, 20 and 24 (their CPU halves most
 of their time) run in a process of their own (`--parity-worker OUT
@@ -394,13 +419,13 @@ MAX_CTX, MAX_NEW = 1024, 64
 
 
 def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS,
-              ctx=None, h: int = H, t_slots=None):
+              ctx=None, h: int = H, t_slots=None, kv: int = KV):
     """Pools, tables, positions and q for one kernel case.  Lanes 0..6
     are live at ragged positions (or at the contexts `ctx` gives); lane 7
     is frozen (all-scratch table).  The scratch block is poisoned, so a
     masking fault shows.  ring=True gives every live lane a full modular
     table with positions past T*bs (the sliding-window table
-    discipline).  h: query heads over the KV = 8 kv heads.  t_slots: the
+    discipline).  h: query heads over the kv (default KV = 8) kv heads.  t_slots: the
     table's width (default: the serve phase's, MAX_CTX + MAX_NEW)."""
     from tf_operator_tpu_torch.models.paging import blocks_for
 
@@ -425,7 +450,7 @@ def make_case(dtype, l: int, window, ring: bool, seed: int, bs: int = BS,
         table[b, :n] = torch.tensor(ids[at:at + n], dtype=torch.int32)
         at += n
     pos = torch.tensor([c - l for c in ctx] + [0], dtype=torch.int32)
-    shape = (n_blocks + 1, bs, KV, D)
+    shape = (n_blocks + 1, bs, kv, D)
     k_pool = torch.randn(shape, generator=g)
     v_pool = torch.randn(shape, generator=g)
     k_pool[0] = 1e4
@@ -450,7 +475,8 @@ def bound_ms(case, dtype, int8: bool = False) -> tuple:
     esz = torch.finfo(dtype).bits // 8
     q = case["q"]
     b, l, h, d = q.shape
-    per_pos = KV * D * esz if not int8 else KV * D + KV * 4
+    kv = case["k"].shape[2]
+    per_pos = kv * D * esz if not int8 else kv * D + kv * 4
     kv_bytes = sum(blocks_for(c, BS) for c in case["ctx"]) * BS * per_pos * 2
     io = 2 * q.numel() * esz + case["table"].numel() * 4 + b * 4
     flops = 0
@@ -1193,9 +1219,11 @@ def serve_phase() -> dict:
     log(f"[serve] telemetry: {tel_line(stats)}; spans: "
         f"{len(tracer.traces())} request roots of queued/prefill/decode, "
         f"Chrome export parsed")
-    # the spec and handoff phases serve on the same model
+    # the spec and handoff phases serve on the same model; tp-serve holds
+    # its tokens and its first prefill's logits against this run's
     return dict(launches=launches, model=model, prompts=prompts,
-                tokens=[r.tokens for r in results])
+                tokens=[r.tokens for r in results], peak_gib=peak / 2**30,
+                logits=first_prefill_logits(model, prompts[0], False))
 
 
 def ttft_pcts(stats) -> tuple:
@@ -2369,7 +2397,8 @@ def window_bound_ms(case, dtype, int8: bool = False) -> tuple:
     esz = torch.finfo(dtype).bits // 8
     q = case["q"]
     b, l, h, d = q.shape
-    per_pos = KV * D * esz if not int8 else KV * D + KV * 4
+    kv = case["k"].shape[2]
+    per_pos = kv * D * esz if not int8 else kv * D + kv * 4
     keys = pairs = 0
     for p in case["pos"].tolist():
         keys += (p + l) - max(0, p + l - WIN_W)
@@ -2946,9 +2975,11 @@ def serve_int8_phase() -> dict:
         f"k1_launches={k1_launches} quantized_bytes={qbytes} "
         f"max_memory_allocated_gib={peak / 2**30:.3f}")
     log(f"[serve-int8] telemetry: {tel_line(stats)}")
+    logits = first_prefill_logits(model, prompts[0], True)
     del model
     torch.cuda.empty_cache()
-    return dict(launches=launches)
+    return dict(launches=launches, tokens=[r.tokens for r in results],
+                peak_gib=peak / 2**30, logits=logits)
 
 
 # ------------------------------------------------------ parity-int8 phase
@@ -5590,7 +5621,9 @@ def _parity_job() -> dict:
 
 
 SHARDED_JOBS = {"probe": _probe_job, "llama-tp": _llama_tp_job,
-                "t5-tp": _t5_tp_job, "parity": _parity_job}
+                "t5-tp": _t5_tp_job, "parity": _parity_job,
+                "tp-serve": lambda: _tp_serve_job(),
+                "tp-parity": lambda: _tp_parity_job()}
 
 
 def sharded_worker(out_dir: str, jobs: list) -> int:
@@ -5760,6 +5793,329 @@ def sharded_parity_phase() -> None:
             f"max abs err {perr:.2e}")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# ------------------------------------------------- tensor-parallel serving
+# llama3_8b's attention at tp 2 as each rank runs it: its 16 query heads
+# over its 4 kv heads (parallel/tp.kv_cache_sharding)
+TP_H, TP_KV = H // 2, KV // 2
+TP_MESH = {"tp": 2}
+# tp-serve's first prefill, last position: tp 2's logits against one
+# process's on the same weights and prompt, relative error norm.  bf16:
+# each of the 64 row-parallel products a forward rounds its two partial
+# sums to bf16 before they add, where one process rounds once, and the
+# residual stream carries the difference through 32 layers
+TP_LOGITS_TOL = 5e-2
+
+
+def kernel_tp_phase() -> dict:
+    """K1 and K1q (the same draws quantized by int8_pools) against their
+    plain versions at the tp 2 local shape (TP_H query heads over TP_KV kv
+    heads, 8 lanes up to the serve phase's contexts, lane 7 frozen),
+    decode L=1 and prefill L=512, bf16 and f32 queries; then timed at
+    decode and prefill with bf16 queries as the kernel phase times
+    them."""
+    from tf_operator_tpu_torch.models import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for int8 in (False, True):
+        tag = "[kernel-tp K1q]" if int8 else "[kernel-tp K1]"
+        plain = (pa.paged_attention_int8_plain if int8
+                 else pa.paged_attention_plain)
+
+        def inputs(case, int8=int8):
+            k, v = int8_pools(case) if int8 else (case["k"], case["v"])
+            return (case["q"], k, v, case["table"], case["pos"])
+
+        errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for i, (dt, l) in enumerate((dt, l)
+                                    for dt in (torch.bfloat16, torch.float32)
+                                    for l in (1, 512)):
+            case = make_case(dt, l, None, False, SEED + 300 + i, h=TP_H,
+                             kv=TP_KV)
+            chunk = (pa.split_slots(l * TP_H // TP_KV, case["table"].shape[1],
+                                    BS, TP_KV * B)
+                     if dt == torch.bfloat16 else 0)
+            err = check_paged(
+                case, inputs(case), plain, dt, B - 1,
+                f"{tag} {str(dt)[6:]:8s} L={l:<4d} H={TP_H} KV={TP_KV} "
+                f"bs={BS} ctx={case['ctx']} split_slots={chunk}")
+            errs[dt] = max(errs[dt], err)
+        timings = {}
+        for name, l in (("decode", 1), ("prefill", 512)):
+            case = make_case(torch.bfloat16, l, None, False, SEED + 310,
+                             h=TP_H, kv=TP_KV)
+            timings[name] = paged_timing(
+                case, inputs(case), plain,
+                bound_ms(case, torch.bfloat16, int8),
+                f"{tag} timing {name} bf16 q, {'int8' if int8 else 'bf16'} "
+                f"KV, B={B} L={l} H={TP_H} KV={TP_KV} D={D} bs={BS} "
+                f"ctx={case['ctx']}")
+        out["k1q" if int8 else "k1"] = dict(errs=errs, timings=timings)
+    return out
+
+
+def first_prefill_logits(model, prompt, kv_quant: bool, sharding=None):
+    """The last position's f32 logits [V] (on the host) of `prompt`
+    prefilled in one segment into a fresh pool through K1 (K1q): what a
+    serving run's first token of it is drawn from.  sharding: a tp
+    rank's parallel/tp.kv_cache_sharding (its pool holds its kv
+    heads)."""
+    from tf_operator_tpu_torch.models import llama, paging
+    from tf_operator_tpu_torch.models.serving import _pool_sharding
+
+    n = paging.blocks_for(int(prompt.shape[0]), BS)
+    pool = paging.init_block_pool(model.cfg, n, BS, device="cuda",
+                                  kv_quant=kv_quant,
+                                  sharding=_pool_sharding(sharding))
+    table = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[None]
+    with torch.inference_mode():
+        lg = llama.chunk_fill(model, pool, prompt[None].to("cuda"), 0, table)
+    return lg[0].float().cpu()
+
+
+def _tp_serve_job() -> dict:
+    """This rank of tp-serve: llama3_8b at tp 2, (a) bf16 and (b) int8
+    weights with int8 KV, each drawn leaf by leaf from the serve phase's
+    seed (each rank keeps its block), serving the serve phase's prompts
+    under the continuous scheduler; then one timed decode block of 4
+    steps (8 lanes at 512 positions) for the collectives a step."""
+    from tf_operator_tpu_torch.models import bridge, llama, paging
+    from tf_operator_tpu_torch.models import paged_attention as pa
+    from tf_operator_tpu_torch.models.serving import (
+        _pool_sharding, decode_block, serve_loop)
+    from tf_operator_tpu_torch.parallel import comm
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.placement import shard_model
+    from tf_operator_tpu_torch.parallel.tp import kv_cache_sharding
+    from tf_operator_tpu_torch.runtime import bootstrap
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh(TP_MESH)
+    cfg = llama.llama3_8b()
+    prompts = prompts_for(cfg, 16, 64, MAX_CTX, SEED + 1)
+    sh = kv_cache_sharding(cfg, mesh, 8)
+    out = {}
+    for run, int8 in (("a", False), ("b", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model = llama.Llama(cfg)
+        draw = bridge.iter_int8_params if int8 else bridge.iter_params
+        shard_model(model, mesh, draw(cfg, SEED, device="cuda"),
+                    device="cuda", requires_grad=False)
+        model.eval()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() / 2**30
+        kw = dict(slots=8, block_size=BS, steps_per_sync=8, device="cuda",
+                  scheduler="continuous", kv_quant=int8, cache_sharding=sh)
+        logits = first_prefill_logits(model, prompts[0], int8, sh)
+        # warm-up (cuBLAS handles, allocator) on two short requests
+        serve_loop(model, [p[:64] for p in prompts[:2]], max_new_tokens=8,
+                   **kw)
+        torch.cuda.synchronize()
+        calls = [0]
+        hook = model.register_forward_hook(
+            lambda *_: calls.__setitem__(0, calls[0] + 1))
+        pa.reset_launches()
+        comm.reset_stats(timing=False)
+        torch.cuda.reset_peak_memory_stats()
+        res, stats = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
+                                return_stats=True, **kw)
+        torch.cuda.synchronize()
+        hook.remove()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(k1=pa.launches, k1_mma=pa.launches_mma,
+                        k1q=pa.launches_int8, k1q_mma=pa.launches_int8_mma)
+        run_comm = dict(calls=comm.STATS["calls"], bytes=comm.STATS["bytes"])
+        n = paging.blocks_for(512 + 8, BS)
+        pool = paging.init_block_pool(cfg, 8 * n, BS, device="cuda",
+                                      kv_quant=int8,
+                                      sharding=_pool_sharding(sh))
+        table = torch.arange(1, 8 * n + 1, dtype=torch.int32,
+                             device="cuda").view(8, n)
+        comm.reset_stats(timing=True)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            decode_block(model, pool,
+                         torch.zeros(8, dtype=torch.long, device="cuda"),
+                         torch.full((8,), 512, dtype=torch.int32,
+                                    device="cuda"),
+                         torch.zeros(8, dtype=torch.bool, device="cuda"),
+                         table, 4, lambda lg: torch.argmax(lg, dim=-1))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / 4
+        step_comm = dict(s=comm.STATS["seconds"] / 4,
+                         calls=comm.STATS["calls"] / 4,
+                         bytes=comm.STATS["bytes"] / 4, step_s=step_s)
+        comm.reset_stats(timing=False)
+        del pool
+        p50, p99 = ttft_pcts(stats)
+        out[run] = dict(
+            tokens=[r.tokens for r in res], tokens_per_s=stats.tokens_per_sec,
+            ttft=(p50, p99), tpot=stats.tpot_mean_s, wall_s=stats.wall_time_s,
+            prefill_s=stats.prefill_time_s, decode_s=stats.decode_time_s,
+            peak_gib=peak, init_s=init_s, held_gib=held, calls=calls[0],
+            launches=launches, run_comm=run_comm, step_comm=step_comm,
+            logits=logits)
+        print(f"[tp-serve] ({run}) {stats.tokens_per_sec:.2f} tokens/s, "
+              f"peak {peak:.3f} GiB", flush=True)
+        del model
+    return out
+
+
+def _first_diff(got, want):
+    return next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                None if len(got) == len(want) else min(len(got), len(want)))
+
+
+def tp_serve_phase(serve: dict, serve_int8: dict) -> dict:
+    """llama3_8b at full width and depth served at tp 2 by two ranks on
+    the one card (module docstring, phase 40); returns each run's K1 /
+    K1q launches summed over the ranks."""
+    from tf_operator_tpu_torch.models import llama
+
+    card = device_line()
+    cfg = llama.llama3_8b()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_ranks("--sharded-worker", ["tp-serve"], "tp-serve",
+                            n=2, timeout_s=600.0)
+    rs = [r["tp-serve"] for r in ranks]
+    out = {}
+    for run, ref, int8 in (("a", serve, False), ("b", serve_int8, True)):
+        label = "int8 weights and KV" if int8 else "bf16 weights and KV"
+        if rs[0][run]["tokens"] != rs[1][run]["tokens"]:
+            raise AssertionError(f"[tp-serve] ({run}) the ranks' tokens "
+                                 f"differ")
+        kname = "k1q" if int8 else "k1"
+        for r, res in enumerate(rs):
+            res = res[run]
+            for i, toks in enumerate(res["tokens"]):
+                if len(toks) != MAX_NEW or not all(
+                        0 <= t < cfg.vocab_size for t in toks):
+                    raise AssertionError(
+                        f"[tp-serve] ({run}) rank {r} request {i}: "
+                        f"{len(toks)} tokens, budget {MAX_NEW}, or one out "
+                        f"of the vocabulary")
+            lc = res["launches"]
+            want = cfg.n_layers * res["calls"]
+            other = lc["k1"] if int8 else lc["k1q"]
+            if lc[kname] != want or lc[kname + "_mma"] != want or other:
+                raise AssertionError(
+                    f"[tp-serve] ({run}) rank {r}: launches {lc} for "
+                    f"{res['calls']} model calls x {cfg.n_layers} layers")
+            err = rel_l2(res["logits"], ref["logits"])
+            log(f"[tp-serve] ({run}) rank {r}: first prefill's logits, "
+                f"relative error norm against one process {err:.3e} "
+                f"(tolerance {TP_LOGITS_TOL})")
+            if not err <= TP_LOGITS_TOL:
+                raise AssertionError(f"[tp-serve] ({run}) rank {r}: logits "
+                                     f"rel err {err}")
+        res = rs[0][run]
+        same = sum(g == w for g, w in zip(res["tokens"], ref["tokens"]))
+        diffs = [_first_diff(g, w)
+                 for g, w in zip(res["tokens"], ref["tokens"])]
+        sc = res["step_comm"]
+        log(f"[tp-serve] ({run}) llama3_8b tp 2, {label}, continuous, 8 "
+            f"slots, {len(res['tokens'])} requests x {MAX_NEW}: "
+            f"tokens_per_s={res['tokens_per_s']:.2f} ttft_p50_s="
+            f"{res['ttft'][0]:.4f} ttft_p99_s={res['ttft'][1]:.4f} "
+            f"tpot_mean_s={res['tpot']:.6f} wall_s={res['wall_s']:.4f} "
+            f"prefill_s={res['prefill_s']:.4f} decode_s="
+            f"{res['decode_s']:.4f}; peak GiB a rank "
+            f"{[round(x[run]['peak_gib'], 3) for x in rs]} (one process "
+            f"{ref['peak_gib']:.3f}), held after init "
+            f"{[round(x[run]['held_gib'], 3) for x in rs]} in "
+            f"{[round(x[run]['init_s'], 1) for x in rs]} s; {kname} "
+            f"launches a rank {[x[run]['launches'][kname] for x in rs]} "
+            f"(all on the tensor cores) for {res['calls']} model calls; "
+            f"collectives in the run {res['run_comm']['calls']} calls, "
+            f"{res['run_comm']['bytes'] / 2**30:.3f} GiB; a decode step "
+            f"(8 lanes at 512, timed alone): {sc['step_s'] * 1e3:.2f} ms, "
+            f"collectives {sc['s'] * 1e3:.2f} ms in {sc['calls']:.0f} calls "
+            f"of {sc['bytes'] / 2**20:.3f} MiB; requests equal to the "
+            f"one-process phase's {same}/{len(diffs)}, first differing "
+            f"token {diffs}; {card}")
+        out[run] = sum(x[run]["launches"][kname] for x in rs)
+    return out
+
+
+def _tp_parity_job() -> dict:
+    """This rank of tp-serve-parity: tests/torch_tp_serving_util.py's
+    job body in f32 on the card, its jobs from $TP_PARITY_DIR."""
+    import os
+
+    import torch.distributed as dist
+
+    from tests import torch_tp_serving_util as u
+    from tf_operator_tpu_torch.runtime import bootstrap
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    jobs = torch.load(os.path.join(os.environ["TP_PARITY_DIR"], "jobs.pt"),
+                      weights_only=False)
+    return u.job_body(dist.get_rank(), jobs, device="cuda")
+
+
+def tp_serve_parity_phase() -> None:
+    """tests/test_torch_tp_serving.py's spawned cases in f32 on the card:
+    eight ranks against one process on the card, held by the test file's
+    own checks (tests/torch_tp_serving_util.py); the one-process runs go
+    while the ranks run."""
+    import pathlib
+    import shutil
+    import tempfile
+    import threading
+
+    from tests import torch_tp_serving_util as u
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_parity_"))
+    box = {}
+
+    def start_job(jobs, tmp):
+        torch.save(jobs, tmp / "jobs.pt")
+        th = threading.Thread(target=lambda: box.update(ranks=_spawn_ranks(
+            "--sharded-worker", ["tp-parity"], "tp-serve-parity", n=8,
+            timeout_s=400.0, extra_env={"TP_PARITY_DIR": str(tmp)})[0]))
+        th.start()
+        return th
+
+    def join_job(th):
+        th.join()
+        if "ranks" not in box:
+            raise AssertionError("[tp-serve-parity] the eight-rank job "
+                                 "failed (its ranks' logs are above)")
+        return [r["tp-parity"] for r in box["ranks"]]
+
+    try:
+        ranks, one = u.run(work, device="cuda", start_job=start_job,
+                           join_job=join_job)
+        for tag in u.JOBS:
+            u.check_outputs(tag, ranks, one)
+            u.check_caches(tag, ranks, one)
+        for tag in u.HANDOFF:
+            u.check_exports(tag, ranks, one)
+            u.check_adoption(tag, ranks, one)
+        u.check_reach(one)
+        secs = {tag: round(ranks[0][tag]["seconds"], 2)
+                for tag in ranks[0]}
+        log(f"[tp-serve-parity] {len(u.JOBS)} cases and {len(u.HANDOFF)} "
+            f"handoffs on {sorted(u.MESHES)}: every rank's tokens, "
+            f"schedules and counts = one process's on the card, each "
+            f"rank's cache its block (within 1e-5), the exports equal "
+            f"between ranks and within 1e-5 of one process's, adoption "
+            f"both ways = one process's; rank 0's seconds a case "
+            f"{json.dumps(secs)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ------------------------------------------------- the parity process
@@ -6157,6 +6513,11 @@ def _phases(card: str, t_start: float, child) -> int:
         t5["peak_gib"]))
     lap("sharded-parity", sharded_parity_phase())
     parity = lap("parity process (wait)", join_parity_child(child))
+    # tensor-parallel serving: ranks share the card over gloo
+    torch.cuda.empty_cache()
+    kern_tp = lap("kernel-tp", kernel_tp_phase())
+    tp_serve = lap("tp-serve", tp_serve_phase(serve, serve_int8))
+    lap("tp-serve-parity", tp_serve_parity_phase())
     spec_parity = parity["spec-parity"]
     win_parity = parity["window-parity"]
 
@@ -6199,7 +6560,13 @@ def _phases(card: str, t_start: float, child) -> int:
             paged_row("paged_attention_verify", 96, kern, spec["launches"],
                       verify=True),
             paged_row("paged_attention_int8_verify", 259, kern1q,
-                      spec_parity["launches_int8"], verify=True)]
+                      spec_parity["launches_int8"], verify=True),
+            # the same kernels at the tp 2 local shape (16 query, 4 kv
+            # heads); launches: both ranks' in tp-serve (a) and (b)
+            paged_row("paged_attention_tp2", 96, kern_tp["k1"],
+                      tp_serve["a"]),
+            paged_row("paged_attention_int8_tp2", 259, kern_tp["k1q"],
+                      tp_serve["b"])]
     # each row replaces the Pallas kernel body (_fwd_kernel, _dq_kernel,
     # _dkv_kernel); the _window rows: the same kernels at mistral_7b's
     # training shape, launched by the mistral-train phase.  The

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_serving_util import one_torch_thread
 from tf_operator_tpu.models import llama as jl
 from tf_operator_tpu.models import quant as jq
 from tf_operator_tpu.models.serving import serve_loop as jax_serve
@@ -32,6 +33,14 @@ COUNTERS = ("fused_prefill_tokens", "preemptions",
             "admissions_blocked_on_memory", "kv_blocks_peak_used",
             "wasted_lane_steps", "total_tokens")
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 @pytest.fixture(scope="module")
 def setup():

@@ -214,7 +214,7 @@ def test_generate_greedy_matches_jax(case, request):
     (dict(top_k=300), ValueError, "top_k must be in"),
     (dict(temperature=0.5), ValueError, "needs a generator"),
     (dict(params_transform=lambda p: p), ValueError, "params_transform"),
-    (dict(cache_sharding=object()), NotImplementedError, "item 11"),
+    (dict(cache_sharding=object()), ValueError, "kv_cache_sharding"),
 ])
 def test_generate_refusals(models, kw, exc, match):
     _, _, tm = models
@@ -305,7 +305,8 @@ def test_speculative_generate_matches_jax_and_generate(case, request, draft):
     (dict(eos_id=-2), ValueError, "out of range"),
     (dict(temperature=0.5), ValueError, "needs a generator"),
     (dict(draft_transform=lambda p: p), ValueError, "draft_transform"),
-    (dict(draft_cache_sharding=object()), NotImplementedError, "item 11"),
+    (dict(draft_cache_sharding=object()), ValueError,
+     "kv_cache_sharding"),
 ])
 def test_speculative_generate_refusals(models, wmodels, draft, kw, exc,
                                        match):

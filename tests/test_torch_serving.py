@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_serving_util import one_torch_thread
 from tf_operator_tpu.models import llama as jl
 from tf_operator_tpu.models.serving import serve_loop as jax_serve
 from tf_operator_tpu_torch.models import bridge
@@ -22,6 +23,14 @@ from tf_operator_tpu_torch.models.serving import serve_loop
 LENS = [5, 13, 3, 9, 17]
 BUDGETS = [8, 5, 9, 6, 7]
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 @pytest.fixture(scope="module")
 def setup():
@@ -129,16 +138,19 @@ def test_sampling_is_seeded_by_the_generator(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False, cache_sharding=object()), "item 11: distributed"),
+    (dict(paged=False, cache_sharding=object()), "kv_cache_sharding"),
     (dict(paged=False, draft_cache_sharding=object()),
-     "item 11: distributed"),
-    (dict(cache_sharding=object()), "item 11: distributed"),
-    (dict(draft_cache_sharding=object()), "item 11: distributed"),
+     "kv_cache_sharding"),
+    (dict(cache_sharding=object()), "kv_cache_sharding"),
+    (dict(draft_cache_sharding=object()), "kv_cache_sharding"),
 ])
 def test_refused_options_name_their_roadmap_item(setup, kw, item):
-    """What the port still refuses names its ROADMAP Queue 1 item."""
+    """A cache sharding that is not one KvCacheSharding is refused, as
+    JAX refuses anything but one NamedSharding, naming where to make
+    one (tensor-parallel serving itself runs:
+    tests/test_torch_tp_serving.py)."""
     _, _, tmodel, prompts = setup
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         serve_loop(tmodel, prompts, device="cpu", **kw)
 
 

@@ -201,11 +201,25 @@ def test_cli_resumes_at_tp_2(run):
 
 
 def test_decoding_a_tp_model_refuses_naming_its_item():
-    """TP serving is ROADMAP Queue 1 item 11h: a tensor-parallel model
-    refuses to decode, paged or dense, before it computes anything."""
+    """A tensor-parallel model decodes (ROADMAP item 11h is done:
+    tests/test_torch_tp_serving.py) over the cache of its own kv heads;
+    a cache of every kv head, paged or dense, is refused, naming
+    parallel/tp.kv_cache_sharding, before it is written."""
+    from tf_operator_tpu_torch.models import paging
     from tf_operator_tpu_torch.parallel.comm import Tp
 
-    model = tl.Llama(tl.tiny(dtype=torch.float32))
-    model.tp = Tp(None, 0, 2)
-    with pytest.raises(NotImplementedError, match="item 11h"):
-        model(torch.zeros((1, 1), dtype=torch.long), cache=[], cache_pos=0)
+    cfg = tl.tiny(dtype=torch.float32)
+    model = tl.Llama.from_params(cfg, bridge.init_params(cfg, 0,
+                                                         device="cpu"),
+                                 device="cpu")
+    for mod in model.modules():   # as placement.place sets its group
+        if hasattr(type(mod), "tp"):
+            mod.tp = Tp(None, 0, 2)
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    dense = tl.init_cache(cfg, 1, 16, device="cpu")
+    pool = paging.init_block_pool(cfg, 4, 4, device="cpu")
+    table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
+    for cache, tbl in ((dense, None), (pool, table)):
+        with pytest.raises(ValueError, match="kv_cache_sharding"):
+            model(tok, cache=cache, cache_pos=0, block_table=tbl)
+        assert all(float(t.abs().sum()) == 0.0 for kv in cache for t in kv)

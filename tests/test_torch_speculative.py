@@ -21,7 +21,7 @@ import torch
 
 from tests.test_torch_telemetry import assert_same_telemetry, run_pair
 from tests.torch_serving_util import int8_models, port_model, prompts
-from tests.torch_serving_util import tiny_models
+from tests.torch_serving_util import one_torch_thread, tiny_models
 from tf_operator_tpu.models import llama as jl
 from tf_operator_tpu.models import quant as jq
 from tf_operator_tpu.models import speculative as jspec
@@ -30,6 +30,14 @@ from tf_operator_tpu_torch.models import quant as tq
 from tf_operator_tpu_torch.models import speculative as tspec
 from tf_operator_tpu_torch.models.serving import serve_loop
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 @pytest.fixture(scope="module")
 def models():

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 
 from tests.test_metrics_exposition import parse_exposition
-from tests.torch_serving_util import prompts as np_prompts, tiny_models
+from tests.torch_serving_util import (one_torch_thread, prompts as np_prompts,
+                                      tiny_models)
 from tf_operator_tpu.engine import metrics as jem
 from tf_operator_tpu.engine import tracing as jtr
 from tf_operator_tpu.engine.reqtrace import RequestRecorder
@@ -47,6 +48,14 @@ CLOCK_COUNTERS = {"SERVING_PREFILL_TIME", "SERVING_DECODE_TIME"}
 # "pallas" / "gather"
 KERNEL = {"plain": "gather", "cuda": "pallas"}
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tiny tensors run on one torch thread (the JAX side
+    keeps its own pool)."""
+    with one_torch_thread():
+        yield
 
 @pytest.fixture(scope="module")
 def models():

@@ -33,7 +33,8 @@ the same weights on the same device, not the JAX package's weights.
 quant.quantize_params(init_params(cfg, seed, device, train=True)), bit
 for bit, drawing and quantizing one leaf at a time: a model whose f32
 tree does not fit the card (mixtral_8x7b's is 186 GB) is built in int8
-without it.
+without it; `iter_int8_params` yields the same leaves one at a time, for
+a sharded model to keep its block of each.
 """
 from __future__ import annotations
 
@@ -190,11 +191,20 @@ def init_params(cfg: LlamaConfig, seed: int,
             for name, w, dtype in _draws(cfg, seed, device, train)}
 
 
+def iter_int8_params(cfg: LlamaConfig, seed: int,
+                     device: Union[str, torch.device, None] = None
+                     ) -> Iterator[Tuple[str, object]]:
+    """init_int8_params's (name, QTensor or tensor) pairs one leaf at a
+    time: what a sharded int8 model keeps its block of
+    (parallel/placement.place), so no rank holds the whole tree."""
+    for name, w, _ in _draws(cfg, seed, device, train=True):
+        yield name, quant.quantize_leaf(name, w)
+
+
 def init_int8_params(cfg: LlamaConfig, seed: int,
                      device: Union[str, torch.device, None] = None
                      ) -> Dict[str, object]:
     """quant.quantize_params(init_params(cfg, seed, device, train=True)),
     bit for bit, with one f32 leaf alive at a time: each leaf is drawn,
     quantized (quant.quantize_leaf) and freed before the next."""
-    return {name: quant.quantize_leaf(name, w)
-            for name, w, _ in _draws(cfg, seed, device, train=True)}
+    return dict(iter_int8_params(cfg, seed, device))

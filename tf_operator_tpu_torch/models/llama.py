@@ -49,6 +49,8 @@ from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
 from tf_operator_tpu_torch.parallel import comm, ep
+from tf_operator_tpu_torch.parallel.tp import (
+    KvCacheSharding, check_cache_sharding, kv_cache_sharding, kv_heads_of)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,12 +387,6 @@ class RMSNorm(nn.Module):
         return (xf * (torch.rsqrt(var + self.eps) * self.scale)).to(self.dtype)
 
 
-def _refuse_tp_decode() -> None:
-    raise NotImplementedError(
-        "decoding a tensor-parallel model is not ported yet (ROADMAP "
-        "Queue 1 item 11h: TP serving)")
-
-
 class SwiGlu(nn.Module):
     """silu(x W_gate) * (x W_up) -> W_down, gate and up fused as
     wi [E, 2, F].  Weights stored in `wdt`, used in cfg.dtype.  Under
@@ -458,8 +454,9 @@ class MoeSwiGlu(nn.Module):
             # columns); the router and its aux loss stay whole on every
             # rank, outside the parallel region
             tp = self.tp
-            out, _ = ep.grouped_moe(tp.enter(x), tp.enter(logits), self.wi,
-                                    self.wo, top_k=self.top_k,
+            out, _ = ep.grouped_moe(tp.enter(x), tp.enter(logits),
+                                    self._experts("wi"),
+                                    self._experts("wo"), top_k=self.top_k,
                                     dtype=self.dtype, with_aux=False)
             self.aux_loss = ep.route_aux(logits, self.top_k)
             return tp.exit(out)
@@ -488,10 +485,13 @@ class GqaAttention(nn.Module):
     compact kv when the backend takes GQA natively, else over kv
     repeated to H heads.
 
-    Under tensor parallelism (parallel/placement; full-sequence path
-    only) wq and out hold this rank's query heads and wkv its kv heads;
-    a wkv that the placement keeps whole (n_kv_heads does not divide
-    tp) is read for the kv heads of this rank's query groups."""
+    Under tensor parallelism (parallel/placement) wq and out hold this
+    rank's query heads and wkv its kv heads; a wkv that the placement
+    keeps whole (n_kv_heads does not divide tp) is read for the kv heads
+    of this rank's query groups (parallel/tp.kv_heads_of).  A decode
+    cache then holds those kv heads alone (parallel/tp.kv_cache_sharding
+    places it), and the paged kernel or the dense read runs on this
+    rank's heads unchanged."""
 
     tp = None
 
@@ -514,8 +514,6 @@ class GqaAttention(nn.Module):
         b, l, e = x.shape
         tp = self.tp
         if tp is not None:
-            if cache is not None:
-                _refuse_tp_decode()
             x = tp.enter(x)
         wq, wkv = _dense(self, "wq", dt), _dense(self, "wkv", dt)
         h, kv, d = wq.shape[1], wkv.shape[2], cfg.head_dim
@@ -527,6 +525,11 @@ class GqaAttention(nn.Module):
         q = _rotate(q, cos, sin)
         k = _rotate(kvp[:, :, 0], cos, sin)
         v = kvp[:, :, 1]
+        if cache is not None and cache[0].shape[2] != kv:
+            raise ValueError(
+                f"the KV cache holds {cache[0].shape[2]} kv heads where "
+                f"this rank computes {kv}: a tensor-parallel model decodes "
+                f"over the cache parallel/tp.kv_cache_sharding places")
         if cache is not None and block_table is not None:
             k_pool, v_pool = cache
             paging.write_blocks(k_pool, k, write_index)
@@ -561,13 +564,9 @@ class GqaAttention(nn.Module):
 def _tp_kv_heads(cfg: LlamaConfig, tp, h: int, device) -> torch.Tensor:
     """The kv heads this rank's h query heads read from a whole wkv: one
     per query group, compact when every kv head serves the same number
-    of them, else one per query head."""
-    ids = (tp.rank * h + torch.arange(h)) // cfg.q_per_kv
-    uniq = torch.unique(ids)
-    if h % len(uniq) == 0 and torch.equal(
-            ids, uniq.repeat_interleave(h // len(uniq))):
-        ids = uniq
-    return ids.to(device)
+    of them, else one per query head (parallel/tp.kv_heads_of)."""
+    return torch.tensor(kv_heads_of(cfg.n_heads, cfg.n_kv_heads, tp.rank,
+                                    tp.size), device=device)
 
 
 class LlamaBlock(nn.Module):
@@ -609,6 +608,14 @@ class Llama(nn.Module):
     contiguous segment (callers size the ring so it never wraps) and a
     [B] cache_pos each row at its own position, crossing the seam
     where it must.
+
+    Under tensor parallelism (a model placed by parallel/placement)
+    either decode runs on this rank's heads over the cache of those
+    heads (parallel/tp.kv_cache_sharding), and the vocab-parallel logits
+    are gathered over tp, so every rank returns the same bits.  Dense
+    rings whose batch kv_cache_sharding splits over the data axes hold
+    this data member's rows: the model decodes those rows and gathers
+    every row's output over the data axes.
 
     Full-sequence mode, forward(tokens [B, S]) (cache None): positions
     0..S-1, or `positions` ([S] or [B, S] ids into the RoPE table).
@@ -701,9 +708,12 @@ class Llama(nn.Module):
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """f32 logits of final-norm hidden states (under tensor
         parallelism, this rank's vocab columns gathered over tp)."""
-        dt = self.cfg.dtype
         if self.tp is not None:
             return self._tp_logits(h)
+        return self._head(h)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
         if self.cfg.tie_embeddings:
             # flax Embed.attend promotes both operands to cfg.dtype
             return (h.to(dt) @ _dense(self, "embed", dt).t()).float()
@@ -719,10 +729,7 @@ class Llama(nn.Module):
         split = w.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size
         if split:
             h = tp.enter(h)
-        if cfg.tie_embeddings:
-            out = (h.to(cfg.dtype) @ w.to(cfg.dtype).t()).float()
-        else:
-            out = h.float() @ w
+        out = self._head(h)
         return tp.gather_out(out) if split else out
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -732,14 +739,17 @@ class Llama(nn.Module):
         # dequantizes them
         idx = tokens.to(torch.long)
         table = self.embed
+        dt = self.cfg.dtype
         if table.dtype == torch.int8:
-            return QTensor(table[idx], self.embed_scale[idx]).dequantize(
-                self.cfg.dtype)
+            def lookup(i, t):
+                return QTensor(t[i], self.embed_scale[i]).dequantize(dt)
+        else:
+            def lookup(i, t):
+                return F.embedding(i, t).to(dt)
         if self.tp is not None and table.shape[0] != self.cfg.vocab_size:
             # a vocab-parallel table: this rank's rows
-            return comm.vocab_parallel_embedding(idx, table, self.tp).to(
-                self.cfg.dtype)
-        return F.embedding(idx, table).to(self.cfg.dtype)
+            return comm.vocab_parallel_embedding(idx, table, self.tp, lookup)
+        return lookup(idx, table)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
@@ -749,8 +759,37 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         if cache is None:
             return self._forward_full(tokens, return_hidden, positions)
-        if self.tp is not None:
-            _refuse_tp_decode()
+        rows = self._data_rows(cache, tokens.shape[0], block_table)
+        if rows is not None:
+            # dense rings split over the data axes: this data member's
+            # rows, then every row's output from the member holding it
+            if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+                cache_pos = cache_pos[rows]
+            out = self._decode(tokens[rows], cache, cache_pos, None,
+                               return_hidden)
+            return comm.all_gather_cat(out, self.placement.batch_group, 0)
+        return self._decode(tokens, cache, cache_pos, block_table,
+                            return_hidden)
+
+    def _data_rows(self, cache, b: int, block_table) -> Optional[slice]:
+        """The rows of a [b]-row batch this rank decodes, when its dense
+        rings hold a slice of them (kv_cache_sharding over the data
+        axes); None when they hold every row."""
+        local = cache[0][0].shape[0]
+        if block_table is not None or local == b:
+            return None
+        pl = getattr(self, "placement", None)
+        if pl is None or local * pl.n_data != b:
+            raise ValueError(
+                f"the dense cache holds {local} rows of a batch of {b}: "
+                f"a batch split over the data axes needs a model placed "
+                f"on the cache's mesh (parallel/placement.shard_model) "
+                f"and the cache parallel/tp.kv_cache_sharding places")
+        i = pl.data_index()[0]
+        return slice(i * local, (i + 1) * local)
+
+    def _decode(self, tokens, cache, cache_pos, block_table,
+                return_hidden: bool) -> torch.Tensor:
         cfg = self.cfg
         b, l = tokens.shape
         table = self.rope()
@@ -951,12 +990,15 @@ def _select_token(logits: torch.Tensor, temperature: float,
 # ---------------------------------------------------------------- generate
 def init_cache(cfg: LlamaConfig, batch: int, cache_len: Optional[int] = None,
                dtype: Optional[torch.dtype] = None, kv_quant: bool = False,
-               device: Union[str, torch.device, None] = None) -> list:
+               device: Union[str, torch.device, None] = None,
+               sharding: Optional[KvCacheSharding] = None) -> list:
     """Per-layer (k, v) dense ring caches [B, C, KV, D], zeroed, on
     `device` (default "cuda"): compact kv heads, C = cache_len or
     cfg.max_len, refused above max_len (the RoPE table's rows).
     kv_quant=True makes each leaf a QTensor: int8 zeros and f32 ones
-    scales [B, C, KV, 1], quantized at the write; it takes no dtype."""
+    scales [B, C, KV, 1], quantized at the write; it takes no dtype.
+    sharding (parallel/tp.kv_cache_sharding): this rank's block, its
+    rows of the batch and its kv heads."""
     c = cache_len or cfg.max_len
     if c > cfg.max_len:
         raise ValueError(
@@ -964,6 +1006,8 @@ def init_cache(cfg: LlamaConfig, batch: int, cache_len: Optional[int] = None,
             f"table bound — raise max_len/rope_theta for longer contexts)")
     dev = resolve_device(device)
     shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
+    if sharding is not None:
+        shape = sharding.local_shape(shape)
     if kv_quant:
         if dtype is not None:
             raise ValueError(
@@ -995,6 +1039,38 @@ def check_transform(name: str, transform, model: "Llama") -> None:
             f"port's model applies its weights as they are stored (int8 "
             f"ones dequantized to cfg.dtype at each use), and runs no "
             f"other transform of them")
+
+
+def cache_sharding_for(name: str, model: "Llama", sharding, batch: int
+                       ) -> Optional[KvCacheSharding]:
+    """The sharding of `model`'s decode cache of `batch` rows: the
+    caller's (one KvCacheSharding over the model's own mesh), or, for a
+    model placed over several ranks that was given none, kv_cache_sharding
+    with the batch whole (each rank's cache must hold its own kv
+    heads)."""
+    pl = getattr(model, "placement", None)
+    if sharding is None:
+        if pl is None or pl.mesh.size == 1:
+            return None
+        sh = kv_cache_sharding(model.cfg, pl.mesh, batch)
+        return dataclasses.replace(sh, spec=(None,) + tuple(sh.spec[1:]))
+    check_cache_sharding(name, sharding)
+    cfg = model.cfg
+    if (sharding.n_heads, sharding.n_kv_heads) != (cfg.n_heads,
+                                                   cfg.n_kv_heads):
+        raise ValueError(
+            f"{name} was made for {sharding.n_heads} heads and "
+            f"{sharding.n_kv_heads} kv heads, the model has {cfg.n_heads} "
+            f"and {cfg.n_kv_heads} (parallel/tp.kv_cache_sharding(cfg, "
+            f"mesh, batch) of the model's own config)")
+    if sharding.mesh.size > 1 and (pl is None or pl.mesh.shape
+                                   != sharding.mesh.shape):
+        raise ValueError(
+            f"{name} is over the mesh {sharding.mesh.shape}, but the model "
+            f"is placed over {None if pl is None else pl.mesh.shape}: "
+            f"place it with parallel/placement.shard_model on the same "
+            f"mesh")
+    return sharding
 
 
 def check_model_device(name: str, model: "Llama", dev: torch.device) -> None:
@@ -1075,17 +1151,20 @@ def generate(model: "Llama", prompt, max_new_tokens: int,
     must divide the ring.  kv_quant: int8 rings, quantized at the write.
     params_transform: None or quant.make_dequantizer(cfg.dtype), the
     dequantization a model built from int8 weights already applies.
-    cache_sharding raises NotImplementedError (ROADMAP item 11)."""
-    if cache_sharding is not None:
-        raise NotImplementedError(
-            "generate: cache_sharding is not ported yet (ROADMAP Queue 1, "
-            "item 11: distributed)")
+    cache_sharding: tensor-parallel decoding.  Every rank of the job
+    calls generate with the model placed by parallel/placement
+    .shard_model and parallel/tp.kv_cache_sharding(cfg, mesh, B); each
+    rank's rings hold its kv heads (and, where B divides the data axes,
+    its rows), and every rank returns the tokens one process returns:
+    each step's logits are the same bits on every rank, and the ranks'
+    generators (seeded alike) draw alike."""
     cfg = model.cfg
     check_transform("params_transform", params_transform, model)
     dev = resolve_device(device)
     check_model_device("model", model, dev)
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
     b, prompt_len = prompt.shape
+    sharding = cache_sharding_for("cache_sharding", model, cache_sharding, b)
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     check_truncation(cfg.vocab_size, top_k, top_p)
@@ -1127,7 +1206,8 @@ def generate(model: "Llama", prompt, max_new_tokens: int,
             f"cache_len {cache_len} < sliding window "
             f"{min(cfg.sliding_window, total)} — visible positions would "
             f"be overwritten")
-    cache = init_cache(cfg, b, cache_len, kv_quant=kv_quant, device=dev)
+    cache = init_cache(cfg, b, cache_len, kv_quant=kv_quant, device=dev,
+                       sharding=sharding)
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
 

@@ -42,6 +42,16 @@ scale through the same index; the gather keeps the QTensor.
 
 Writes are IN PLACE on the pool tensors (the JAX package returned new
 pools; here the caller's pools are updated and returned).
+
+Under tensor parallelism each rank's pools hold its own kv heads
+(`init_block_pool(sharding=)`, parallel/tp.kv_cache_sharding projected
+onto the pool); the block ids, tables and host bookkeeping are the same
+on every rank.  `export_blocks` gathers each exported block's kv heads
+over tp before hashing, so every rank of a tp job ships the same export
+of whole blocks, which any pool adopts, one process's or a tp job's
+(the bytes are not one process's bit for bit: the tp sums of the
+layers below run in another order); `scatter_blocks` and `adopt_blocks`
+write each rank's heads of a whole export.
 """
 from __future__ import annotations
 
@@ -52,6 +62,8 @@ import torch
 
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
+from tf_operator_tpu_torch.parallel.comm import all_gather_cat
+from tf_operator_tpu_torch.parallel.tp import kv_heads_of
 
 # block id 0: reserved scratch target for frozen lanes and table padding
 SCRATCH_BLOCK = 0
@@ -286,14 +298,18 @@ def step_gate(free_blocks: int, need_now: int, in_flight_lanes: int,
 def init_block_pool(cfg, num_blocks: int, block_size: int,
                     dtype: Optional[torch.dtype] = None,
                     device: Union[str, torch.device, None] = None,
-                    kv_quant: bool = False) -> list:
+                    kv_quant: bool = False, sharding=None) -> list:
     """Per-layer (k, v) block pools [num_blocks + 1, block_size, KV, D]
     (+1: the scratch block at id 0), zeroed, in `dtype` (default
     cfg.dtype) on `device` (default "cuda").  kv_quant=True makes each
     pool a QTensor: int8 zeros and f32 ones scales [N+1, bs, KV, 1]; it
-    takes no dtype."""
+    takes no dtype.  sharding (a pool projection of
+    parallel/tp.kv_cache_sharding): this rank's kv heads of every
+    block."""
     dev = resolve_device(device)
     shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+    if sharding is not None:
+        shape = sharding.local_shape(shape)
     if kv_quant:
         if dtype is not None:
             raise ValueError(
@@ -483,22 +499,49 @@ def _hash_block(rows: Sequence[torch.Tensor]) -> str:
     return h.hexdigest()
 
 
+def _whole_heads(blocks: torch.Tensor, sharding) -> torch.Tensor:
+    """Blocks [n, bs, kv_local, ...] of this rank's kv heads -> the
+    whole [n, bs, KV, ...]: gathered over tp (every rank calls), each kv
+    head taken from the first rank that holds it."""
+    tp = sharding.mesh.shape["tp"]
+    gathered = all_gather_cat(blocks, sharding.mesh.group("tp"), 2)
+    held = [h for r in range(tp) for h in kv_heads_of(
+        sharding.n_heads, sharding.n_kv_heads, r, tp)]
+    first = [held.index(h) for h in range(sharding.n_kv_heads)]
+    return gathered.index_select(
+        2, torch.tensor(first, dtype=torch.long, device=blocks.device))
+
+
+def _local_heads(rows: torch.Tensor, sharding) -> torch.Tensor:
+    """Whole payload [n, bs, KV, ...] -> this rank's kv heads."""
+    heads = None if sharding is None else sharding.kv_heads()
+    if heads is None:
+        return rows
+    return rows.index_select(
+        2, torch.tensor(heads, dtype=torch.long, device=rows.device))
+
+
 def export_blocks(cache, ids: Sequence[int], shared: Sequence[bool],
                   block_size: int, *, sent_hashes=None,
-                  window=None) -> BlockExport:
+                  window=None, sharding=None) -> BlockExport:
     """Export blocks `ids` (in table order) from `cache` in wire form.
     `shared[i]` marks block i dedupe-eligible (whole shared-prefix blocks
     only: a CoW boundary block's tail is lane-private).  `sent_hashes`
     (a caller-owned set) elides the payload of shared blocks already
     shipped to the same receiver.  One gather per leaf on the pool's
     device, then one copy of every exported block to the host, as the
-    JAX package's single device_get."""
+    JAX package's single device_get.  sharding (the pool's, under tensor
+    parallelism): every rank of the tp group calls, each block's kv
+    heads are gathered over tp first, and every rank returns the same
+    export of whole blocks."""
     if len(ids) != len(shared):
         raise ValueError(
             f"ids/shared length mismatch: {len(ids)} vs {len(shared)}")
     leaves = _leaves(cache)
     idx = torch.tensor(list(ids), dtype=torch.long, device=leaves[0].device)
     gathered = [p.index_select(0, idx) for p in leaves]
+    if sharding is not None and sharding.kv_heads() is not None:
+        gathered = [_whole_heads(g, sharding) for g in gathered]
     host = _unpack(_pack(gathered).cpu(), gathered)  # device sync
     raw = [h.view(torch.uint8).reshape(len(ids), -1) for h in host]
     hashes = [_hash_block([r[i] for r in raw]) for i in range(len(ids))]
@@ -574,7 +617,8 @@ def adoption_cost(export: BlockExport, registry=None) -> int:
     return fresh
 
 
-def scatter_blocks(cache, ids: Sequence[int], rows: Sequence):
+def scatter_blocks(cache, ids: Sequence[int], rows: Sequence,
+                   sharding=None):
     """Adoption's device half, the JAX package's adoption scatter (its
     `paging.write_blocks(cache, ids, rows)`; not this module's
     table-routed `write_blocks`): write payload rows (one pool block
@@ -582,10 +626,13 @@ def scatter_blocks(cache, ids: Sequence[int], rows: Sequence):
     place, one index_copy_ per leaf.  The rows cross to the pool's
     device as one buffer.  Only the given rows are written: JAX pads the
     count with scratch rows to bound its recompiles, and nothing here
-    compiles per count."""
+    compiles per count.  sharding (the pool's, under tensor
+    parallelism): the rows are whole, and each rank writes its kv
+    heads."""
     leaves = _leaves(cache)
     dev = leaves[0].device
-    stacked = [torch.stack(col) for col in zip(*(_leaves(r) for r in rows))]
+    stacked = [_local_heads(torch.stack(col), sharding)
+               for col in zip(*(_leaves(r) for r in rows))]
     on_dev = _unpack(_pack(stacked).to(dev), stacked)
     idx = torch.tensor(list(ids), dtype=torch.long, device=dev)
     for p, v in zip(leaves, on_dev):
@@ -594,7 +641,8 @@ def scatter_blocks(cache, ids: Sequence[int], rows: Sequence):
 
 
 def adopt_blocks(cache, pool: BlockPool, export: BlockExport,
-                 registry: Optional[HandoffRegistry] = None):
+                 registry: Optional[HandoffRegistry] = None,
+                 sharding=None):
     """Adopt an exported lane into (cache, pool): fresh ids in table
     order, shared blocks deduped through `registry` (an incref instead of
     alloc + write), every fresh block written by one scatter_blocks.
@@ -610,7 +658,9 @@ def adopt_blocks(cache, pool: BlockPool, export: BlockExport,
     raises at block i, every block is resolved and the pool checked
     BEFORE anything is allocated or increfed: a refused adoption leaves
     the pool's free list, its refcounts and the registry as they were.
-    A successful one makes the same calls in the same order."""
+    A successful one makes the same calls in the same order.  sharding:
+    as scatter_blocks' (each rank of a tp job adopts the same whole
+    export and writes its kv heads)."""
     if export.block_size != pool.block_size:
         raise HandoffError(
             f"block size mismatch: export {export.block_size} vs "
@@ -651,7 +701,7 @@ def adopt_blocks(cache, pool: BlockPool, export: BlockExport,
         write_ids.append(bid)
         write_rows.append(export.payload[h])
     if write_rows:
-        scatter_blocks(cache, write_ids, write_rows)
+        scatter_blocks(cache, write_ids, write_rows, sharding)
     stats = {"fresh": len(write_ids), "deduped": deduped,
              "payload_blocks": len(write_ids)}
     return cache, adopted, shared_ids, own_ids, stats

@@ -110,8 +110,22 @@ cached_attention, plain PyTorch (JAX reads the dense ring with an XLA
 einsum, not a Pallas kernel).  prefill_only and adopt are refused with
 JAX's words; block_size and pool_blocks are ignored.
 
-Not ported yet — each raises NotImplementedError naming its ROADMAP item:
-cache sharding (draft_cache_sharding too).
+Tensor parallelism (cache_sharding=, draft_cache_sharding=: each a
+parallel/tp.kv_cache_sharding(cfg, mesh, slots) of a model placed by
+parallel/placement.shard_model): every rank of the job runs the same
+call.  Each model's pool takes `_pool_sharding` (this rank's kv heads of
+every block; the block ids are host bookkeeping), its dense lanes the
+sharding itself (this rank's kv heads and, where slots divide the data
+axes, its lanes) and the single-row admission rings `_row_sharding`.
+K1/K1q read each rank's pool on its local heads, unchanged: where the
+JAX package's Pallas grid owns the kv-head dim that GSPMD shards (so JAX
+serves a sharded pool through its gather oracle), each rank here is a
+process holding its own heads' pool.  The logits every step selects
+from are the same bits on every rank (gathered over tp, and over the
+data axes for split lanes), and the ranks' generators are seeded alike,
+so the host bookkeeping (tables, the pool's allocator, the registry,
+admission, telemetry's counts) runs the same on every rank and every
+rank returns the same ServeResults, handoffs and ServeStats counts.
 """
 from __future__ import annotations
 
@@ -129,6 +143,8 @@ from tf_operator_tpu_torch.models import paging, quant
 from tf_operator_tpu_torch.models import speculative as _spec
 from tf_operator_tpu_torch.models.llama import chunk_fill, chunk_write
 from tf_operator_tpu_torch.models.telemetry import ServeTelemetry
+from tf_operator_tpu_torch.parallel.tp import (
+    KvCacheSharding, check_cache_sharding)
 
 
 @dataclasses.dataclass
@@ -166,11 +182,6 @@ class KVHandoff:
     export: Optional[paging.BlockExport] = None
     completed: bool = False
     prefix_len: int = 0
-
-
-def _refuse(name: str, item: str) -> None:
-    raise NotImplementedError(
-        f"serve_loop: {name} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 # ------------------------------------------------------------ device steps
@@ -214,9 +225,16 @@ def decode_block(model: _llama.Llama, cache, tok: torch.Tensor,
     return tok, pos, toks
 
 
-def insert_row(cache, row_cache, slot: int) -> None:
+def insert_row(cache, row_cache, slot: int, sharding=None) -> None:
     """A prefilled single-row dense cache into batch lane `slot` of the
-    dense rings, in place (payload and scales of an int8 cache)."""
+    dense rings, in place (payload and scales of an int8 cache).  Lanes
+    split over the data axes (`sharding`): only the rank holding lane
+    `slot` writes it, at its local index."""
+    if sharding is not None:
+        local = cache[0][0].shape[0]
+        slot -= sharding.mesh.axis_index(sharding.spec[0]) * local
+        if not 0 <= slot < local:
+            return
     for (k, v), (rk, rv) in zip(cache, row_cache):
         for leaf, row in ((k, rk), (v, rv)):
             if isinstance(leaf, quant.QTensor):
@@ -307,6 +325,9 @@ class _Setup:
     # by model name ("target", "draft"); None when paged
     paged: bool = True
     eff_len: Optional[Dict[str, int]] = None
+    # tensor parallelism: each model's lane sharding (None: one process)
+    sh: Optional[KvCacheSharding] = None
+    d_sh: Optional[KvCacheSharding] = None
 
 
 def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
@@ -372,16 +393,14 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     telemetry: the ServeTelemetry to feed (default: a fresh one over the
     process-global tracer).
 
-    The remaining keywords (cache_sharding, draft_cache_sharding) are
-    the JAX serve_loop's options this port does not take yet; each
-    raises NotImplementedError."""
+    cache_sharding / draft_cache_sharding: tensor-parallel serving, one
+    parallel/tp.kv_cache_sharding(cfg, mesh, slots) per model (module
+    docstring); every rank of the job makes the same call.  A model
+    placed over several ranks without one takes kv_cache_sharding with
+    the lanes whole."""
     if scheduler not in ("slot", "continuous"):
         raise ValueError(f"scheduler must be 'slot' or 'continuous', got "
                          f"{scheduler!r}")
-    if cache_sharding is not None:
-        _refuse("cache_sharding", "item 11: distributed")
-    if draft_cache_sharding is not None:
-        _refuse("draft_cache_sharding", "item 11: distributed")
     continuous = scheduler == "continuous"
     if prefill_only and adopt is not None:
         raise ValueError(
@@ -413,6 +432,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
 
     cfg = model.cfg
     spec = draft is not None
+    _row_sharding(draft_cache_sharding)  # refused even without a draft
     if spec and not isinstance(draft, _llama.Llama):
         raise ValueError(
             f"draft model given without draft_params: the port's draft "
@@ -426,6 +446,11 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     for name, m in (("model", model), ("draft", draft)):
         if m is not None:
             _llama.check_model_device(name, m, dev)
+    lane_sh = _llama.cache_sharding_for("cache_sharding", model,
+                                        cache_sharding, slots)
+    d_lane_sh = (_llama.cache_sharding_for("draft_cache_sharding", draft,
+                                           draft_cache_sharding, slots)
+                 if spec else None)
     tel = telemetry if telemetry is not None else ServeTelemetry()
     reqs = [torch.as_tensor(r, dtype=torch.long).reshape(-1).cpu()
             for r in requests]
@@ -552,7 +577,7 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
                    spec_k=spec_k,
                    sampling=(float(temperature), int(top_k), float(top_p),
                              generator),
-                   tel=tel, paged=paged)
+                   tel=tel, paged=paged, sh=lane_sh, d_sh=d_lane_sh)
     if paged:
         _size_pool(setup, cfg, reqs, budgets, headroom, pool_blocks)
     else:
@@ -563,6 +588,30 @@ def serve_loop(model: _llama.Llama, requests: Sequence[Any], *,
     # every exit idles the occupancy gauges and samples the memory peak
     tel.loop_finished()
     return (results, tel.finalize()) if return_stats else results
+
+
+def _row_sharding(sharding: Optional[KvCacheSharding]
+                  ) -> Optional[KvCacheSharding]:
+    """Single-row admission caches take the lanes' sharding with the
+    batch axis unpartitioned (a size-1 dim does not shard).  Anything but
+    one KvCacheSharding is refused."""
+    if sharding is None:
+        return None
+    check_cache_sharding("serve_loop cache shardings", sharding)
+    return dataclasses.replace(sharding,
+                               spec=(None,) + tuple(sharding.spec[1:]))
+
+
+def _pool_sharding(sharding: Optional[KvCacheSharding]
+                   ) -> Optional[KvCacheSharding]:
+    """The lanes' sharding ([B, C, KV, D]) projected onto the pool's
+    [N+1, bs, KV, D]: the kv-head dim keeps its axis, the block axis and
+    in-block positions replicate (block ids are host bookkeeping)."""
+    if sharding is None:
+        return None
+    _row_sharding(sharding)  # one KvCacheSharding, validated
+    return dataclasses.replace(sharding,
+                               spec=(None, None) + tuple(sharding.spec[2:]))
 
 
 def _check_paged(cfg, model_cfgs, spec: bool, spec_k: int, block_size: int,
@@ -790,13 +839,16 @@ def _run(model, reqs, budgets, o: _Setup):
     p_fix = 0 if o.prefix is None else int(o.prefix.shape[0])
     spec = o.draft is not None
     paged = o.paged
+    pool_sh = _pool_sharding(o.sh)
     if paged:
         pool = paging.BlockPool(o.pool_blocks, bs)
         cache = paging.init_block_pool(cfg, o.pool_blocks, bs, device=dev,
-                                       kv_quant=o.kv_quant)
+                                       kv_quant=o.kv_quant,
+                                       sharding=pool_sh)
         # the draft's pools: the same block ids through the same tables
         d_cache = (paging.init_block_pool(o.draft.cfg, o.pool_blocks, bs,
-                                          device=dev, kv_quant=o.kv_quant)
+                                          device=dev, kv_quant=o.kv_quant,
+                                          sharding=_pool_sharding(o.d_sh))
                    if spec else None)
         # block tables live on the host, as the JAX continuous loop keeps
         # them: every edit is a host write, and each dispatch uploads its
@@ -809,9 +861,11 @@ def _run(model, reqs, budgets, o: _Setup):
         # the lane's frozen steps wrote there
         pool = table = None
         cache = _llama.init_cache(cfg, slots, o.eff_len["target"],
-                                  kv_quant=o.kv_quant, device=dev)
+                                  kv_quant=o.kv_quant, device=dev,
+                                  sharding=o.sh)
         d_cache = (_llama.init_cache(o.draft.cfg, slots, o.eff_len["draft"],
-                                     kv_quant=o.kv_quant, device=dev)
+                                     kv_quant=o.kv_quant, device=dev,
+                                     sharding=o.d_sh)
                    if spec else None)
     tok = torch.zeros((slots,), dtype=torch.long, device=dev)
     pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
@@ -881,10 +935,12 @@ def _run(model, reqs, budgets, o: _Setup):
             return {"row": _clone_cache(pfx["row"]),
                     "d_row": _clone_cache(pfx["d_row"]) if spec else None}
         return {"row": _llama.init_cache(cfg, 1, o.eff_len["target"],
-                                         kv_quant=o.kv_quant, device=dev),
+                                         kv_quant=o.kv_quant, device=dev,
+                                         sharding=_row_sharding(o.sh)),
                 "d_row": (_llama.init_cache(o.draft.cfg, 1,
                                             o.eff_len["draft"],
-                                            kv_quant=o.kv_quant, device=dev)
+                                            kv_quant=o.kv_quant, device=dev,
+                                            sharding=_row_sharding(o.d_sh))
                           if spec else None)}
 
     def write_segment(piece: torch.Tensor, start: int, st: dict,
@@ -1082,7 +1138,7 @@ def _run(model, reqs, budgets, o: _Setup):
         t0 = time.perf_counter()
         exp = paging.export_blocks(cache, ids, shared, bs,
                                    sent_hashes=sent_hashes,
-                                   window=window_meta)
+                                   window=window_meta, sharding=pool_sh)
         tel.handoff_exported(len(exp), exp.payload_blocks(),
                              time.perf_counter() - t0)
         return exp
@@ -1169,7 +1225,7 @@ def _run(model, reqs, budgets, o: _Setup):
         queue.popleft()
         t0 = time.perf_counter()
         _, adopted, sh_ids, own_ids, st = paging.adopt_blocks(
-            cache, pool, exp, registry)
+            cache, pool, exp, registry, sharding=pool_sh)
         grow = pool.alloc(growth) if growth else []
         lane_shared[s] = sh_ids
         lane_own[s] = own_ids + grow
@@ -1230,9 +1286,9 @@ def _run(model, reqs, budgets, o: _Setup):
                 logits = write_segment(piece, start, st, is_last)
                 if is_last:
                     if not paged:
-                        insert_row(cache, st["row"], s)
+                        insert_row(cache, st["row"], s, o.sh)
                         if spec:
-                            insert_row(d_cache, st["d_row"], s)
+                            insert_row(d_cache, st["d_row"], s, o.d_sh)
                     first = int(select(logits)[0])  # device sync
             if is_last:
                 activate_lane(s, first)

@@ -241,14 +241,11 @@ def speculative_generate(target: _llama.Llama, draft: _llama.Llama, prompt,
     kv_quant: int8 rings for both.  target_transform / draft_transform:
     None or quant.make_dequantizer(cfg.dtype).  return_stats: also
     {"target_forwards", "accepted_drafts", "proposed_drafts"}, counting
-    the rounds of rows still running.  cache_sharding and
-    draft_cache_sharding raise NotImplementedError (ROADMAP item 11)."""
-    for name, sh in (("cache_sharding", cache_sharding),
-                     ("draft_cache_sharding", draft_cache_sharding)):
-        if sh is not None:
-            raise NotImplementedError(
-                f"speculative_generate: {name} is not ported yet (ROADMAP "
-                f"Queue 1, item 11: distributed)")
+    the rounds of rows still running.  cache_sharding /
+    draft_cache_sharding: tensor-parallel speculation, each model placed
+    by parallel/placement.shard_model and its rings by
+    parallel/tp.kv_cache_sharding(its cfg, mesh, B), as llama.generate
+    takes them; every rank returns one process's tokens and counts."""
     if target.cfg.vocab_size != draft.cfg.vocab_size:
         raise ValueError(
             f"target vocab {target.cfg.vocab_size} != draft vocab "
@@ -269,6 +266,10 @@ def speculative_generate(target: _llama.Llama, draft: _llama.Llama, prompt,
         top_k, top_p = 0, 0.0  # greedy ignores truncation
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
     b, prompt_len = prompt.shape
+    t_sh = _llama.cache_sharding_for("cache_sharding", target,
+                                     cache_sharding, b)
+    d_sh = _llama.cache_sharding_for("draft_cache_sharding", draft,
+                                     draft_cache_sharding, b)
     if max_new_tokens < 0:
         raise ValueError(
             f"max_new_tokens must be >= 0, got {max_new_tokens}")
@@ -294,9 +295,9 @@ def speculative_generate(target: _llama.Llama, draft: _llama.Llama, prompt,
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a generator")
     t_cache = _llama.init_cache(target.cfg, b, c_t, kv_quant=kv_quant,
-                                device=dev)
+                                device=dev, sharding=t_sh)
     d_cache = _llama.init_cache(draft.cfg, b, c_d, kv_quant=kv_quant,
-                                device=dev)
+                                device=dev, sharding=d_sh)
     with torch.inference_mode():
         # both rings take every segment; the first token is the target's
         last_logits = _llama.stream_prefill(target, t_cache, prompt,

@@ -36,6 +36,17 @@ Where the port differs from the JAX module:
     says "pallas" or "gather".  The paged-kernel counter's label takes
     the same values under the family's JAX HELP text.
 
+Under tensor parallelism every rank of the job runs serve_loop, and each
+feeds its own ServeTelemetry.  The schedule is the same on every rank,
+so the counters, gauges, histogram counts, span trees' shapes and every
+count of ServeStats (requests, tokens, decode steps, prefill segments,
+blocks, CoW copies, prefix hits, preemptions, fused tokens, exports,
+adoptions, drafts) are equal between ranks.  What differs: every host
+clock (the spans' times, TTFT, TPOT, queue wait, end-to-end latency,
+the prefill / decode seconds, wall time, tokens/s and the time-weighted
+occupancy) is each rank's own reading, and `hbm_peak_bytes` is each
+rank's process peak on its own card.
+
 Timing honesty: phases are measured at host boundaries the loop already
 has.  A decode block ENDS at its token readback (a device barrier), so
 decode time is real wall-clock; a prefill segment's time covers the host

@@ -198,13 +198,16 @@ class Tp:
 
 
 def vocab_parallel_embedding(idx: torch.Tensor, table: torch.Tensor,
-                             tp: Tp) -> torch.Tensor:
-    """F.embedding over a table whose rows (the vocab) are split over
-    tp: each rank looks up the ids in its slice, zeros elsewhere, and
-    the sum over tp (one rank non-zero a token) is the whole lookup."""
+                             tp: Tp, lookup: Callable = None
+                             ) -> torch.Tensor:
+    """`lookup(ids, table)` (default F.embedding) over a table whose rows
+    (the vocab) are split over tp: each rank looks up the ids in its
+    slice, zeros elsewhere, and the sum over tp (one rank non-zero a
+    token) is the whole lookup."""
     v = table.shape[0]
     local = idx - tp.rank * v
     mine = (local >= 0) & (local < v)
-    rows = torch.nn.functional.embedding(local.clamp(0, v - 1), table)
+    rows = (lookup or torch.nn.functional.embedding)(
+        local.clamp(0, v - 1), table)
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
     return tp.exit(rows)

@@ -7,7 +7,12 @@ mesh (parallel/mesh), {name: spec} (parallel/tp.state_sharding's
 params) and the whole parameters (a mapping, or (name, tensor) pairs one
 leaf at a time, e.g. models/bridge's draws), and leaves on each rank the
 block jax.device_put would put on its device: JAX's layout, replicated
-leaves included.  How the model computes on those blocks:
+leaves included.  A quantized leaf (models/quant.QTensor, e.g. from
+bridge.iter_int8_params) places as transformer_param_sharding's QTensor
+branch says: the int8 payload by the parameter's spec, its
+`<name>_scale` buffer by the dims the scale carries (its broadcast
+size-1 dims whole), and models/llama._dense dequantizes the rank's
+block at each use.  How the model computes on those blocks:
 
   - tp, Megatron-style on local slices.  Each rank's modules hold their
     slice of every tp-sharded weight and compute on their heads, their
@@ -51,8 +56,9 @@ from tf_operator_tpu_torch.parallel import comm, dp
 from tf_operator_tpu_torch.parallel.mesh import (
     AXIS_ORDER, BATCH_AXES, Mesh, Spec, local_shape, shard_of, spec_axes,
     spec_mesh_axes)
+from tf_operator_tpu_torch.models.quant import QTensor
 from tf_operator_tpu_torch.parallel.tp import (
-    opt_state_sharding, transformer_param_sharding)
+    opt_state_sharding, scale_spec, transformer_param_sharding)
 
 # weights a tp region computes on: each must be tp-sharded for the
 # Megatron split, except the llama wkv (its kv heads may replicate)
@@ -106,6 +112,8 @@ class Placement:
         self.specs = {k: tuple(v) for k, v in specs.items()}
         self.shapes = {k: tuple(v) for k, v in shapes.items()}
         self.tp_partial = set()
+        # int8 weights: {name: the spec of its `<name>_scale` buffer}
+        self.scale_specs: Dict[str, Spec] = {}
         self.views: Dict[str, Callable] = {}
         self.opt_specs = None
         n_tp = mesh.shape["tp"]
@@ -283,6 +291,16 @@ def _bucketed(grads, group) -> None:
             offset += g.numel()
 
 
+def _block(whole: torch.Tensor, spec: Spec, mesh: Mesh, dtype, dev
+           ) -> torch.Tensor:
+    """This rank's block of `whole` under `spec`, a fresh tensor of
+    `dtype` on `dev`."""
+    block = shard_of(whole, spec, mesh)
+    local = torch.empty(block.shape, dtype=dtype, device=dev)
+    local.copy_(block)
+    return local
+
+
 def _pairs(params) -> Iterable[Tuple[str, torch.Tensor]]:
     return params.items() if isinstance(params, Mapping) else params
 
@@ -308,37 +326,55 @@ def place(model: nn.Module, mesh: Mesh, specs: Mapping[str, Spec],
             f"specs do not match the model: missing "
             f"{sorted(set(want) - set(specs))[:5]}, unexpected "
             f"{sorted(set(specs) - set(want))[:5]}")
-    pl = Placement(mesh, specs, {k: s for k, (s, _) in want.items()})
+    pl = Placement(mesh, {k: v.q if isinstance(v, QTensor) else v
+                          for k, v in specs.items()},
+                   {k: s for k, (s, _) in want.items()})
     _check_tp(pl)
     seen = set()
     for name, whole in _pairs(params):
         shape, dtype = want[name]
         if tuple(whole.shape) != shape:
             raise ValueError(f"{name}: {tuple(whole.shape)} != {shape}")
-        block = shard_of(whole, pl.spec(name), mesh)
-        local = torch.empty(block.shape, dtype=dtype, device=dev)
-        local.copy_(block)
         mod_name, _, attr = name.rpartition(".")
-        setattr(model.get_submodule(mod_name), attr,
-                nn.Parameter(local, requires_grad=requires_grad))
+        mod = model.get_submodule(mod_name)
+        if isinstance(whole, QTensor):
+            # int8 serving weights: the payload takes the parameter's
+            # spec, its scale buffer the dims it carries
+            sspec = (specs[name].scale if isinstance(specs[name], QTensor)
+                     else scale_spec(pl.spec(name), whole.scale.shape, mesh))
+            pl.scale_specs[name] = sspec
+            setattr(mod, attr, nn.Parameter(
+                _block(whole.q, pl.spec(name), mesh, torch.int8, dev),
+                requires_grad=False))
+            mod.register_buffer(attr + "_scale", _block(
+                whole.scale, sspec, mesh, torch.float32, dev))
+        else:
+            setattr(mod, attr, nn.Parameter(
+                _block(whole, pl.spec(name), mesh, dtype, dev),
+                requires_grad=requires_grad))
         seen.add(name)
     if seen != set(want):
         raise ValueError(f"params lack {sorted(set(want) - seen)[:5]}")
     for name, spec in pl.specs.items():
         mod_name, _, attr = name.rpartition(".")
         mod = model.get_submodule(mod_name)
-        for d, entry in enumerate(spec):
-            if "fsdp" in spec_axes(entry):
-                parametrize.register_parametrization(
-                    mod, attr, _FsdpGather(mesh.group("fsdp"), d),
-                    unsafe=True)
+        leaves = [(attr, spec)]
+        if name in pl.scale_specs:
+            leaves.append((attr + "_scale", pl.scale_specs[name]))
         packed = (name.endswith("moe.wi")
                   and getattr(mod, "packed_swiglu", False))
         pl.views[name] = _tp_view(name, spec, pl, dev, packed)
-        if pl.tp is not None and packed and "tp" in spec_axes(spec[2]):
-            parametrize.register_parametrization(
-                mod, attr, _SwigluColumns(pl.tp, _swiglu_cols(
-                    pl.shapes[name][2], pl.tp, dev)), unsafe=True)
+        for leaf, lspec in leaves:
+            for d, entry in enumerate(lspec):
+                if "fsdp" in spec_axes(entry):
+                    parametrize.register_parametrization(
+                        mod, leaf, _FsdpGather(mesh.group("fsdp"), d),
+                        unsafe=True)
+            if (pl.tp is not None and packed
+                    and "tp" in spec_axes(lspec[2])):
+                parametrize.register_parametrization(
+                    mod, leaf, _SwigluColumns(pl.tp, _swiglu_cols(
+                        pl.shapes[name][2], pl.tp, dev)), unsafe=True)
     for mod in model.modules():
         if hasattr(type(mod), "tp"):
             mod.tp = pl.tp

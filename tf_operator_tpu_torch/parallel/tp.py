@@ -15,19 +15,27 @@ whose dim does not divide replicates.
 `state_sharding` places a train state as JAX's does: the parameters by
 the table, each optimizer-state leaf by the spec of the FIRST parameter
 (in flax's sorted tree order) of the same shape, and scalars and shapes
-no parameter has replicated.  The decode KV cache's placement
-(`kv_cache_sharding`) belongs to tensor-parallel serving, which is not
-ported yet (ROADMAP Queue 1 item 11h).
+no parameter has replicated.
+
+`kv_cache_sharding` places the decode KV cache as JAX's does: kv heads
+over tp where they divide it, the batch over the data axes where it
+divides them, every other dim (the positions above all) whole.  Where
+JAX holds a `NamedSharding`, the port holds a `KvCacheSharding`: the
+mesh, the spec, and the head counts that say which kv heads this rank's
+cache holds (`kv_heads_of`).  Where the kv heads do not divide tp, JAX
+replicates the cache; each rank of the port holds only the kv heads its
+own query heads read, the ones the model computes (models/llama).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from tf_operator_tpu_torch.models.quant import QTensor
-from tf_operator_tpu_torch.parallel.mesh import Mesh, Spec, pick_fsdp_dim
+from tf_operator_tpu_torch.parallel.mesh import (
+    Mesh, Spec, local_shape, pick_fsdp_dim)
 
 # the flax leaves that are a Dense kernel (the others are raw params)
 _KERNELS = ("wq", "wkv", "out", "qkv", "wi", "wo", "router", "lm_head")
@@ -112,13 +120,102 @@ def transformer_param_sharding(params: Mapping[str, Any], mesh: Mesh,
         shape = tuple(getattr(x, "shape", x))
         spec = param_spec(name, shape, mesh, min_fsdp_size)
         if isinstance(x, QTensor):
-            sspec = tuple(
-                a if a is not None and x.scale.shape[d] % mesh.shape[a] == 0
-                else None for d, a in enumerate(spec))
-            out[name] = QTensor(q=spec, scale=sspec)
+            out[name] = QTensor(q=spec,
+                                scale=scale_spec(spec, x.scale.shape, mesh))
         else:
             out[name] = spec
     return out
+
+
+def scale_spec(spec: Spec, scale_shape, mesh: Mesh) -> Spec:
+    """A QTensor scale's spec under its payload's `spec`: the payload's
+    axis on every dim the scale carries (its size-1 broadcast dims
+    replicate)."""
+    return tuple(a if a is not None and scale_shape[d] % mesh.shape[a] == 0
+                 else None for d, a in enumerate(spec))
+
+
+def kv_heads_of(n_heads: int, n_kv_heads: int, rank: int, tp: int
+                ) -> List[int]:
+    """The kv heads that tp rank `rank` of `tp` computes and caches: its
+    contiguous chunk where n_kv_heads divides tp; else (JAX replicates
+    the cache) the kv heads its n_heads / tp query heads read, one per
+    query group when every kv head serves the same number of them, else
+    one per query head."""
+    if tp <= 1:
+        return list(range(n_kv_heads))
+    if n_kv_heads % tp == 0:
+        n = n_kv_heads // tp
+        return list(range(rank * n, (rank + 1) * n))
+    h = n_heads // tp
+    ids = [(rank * h + i) // (n_heads // n_kv_heads) for i in range(h)]
+    uniq = sorted(set(ids))
+    per = h // len(uniq)
+    if h % len(uniq) == 0 and ids == [u for u in uniq for _ in range(per)]:
+        return uniq
+    return ids
+
+
+@dataclass(frozen=True)
+class KvCacheSharding:
+    """The placement of a decode KV cache ([B, C, KV, D] rings, or a
+    block pool [N+1, bs, KV, D] under models/serving's `_pool_sharding`):
+    the port's
+    NamedSharding.  `spec` is JAX's; n_heads / n_kv_heads are the
+    model's, which say the kv heads this rank holds."""
+
+    mesh: Mesh
+    spec: Spec
+    n_heads: int
+    n_kv_heads: int
+
+    def kv_heads(self) -> Optional[List[int]]:
+        """The kv heads this rank's cache holds, in order (None: all)."""
+        tp = self.mesh.shape["tp"]
+        if tp == 1:
+            return None
+        return kv_heads_of(self.n_heads, self.n_kv_heads,
+                           self.mesh.coords()["tp"], tp)
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        """This rank's block of a cache leaf of the whole `shape`: the
+        batch (or block) dim by the spec, the kv heads this rank
+        holds."""
+        out = list(local_shape(shape[:2], self.spec[:2], self.mesh))
+        heads = self.kv_heads()
+        return tuple(out) + ((shape[2] if heads is None else len(heads)),
+                             ) + tuple(shape[3:])
+
+
+def kv_cache_sharding(cfg, mesh: Mesh, batch: int) -> KvCacheSharding:
+    """Sharding for the decode KV cache (models/llama.init_cache leaves,
+    [B, C, KV, D]): kv heads over tp (each rank holds only its own
+    heads' K/V, the stream that dominates long-context decode) and the
+    batch over the data axes (dcn/dp/fsdp) when it divides them.  Axes
+    that do not divide replicate rather than refuse: a 70B model with 8
+    kv heads on a tp=16 mesh still serves.  The positions dim is never
+    sharded: every decode step writes one slot at a dynamic position."""
+    tp = mesh.shape.get("tp", 1)
+    data_axes = tuple(a for a in ("dcn", "dp", "fsdp")
+                      if mesh.shape.get(a, 1) > 1)
+    n_data = 1
+    for a in data_axes:
+        n_data *= mesh.shape[a]
+    spec_b = data_axes if data_axes and batch % n_data == 0 else None
+    spec_kv = "tp" if tp > 1 and cfg.n_kv_heads % tp == 0 else None
+    return KvCacheSharding(mesh, (spec_b, None, spec_kv, None),
+                           cfg.n_heads, cfg.n_kv_heads)
+
+
+def check_cache_sharding(name: str, sharding) -> KvCacheSharding:
+    """A cache sharding argument must be one KvCacheSharding, broadcast
+    over every cache leaf; the refusal names where to make one."""
+    if not isinstance(sharding, KvCacheSharding):
+        raise ValueError(
+            f"{name} must be a single KvCacheSharding broadcast over "
+            f"every cache leaf (parallel/tp.kv_cache_sharding), got "
+            f"{type(sharding).__name__}")
+    return sharding
 
 
 @dataclass
