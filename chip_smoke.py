@@ -232,7 +232,10 @@ Phases, in order, none of them caught:
               remat, flash attention, f32 masters, adafactor), 1 x 2048,
               3 steps: losses finite, K2 launched 2 x 4 / 4 / 4 times a
               step on the tensor cores; step time, tokens/s, MFU over
-              the active FLOPs, the peak.
+              the active FLOPs, the peak; before training, its router's
+              drops a layer on the first batch in sharded-train (e)'s 2
+              ep blocks at factor 1.25 (topk_route), which (e) holds its
+              dispatch's against.
  23. entry-mixtral: train_llama --smoke --model mixtral with a checkpoint,
               then serve_llama --int8 (dense, and --paged through K1) and
               generate_llama --int8 from it: equal greedy tokens.
@@ -303,23 +306,39 @@ Phases, in order, none of them caught:
               rank 0's checkpoints, and both ranks resumed from them.
  35. sharded-probe: each collective on 16 MB CUDA tensors between two
               gloo ranks on the one card (`--sharded-worker`), timed;
-              fails if gloo refuses one the port calls.
+              fails if gloo refuses one the port calls (all_to_all_single
+              with equal and with uneven chunks among them).
  36. kernel2-tp: kernel2-zoo's checks and times at the tp-local shapes
               of sharded-train: B=1 S=2048 H=16 KV=4 D=128 and B=4 S=512
               H=KV=16 D=64, causal.
+ 36b. kernel3-tp: kernel3's checks and times at the ring over tp 2's
+              shape (S_l=1024, H=32, KV=8, D=128).
  37. sharded-train: `train_llama --tp 2` (llama3_8b at full width and
               depth, 1 x 2048, adafactor) as a job of two ranks, and
               t5_3b_decoder on a tp 2 x fsdp 2 mesh of four ranks
               through make_mesh / state_sharding / placement.place, 8 x
-              512 global, 3 steps each, over gloo on the one card: the
+              512 global, 2 steps each, over gloo on the one card: the
               first loss within 2e-2 of the one-process phase's on the
               same weights and tokens, every rank's losses equal, K2 at
               the tp-local heads on the tensor cores; step time,
               tokens/s, each rank's peak and the collectives' seconds.
+              The two ranks then run `train_llama --tp 2 --ring` (the
+              ring over tp: K3 launches a member's live steps, on the
+              tensor cores, no K2; the exchange's and the rotations'
+              calls, MiB and seconds), `train_llama --smoke --tp 2
+              --ring`, and mixtral_8x7b at 4 layers with its experts over
+              ep 2 through make_switch_moe (every loss finite, the first
+              beside mixtral-train's, the share of (token, choice) pairs
+              dropped at capacity factor 1.25, the all-to-all's calls,
+              MiB and seconds); the four ranks `train_llama --smoke
+              --model mixtral --tp 2 --ep 2`.
  38. sharded-parity: tests/test_torch_sharded.py's cases in f32 on eight
-              ranks (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2) = one
-              process on the card; the sharded job's checkpoint resumed
-              in one process.
+              ranks (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2), the ring
+              over tp on tp 2 x fsdp 2 x dp 2 and the mixtral smoke model
+              on tp 2 x ep 2 x dp 2 with a capacity that drops = one
+              process on the card (for ep, the oracle of JAX's ep
+              semantics); the sharded job's checkpoint resumed in one
+              process.
  39. kernel-tp: K1 and K1q against their plain versions at llama3_8b's
               tp 2 local shape (H=16, KV=4, D=128, bs=16, 8 lanes up to
               the serve phase's contexts, a frozen lane), decode L=1 and
@@ -329,8 +348,9 @@ Phases, in order, none of them caught:
               ranks sharing the card over gloo (`--sharded-worker`, the
               weights drawn leaf by leaf from the serve phase's seed, each
               rank its block; parallel/tp.kv_cache_sharding), with
-              serve_loop(scheduler="continuous") on the serve phase's 16
-              prompts, 8 slots: (a) bf16 weights and KV, (b) int8 weights
+              serve_loop(scheduler="continuous") on the first 8 of the
+              serve phase's prompts (TP_SERVE_REQUESTS), 8 slots: (a) bf16
+              weights and KV, (b) int8 weights
               quantized from the same draws and int8 KV (K1q).  Both
               ranks' tokens equal, every budget met and in the
               vocabulary, K1 (K1q) launches a rank = layers x model calls,
@@ -3123,6 +3143,43 @@ def kernel3_phase() -> dict:
     timed beside the same plain calls, their bound, and SDPA of that
     member's q against the whole sequence's k/v under the global causal
     mask (forward, and backward through autograd)."""
+    # (S_l, layout, member, resident shard's member, window, carry)
+    cases = [(RING_SL, "contiguous", 2, 2, None, "fresh"),
+             (RING_SL, "contiguous", 2, 1, None, "mid"),
+             (RING_SL, "contiguous", 1, 2, None, "mid"),
+             (RING_SL, "zigzag", 1, 2, None, "mid"),
+             (RING_SL, "zigzag", 2, 2, None, "fresh"),
+             (RING_SL, "contiguous", 3, 2, 512, "mid"),
+             (RING_SL, "contiguous", 3, 3, None, "masked"),
+             (200, "zigzag", 1, 3, None, "mid")]
+    errs = kernel3_check(cases, RING_N, SEED + 40)
+    return dict(errs=errs, timings=kernel3_timing(RING_N, RING_SL,
+                                                  SEED + 60))
+
+
+# the ring over tp 2 of llama3_8b at 1 x 2048: each member's sequence
+# block of every head after the exchange
+TP_RING_N, TP_RING_SL = 2, TS // 2
+
+
+def kernel3_tp_phase() -> dict:
+    """K3f, K3q and K3kv at the shape the ring over tp 2 gives them
+    (S_l = 1024, all 32 query and 8 kv heads), against their plain
+    versions (kernel3_phase's checks), and member 1's launches over its
+    2 live steps timed as kernel3_phase times them."""
+    cases = [(TP_RING_SL, "contiguous", 1, 1, None, "fresh"),
+             (TP_RING_SL, "contiguous", 1, 0, None, "mid"),
+             (TP_RING_SL, "contiguous", 0, 1, None, "mid"),
+             (TP_RING_SL, "contiguous", 1, 0, 512, "masked")]
+    errs = kernel3_check(cases, TP_RING_N, SEED + 86, tag="kernel3-tp")
+    return dict(errs=errs, timings=kernel3_timing(
+        TP_RING_N, TP_RING_SL, SEED + 90, tag="kernel3-tp"))
+
+
+def kernel3_check(cases: list, n: int, seed: int, tag: str = "kernel3"
+                  ) -> dict:
+    """kernel3_phase's checks of each (S_l, layout, member, resident,
+    window, carry) case on a ring of n members: the bf16 errors."""
     from tf_operator_tpu_torch.ops import ring_flash as rf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3140,21 +3197,12 @@ def kernel3_phase() -> dict:
         return m, l, acc / l_safe.transpose(1, 2)[..., None]
 
     errs = {name: 0.0 for name in RING}
-    # (S_l, layout, member, resident shard's member, window, carry)
-    cases = [(RING_SL, "contiguous", 2, 2, None, "fresh"),
-             (RING_SL, "contiguous", 2, 1, None, "mid"),
-             (RING_SL, "contiguous", 1, 2, None, "mid"),
-             (RING_SL, "zigzag", 1, 2, None, "mid"),
-             (RING_SL, "zigzag", 2, 2, None, "fresh"),
-             (RING_SL, "contiguous", 3, 2, 512, "mid"),
-             (RING_SL, "contiguous", 3, 3, None, "masked"),
-             (200, "zigzag", 1, 3, None, "mid")]
     for i, (s_l, layout, my, src, w, carry) in enumerate(cases):
         for dt in (torch.bfloat16, torch.float32):
             (q, k, v, do), (m, l, acc, lse, delta) = ring_case(
-                dt, s_l, SEED + 40 + i, carry)
-            offs = (rf.offsets(my, RING_N, s_l, layout),
-                    rf.offsets(src, RING_N, s_l, layout), True, w)
+                dt, s_l, seed + i, carry)
+            offs = (rf.offsets(my, n, s_l, layout),
+                    rf.offsets(src, n, s_l, layout), True, w)
             lse_other = lse
             lse = forward_lse(lse_other, q, [(k, offs[1])], offs[0], w)
             bwd = (q, k, v, do, lse, delta)
@@ -3180,7 +3228,7 @@ def kernel3_phase() -> dict:
             if any(counts[n] != 2 for n in RING) or mma != {
                     f"{n}_mma": counts[n] if dt == torch.bfloat16 else 0
                     for n in RING}:
-                raise AssertionError(f"[kernel3] {dt} launches {counts}: 2 "
+                raise AssertionError(f"[{tag}] {dt} launches {counts}: 2 "
                                      f"of each, all on the tensor cores in "
                                      f"bf16, none in f32")
             dead = src > my and layout == "contiguous"
@@ -3208,12 +3256,12 @@ def kernel3_phase() -> dict:
                 line.append(f"{name} err={err:.3e} repeat={same}")
                 if not ok:
                     raise AssertionError(
-                        f"[kernel3] {name} disagrees with its plain version "
+                        f"[{tag}] {name} disagrees with its plain version "
                         f"or does not repeat: dtype={dt} S_l={s_l} "
                         f"layout={layout} member={my} resident={src} "
                         f"window={w} carry={carry} err={err} "
                         f"bit_identical={same}")
-            log(f"[kernel3] {str(dt)[6:]:8s} S_l={s_l} {layout} member={my} "
+            log(f"[{tag}] {str(dt)[6:]:8s} S_l={s_l} {layout} member={my} "
                 f"resident={src} window={w} carry={carry} "
                 f"(atol=rtol={tol[dt]}): " + ", ".join(line)
                 + f"; tensor-core launches {json.dumps(mma)}")
@@ -3231,25 +3279,33 @@ def kernel3_phase() -> dict:
                 pairs = zip((dq, dk, dv), (rf.ring_dq_plain(*odd, *offs),
                                            *rf.ring_dkv_plain(*odd, *offs)))
                 dev = [((got - ref).abs(), ref) for got, ref in pairs]
-                log(f"[kernel3]   the same step at lse of the other steps "
+                log(f"[{tag}]   the same step at lse of the other steps "
                     f"only (p > 1): max |kernel - plain| dq/dk/dv "
                     + "/".join(f"{float(d.max()):.3e}" for d, _ in dev)
                     + ", elements past 2e-2 + 2e-2 |ref|: "
                     + "/".join(str(int((d > 2e-2 * (1 + r.abs())).sum()))
                                for d, r in dev))
             del runs, want, bwd
+    return errs
 
-    # the last member's ring: q shard 3 against kv shards 3 (diagonal),
-    # 2, 1 and 0 (past), as K3f meets them in the causal contiguous ring
-    dt, my = torch.bfloat16, RING_N - 1
-    (q, _, _, do), (m, l, acc, lse, delta) = ring_case(dt, RING_SL, SEED + 60,
+
+def kernel3_timing(n: int, s_l: int, seed: int, tag: str = "kernel3"
+                   ) -> dict:
+    """The last member's ring of n members of S_l rows: its q shard
+    against kv shards n-1 (diagonal) down to 0 (past), as K3f meets them
+    in the causal contiguous ring, timed (kernel3_phase's docstring)."""
+    from tf_operator_tpu_torch.ops import ring_flash as rf
+
+    dt, my = torch.bfloat16, n - 1
+    (q, _, _, do), (m, l, acc, lse, delta) = ring_case(dt, s_l, seed,
                                                        "fresh")
-    g = torch.Generator(device="cpu").manual_seed(SEED + 61)
-    kv_all = torch.randn((TB, TS, 2, TKV, TD), generator=g).to("cuda", dt)
-    shard = lambda i, j: kv_all[:, i * RING_SL:(i + 1) * RING_SL, j]
-    q_off = rf.offsets(my, RING_N, RING_SL, "contiguous")
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    kv_all = torch.randn((TB, n * s_l, 2, TKV, TD), generator=g).to(
+        "cuda", dt)
+    shard = lambda i, j: kv_all[:, i * s_l:(i + 1) * s_l, j]
+    q_off = rf.offsets(my, n, s_l, "contiguous")
     steps = [(shard(src, 0), shard(src, 1),
-              rf.offsets(src, RING_N, RING_SL, "contiguous"))
+              rf.offsets(src, n, s_l, "contiguous"))
              for src in range(my, -1, -1)]
     lse = forward_lse(lse, q, [(k, k_off) for k, _, k_off in steps], q_off)
     dq = torch.zeros(q.shape, device="cuda")
@@ -3282,8 +3338,8 @@ def kernel3_phase() -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2).detach()
     kt, vt = (kv_all[:, :, j].transpose(1, 2).detach() for j in (0, 1))
-    q_ids = my * RING_SL + torch.arange(RING_SL, device="cuda")
-    mask = torch.arange(TS, device="cuda")[None, :] <= q_ids[:, None]
+    q_ids = my * s_l + torch.arange(s_l, device="cuda")
+    mask = torch.arange(n * s_l, device="cuda")[None, :] <= q_ids[:, None]
     sdpa_fwd = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
     with torch.no_grad():
         lib_fwd = time_ms(sdpa_fwd)
@@ -3304,21 +3360,21 @@ def kernel3_phase() -> dict:
         # device time alone of the member's 4 launches, queued together
         kq = time_ms(unit(name, False), queued=True)
         bnd, by = bound_of([ring_launch_bound(
-            name, dt, RING_SL, visible_pairs(q_off, k_off, RING_SL))
+            name, dt, s_l, visible_pairs(q_off, k_off, s_l))
             for _, _, k_off in steps], dt)
         fwd = name == "ring_fwd"
         lib, lib_q = (lib_fwd, lib_fwd_q) if fwd else (lib_bwd, lib_bwd_q)
         timings[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                              library_ms=lib, bound_ms=bnd, bound_by=by,
                              device_ms=kq, library_device_ms=lib_q)
-        log(f"[kernel3] timing {name} bf16, member {my} of {RING_N} over its "
-            f"{len(steps)} live steps (B={TB} S_l={RING_SL} H={TH} KV={TKV} "
+        log(f"[{tag}] timing {name} bf16, member {my} of {n} over its "
+            f"{len(steps)} live steps (B={TB} S_l={s_l} H={TH} KV={TKV} "
             f"D={TD}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
             f"ms, sdpa {'fwd' if fwd else 'bwd'} of the member's q over "
-            f"S={TS} {lib:.4f} ms, bound {bnd:.4f} ms ({by}); device time "
-            f"alone: kernel {kq:.4f} ms, sdpa {lib_q:.4f} ms")
+            f"S={n * s_l} {lib:.4f} ms, bound {bnd:.4f} ms ({by}); device "
+            f"time alone: kernel {kq:.4f} ms, sdpa {lib_q:.4f} ms")
     pair = timings["ring_dq"]["device_ms"] + timings["ring_dkv"]["device_ms"]
-    log(f"[kernel3] K3q + K3kv, device time alone: {pair:.4f} ms against "
+    log(f"[{tag}] K3q + K3kv, device time alone: {pair:.4f} ms against "
         f"sdpa bwd {lib_bwd_q:.4f} ms ({pair / lib_bwd_q:.2f}x)")
     # one launch each at a past (full) step and at the diagonal
     for label, (k, v, k_off) in (("past step", steps[1]),
@@ -3332,10 +3388,10 @@ def kernel3_phase() -> dict:
         for name, fn in one.items():
             t = time_ms(fn)
             bnd, by = bound_of([ring_launch_bound(
-                name, dt, RING_SL, visible_pairs(q_off, k_off, RING_SL))], dt)
-            log(f"[kernel3] one {name} launch, {label}: {t:.4f} ms, bound "
+                name, dt, s_l, visible_pairs(q_off, k_off, s_l))], dt)
+            log(f"[{tag}] one {name} launch, {label}: {t:.4f} ms, bound "
                 f"{bnd:.4f} ms ({by})")
-    return dict(errs=errs, timings=timings)
+    return timings
 
 
 # --------------------------------------------------------- ring-train phase
@@ -3850,6 +3906,49 @@ def mixtral_serve_phase() -> dict:
     return dict(launches=out["slot"][1] + out["continuous"][1])
 
 
+def route_probe(model, tokens, on_layer=None) -> list:
+    """One no-grad forward of `model` over `tokens`, each MoE block's
+    router logits [T, E] (f32, as the block computes them from its
+    input) kept; `on_layer(i)` runs after block i's MoE forward."""
+    logits, hooks = [], []
+    for i, blk in enumerate(model.blocks):
+        def hook(mod, args, out, i=i):
+            logits.append((args[0].float() @ mod.router).reshape(
+                -1, mod.router.shape[1]))
+            if on_layer is not None:
+                on_layer(i)
+        hooks.append(blk.moe.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model(tokens, return_hidden=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return logits
+
+
+def ep_route_drops(logits: list, n_ep: int, factor: float,
+                   top_k: int) -> list:
+    """Per layer, [dropped, pairs, the top expert's share of the
+    choices]: the layer's router logits [T, E] cut into n_ep contiguous
+    blocks (T divides n_ep here), each routed by parallel/ep.topk_route
+    at make_switch_moe's capacity, ceil(T / n_ep · k / E · factor)."""
+    from tf_operator_tpu_torch.parallel.ep import topk_gates, topk_route
+
+    out = []
+    for lf in logits:
+        t, n_e = lf.shape
+        cap = max(1, math.ceil(t // n_ep * top_k / n_e * factor))
+        dropped = 0
+        for blk in lf.split(t // n_ep):
+            dispatch, _, _ = topk_route(blk, cap, top_k)
+            dropped += blk.shape[0] * top_k - int(dispatch.sum())
+        _, top_i = topk_gates(torch.softmax(lf, dim=-1), top_k)
+        load = torch.bincount(top_i.reshape(-1), minlength=n_e)
+        out.append([dropped, t * top_k, int(load.max()) / (t * top_k)])
+    return out
+
+
 def mixtral_train_phase() -> dict:
     """mixtral_8x7b at full width cut to 4 layers as train_llama builds it
     (tied, remat, flash attention, blocked CE with the routers' aux
@@ -3893,6 +3992,16 @@ def mixtral_train_phase() -> dict:
 
     batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 56,
                                      device="cuda")
+    # the ep job's first batch routed by this one-process model (no
+    # dispatch function) at the ep job's per-block capacity
+    (first,) = next(train_llama.lm_batches(TB, TS, cfg.vocab_size,
+                                           SEED + 56, device="cuda"))
+    ep_plain = ep_route_drops(route_probe(model, first), EP_MESH["ep"],
+                              EP_FACTOR, cfg.moe_top_k)
+    log(f"[mixtral-train] its router on the first batch, cut into "
+        f"{EP_MESH['ep']} ep blocks at factor {EP_FACTOR} (topk_route), "
+        f"[dropped, pairs, top expert's share of the choices] a layer: "
+        f"{[[a, b, round(c, 4)] for a, b, c in ep_plain]}")
     fa.reset_launches()
     res = run_training(state, timed_step, batches,
                        num_steps=MIX_TRAIN_STEPS,
@@ -3929,7 +4038,7 @@ def mixtral_train_phase() -> dict:
         f"{tokens_per_s:.2f}, mfu {mfu:.4f} (active FLOPs), "
         f"max_memory_allocated_gib {peak / 2**30:.3f}, kernel_launches "
         f"{json.dumps(launches)}")
-    return dict(launches=launches, losses=losses)
+    return dict(launches=launches, losses=losses, ep_plain=ep_plain)
 
 
 def entry_mixtral_phase() -> dict:
@@ -5370,7 +5479,10 @@ def dp_parity_phase() -> dict:
 # --------------------------------------------------------------- sharded
 # the tp x fsdp x dp training mesh (parallel/mesh, parallel/tp,
 # parallel/placement).  Two or more ranks share the one card over gloo.
-SHARDED_STEPS = 3
+# Two steps each: the first loss against one process's and one steady
+# step; gloo through a shared host makes each step slow and its time
+# variable, and the script's time limit is fixed.
+SHARDED_STEPS = 2
 T5_MESH = {"tp": 2, "fsdp": 2}
 PROBE_BYTES = 16 << 20
 # K2 at the tp-local shapes the sharded-train phase gives it: llama3_8b's
@@ -5397,6 +5509,12 @@ SHARDED_PARITY = {
     "mixtral": ("llama", {"tp": 2, "fsdp": 2, "dp": 2}, dict(moe=True)),
     "tp4_wkv": ("llama", {"tp": 4, "fsdp": 2}, dict(d_ff=256)),
     "train_step": ("train_step", {"tp": 2, "fsdp": 2, "dp": 2}, {}),
+    # the ring over tp (one process: flash attention), and the experts
+    # over ep with a capacity that drops (one process: the oracle of
+    # JAX's ep semantics, tests/torch_sharded_util.ep_oracle)
+    "ring_tp": ("llama", {"tp": 2, "fsdp": 2, "dp": 2}, dict(ring=True)),
+    "mixtral_ep": ("llama", {"tp": 2, "ep": 2, "dp": 2},
+                   dict(moe=True, ep=(2, 1.0))),
 }
 ADAM_CASES = ("llama_adam", "blocked_ce", "lora", "t5_adamw", "train_step")
 
@@ -5481,6 +5599,18 @@ def _probe_job() -> dict:
             torch.empty(n * x.numel(), device="cuda"), x),
         "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
             torch.empty(x.numel() // n, device="cuda"), x),
+        # parallel/comm.all_to_all (equal chunks) and send_recv (one
+        # non-empty chunk each way: a ring's rotation), world and subgroup
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "subgroup_all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x, group=sub),
+        "all_to_all_single_uneven": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x,
+            [x.numel() if j == (dist.get_rank() - 1) % n else 0
+             for j in range(n)],
+            [x.numel() if j == (dist.get_rank() + 1) % n else 0
+             for j in range(n)]),
     }
     res = {}
     for name, fn in calls.items():
@@ -5515,6 +5645,8 @@ def _timed_steps(rec: dict):
             rec["comm_s"].append(comm.STATS["seconds"])
             rec["comm_calls"].append(comm.STATS["calls"])
             rec["comm_bytes"].append(comm.STATS["bytes"])
+            rec["comm_kinds"].append(json.loads(json.dumps(
+                comm.STATS["kinds"])))
             return state, m
         return timed
 
@@ -5522,16 +5654,19 @@ def _timed_steps(rec: dict):
 
 
 def _new_rec() -> dict:
-    return dict(step_s=[], loss=[], comm_s=[], comm_calls=[], comm_bytes=[])
+    return dict(step_s=[], loss=[], comm_s=[], comm_calls=[], comm_bytes=[],
+                comm_kinds=[])
 
 
-def _llama_tp_job() -> dict:
+def _llama_tp_job(ring: bool = False) -> dict:
     """`train_llama --tp 2` (llama3_8b at full width and depth, 1 x 2048,
     SHARDED_STEPS steps) as this rank of the job, with the train phase's
     tokens (data member 0 reads the stream seeded SEED + 4) and weights
-    (seed 0 = SEED)."""
+    (seed 0 = SEED); ring=True: `--ring`, attention through the ring
+    over the tp ranks (K3f/K3q/K3kv at S_l = 1024 after the exchange)."""
     from tf_operator_tpu_torch import train_llama
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_flash as rf
 
     rec = _new_rec()
     wrap, real_step = _timed_steps(rec), train_llama.make_lm_step
@@ -5541,14 +5676,105 @@ def _llama_tp_job() -> dict:
         lambda b, s, v, seed, device=None:
         real_batches(b, s, v, seed + SEED + 4, device))
     fa.reset_launches()
+    rf.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = train_llama.main(["--tp", "2", "--steps", str(SHARDED_STEPS),
-                           "--per-host-batch", str(TB), "--seq-len", str(TS),
-                           "--backend", "gloo"])
+    try:
+        rc = train_llama.main(["--tp", "2", "--steps", str(SHARDED_STEPS),
+                               "--per-host-batch", str(TB), "--seq-len",
+                               str(TS), "--backend", "gloo"]
+                              + (["--ring"] if ring else []))
+    finally:
+        train_llama.make_lm_step, train_llama.lm_batches = (real_step,
+                                                            real_batches)
     torch.cuda.synchronize()
     return dict(rc=rc, wall_s=time.perf_counter() - t0,
-                launches=dict(fa.launches),
+                launches=dict(fa.launches), ring_launches=dict(rf.launches),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+
+
+def _entry_job(argv: list) -> dict:
+    """train_llama with `argv` (a smoke run on the card over gloo) as this
+    rank of the job: its exit code."""
+    from tf_operator_tpu_torch import train_llama
+
+    rc = train_llama.main(argv + ["--steps", "2", "--per-host-batch", "2",
+                                  "--seq-len", "16", "--backend", "gloo"])
+    return dict(rc=rc)
+
+
+# the mixtral-ep job: mixtral-train's model (its depth, weights and
+# tokens) with its experts over ep 2
+EP_MESH = {"ep": 2}
+EP_FACTOR = 1.25
+
+
+def _mixtral_ep_job() -> dict:
+    """mixtral_8x7b at full width cut to MIX_TRAIN_LAYERS layers on an
+    {"ep": 2} mesh of two ranks through the library: make_mesh,
+    make_switch_moe as the config's dispatch function (top-2 SwiGLU,
+    capacity factor 1.25), parallel/placement.shard_model over the
+    mixtral-train phase's weights drawn leaf by leaf (each rank keeps
+    its 4 of the 8 experts a block), train_llama's step over the
+    mixtral-train phase's 1 x 2048 tokens (both ranks: ep does not split
+    the batch), adafactor, SHARDED_STEPS steps."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel import ep, placement
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime import bootstrap
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh(EP_MESH)
+    cfg = llama.mixtral_8x7b(
+        n_layers=MIX_TRAIN_LAYERS, tie_embeddings=True, remat=True,
+        attention_fn=fa.flash_attention, moe_dispatch_fn=ep.make_switch_moe(
+            mesh, 8, EP_FACTOR, activation="swiglu", top_k=2))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = llama.Llama(cfg, train=True)
+    pl = placement.shard_model(model, mesh, bridge.iter_params(
+        cfg, SEED + 55, device="cuda", train=True), device="cuda")
+    state = TrainState.create(model, Adafactor(1e-3))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() / 2**30
+    i, n = pl.data_index()
+    batches = train_llama.lm_batches(TB, TS, cfg.vocab_size, SEED + 56,
+                                     device="cuda")
+    # before the first step, its batch through the dispatch: each
+    # layer's (token, choice) pairs this rank's ep block dropped, and
+    # the layer's router logits
+    (first,) = next(train_llama.lm_batches(TB, TS, cfg.vocab_size,
+                                           SEED + 56, device="cuda"))
+    ep.reset_stats()
+    seen = []
+    probe_logits = route_probe(model, first, lambda layer: seen.append(
+        ep.read_stats()))
+    probe, prev = [], {"dropped": 0, "pairs": 0}
+    for cur in seen:
+        probe.append([cur["dropped"] - prev["dropped"],
+                      cur["pairs"] - prev["pairs"]])
+        prev = cur
+    probe_plain = ep_route_drops(probe_logits, EP_MESH["ep"], EP_FACTOR,
+                                 cfg.moe_top_k)
+    del probe_logits
+    rec = _new_rec()
+    step = _timed_steps(rec)(train_llama.make_lm_step(model))
+    fa.reset_launches()
+    ep.reset_stats()
+    for _ in range(SHARDED_STEPS):
+        (tokens,) = next(batches)
+        state, _ = step(state, tokens[i * TB // n:(i + 1) * TB // n])
+    torch.cuda.synchronize()
+    return dict(launches=dict(fa.launches), ep_stats=ep.read_stats(),
+                probe=probe, probe_plain=probe_plain,
+                init_s=init_s, held_gib=held, mesh=dict(mesh.shape),
+                experts=tuple(model.blocks[0].moe.wi.shape),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
 
 
@@ -5620,7 +5846,13 @@ def _parity_job() -> dict:
     return out
 
 
+SMOKE_RING = ["--smoke", "--tp", "2", "--ring"]
+SMOKE_EP = ["--smoke", "--model", "mixtral", "--tp", "2", "--ep", "2"]
 SHARDED_JOBS = {"probe": _probe_job, "llama-tp": _llama_tp_job,
+                "llama-tp-ring": lambda: _llama_tp_job(ring=True),
+                "entry-ring": lambda: _entry_job(SMOKE_RING),
+                "entry-ep": lambda: _entry_job(SMOKE_EP),
+                "mixtral-ep": _mixtral_ep_job,
                 "t5-tp": _t5_tp_job, "parity": _parity_job,
                 "tp-serve": lambda: _tp_serve_job(),
                 "tp-parity": lambda: _tp_parity_job()}
@@ -5635,11 +5867,18 @@ def sharded_worker(out_dir: str, jobs: list) -> int:
 
     import torch.distributed as dist
 
+    import gc
+
     rank = int(os.environ["RANK"])
     results = {}
     for job in jobs:
+        t0 = time.perf_counter()
         results[job] = SHARDED_JOBS[job]()
-        print(f"[sharded-worker] rank {rank} {job}: done", flush=True)
+        # the next job starts from an empty card
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[sharded-worker] rank {rank} {job}: done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -5650,8 +5889,9 @@ def sharded_probe_phase() -> dict:
     """The gloo probe: each collective on CUDA tensors between two ranks
     on the one card.  Fails when gloo refuses one the port calls
     (parallel/comm: all_reduce, all_gather_into_tensor,
-    reduce_scatter_tensor, over the world and a subgroup; broadcast and
-    barrier in parallel/dp and the Checkpointer)."""
+    reduce_scatter_tensor, all_to_all_single with equal and with uneven
+    chunks, over the world and a subgroup; broadcast and barrier in
+    parallel/dp and the Checkpointer)."""
     torch.cuda.empty_cache()
     ranks, _ = _spawn_ranks("--sharded-worker", ["probe"], "sharded-probe",
                             timeout_s=240.0)
@@ -5663,7 +5903,8 @@ def sharded_probe_phase() -> dict:
     # what parallel/comm calls (the other two are read for the record)
     used = ("all_reduce", "all_reduce_max", "broadcast", "barrier",
             "subgroup_all_reduce", "all_gather_into_tensor",
-            "reduce_scatter_tensor")
+            "reduce_scatter_tensor", "all_to_all_single",
+            "subgroup_all_to_all_single", "all_to_all_single_uneven")
     bad = [k for k in used if not res[k]["ok"]]
     if bad:
         raise AssertionError(f"[sharded-probe] gloo refuses {bad} on CUDA "
@@ -5682,7 +5923,8 @@ def _sharded_line(tag: str, r: dict, tokens: int) -> str:
 
 
 def sharded_train_phase(llama_first: float, llama_peak: float,
-                        t5_first: float, t5_peak: float) -> dict:
+                        t5_first: float, t5_peak: float,
+                        mix_first: float, mix_plain: list) -> dict:
     """(a) `train_llama --tp 2 --steps 3` as a job of two ranks on the one
     card (llama3_8b, 1 x 2048, adafactor, gloo), launched as dp-train
     launches its ranks; (b) t5_3b_decoder on a tp 2 x fsdp 2 mesh of four
@@ -5692,12 +5934,32 @@ def sharded_train_phase(llama_first: float, llama_peak: float,
     tp peers' losses equal; K2 launches a rank a step: forward 2 x layers
     (remat), dQ and dK/dV layers, all on the tensor cores, at the
     tp-local heads; each rank's peak beside the one-process phase's, the
-    collectives' seconds a step."""
+    collectives' seconds a step.  The ranks of (a) then run (c), (d) and
+    (e), those of (b) run (f):
+      (c) `train_llama --tp 2 --ring --steps 3`, the ring over the tp
+          ranks: (a)'s checks, no K2 launch, and K3f/K3q/K3kv launched by
+          each member for its live steps (rank 0 one a layer, rank 1
+          two), all on the tensor cores; the exchange's and the
+          rotations' calls, MiB and seconds a step;
+      (d) `train_llama --smoke --tp 2 --ring`, exit 0;
+      (e) mixtral_8x7b at MIX_TRAIN_LAYERS layers with its experts over
+          ep 2 (_mixtral_ep_job): every loss finite, the first within
+          1.5 of ln V and printed beside mixtral-train's (the capacity
+          drops tokens there: not the same function); the share of
+          (token, choice) pairs dropped at capacity factor 1.25, and
+          its first batch's drops a layer against topk_route's over the
+          same router logits and, at layer 0, over mixtral-train's
+          (_check_mixtral_ep); K2 a
+          rank a step as mixtral-train; the all-to-all's calls, MiB and
+          seconds a step;
+      (f) `train_llama --smoke --model mixtral --tp 2 --ep 2` as four
+          ranks (tp 2 x ep 2), exit 0."""
     card = device_line()
     out = {}
     torch.cuda.empty_cache()
-    ranks, _ = _spawn_ranks("--sharded-worker", ["llama-tp"],
-                            "sharded-train", n=2, timeout_s=500.0)
+    ranks, _ = _spawn_ranks("--sharded-worker", ["llama-tp", "llama-tp-ring",
+                                                 "entry-ring", "mixtral-ep"],
+                            "sharded-train", n=2, timeout_s=700.0)
     rs = [r["llama-tp"] for r in ranks]
     for r, res in enumerate(rs):
         log(f"[sharded-train] (a) llama3_8b tp 2, rank {r}: exit "
@@ -5708,9 +5970,19 @@ def sharded_train_phase(llama_first: float, llama_peak: float,
             + json.dumps(res["launches"]) + f"; wall {res['wall_s']:.1f} s;"
             f" {card}")
     out["llama"] = _check_sharded("(a)", rs, llama_first, 32)
+    out["ring"] = _check_ring_tp([r["llama-tp-ring"] for r in ranks],
+                                 llama_first, card)
+    for r, res in enumerate(ranks):
+        if res["entry-ring"]["rc"] != 0:
+            raise AssertionError(f"[sharded-train] (d) rank {r}: "
+                                 f"{res['entry-ring']}")
+    log(f"[sharded-train] (d) train_llama {' '.join(SMOKE_RING)}: both "
+        f"ranks exit 0")
+    out["ep"] = _check_mixtral_ep([r["mixtral-ep"] for r in ranks],
+                                  mix_first, mix_plain, card)
     torch.cuda.empty_cache()
-    ranks, _ = _spawn_ranks("--sharded-worker", ["t5-tp"], "sharded-train",
-                            n=4, timeout_s=500.0)
+    ranks, _ = _spawn_ranks("--sharded-worker", ["t5-tp", "entry-ep"],
+                            "sharded-train", n=4, timeout_s=500.0)
     rs = [r["t5-tp"] for r in ranks]
     for r, res in enumerate(rs):
         log(f"[sharded-train] (b) t5_3b_decoder mesh {res['mesh']}, rank "
@@ -5721,30 +5993,149 @@ def sharded_train_phase(llama_first: float, llama_peak: float,
             f"{res['held_gib']:.3f} GiB held; K2 "
             + json.dumps(res["launches"]) + f"; {card}")
     out["t5"] = _check_sharded("(b)", rs, t5_first, 48)
+    for r, res in enumerate(ranks):
+        if res["entry-ep"]["rc"] != 0:
+            raise AssertionError(f"[sharded-train] (f) rank {r}: "
+                                 f"{res['entry-ep']}")
+    log(f"[sharded-train] (f) train_llama {' '.join(SMOKE_EP)}: the four "
+        f"ranks exit 0")
     return out
 
 
-def _check_sharded(tag: str, rs: list, first: float, n_layers: int) -> dict:
+def _kind_line(res: dict, kind: str) -> str:
+    """A collective kind's calls, MiB and seconds a step (_timed_steps)."""
+    per = [k.get(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+           for k in res["comm_kinds"]]
+    return (f"{kind} {per[-1]['calls']} calls, "
+            f"{per[-1]['bytes'] / 2**20:.1f} MiB a step, seconds "
+            f"{[round(k['seconds'], 4) for k in per]}")
+
+
+def _check_ring_tp(rs: list, first: float, card: str) -> dict:
+    """(c)'s checks (sharded_train_phase); the K3 launches of both ranks,
+    summed."""
+    from tf_operator_tpu_torch.ops import zigzag
+
+    live = [sum(zigzag.pair_live(my, src, TP_RING_N, TP_RING_SL,
+                                 "contiguous", None)
+                for src in range(TP_RING_N)) for my in range(TP_RING_N)]
+    for r, res in enumerate(rs):
+        n = 32 * live[r] * SHARDED_STEPS
+        log(f"[sharded-train] (c) llama3_8b tp 2 --ring, rank {r}: exit "
+            f"{res['rc']}, losses {[round(x, 4) for x in res['loss']]} "
+            f"(one process: first {first:.4f}); "
+            + _sharded_line("c", res, TB * TS)
+            + "; " + _kind_line(res, "all_to_all") + " (the exchange); "
+            + _kind_line(res, "send_recv") + " (the ring's rotations); K3 "
+            + json.dumps(res["ring_launches"]) + f" ({live[r]} live steps "
+            f"a layer on this member, {n // SHARDED_STEPS} K3q a step); "
+            f"K2 {json.dumps(res['launches'])}; wall "
+            f"{res['wall_s']:.1f} s; {card}")
+        want = {"ring_fwd": 2 * n, "ring_fwd_mma": 2 * n, "ring_dq": n,
+                "ring_dq_mma": n, "ring_dkv": n, "ring_dkv_mma": n}
+        if res["ring_launches"] != want or any(res["launches"].values()):
+            raise AssertionError(
+                f"[sharded-train] (c) rank {r}: K3 launches "
+                f"{res['ring_launches']}, expected {want}; K2 "
+                f"{res['launches']}, expected none")
+    _check_losses("(c)", rs, first, 2e-2)
+    return {name: sum(res["ring_launches"][name] for res in rs)
+            for name in rs[0]["ring_launches"]}
+
+
+def _check_mixtral_ep(rs: list, mix_first: float, mix_plain: list,
+                      card: str) -> dict:
+    """(e)'s checks (sharded_train_phase); the K2 launches of both ranks,
+    summed.  The drops' cause: before its first step the job routed its
+    first batch through the dispatch once; each layer's drops (both
+    ranks' blocks) must equal topk_route's over the same router logits
+    cut into the ep blocks (a fault of the dispatch's gather, blocks,
+    capacity or padding would part them), and layer 0's share, whose
+    input the dispatch has not yet touched, must be within 0.01 of
+    mixtral-train's one-process router's on the same batch
+    (`mix_plain`): the share is then the router's, not the dispatch's."""
+    pairs = sum(res["ep_stats"]["pairs"] for res in rs)
+    dropped = sum(res["ep_stats"]["dropped"] for res in rs)
+    for r, res in enumerate(rs):
+        log(f"[sharded-train] (e) mixtral_8x7b x {MIX_TRAIN_LAYERS} layers "
+            f"on {res['mesh']}, rank {r} (its experts {res['experts']}): "
+            f"losses {[round(x, 4) for x in res['loss']]} (mixtral-train, "
+            f"one process through grouped_moe: first {mix_first:.4f}); "
+            + _sharded_line("e", res, TB * TS) + "; "
+            + _kind_line(res, "all_to_all") + " (the dispatch); this "
+            f"rank's ep block dropped {res['ep_stats']['dropped']} of "
+            f"{res['ep_stats']['pairs']} (token, choice) pairs; init "
+            f"{res['init_s']:.1f} s, {res['held_gib']:.3f} GiB held; K2 "
+            + json.dumps(res["launches"]) + f"; {card}")
+        want = _k2_want(MIX_TRAIN_LAYERS, SHARDED_STEPS)
+        if res["launches"] != want:
+            raise AssertionError(f"[sharded-train] (e) rank {r}: K2 "
+                                 f"launches {res['launches']}, expected "
+                                 f"{want}")
+        if abs(res["loss"][0] - math.log(32000)) > 1.5:
+            raise AssertionError(f"[sharded-train] (e) rank {r}: first "
+                                 f"loss {res['loss'][0]}")
+    _check_losses("(e)", rs, None, None)
+    probe = [[sum(res["probe"][layer][j] for res in rs) for j in (0, 1)]
+             for layer in range(MIX_TRAIN_LAYERS)]
+    plain = rs[0]["probe_plain"]
+    log(f"[sharded-train] (e) the first batch before the first step, "
+        f"[dropped, pairs] a layer: the dispatch {probe}; topk_route over "
+        f"its router logits in {EP_MESH['ep']} blocks "
+        f"{[p[:2] for p in plain]} (top expert's share of the choices "
+        f"{[round(p[2], 4) for p in plain]}); mixtral-train's one-process "
+        f"router {[p[:2] for p in mix_plain]} (top expert's share "
+        f"{[round(p[2], 4) for p in mix_plain]})")
+    if len(probe) != MIX_TRAIN_LAYERS or any(
+            p != q[:2] for p, q in zip(probe, plain)) or any(
+            res["probe_plain"] != plain for res in rs):
+        raise AssertionError(f"[sharded-train] (e) the dispatch's drops "
+                             f"{probe} are not topk_route's {plain}")
+    share = probe[0][0] / probe[0][1]
+    one = mix_plain[0][0] / mix_plain[0][1]
+    if abs(share - one) > 0.01:
+        raise AssertionError(f"[sharded-train] (e) layer 0 dropped a share "
+                             f"{share:.6f} of its pairs, the one-process "
+                             f"router {one:.6f}")
+    # the step's forward and remat's: 2 MoE calls a layer a step
+    if pairs != SHARDED_STEPS * 2 * MIX_TRAIN_LAYERS * TB * TS * 2:
+        raise AssertionError(f"[sharded-train] (e) {pairs} (token, choice) "
+                             f"pairs routed")
+    log(f"[sharded-train] (e) dropped at capacity factor {EP_FACTOR}: "
+        f"{dropped} of {pairs} (token, choice) pairs, share "
+        f"{dropped / pairs:.6f} (every forward: the step's and remat's)")
+    return {name: sum(res["launches"][name] for res in rs)
+            for name in rs[0]["launches"]}
+
+
+def _check_losses(tag: str, rs: list, first, tol) -> None:
+    """Every rank's losses finite, SHARDED_STEPS of them, the same on
+    every rank; the first within `tol` of `first` (None: not held)."""
     for r, res in enumerate(rs):
         if res.get("rc", 0) != 0 or len(res["loss"]) != SHARDED_STEPS \
                 or not all(map(math.isfinite, res["loss"])):
             raise AssertionError(f"[sharded-train] {tag} rank {r}: {res}")
-        if abs(res["loss"][0] - first) > 2e-2:
+        if tol is not None and abs(res["loss"][0] - first) > tol:
             raise AssertionError(
                 f"[sharded-train] {tag} rank {r}: first loss "
-                f"{res['loss'][0]} is not within 2e-2 of one process's "
+                f"{res['loss'][0]} is not within {tol} of one process's "
                 f"{first}")
-        want = _k2_want(n_layers, SHARDED_STEPS)
-        if res["launches"] != want:
-            raise AssertionError(f"[sharded-train] {tag} rank {r}: K2 "
-                                 f"launches {res['launches']}, expected "
-                                 f"{want}")
     for res in rs[1:]:
         if any(abs(a - b) > 1e-6 * abs(b)
                for a, b in zip(res["loss"], rs[0]["loss"])):
             raise AssertionError(
                 f"[sharded-train] {tag}: the ranks' global losses differ: "
                 f"{[res['loss'] for res in rs]}")
+
+
+def _check_sharded(tag: str, rs: list, first: float, n_layers: int) -> dict:
+    _check_losses(tag, rs, first, 2e-2)
+    for r, res in enumerate(rs):
+        want = _k2_want(n_layers, SHARDED_STEPS)
+        if res["launches"] != want:
+            raise AssertionError(f"[sharded-train] {tag} rank {r}: K2 "
+                                 f"launches {res['launches']}, expected "
+                                 f"{want}")
     return {name: sum(res["launches"][name] for res in rs)
             for name in rs[0]["launches"]}
 
@@ -5774,6 +6165,9 @@ def sharded_parity_phase() -> None:
         for tag, (case, axes, kw) in SHARDED_PARITY.items():
             want = u.CASES[case](None, device="cuda", **kw)
             worst = u.check(got[tag], want, adam=tag in ADAM_CASES, tag=tag)
+            if "ep" in axes and not got[tag]["ep_stats"]["dropped"]:
+                raise AssertionError(f"[sharded-parity] {tag}: the capacity "
+                                     f"dropped nothing")
             log(f"[sharded-parity] {tag} on {axes} = one process: worst "
                 f"rel loss {worst['loss']:.2e}, gnorm {worst['gnorm']:.2e}, "
                 f"params {worst['param']:.2e}"
@@ -5800,6 +6194,9 @@ def sharded_parity_phase() -> None:
 # over its 4 kv heads (parallel/tp.kv_cache_sharding)
 TP_H, TP_KV = H // 2, KV // 2
 TP_MESH = {"tp": 2}
+# tp-serve serves the first 8 of the serve phase's 16 prompts: one wave
+# of the 8 slots, since each decode step waits on gloo through the host
+TP_SERVE_REQUESTS = 8
 # tp-serve's first prefill, last position: tp 2's logits against one
 # process's on the same weights and prompt, relative error norm.  bf16:
 # each of the 64 row-parallel products a forward rounds its two partial
@@ -5895,7 +6292,7 @@ def _tp_serve_job() -> dict:
     bootstrap.initialize(device="cuda", backend="gloo")
     mesh = make_mesh(TP_MESH)
     cfg = llama.llama3_8b()
-    prompts = prompts_for(cfg, 16, 64, MAX_CTX, SEED + 1)
+    prompts = prompts_for(cfg, 16, 64, MAX_CTX, SEED + 1)[:TP_SERVE_REQUESTS]
     sh = kv_cache_sharding(cfg, mesh, 8)
     out = {}
     for run, int8 in (("a", False), ("b", True)):
@@ -6487,7 +6884,7 @@ def _phases(card: str, t_start: float, child) -> int:
     # Mixtral: every llama model above is freed; the card starts empty
     torch.cuda.empty_cache()
     lap("mixtral-serve", mixtral_serve_phase())
-    lap("mixtral-train", mixtral_train_phase())
+    mixtral = lap("mixtral-train", mixtral_train_phase())
     lap("entry-mixtral", entry_mixtral_phase())
     # the BERT/T5 and vision model zoo
     torch.cuda.empty_cache()
@@ -6508,9 +6905,10 @@ def _phases(card: str, t_start: float, child) -> int:
     lap("sharded-probe", sharded_probe_phase())
     k2tp = lap("kernel2-tp", kernel2_zoo_phase(TP_FLASH, "kernel2-tp",
                                                SEED + 85))
+    k3tp = lap("kernel3-tp", kernel3_tp_phase())
     sharded = lap("sharded-train", sharded_train_phase(
         train["losses"][0], train["peak_gib"], t5["first_loss"],
-        t5["peak_gib"]))
+        t5["peak_gib"], mixtral["losses"][0], mixtral["ep_plain"]))
     lap("sharded-parity", sharded_parity_phase())
     parity = lap("parity process (wait)", join_parity_child(child))
     # tensor-parallel serving: ranks share the card over gloo
@@ -6589,7 +6987,11 @@ def _phases(card: str, t_start: float, child) -> int:
                 "device_ms": t["device_ms"],
                 "library_device_ms": t["library_device_ms"]})
             if not suffix:
+                # the same shape (32 query, 8 kv heads, 1 x 2048):
+                # lora-train's launches, and both ranks' of the mixtral
+                # model with its experts over ep 2 (sharded-train (e))
                 rows[-1]["lora_launches"] = lora_run["launches"][name]
+                rows[-1]["ep_launches"] = sharded["ep"][name]
             if suffix == "_window":  # flex_attention is library_ms
                 rows[-1].update(
                     sdpa_band_ms=t["sdpa_band_ms"],
@@ -6637,20 +7039,25 @@ def _phases(card: str, t_start: float, child) -> int:
                 "rel_l2": {o: k2tp[label]["norms"][o]
                            for o in FLASH_OUTS[name]}})
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
-    # _dq_ring_kernel, _dkv_ring_kernel)
-    for name, line in (("ring_fwd", 71), ("ring_dq", 156), ("ring_dkv", 191)):
-        t = kern3["timings"][name]
-        rows.append({"name": name, "route": "cuda",
-                     "source": "tf_operator_tpu_torch/csrc/ring_flash.cu",
-                     "replaces": f"tf_operator_tpu/ops/ring_flash.py:{line}",
-                     "launches": ring_train["launches"][name],
-                     "max_abs_err": kern3["errs"][name],
-                     "ms": t["ms"], "kernel_ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"],
-                     "device_ms": t["device_ms"],
-                     "library_device_ms": t["library_device_ms"]})
+    # _dq_ring_kernel, _dkv_ring_kernel); the _tp2 rows: the same kernels
+    # at the ring over tp 2 (S_l = 1024), launched by sharded-train (c)'s
+    # two ranks
+    for suffix, kern, launches in (("", kern3, ring_train["launches"]),
+                                   ("_tp2", k3tp, sharded["ring"])):
+        for name, line in (("ring_fwd", 71), ("ring_dq", 156),
+                           ("ring_dkv", 191)):
+            t = kern["timings"][name]
+            rows.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "tf_operator_tpu_torch/csrc/ring_flash.cu",
+                "replaces": f"tf_operator_tpu/ops/ring_flash.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": kern["errs"][name],
+                "ms": t["ms"], "kernel_ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "device_ms": t["device_ms"],
+                "library_device_ms": t["library_device_ms"]})
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -162,15 +162,11 @@ def test_training_clis_run_as_two_ranks(ranks):
     (train_t5.main, ["--smoke", "--tp", "2"]),
 ])
 def test_tensor_and_expert_parallelism_stay_refused(main, argv, monkeypatch):
-    """--ep stays refused, naming its item, before the job starts; --tp
-    is a job's layout now (tests/test_torch_sharded.py trains it), so in
-    a job of two ranks without its rendezvous the bootstrap names what
-    is missing."""
+    """--tp and --ep are a job's layout now (tests/test_torch_sharded.py
+    and test_torch_ep.py train them), so in a job of two ranks without
+    its rendezvous the bootstrap names what is missing, as the JAX
+    script's bootstrap runs before its --ep checks."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("MASTER_ADDR", raising=False)
-    if "--ep" in argv:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            main(argv + ["--device", "cpu"])
-    else:
-        with pytest.raises(ValueError, match="MASTER_ADDR"):
-            main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        main(argv + ["--device", "cpu"])

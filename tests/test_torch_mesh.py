@@ -190,7 +190,13 @@ def _opt_node(opt_state, field):
 @pytest.mark.parametrize("axes", MESHES, ids=["tp2fsdp2dp2", "tp4fsdp2"])
 @pytest.mark.parametrize("kind", sorted(MODELS))
 def test_state_sharding_matches_jax_leaf_by_leaf(kind, axes, min_size, opt):
-    model_j, cfg_j, make = MODELS[kind]()
+    check_state_sharding(*MODELS[kind](), axes, min_size, opt)
+
+
+def check_state_sharding(model_j, cfg_j, make, axes, min_size, opt):
+    """Every leaf's spec of the port's state_sharding (the parameters
+    and the optimizer state, adafactor or adam) against JAX's on the
+    mesh of `axes`."""
     shapes = _jax_shapes(model_j, cfg_j)
     tx_j = optax.adafactor(1e-3) if opt == "adafactor" else optax.adam(1e-3)
     state_j = jtr.TrainState(

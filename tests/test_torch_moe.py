@@ -274,8 +274,34 @@ def test_config_checks_carry_jax_messages(kw):
 
 
 def test_moe_dispatch_fn_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tl.tiny(n_experts=4, moe_dispatch_fn=lambda *a: a)
+    """A dispatch function is taken now (parallel/ep.make_switch_moe,
+    tests/test_torch_ep.py): the config refuses only one whose routing
+    arity differs from moe_top_k, in JAX's words, and MoeSwiGlu calls it
+    wherever JAX's does, every forward but a one-token decode step."""
+    calls = []
+
+    def fn(x, logits, wi, wo, tp=None):
+        calls.append(tuple(x.shape))
+        return torch.zeros_like(x), torch.ones((), dtype=torch.float32)
+
+    fn.top_k = 2
+    with pytest.raises(ValueError) as jerr:
+        jl.tiny(n_experts=4, moe_top_k=1, moe_dispatch_fn=fn)
+    with pytest.raises(ValueError) as terr:
+        tl.tiny(n_experts=4, moe_top_k=1, moe_dispatch_fn=fn)
+    assert str(terr.value) == str(jerr.value)
+    cfg = tl.tiny(dtype=torch.float32, n_experts=4, moe_every=1,
+                  moe_top_k=2, moe_dispatch_fn=fn)
+    moe = tl.Llama.from_params(cfg, bridge.init_params(cfg, 0, device="cpu"),
+                               device="cpu").blocks[0].moe
+    x = torch.ones((2, 3, cfg.d_model))
+    assert torch.equal(moe(x), torch.zeros_like(x))
+    assert float(moe.aux_loss) == 1.0
+    moe(x, decode=True)
+    assert calls == [(2, 3, cfg.d_model)] * 2
+    out = moe(x[:, :1], decode=True)          # the gather path
+    assert calls == [(2, 3, cfg.d_model)] * 2 and float(out.abs().sum()) > 0
+    assert float(moe.aux_loss) == 0.0
 
 
 def test_mixtral_preset_and_active_flops_match_jax():

@@ -285,13 +285,22 @@ def test_train_llama_ring_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,env,error,match", [
-    (["--tp", "2"], {}, NotImplementedError, "item 11g"),
+    # one process: JAX's local_mesh_axes clamps tp to 1, a ring of one
+    # member (tests/test_torch_ring_tp.py runs the ring over tp 2 ranks)
+    (["--tp", "2", "--steps", "1", "--per-host-batch", "1", "--seq-len",
+      "16"], {}, None, "ring attention over LocalRing(1)"),
     # a job of several processes is data parallel (a ring of one member
     # each); without its rendezvous address the bootstrap names it
     ([], {"WORLD_SIZE": "2"}, ValueError, "MASTER_ADDR")])
 def test_train_llama_ring_refuses_tp_and_processes(argv, env, error, match,
-                                                   monkeypatch):
+                                                   monkeypatch, capsys):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    argv = ["--smoke", "--ring", "--device", "cpu"] + argv
+    if error is None:
+        assert ttl.main(argv) == 0
+        out = capsys.readouterr().out
+        assert match in out and "'tp': 1}" in out
+        return
     with pytest.raises(error, match=match):
-        ttl.main(["--smoke", "--ring", "--device", "cpu"] + argv)
+        ttl.main(argv)

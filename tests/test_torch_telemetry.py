@@ -323,7 +323,11 @@ def _instrumented(fn, mod, tel_cls, tracer_cls, n):
     out = fn(tel_cls(tracer=tracer, reqtrace=rec))
     h1, c1 = _hist_counts(mod), _counters(mod)
     seen = {
-        "hist": {n_: {k: v - h0[n_].get(k, 0) for k, v in h1[n_].items()}
+        # the series this run observed: one that another test in the
+        # process left behind, and this run did not touch, is no part of
+        # it (tests/test_torch_tp_serving.py's handoffs leave the port's)
+        "hist": {n_: {k: v - h0[n_].get(k, 0) for k, v in h1[n_].items()
+                      if v != h0[n_].get(k, 0)}
                  for n_ in _HISTS},
         "counters": _delta(c1, c0),
         "gauges": {k: {_kernel_key(a): b for a, b in v.items()}

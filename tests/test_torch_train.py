@@ -466,20 +466,25 @@ def test_train_llama_smoke_on_cpu(capsys):
                                    "--per-host-batch", "1",
                                    "--seq-len", "16"]])
 def test_train_llama_refuses_what_is_not_ported(flag, capsys):
-    """--ep and --tp with --ring name their ROADMAP item; --model mixtral
-    (ported) trains, as the JAX script does, and so does --tp 2 in one
-    process: the mesh {"tp": 1}, as JAX's local_mesh_axes clamps it
-    (tests/test_torch_sharded.py trains tp 2 in a job of two)."""
+    """train_llama refuses nothing now.  --model mixtral trains, as the
+    JAX script does, and so do --tp 2 and --ring --tp 2 in one process:
+    the mesh {"tp": 1}, as JAX's local_mesh_axes clamps it, the ring one
+    member (tests/test_torch_sharded.py and test_torch_ring_tp.py train
+    tp 2 in a job); --ep on a dense model exits with the JAX script's
+    message (tests/test_torch_ep.py trains --ep 2 in a job)."""
     argv = ["--smoke", "--device", "cpu"] + flag
-    if flag == ["--tp", "2"]:
+    if flag == ["--ep", "2"]:
+        with pytest.raises(SystemExit, match="--ep only applies to "
+                           "--model=mixtral"):
+            ttl.main(argv)
+        return
+    if "--tp" in flag:
         assert ttl.main(argv + ["--steps", "2", "--per-host-batch", "1",
                                 "--seq-len", "16"]) == 0
         out = capsys.readouterr().out
         assert "'tp': 1}" in out and "complete: steps=2" in out
+        assert ("ring attention over LocalRing(1)" in out) == (
+            "--ring" in flag)
         return
-    if "mixtral" in flag:
-        assert ttl.main(argv) == 0
-        assert "complete: steps=2" in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttl.main(argv)
+    assert ttl.main(argv) == 0
+    assert "complete: steps=2" in capsys.readouterr().out

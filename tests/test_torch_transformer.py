@@ -340,7 +340,8 @@ def test_init_transformer_params_draws_flax_scales():
 def test_mlm_batches_mask_and_refusals():
     """train_bert's batches: 15 % masked ([MASK] in, the token as label),
     the rest labelled -100; a config naming an expert-parallel dispatch
-    is refused with its ROADMAP item."""
+    is taken, and its MoE blocks call it (tests/test_torch_ep.py holds
+    make_switch_moe's against JAX's)."""
     tokens, labels = next(train_bert.mlm_batches(8, 64, 1000, 0,
                                                  device="cpu"))
     masked = labels >= 0
@@ -349,5 +350,13 @@ def test_mlm_batches_mask_and_refusals():
     assert bool((labels[~masked] == -100).all())
     again, _ = next(train_bert.mlm_batches(8, 64, 1000, 0, device="cpu"))
     assert torch.equal(tokens, again)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tt.tiny(n_experts=2, moe_dispatch_fn=lambda *a: a)
+    seen = []
+
+    def dispatch(x, logits, wi, wo, tp=None):
+        seen.append(tuple(logits.shape))
+        return x * 0, torch.zeros(())
+
+    cfg = tt.tiny(n_experts=2, moe_every=1, n_layers=1, dtype=torch.float32,
+                  moe_dispatch_fn=dispatch)
+    tt.Transformer(cfg)(tokens[:2, :8] % cfg.vocab_size, train=False)
+    assert seen == [(2, 8, 2)]

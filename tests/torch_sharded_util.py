@@ -40,10 +40,20 @@ def tokens(seed: int, vocab: int, seq: int, steps: int = STEPS):
             for _ in range(steps)]
 
 
+_MESHES = {}
+
+
 def _mesh(axes):
+    """The job's mesh of `axes`, made once a process (each make_mesh
+    makes a process group per set of its axes)."""
     from tf_operator_tpu_torch.parallel.mesh import make_mesh
 
-    return None if axes is None else make_mesh(axes)
+    if axes is None:
+        return None
+    key = tuple(sorted(axes.items()))
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(axes)
+    return _MESHES[key]
 
 
 def _rows(x: np.ndarray, model):
@@ -57,6 +67,13 @@ def _rows(x: np.ndarray, model):
     i, n = pl.data_index()
     per = x.shape[0] // n
     return torch.from_numpy(x[i * per:(i + 1) * per]).to(dev)
+
+
+def _gather_ranks(mine):
+    """Every rank's `mine`, in rank order (rank 0 keeps the list)."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
 
 
 def _build(make, cfg, full, mesh, min_fsdp_size, device):
@@ -167,23 +184,85 @@ def _tx(name: str):
             "adamw": lambda: AdamW(1e-3, weight_decay=0.01)}[name]()
 
 
+def ep_oracle(n_ep: int, n_experts: int, factor: float, top_k: int = 2,
+              activation: str = "swiglu"):
+    """A one-process oracle of JAX's expert-parallel dispatch: the global
+    token list split into n_ep contiguous blocks of the padded count's
+    share (the last ones short, or empty, where it does not divide),
+    each block's real rows through dense_reference_moe at
+    make_switch_moe's capacity, the aux the blocks' mean weighted by
+    their real tokens.  `run.stats` counts the (token, choice) pairs
+    routed and dropped."""
+    from tf_operator_tpu_torch.parallel.ep import (dense_reference_moe,
+                                                   topk_route)
+
+    def run(x, logits, wi, wo, tp=None):
+        assert tp is None
+        b, s, d = x.shape
+        t = b * s
+        local = -(-t // n_ep)
+        cap = max(1, math.ceil(local * top_k / n_experts * factor))
+        xf, lf = x.reshape(t, d), logits.reshape(t, -1)
+        ys, aux_sum = [], 0.0
+        for i in range(n_ep):
+            rows = slice(i * local, min((i + 1) * local, t))
+            n = max(0, rows.stop - rows.start)
+            if n == 0:
+                continue
+            y, aux = dense_reference_moe(
+                xf[rows][None], lf[rows][None], wi.to(x.dtype),
+                wo.to(x.dtype), cap, activation, top_k)
+            ys.append(y[0])
+            aux_sum = aux_sum + aux * n
+            with torch.no_grad():
+                dispatch, _, _ = topk_route(lf[rows].float(), cap, top_k)
+            run.stats["pairs"] += n * top_k
+            run.stats["dropped"] += n * top_k - int(dispatch.sum())
+        return torch.cat(ys).reshape(b, s, d), aux_sum / t
+
+    run.top_k = top_k
+    run.stats = {"pairs": 0, "dropped": 0}
+    return run
+
+
 def llama_case(axes, full=None, toks=None, moe=False, d_ff=128,
                tied=True, opt="adafactor", min_fsdp_size=0, lora_rank=0,
+               ring=False, window=None, ep=None, remat=False,
                device="cpu"):
     """A tiny f32 Llama under train_llama's step (blocked CE over the
     tied embedding, or the untied lm_loss), from `full` (default the
     seeded draws) on `toks` (default seeded); `moe`: the mixtral smoke
-    model; `lora_rank`: LoRA adapters of that rank train alone."""
+    model; `lora_rank`: LoRA adapters of that rank train alone; `ring`:
+    attention through the ring over tp (one process: flash attention,
+    the same function); `window`: mistral's sliding window; `remat`:
+    each block recomputed in the backward; `ep` =
+    (ep size, capacity factor): the experts dispatched by
+    make_switch_moe over the mesh (one process: ep_oracle)."""
     from tf_operator_tpu_torch import train_llama
     from tf_operator_tpu_torch.models import bridge, llama, lora
+    from tf_operator_tpu_torch.ops.ring_flash import (
+        make_ring_flash_attention_fn)
+    from tf_operator_tpu_torch.parallel.ep import make_switch_moe
     from tf_operator_tpu_torch.runtime.train import TrainState
 
-    extra = train_llama.SMOKE_MOE if moe else {}
+    mesh = _mesh(axes)
+    extra = dict(train_llama.SMOKE_MOE) if moe else {}
+    if ep is not None:
+        n_ep, factor = ep
+        extra["moe_dispatch_fn"] = (
+            ep_oracle(n_ep, extra["n_experts"], factor) if mesh is None
+            else make_switch_moe(mesh, extra["n_experts"], factor,
+                                 activation="swiglu", top_k=2))
+        assert mesh is None or mesh.shape["ep"] == n_ep
+    attn = flash_attention if tied else None
+    if ring and mesh is not None:
+        attn = make_ring_flash_attention_fn(mesh, "tp")
     cfg = llama.tiny(tie_embeddings=tied, dtype=torch.float32, d_ff=d_ff,
-                     attention_fn=flash_attention if tied else None, **extra)
+                     attention_fn=attn, sliding_window=window, remat=remat,
+                     **extra)
     if full is None:
         full = bridge.init_params(cfg, 0, device="cpu", train=True)
-    model = _build(LLAMA, cfg, full, _mesh(axes), min_fsdp_size, device)
+    model = _build(LLAMA, cfg, full, mesh, min_fsdp_size, device)
     params = None
     if lora_rank:
         gen = torch.Generator().manual_seed(3)
@@ -195,8 +274,15 @@ def llama_case(axes, full=None, toks=None, moe=False, d_ff=128,
     state = TrainState.create(model, _tx(opt), params=params)
     if toks is None:
         toks = tokens(1, cfg.vocab_size, 32)
-    return _train(model, state, train_llama.make_lm_step(model),
-                  [(t,) for t in toks])
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+
+    ep_mod.reset_stats()
+    out = _train(model, state, train_llama.make_lm_step(model),
+                 [(t,) for t in toks])
+    if ep is not None:
+        out["ep_stats"] = (extra["moe_dispatch_fn"].stats if mesh is None
+                           else ep_mod.read_stats())
+    return out
 
 
 def transformer_case(axes, full=None, toks=None, opt="adafactor",
@@ -343,8 +429,231 @@ def cli_case(axes, ckpt_dir: str):
             "t5": _quiet(train_t5.main, ["--smoke", "--blocked-ce"] + cpu)}
 
 
+# ring over tp: (mesh axes, heads, kv heads, causal, window)
+RING_B, RING_S, RING_D = 2, 64, 16
+RING_CASES = {
+    "tp2_gqa": ({"tp": 2, "dp": 4}, 4, 2, True, None),
+    "tp4_kv2_window": ({"tp": 4, "dp": 2}, 8, 2, True, 20),
+    "tp4_kv3_full": ({"tp": 4, "fsdp": 2}, 12, 3, False, None),
+    "tp8_kv2_window": ({"tp": 8}, 8, 2, True, 24),
+}
+
+
+def ring_inputs(seed: int, h: int, kv: int):
+    """Global q, k, v, dO ([B, S, heads, D] f32 numpy) of a ring case."""
+    rng = np.random.default_rng(seed)
+    f = lambda n: rng.standard_normal(  # noqa: E731
+        (RING_B, RING_S, n, RING_D)).astype(np.float32)
+    return f(h), f(kv), f(kv), f(h)
+
+
+def ring_fn_case(axes, h, kv, causal, window, seed, device="cpu"):
+    """make_ring_flash_attention_fn(mesh, "tp") on this rank's heads as a
+    tp-placed model hands them over (its query heads, the kv heads they
+    read: parallel/tp.kv_heads_of), forward and backward against dO;
+    returns every rank's (tp coordinate, kv head ids, out, dq, dk, dv)."""
+    from tf_operator_tpu_torch.ops.ring_flash import (
+        make_ring_flash_attention_fn)
+    from tf_operator_tpu_torch.parallel.tp import kv_heads_of
+
+    mesh = _mesh(axes)
+    n, t = mesh.shape["tp"], mesh.coords()["tp"]
+    q, k, v, do = ring_inputs(seed, h, kv)
+    hl = h // n
+    ids = kv_heads_of(h, kv, t, n)
+    leaves = [torch.from_numpy(np.ascontiguousarray(a)).to(
+        device).requires_grad_()
+        for a in (q[:, :, t * hl:(t + 1) * hl], k[:, :, ids], v[:, :, ids])]
+    fn = make_ring_flash_attention_fn(mesh, "tp")
+    out = fn(*leaves, causal, window=window, n_kv_heads=kv)
+    out.backward(torch.from_numpy(np.ascontiguousarray(
+        do[:, :, t * hl:(t + 1) * hl])).to(device))
+    mine = dict(tp=t, ids=ids, ring_rank=fn.ring.rank,
+                peer=fn.ring.peer(1), out=out.detach().cpu(),
+                grads=[x.grad.cpu() for x in leaves])
+    return _gather_ranks(mine)
+
+
+# expert dispatch: (mesh axes, batch, seq, experts, capacity factor,
+# top_k, activation, replicated: every rank passes the global batch
+# outside a step, else each data member its rows inside dp.replicas)
+EP_D, EP_F = 16, 32
+EP_CASES = {
+    "ep2_ragged_top1_drops": ({"ep": 2, "tp": 4}, 3, 7, 8, 1.25, 1,
+                              "gelu", False),
+    "ep2_ragged_top2_swiglu": ({"ep": 2, "tp": 4}, 3, 7, 8, 8.0, 2,
+                               "swiglu", False),
+    "ep4_dp2_ragged_top2_drops": ({"ep": 4, "dp": 2}, 2, 7, 8, 1.25, 2,
+                                  "swiglu", False),
+    "ep4_dp2_top1_drops": ({"ep": 4, "dp": 2}, 4, 16, 8, 1.0, 1, "gelu",
+                           False),
+    "ep4_dp2_replicated_ragged_top2_drops": ({"ep": 4, "dp": 2}, 3, 7, 8,
+                                             1.25, 2, "swiglu", True),
+    "ep4_dp2_replicated_top1_drops": ({"ep": 4, "dp": 2}, 4, 16, 8, 1.0, 1,
+                                      "gelu", True),
+}
+
+
+def ep_inputs(seed: int, b: int, s: int, n_e: int, act: str):
+    """x [b, s, D], router logits [b, s, E], wi [E, D, F'] (2F packed
+    for swiglu), wo [E, F, D] and the loss weights R [b, s, D] (f32
+    numpy)."""
+    rng = np.random.default_rng(seed)
+    f_in = 2 * EP_F if act == "swiglu" else EP_F
+    n = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa
+    return (n(b, s, EP_D), n(b, s, n_e), n(n_e, EP_D, f_in) / EP_D ** 0.5,
+            n(n_e, EP_F, EP_D) / EP_F ** 0.5, n(b, s, EP_D))
+
+
+def ep_fn_case(axes, b, s, n_e, factor, top_k, act, replicated, seed,
+               device="cpu"):
+    """make_switch_moe over the mesh on this rank's block of experts and
+    either the global batch (replicated: outside a step, the loss
+    sum(y·R) + 0.01·aux) or its data member's rows inside dp.replicas
+    over the data axes (the loss n_data·sum(y·R) + 0.01·aux, so that the
+    data members' mean gradient is that of JAX's sum(y·R) + 0.01·aux).
+    Returns every rank's (data member, ep coordinate, y, aux, the
+    gradients of x and the logits divided by n_data, those of its expert
+    blocks, and the dispatch's drop counts)."""
+    from tf_operator_tpu_torch.parallel import dp
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+    from tf_operator_tpu_torch.parallel.mesh import BATCH_AXES
+
+    mesh = _mesh(axes)
+    m, n_data = mesh.axis_index(BATCH_AXES), mesh.axis_size(BATCH_AXES)
+    if replicated:
+        m, n_data = 0, 1
+    e, n_ep = mesh.coords()["ep"], mesh.shape["ep"]
+    x, lg, wi, wo, r = ep_inputs(seed, b, s, n_e, act)
+    rows = slice(m * b // n_data, (m + 1) * b // n_data)
+    blk = slice(e * n_e // n_ep, (e + 1) * n_e // n_ep)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(  # noqa
+        device).requires_grad_()
+    leaves = [t(x[rows]), t(lg[rows]), t(wi[blk]), t(wo[blk])]
+    fn = ep_mod.make_switch_moe(mesh, n_e, factor, activation=act,
+                                top_k=top_k)
+    ep_mod.reset_stats()
+    with dp.replicas(None if replicated else mesh.group(BATCH_AXES)):
+        y, aux = fn(*leaves)
+        loss = n_data * (y * torch.from_numpy(r[rows]).to(device)).sum() \
+            + 0.01 * aux
+        loss.backward()
+    g = [p.grad.cpu() for p in leaves]
+    mine = dict(member=m, n_data=n_data, ep=e, y=y.detach().cpu(),
+                aux=aux.item(), dx=g[0] / n_data, dlogits=g[1] / n_data,
+                dwi=g[2], dwo=g[3], stats=ep_mod.read_stats())
+    return _gather_ranks(mine)
+
+
+def ep_aux_case(axes, seed, device="cpu"):
+    """test_ep.py:167's inputs as the global batch: the aux loss of 64
+    tokens and of the same tokens minus the last (63, padded to 64)."""
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+
+    fn = ep_mod.make_switch_moe(_mesh(axes), 8, 8.0)
+    x, lg, wi, wo, _ = (torch.from_numpy(a).to(device)
+                        for a in ep_inputs(seed, 4, 16, 8, "gelu"))
+    _, even = fn(x, lg, wi, wo)
+    _, ragged = fn(x.reshape(1, 64, -1)[:, :63],
+                   lg.reshape(1, 64, -1)[:, :63], wi, wo)
+    return dict(even=even.item(), ragged=ragged.item())
+
+
+def ep_refusal_case(axes, device="cpu"):
+    """make_switch_moe inside dp.replicas over the job's every rank,
+    which is not the mesh's data axes: the refusal's message."""
+    from tf_operator_tpu_torch.parallel import dp
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+
+    fn = ep_mod.make_switch_moe(_mesh(axes), 8, 1.25)
+    x, lg, wi, wo, _ = (torch.from_numpy(a).to(device)
+                        for a in ep_inputs(0, 2, 4, 8, "gelu"))
+    try:
+        with dp.replicas(dist.group.WORLD):
+            fn(x, lg, wi, wo)
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def generate_case(axes, full, prompt, cfg_kw, factor, placed=False,
+                  device="cpu"):
+    """llama.generate of the tiny MoE model with make_switch_moe over the
+    mesh as its dispatch function (JAX's test_ep.py:192): prefill through
+    the all-to-all, decode steps through the gather path.  Whole
+    parameters on every rank, the prompts the global batch; or
+    (placed=True) the model sharded over the mesh (its experts over ep,
+    gathered for each decode step) with the cache
+    parallel/tp.kv_cache_sharding places: its kv heads over tp, and its
+    rows over the data axes where they divide them, each data member
+    then prefilling its own rows.  Returns the tokens, the prefill's
+    hidden states (generate's first model call) and the dispatch's drop
+    counts."""
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+    from tf_operator_tpu_torch.parallel.placement import shard_model
+    from tf_operator_tpu_torch.parallel.tp import kv_cache_sharding
+
+    mesh = _mesh(axes)
+    fn = ep_mod.make_switch_moe(mesh, cfg_kw["n_experts"], factor,
+                                activation="swiglu",
+                                top_k=cfg_kw.get("moe_top_k", 1))
+    cfg = llama.tiny(dtype=torch.float32, moe_dispatch_fn=fn, **cfg_kw)
+    kw = {}
+    if placed:
+        with torch.device("meta"):
+            model = llama.Llama(cfg)
+        shard_model(model, mesh, full, device=device, requires_grad=False)
+        kw["cache_sharding"] = kv_cache_sharding(cfg, mesh, prompt.shape[0])
+    else:
+        model = llama.Llama.from_params(cfg, full, device=device)
+    ep_mod.reset_stats()
+    calls = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: calls.append(out.detach().cpu()))
+    out = llama.generate(model, torch.from_numpy(prompt).to(device), 6,
+                         device=device, **kw)
+    hook.remove()
+    return dict(tokens=out.cpu(), prefill_hidden=calls[0],
+                stats=ep_mod.read_stats())
+
+
+def transformer_ep_case(axes, full, toks, cfg_kw, factor, device="cpu"):
+    """The tiny MoE Transformer's forward (test_ep.py:101) with
+    make_switch_moe over the mesh as its dispatch function, every rank
+    the whole batch (an eval forward).  Returns the logits and the
+    dispatch's drop counts."""
+    from tf_operator_tpu_torch.models import transformer as tt
+    from tf_operator_tpu_torch.models.transformer_bridge import (
+        transformer_from_params)
+    from tf_operator_tpu_torch.parallel import ep as ep_mod
+
+    mesh = _mesh(axes)
+    cfg = tt.tiny(dtype=torch.float32, moe_dispatch_fn=ep_mod.make_switch_moe(
+        mesh, cfg_kw["n_experts"], factor), **cfg_kw)
+    model = transformer_from_params(cfg, full, device=device)
+    ep_mod.reset_stats()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(toks).to(device), train=False)
+    return dict(logits=logits.cpu(), stats=ep_mod.read_stats())
+
+
+def cli_parallel_case(axes, argv, device="cpu"):
+    """train_llama with `argv` as this rank of a job of WORLD_SIZE ranks
+    (the group is already up, so bootstrap uses it)."""
+    from tf_operator_tpu_torch import train_llama
+
+    os.environ.update(WORLD_SIZE=str(dist.get_world_size()),
+                      RANK=str(dist.get_rank()))
+    return _quiet(train_llama.main, ["--device", "cpu"] + argv)
+
+
 CASES = {"llama": llama_case, "transformer": transformer_case,
-         "train_step": train_step_case, "ckpt": ckpt_case, "cli": cli_case}
+         "train_step": train_step_case, "ckpt": ckpt_case, "cli": cli_case,
+         "ring_fn": ring_fn_case, "ep_fn": ep_fn_case, "ep_aux": ep_aux_case,
+         "ep_refusal": ep_refusal_case, "generate": generate_case,
+         "transformer_ep": transformer_ep_case,
+         "cli_parallel": cli_parallel_case}
 
 
 def _worker(rank, n, init_file, out_path, jobs):

@@ -48,7 +48,7 @@ from tf_operator_tpu_torch.models import paging
 from tf_operator_tpu_torch.models import quant
 from tf_operator_tpu_torch.models.quant import QTensor, quantize_tensor
 from tf_operator_tpu_torch.models.transformer import dot_product_attention
-from tf_operator_tpu_torch.parallel import comm, ep
+from tf_operator_tpu_torch.parallel import comm, dp, ep
 from tf_operator_tpu_torch.parallel.tp import (
     KvCacheSharding, check_cache_sharding, kv_cache_sharding, kv_heads_of)
 
@@ -97,8 +97,9 @@ class LlamaConfig:
     # experts per token: 1 = Switch (gate by the raw argmax prob), 2 =
     # Mixtral (top-2, gates renormalized over the selected experts)
     moe_top_k: int = 1
-    # the JAX package's all-to-all expert-parallel dispatch; the port has
-    # none yet (a config that sets it is refused)
+    # expert-parallel all-to-all dispatch (parallel/ep.make_switch_moe):
+    # training and multi-token prefill route through it; None = the
+    # sparse grouped_moe over every expert this process holds
     moe_dispatch_fn: Optional[Callable] = None
 
     def __post_init__(self):
@@ -120,10 +121,14 @@ class LlamaConfig:
             raise ValueError(
                 f"moe_top_k {self.moe_top_k} out of range "
                 f"[1, {self.n_experts}]")
-        if self.moe_dispatch_fn is not None:
-            raise NotImplementedError(
-                "moe_dispatch_fn (expert-parallel all-to-all dispatch) is "
-                "not ported yet (ROADMAP Queue 1, item 11: distributed)")
+        fn_k = getattr(self.moe_dispatch_fn, "top_k", None)
+        if fn_k is not None and fn_k != self.moe_top_k:
+            # the dispatch fn routes prefill and training, the decode
+            # step routes by moe_top_k: one generate must not mix two
+            raise ValueError(
+                f"moe_dispatch_fn routes top-{fn_k} but moe_top_k="
+                f"{self.moe_top_k}; pass top_k={self.moe_top_k} to "
+                f"make_switch_moe")
 
     def use_moe(self, layer: int) -> bool:
         """Is block `layer` a sparse (MoE) block?"""
@@ -421,14 +426,18 @@ class MoeSwiGlu(nn.Module):
     last axis) and wo [E, F, D], stored in `wdt` (or int8 with per-expert,
     per-output scales) and used in cfg.dtype.  The forward is
     parallel/ep.grouped_moe: the JAX package's dense dispatch computed
-    over the chosen experts only.  The load-balancing aux loss of the
-    last call stays in `aux_loss` (flax's sow): 0 at a single-token
-    decode step, as JAX sows there.  The tied model's blocked training
-    loss (ops/blocked_ce.lm_blocked_loss) adds it, weighted, as the JAX
-    package's does; the untied LM loss does not, as JAX's lm_loss does
-    not."""
+    over the chosen experts only; or, where cfg.moe_dispatch_fn is set
+    (parallel/ep.make_switch_moe), that function on every forward but a
+    single-token decode step, as JAX calls it: training and multi-token
+    prefill, the experts this rank holds over ep.  The load-balancing aux
+    loss of the last call stays in `aux_loss` (flax's sow): 0 at a
+    single-token decode step, as JAX sows there.  The tied model's
+    blocked training loss (ops/blocked_ce.lm_blocked_loss) adds it,
+    weighted, as the JAX package's does; the untied LM loss does not, as
+    JAX's lm_loss does not."""
 
     tp = None
+    ep = None  # parallel/placement: the ep group of an expert-sharded bank
     packed_swiglu = True  # wi's last axis is [gate | up]
 
     def __init__(self, cfg: LlamaConfig, wdt: torch.dtype) -> None:
@@ -439,30 +448,45 @@ class MoeSwiGlu(nn.Module):
         self.router = _weight(d, e, dtype=torch.float32)
         self.wi = _weight(e, d, 2 * f, dtype=wdt)
         self.wo = _weight(e, f, d, dtype=wdt)
+        self.dispatch_fn = cfg.moe_dispatch_fn
         self.aux_loss: Optional[torch.Tensor] = None
 
-    def _experts(self, name: str):
+    def _experts(self, name: str, whole: bool = False):
+        """An expert bank as this rank holds it (whole=True: every
+        expert, an ep-sharded bank gathered over ep)."""
         w = getattr(self, name)
         if w.dtype == torch.int8:
-            return QTensor(w, getattr(self, name + "_scale"))
+            w = QTensor(w, getattr(self, name + "_scale"))
+        if whole and self.ep is not None:
+            if isinstance(w, QTensor):
+                return QTensor(comm.all_gather_cat(w.q, self.ep, 0),
+                               comm.all_gather_cat(w.scale, self.ep, 0))
+            return comm.gather_out(w, self.ep, 0)
         return w
 
     def forward(self, x: torch.Tensor, decode: bool = False) -> torch.Tensor:
         logits = x.float() @ self.router                       # [B, L, E]
+        step = decode and x.shape[1] == 1
+        fn = self.dispatch_fn
+        if fn is not None and not step:
+            out, self.aux_loss = fn(x, logits, self._experts("wi"),
+                                    self._experts("wo"), tp=self.tp)
+            return out
         if self.tp is not None:
             # the experts' F columns are this rank's (wi: its gate and up
             # columns); the router and its aux loss stay whole on every
             # rank, outside the parallel region
             tp = self.tp
             out, _ = ep.grouped_moe(tp.enter(x), tp.enter(logits),
-                                    self._experts("wi"),
-                                    self._experts("wo"), top_k=self.top_k,
+                                    self._experts("wi", True),
+                                    self._experts("wo", True),
+                                    top_k=self.top_k,
                                     dtype=self.dtype, with_aux=False)
             self.aux_loss = ep.route_aux(logits, self.top_k)
             return tp.exit(out)
-        step = decode and x.shape[1] == 1
-        out, aux = ep.grouped_moe(x, logits, self._experts("wi"),
-                                  self._experts("wo"), top_k=self.top_k,
+        out, aux = ep.grouped_moe(x, logits, self._experts("wi", True),
+                                  self._experts("wo", True),
+                                  top_k=self.top_k,
                                   dtype=self.dtype, with_aux=not step)
         self.aux_loss = (torch.zeros((), dtype=torch.float32, device=x.device)
                          if step else aux)
@@ -555,6 +579,14 @@ class GqaAttention(nn.Module):
             kw = {}
             if cfg.sliding_window is not None:
                 kw["window"] = cfg.sliding_window
+            if getattr(attn, "tp_heads", False):
+                # a ring over tp (ops/ring_flash's mesh form) exchanges
+                # this rank's heads for a sequence block of every head
+                if tp is None:
+                    raise ValueError(
+                        "a ring over tp runs on a tp-placed model's heads "
+                        "(parallel/placement.shard_model)")
+                kw["n_kv_heads"] = cfg.n_kv_heads
             out = attn(q, k, v, True, **kw)
         out = out.reshape(b, l, h * d) @ _dense(self, "out", dt).view(h * d,
                                                                      e)
@@ -762,11 +794,14 @@ class Llama(nn.Module):
         rows = self._data_rows(cache, tokens.shape[0], block_table)
         if rows is not None:
             # dense rings split over the data axes: this data member's
-            # rows, then every row's output from the member holding it
+            # rows (a block of the batch over the data axes, as in a
+            # training step: what an expert dispatch reads), then every
+            # row's output from the member holding it
             if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
                 cache_pos = cache_pos[rows]
-            out = self._decode(tokens[rows], cache, cache_pos, None,
-                               return_hidden)
+            with dp.replicas(self.placement.batch_group):
+                out = self._decode(tokens[rows], cache, cache_pos, None,
+                                   return_hidden)
             return comm.all_gather_cat(out, self.placement.batch_group, 0)
         return self._decode(tokens, cache, cache_pos, block_table,
                             return_hidden)

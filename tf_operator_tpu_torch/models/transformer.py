@@ -72,8 +72,8 @@ class TransformerConfig:
     # MoE: replace the MLP with a mixture of experts every `moe_every` blocks
     n_experts: int = 0
     moe_every: int = 2
-    # the JAX package's all-to-all expert-parallel dispatch; the port has
-    # none yet (a config that sets it is refused)
+    # expert-parallel all-to-all dispatch (parallel/ep.make_switch_moe);
+    # None = the dense masked dispatch
     moe_dispatch_fn: Optional[Callable] = None
 
     def __post_init__(self):
@@ -81,10 +81,6 @@ class TransformerConfig:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads "
                 f"{self.n_heads}")
-        if self.moe_dispatch_fn is not None:
-            raise NotImplementedError(
-                "moe_dispatch_fn (expert-parallel all-to-all dispatch) is "
-                "not ported yet (ROADMAP Queue 1, item 11: distributed)")
 
     def use_moe(self, layer: int) -> bool:
         """Is block `layer` a mixture-of-experts block?"""
@@ -228,11 +224,16 @@ class MoeMlp(nn.Module):
     """Mixture-of-experts MLP: top-1 switch routing by an f32 router
     over x in f32, every token through the dense masked dispatch
     (parallel/ep.dense_switch_dispatch, GELU experts, capacity = tokens)
-    in cfg.dtype.  The load-balancing loss of the last call stays in
-    `aux_loss`.  Under tensor parallelism the experts hold this rank's
-    F columns; the router and the aux loss stay whole on every rank."""
+    in cfg.dtype, or, where cfg.moe_dispatch_fn is set
+    (parallel/ep.make_switch_moe), through that all-to-all dispatch.  The
+    load-balancing loss of the last call stays in `aux_loss`.  Under
+    tensor parallelism the experts hold this rank's F columns; the
+    router and the aux loss stay whole on every rank.  Under expert
+    parallelism they hold this rank's experts (ep is then the group the
+    dense dispatch gathers them over)."""
 
     tp = None
+    ep = None
 
     def __init__(self, cfg: TransformerConfig) -> None:
         super().__init__()
@@ -241,21 +242,27 @@ class MoeMlp(nn.Module):
         self.router = _param(d, e)
         self.wi = _param(e, d, f)
         self.wo = _param(e, f, d)
+        self.dispatch_fn = cfg.moe_dispatch_fn
         self.aux_loss: Optional[torch.Tensor] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         logits = x.float() @ self.router                        # [B, S, X]
+        if self.dispatch_fn is not None:
+            out, self.aux_loss = self.dispatch_fn(x, logits, self.wi,
+                                                  self.wo, tp=self.tp)
+            return out
+        wi, wo = (comm.gather_out(w.to(dt), self.ep, 0)
+                  for w in (self.wi, self.wo))
         if self.tp is not None:
             tp = self.tp
             out, _ = dense_switch_dispatch(
-                tp.enter(x), tp.enter(logits), self.wi.to(dt),
-                self.wo.to(dt), activation="gelu", dtype=dt)
+                tp.enter(x), tp.enter(logits), wi, wo, activation="gelu",
+                dtype=dt)
             self.aux_loss = route_aux(logits)
             return tp.exit(out)
         out, self.aux_loss = dense_switch_dispatch(
-            x, logits, self.wi.to(dt), self.wo.to(dt), activation="gelu",
-            dtype=dt)
+            x, logits, wi, wo, activation="gelu", dtype=dt)
         return out
 
 

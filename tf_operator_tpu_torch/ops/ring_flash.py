@@ -560,15 +560,29 @@ def ring_flash_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
                                  *qs, *ks, *vs))
 
 
-def make_ring_flash_attention_fn(ring, layout: str = "contiguous"):
-    """An attention_fn for models/llama (cfg.attention_fn): splits
-    [B, S, H, D] q and [B, S, KV, D] k/v along S over the members this
-    process holds (a LocalRing: every member; a ProcessRing: S is this
-    rank's shard) and runs ring_flash_attention.  With layout="zigzag"
-    the token stream must be permuted into zigzag storage order once
-    outside the step (ops/zigzag.to_storage, and positions=storage_perm
-    for the model)."""
+def make_ring_flash_attention_fn(ring_or_mesh, *args, **kwargs):
+    """An attention_fn for models/llama (cfg.attention_fn), in either of
+    two forms:
 
+      - make_ring_flash_attention_fn(ring, layout="contiguous"): splits
+        [B, S, H, D] q and [B, S, KV, D] k/v along S over the members
+        this process holds (a LocalRing: every member; a ProcessRing: S
+        is this rank's shard) and runs ring_flash_attention;
+      - make_ring_flash_attention_fn(mesh, axis_name="tp",
+        batch_axes=("dcn", "dp", "fsdp"), layout="contiguous"): JAX's
+        form, the ring over the mesh axis (`_mesh_attention_fn`).
+
+    With layout="zigzag" the token stream must be permuted into zigzag
+    storage order once outside the step (ops/zigzag.to_storage, and
+    positions=storage_perm for the model)."""
+    from tf_operator_tpu_torch.parallel.mesh import Mesh
+
+    if isinstance(ring_or_mesh, Mesh):
+        return _mesh_attention_fn(ring_or_mesh, *args, **kwargs)
+    return _ring_attention_fn(ring_or_mesh, *args, **kwargs)
+
+
+def _ring_attention_fn(ring, layout: str = "contiguous"):
     def attention_fn(q, k, v, causal: bool, window=None) -> torch.Tensor:
         out = ring_flash_attention(
             split_members(q, ring), split_members(k, ring),
@@ -578,4 +592,97 @@ def make_ring_flash_attention_fn(ring, layout: str = "contiguous"):
 
     # compact-kv (GQA) inputs rotate unexpanded around the ring
     attention_fn.supports_gqa = True
+    attention_fn.ring = ring
+    return attention_fn
+
+
+def first_copies(ids: List[int]) -> List[int]:
+    """The position of each distinct id's first copy in `ids`, by id
+    (negative ids skipped)."""
+    first: Dict[int, int] = {}
+    for i, x in enumerate(ids):
+        if x >= 0:
+            first.setdefault(x, i)
+    return [first[x] for x in sorted(first)]
+
+
+def _mesh_attention_fn(mesh, axis_name: str = "tp",
+                       batch_axes=("dcn", "dp", "fsdp"),
+                       layout: str = "contiguous"):
+    """JAX's make_ring_flash_attention_fn(mesh, axis_name): ring flash
+    attention whose members are the ranks along `axis_name`, member i
+    the rank at coordinate i (a ProcessRing over mesh.group(axis_name);
+    a LocalRing(1) where the axis has size 1).
+
+    JAX's shard_map takes [B, S, H, D] with S split over the axis and
+    every head on each device, while its tp rules split the heads: GSPMD
+    reshards at the boundary.  The port runs tp Megatron-style, so the
+    model hands this function its own heads ([B, S, H/n, D] q, its kv
+    heads) over the whole sequence, and the reshard is explicit: one
+    all-to-all over the axis (parallel/comm.exchange) turns q, k and v
+    into this rank's sequence block of every head, the ring runs on it,
+    and a second turns the output back into this rank's heads.  The
+    backward runs the two exchanges the other way.  Where the kv heads
+    do not divide the axis, each rank holds the kv heads its query
+    heads read (parallel/tp.kv_heads_of, given `n_kv_heads`, which the
+    model passes; ranks may hold different numbers, padded to one width
+    for the exchange); the exchange then brings copies of some kv heads,
+    and the ring takes each kv head's first copy, in order, whose
+    gradient alone is non-zero (the placement sums a replicated wkv's
+    gradient over tp).  The batch needs nothing: each rank already holds
+    its data member's rows, which is what `batch_axes` splits in JAX."""
+    from tf_operator_tpu_torch.parallel import comm
+    from tf_operator_tpu_torch.parallel.ring import LocalRing, ProcessRing
+    from tf_operator_tpu_torch.parallel.tp import kv_heads_of
+
+    n = mesh.shape[axis_name]
+    if n == 1:
+        return _ring_attention_fn(LocalRing(1), layout)
+    group = mesh.group(axis_name)
+    if group is None:
+        raise ValueError(f"a ring over {axis_name} ({n}) needs the mesh of "
+                         f"a job of processes (make_mesh inside the job)")
+    ring = ProcessRing(group)
+    if ring.rank != mesh.coords()[axis_name]:
+        raise AssertionError(f"ring member {ring.rank} is not the rank's "
+                             f"{axis_name} coordinate {mesh.coords()}")
+
+    def attention_fn(q, k, v, causal: bool, window=None,
+                     n_kv_heads: Optional[int] = None) -> torch.Tensor:
+        b, s, h, d = q.shape
+        heads = h * n
+        n_kv = k.shape[2] * n if n_kv_heads is None else n_kv_heads
+        held = [kv_heads_of(heads, n_kv, r, n) for r in range(n)]
+        if len(held[ring.rank]) != k.shape[2]:
+            raise ValueError(f"{k.shape[2]} kv heads on tp rank {ring.rank}"
+                             f", where kv_heads_of gives {held[ring.rank]}")
+        # every rank's kv heads padded to one width, so the exchange
+        # moves equal chunks; -1 marks a padding head
+        width = max(map(len, held))
+        ids = [j for r in held for j in r + [-1] * (width - len(r))]
+        pad = width - k.shape[2]
+        if pad:
+            k, v = (torch.cat([t, t.new_zeros((b, s, pad, d))], dim=2)
+                    for t in (k, v))
+        # this rank's sequence block of every member's heads:
+        # [B, S/n, n * (h + 2 width), D], member i's q, k, v first-major
+        x = comm.exchange(torch.cat([q, k, v], dim=2), group, 1, 2)
+        x = x.unflatten(2, (n, h + 2 * width))
+        qs = x[:, :, :, :h].flatten(2, 3)
+        ks = x[:, :, :, h:h + width].flatten(2, 3)
+        vs = x[:, :, :, h + width:].flatten(2, 3)
+        pick = first_copies(ids)
+        if pick != list(range(len(ids))):
+            pick = torch.tensor(pick, device=q.device)
+            ks, vs = ks.index_select(2, pick), vs.index_select(2, pick)
+        out = ring_flash_attention(
+            [qs.contiguous()], [ks.contiguous()], [vs.contiguous()], causal,
+            ring=ring, layout=layout, window=window)[0]
+        # back to this rank's heads over the whole sequence
+        return comm.exchange(out, group, 2, 1)
+
+    attention_fn.supports_gqa = True
+    # models/llama passes its n_kv_heads to a tp-placed model's call
+    attention_fn.tp_heads = True
+    attention_fn.ring = ring
     return attention_fn

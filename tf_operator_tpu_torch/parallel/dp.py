@@ -12,9 +12,11 @@ step on its own rows, so the port sums them itself over a process group:
   - inside `replicas(group)`, the statistics that span the batch read the
     active group (`active()`): BatchNorm's mean and variance and their
     backward (models/flax_layers), the masked-LM loss's count of masked
-    positions (train_bert.mlm_loss) and the MoE load-balancing loss's
-    router means and selection counts (parallel/ep).  Outside it
-    everything is local, as before;
+    positions (train_bert.mlm_loss), the MoE load-balancing loss's
+    router means and selection counts (parallel/ep) and the
+    expert-parallel dispatch's global token list (ep.make_switch_moe;
+    models/llama decodes the rows of a cache split over the data axes
+    inside it too).  Outside it everything is local, as before;
   - `replicate_`: every rank starts from rank 0's parameters.
 
 Each rank's loss is written so that the mean of the ranks' gradients is

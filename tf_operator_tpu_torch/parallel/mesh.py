@@ -88,6 +88,9 @@ class Mesh:
             tuple(self.shape[a] for a in AXIS_ORDER))
         self.rank = rank
         self._groups: Dict[Tuple[str, ...], object] = {}
+        # the mesh of a job of processes (collectives over its groups),
+        # or a pure layout of one process
+        self.in_job = groups
         if groups:
             self._make_groups()
 

@@ -31,13 +31,25 @@ block at each use.  How the model computes on those blocks:
     .gather_param), and the backward sums the members' gradients into
     each shard.  Under remat the recompute gathers again.
 
+  - ep: the expert banks (moe.wi, moe.wo, and their int8 scales) hold
+    this rank's block of experts along dim 0, JAX's ep rule; the
+    dispatch function (parallel/ep.make_switch_moe) sends each expert's
+    tokens to the rank holding it.  Everything else is replicated over
+    ep, and the ep members of one data member compute it alike on the
+    same rows.
+
 After the backward, `reduce_gradients_` completes every shard's
 gradient: the leaves that are replicated over tp but used inside a
 parallel region (a replicated wkv, LoRA's adapters) sum over tp, and
 every leaf sums over the batch axes (dcn, dp, fsdp) it is not sharded
 over and is divided by the number of data members, so each gradient is
-the global batch's mean.  `Placement` also carries what the optimizer
-(runtime/optim) and the Checkpointer (runtime/train) need: each leaf's
+the global batch's mean.  Nothing sums over ep: an expert block's
+gradient is whole on the rank holding it (the all-to-all brings it every
+ep member's tokens), and the ep members' gradients of a replicated leaf
+are equal, each already whole (the dispatch's gathers over ep sum its
+blocks' gradients in their backward).  `Placement` also carries what
+the optimizer (runtime/optim) and the Checkpointer (runtime/train) need:
+each leaf's
 whole shape and spec, its optimizer state's specs, `redistribute`
 between two specs, means and RMS over sharded dims, and `full` / shard
 for the checkpoint files.
@@ -119,6 +131,9 @@ class Placement:
         n_tp = mesh.shape["tp"]
         self.tp = (comm.Tp(mesh.group("tp"), mesh.coords()["tp"], n_tp)
                    if n_tp > 1 else None)
+        # the ep group an expert bank's blocks are gathered over to
+        # decode one token (models/llama.MoeSwiGlu); None at ep 1
+        self.ep = mesh.group("ep")
         self.batch_group = mesh.group(BATCH_AXES)
         self.n_data = mesh.axis_size(BATCH_AXES)
 
@@ -315,10 +330,10 @@ def place(model: nn.Module, mesh: Mesh, specs: Mapping[str, Spec],
     group (module docstring).  Returns the Placement, also kept as
     `model.placement`."""
     dev = resolve_device(device)
-    if mesh.shape["ep"] > 1 or mesh.shape["pp"] > 1:
+    if mesh.shape["pp"] > 1:
         raise NotImplementedError(
-            "ep and pp axes are not ported yet (ROADMAP Queue 1 items 11d "
-            "and 11f)")
+            "a pp axis is not ported yet (ROADMAP Queue 1 item 11f: "
+            "pipelines)")
     want = {k: (tuple(v.shape), v.dtype)
             for k, v in model.state_dict().items()}
     if set(specs) != set(want):
@@ -378,6 +393,8 @@ def place(model: nn.Module, mesh: Mesh, specs: Mapping[str, Spec],
     for mod in model.modules():
         if hasattr(type(mod), "tp"):
             mod.tp = pl.tp
+        if hasattr(type(mod), "ep"):
+            mod.ep = pl.ep
     model.placement = pl
     return pl
 

@@ -13,10 +13,15 @@ does (tf_operator_tpu/ops/ring_attention.py `rotate_shards`).
     rotation re-indexes the member list; nothing is copied.  The kernels
     run exactly as on n cards: one launch per (member, live step).
   - ProcessRing(group): one member per rank of a torch.distributed
-    process group (gloo on the CPU, NCCL on cards).  A rotation is one
-    `batch_isend_irecv` of a send to (rank + hop) % n and a receive from
-    (rank - hop) % n; under autograd its backward rotates by -hop (the
-    transpose of ppermute).
+    process group (gloo on the CPU or on CUDA tensors, NCCL on cards),
+    member i the group's rank i.  A group a mesh makes over one axis
+    (parallel/mesh.Mesh.group) lists its ranks in order, so member i is
+    the rank at coordinate i along that axis, as `ppermute` numbers the
+    devices of a `shard_map` axis.  A rotation is one exchange
+    (parallel/comm.send_recv: an all-to-all whose only non-empty chunks
+    are a send to member (i + hop) % n and a receive from (i - hop) % n;
+    gloo's isend/irecv refuse CUDA tensors); under autograd its backward
+    rotates by -hop (the transpose of ppermute).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from tf_operator_tpu_torch.parallel import comm
 
 Shards = List[Tuple[torch.Tensor, ...]]
 
@@ -72,7 +79,8 @@ class ProcessRing:
         self.rank = dist.get_rank(group)
         self.members = (self.rank,)
 
-    def _peer(self, offset: int) -> int:
+    def peer(self, offset: int) -> int:
+        """The global rank of the member `offset` places on."""
         peer = (self.rank + offset) % self.size
         return (peer if self.group is None
                 else dist.get_global_rank(self.group, peer))
@@ -80,15 +88,22 @@ class ProcessRing:
     def _exchange(self, tensors: Sequence[torch.Tensor], hop: int):
         if hop % self.size == 0:
             return tuple(t.clone() for t in tensors)
-        send = [t.contiguous() for t in tensors]
-        recv = [torch.empty_like(t) for t in send]
-        ops = [dist.P2POp(dist.isend, t, self._peer(hop), self.group)
-               for t in send]
-        ops += [dist.P2POp(dist.irecv, t, self._peer(-hop), self.group)
-                for t in recv]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return tuple(recv)
+        n = self.size
+        dst, src = (self.rank + hop) % n, (self.rank - hop) % n
+        # one exchange for every tensor of one dtype, laid end to end
+        out = [None] * len(tensors)
+        by_dtype = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            got = comm.send_recv(flat, self.group, dst, src)
+            offset = 0
+            for i in idx:
+                t = tensors[i]
+                out[i] = got[offset:offset + t.numel()].view(t.shape)
+                offset += t.numel()
+        return tuple(out)
 
     def rotate(self, shards: Shards, hop: int) -> Shards:
         if len(shards) != 1:

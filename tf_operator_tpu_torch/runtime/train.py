@@ -11,9 +11,9 @@ training forward updates) and returns it, where the JAX step returns a
 new state.  The JAX step's dp mesh axis is a process group here
 (parallel/dp): params replicated, each process a shard of the batch, the
 gradients averaged over the processes before the update.  Under a
-dp x fsdp x tp mesh (parallel/mesh, parallel/placement) the state is
-this rank's blocks of JAX's layout and the step completes the gradients
-over the mesh; expert sharding is ROADMAP Queue 1 item 11d.
+dp x fsdp x ep x tp mesh (parallel/mesh, parallel/placement) the state
+is this rank's blocks of JAX's layout (the experts' over ep) and the
+step completes the gradients over the mesh.
 
 `Checkpointer` is the port of the JAX package's orbax checkpoint manager,
 on torch.save / torch.load: one directory per step under the checkpoint

@@ -32,9 +32,17 @@ the checkpoints (whole tensors, so a run resumes under another --tp).
 gloo on the CPU).
 
 `--ring` runs attention as sequence-parallel ring flash attention
-(ops/ring_flash: the CUDA kernels K3f/K3q/K3kv on the card) over a ring
-of local_mesh_axes(world size, prefer_tp=--tp)["tp"] members, as the JAX
-script sizes its ring over tp: one member a process at --tp 1.
+(ops/ring_flash: the CUDA kernels K3f/K3q/K3kv on the card) over the tp
+axis of the mesh, as the JAX script's make_ring_flash_attention_fn(mesh,
+"tp") does: a ring of one member at --tp 1; at --tp N the tp ranks of a
+data member are the ring's members, and each attention exchanges the
+rank's heads for its block of the sequence (parallel/comm.exchange) and
+back.  Mistral's window reaches the ring.
+
+`--ep N` (--model mixtral only) carves an expert axis out of dp, as the
+JAX script does: the experts are sharded over it (parallel/placement)
+and every MoE forward dispatches its tokens to them by all-to-all
+(parallel/ep.make_switch_moe, top-2 SwiGLU, capacity factor 1.25).
 
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
     python -m tf_operator_tpu_torch.train_llama --steps 100 --per-host-batch 1 --seq-len 2048
@@ -42,10 +50,8 @@ script sizes its ring over tp: one member a process at --tp 1.
     python -m tf_operator_tpu_torch.train_llama --smoke --data-dir D --ckpt-dir C --save-interval 1
     python -m tf_operator_tpu_torch.train_llama --smoke --device cpu --model mixtral --steps 3
     WORLD_SIZE=2 RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29500 python -m tf_operator_tpu_torch.train_llama --smoke --device cpu
-
-Expert parallelism (--ep) and --tp N > 1 with --ring (a ring over the
-tp ranks of several processes) are not ported yet; each raises
-NotImplementedError naming its ROADMAP item.
+    WORLD_SIZE=2 RANK=0 ... train_llama --smoke --device cpu --tp 2 --ring --seq-len 16
+    WORLD_SIZE=4 RANK=0 ... train_llama --smoke --device cpu --model mixtral --tp 2 --ep 2
 """
 from __future__ import annotations
 
@@ -66,20 +72,14 @@ from tf_operator_tpu_torch.ops.blocked_ce import lm_blocked_loss
 from tf_operator_tpu_torch.ops.flash_attention import flash_attention
 from tf_operator_tpu_torch.ops.ring_flash import make_ring_flash_attention_fn
 from tf_operator_tpu_torch.parallel import dp
+from tf_operator_tpu_torch.parallel.ep import make_switch_moe
 from tf_operator_tpu_torch.parallel.mesh import local_mesh_axes, make_mesh
 from tf_operator_tpu_torch.parallel.placement import shard_model
-from tf_operator_tpu_torch.parallel.ring import LocalRing
 from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
 from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
-
-_NOT_PORTED = {
-    "ring": "ROADMAP Queue 1 item 11g (--tp with --ring: a ring over the "
-            "tp ranks of several processes)",
-    "ep": "ROADMAP Queue 1 item 11d (expert parallelism)",
-}
 
 # the JAX script's --smoke --model mixtral: 4 experts in every block, top-2
 SMOKE_MOE = dict(n_experts=4, moe_every=1, moe_top_k=2)
@@ -141,10 +141,11 @@ def make_lm_step(model: Llama):
 
 def build_model(cfg, mesh, job, dev):
     """(the model, (this rank's data member, the member count)): at tp 1
-    the one-process model, every rank from rank 0's weights, a member a
-    rank; under tp the model sharded over `mesh` (parallel/placement),
-    its weights drawn leaf by leaf and this rank's block kept."""
-    if mesh.shape["tp"] == 1:
+    and ep 1 the one-process model, every rank from rank 0's weights, a
+    member a rank; under tp or ep the model sharded over `mesh`
+    (parallel/placement), its weights drawn leaf by leaf and this rank's
+    block kept."""
+    if mesh.shape["tp"] == 1 and mesh.shape["ep"] == 1:
         model = Llama.from_params(
             cfg, bridge.init_params(cfg, 0, device=dev, train=True),
             device=dev, train=True)
@@ -182,30 +183,42 @@ def main(argv=None) -> int:
     bootstrap.add_backend_flag(ap)
     args = ap.parse_args(argv)
 
-    for flag, on in (("ring", args.ring and args.tp > 1),
-                     ("ep", args.ep > 1)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not ported yet ({_NOT_PORTED[flag]})")
     job = bootstrap.initialize(device=args.device, backend=args.backend)
     dev = job.device
-    mesh = make_mesh(local_mesh_axes(job.world, prefer_tp=args.tp))
+    if args.ep > 1 and args.model != "mixtral":
+        raise SystemExit(
+            f"--ep only applies to --model=mixtral (a dense {args.model} "
+            f"has nothing to shard over an expert axis)")
+    axes = local_mesh_axes(job.world, prefer_tp=args.tp)
+    if args.ep > 1:
+        if axes["dp"] % args.ep:
+            raise SystemExit(f"--ep {args.ep} must divide dp {axes['dp']}")
+        axes = {**axes, "ep": args.ep, "dp": axes["dp"] // args.ep}
+    mesh = make_mesh(axes)
     print(f"mesh {mesh.shape}")
 
     attention_fn = flash_attention
     if args.ring:
-        ring = LocalRing(local_mesh_axes(job.world, prefer_tp=args.tp)["tp"])
-        attention_fn = make_ring_flash_attention_fn(ring)
-        print(f"ring attention over {ring}")
+        attention_fn = make_ring_flash_attention_fn(mesh, "tp")
+        print(f"ring attention over {attention_fn.ring}")
     presets = {"llama3": llama3_8b, "llama31": llama31_8b,
                "mistral": mistral_7b, "mixtral": mixtral_8x7b}
+    extra = {}
+    if args.model == "mixtral":
+        n_experts = 4 if args.smoke else 8  # one source for the dispatch fn
+        if args.ep > 1:
+            # the same dispatch fn runs expert-sharded prefill at inference
+            extra["moe_dispatch_fn"] = make_switch_moe(
+                mesh, n_experts=n_experts, activation="swiglu", top_k=2)
     if args.smoke:
-        extra = {"mistral": {"sliding_window": 16},
-                 "mixtral": SMOKE_MOE}.get(args.model, {})
+        if args.model == "mixtral":
+            extra.update(SMOKE_MOE, n_experts=n_experts)
+        if args.model == "mistral":
+            extra["sliding_window"] = 16
         cfg = tiny(tie_embeddings=True, attention_fn=attention_fn, **extra)
     else:
         cfg = presets[args.model](tie_embeddings=True, remat=True,
-                                  attention_fn=attention_fn)
+                                  attention_fn=attention_fn, **extra)
         if args.seq_len > cfg.max_len:
             # extend the RoPE table rather than clamp positions
             cfg = dataclasses.replace(cfg, max_len=args.seq_len)
