@@ -304,10 +304,11 @@ Phases, in order, none of them caught:
  34. dp-parity: train_llama --smoke and --smoke --model mixtral in f32 as
               two-rank jobs = one process on the whole batch within 1e-5;
               rank 0's checkpoints, and both ranks resumed from them.
- 35. sharded-probe: each collective on 16 MB CUDA tensors between two
-              gloo ranks on the one card (`--sharded-worker`), timed;
-              fails if gloo refuses one the port calls (all_to_all_single
-              with equal and with uneven chunks among them).
+ 35. (sharded-train's first job) the gloo probe: each collective on
+              16 MB CUDA tensors between two gloo ranks on the one card
+              (`--sharded-worker`), timed; fails if gloo refuses one the
+              port calls (all_to_all_single with equal and with uneven
+              chunks among them).
  36. kernel2-tp: kernel2-zoo's checks and times at the tp-local shapes
               of sharded-train: B=1 S=2048 H=16 KV=4 D=128 and B=4 S=512
               H=KV=16 D=64, causal.
@@ -315,11 +316,13 @@ Phases, in order, none of them caught:
               shape (S_l=1024, H=32, KV=8, D=128).
  37. sharded-train: `train_llama --tp 2` (llama3_8b at full width and
               depth, 1 x 2048, adafactor) as a job of two ranks, and
-              t5_3b_decoder on a tp 2 x fsdp 2 mesh of four ranks
+              t5_3b_decoder at full width cut to 12 layers
+              (T5_TP_LAYERS) on a tp 2 x fsdp 2 mesh of four ranks
               through make_mesh / state_sharding / placement.place, 8 x
               512 global, 2 steps each, over gloo on the one card: the
-              first loss within 2e-2 of the one-process phase's on the
-              same weights and tokens, every rank's losses equal, K2 at
+              first loss within 2e-2 of one process's on the same
+              weights and tokens (the train phase's; for t5 the cut
+              model's forward in this process), every rank's losses equal, K2 at
               the tp-local heads on the tensor cores; step time,
               tokens/s, each rank's peak and the collectives' seconds.
               The two ranks then run `train_llama --tp 2 --ring` (the
@@ -331,14 +334,31 @@ Phases, in order, none of them caught:
               beside mixtral-train's, the share of (token, choice) pairs
               dropped at capacity factor 1.25, the all-to-all's calls,
               MiB and seconds); the four ranks `train_llama --smoke
-              --model mixtral --tp 2 --ep 2`.
+              --model mixtral --tp 2 --ep 2`.  The two ranks also run
+              (g) ops/ulysses: ulysses_attention over them on sequence
+              blocks against one process's K2, and one step of (a)'s
+              model with make_ulysses_attention_fn(mesh, "tp",
+              use_flash=True), its first loss (a)'s bit for bit; (h)
+              the pipelined llama (models/pipeline_llama) at
+              llama3_8b's width, 4 layers, one stage a rank (pp 2), 4 x
+              1024 in 4 microbatches, 2 adam steps, the first loss
+              within 2e-2 of its sequential witness in one process, each
+              rank's peak at most 30 GiB, the hops' calls, MiB and
+              seconds; (i) an f32 1-layer mistral_7b-width model on
+              fsdp 2 saved after a step, resharded to fsdp 4
+              (models/reshard.reshard_checkpoint, timed) and resumed by
+              the four ranks beside a never-resized fsdp 4 run: losses
+              within 2e-4.
  38. sharded-parity: tests/test_torch_sharded.py's cases in f32 on eight
               ranks (tp 2 x fsdp 2 x dp 2, and tp 4 x fsdp 2), the ring
               over tp on tp 2 x fsdp 2 x dp 2 and the mixtral smoke model
               on tp 2 x ep 2 x dp 2 with a capacity that drops = one
               process on the card (for ep, the oracle of JAX's ep
               semantics); the sharded job's checkpoint resumed in one
-              process.
+              process; __graft_entry__.py's pipeline meshes (pp x tp, pp
+              x fsdp, pp x ep with MoE and its aux in the stages) and the
+              windowed pipelined llama, one stage a rank = the
+              sequential witness in one process.
  39. kernel-tp: K1 and K1q against their plain versions at llama3_8b's
               tp 2 local shape (H=16, KV=4, D=128, bs=16, 8 lanes up to
               the serve phase's contexts, a frozen lane), decode L=1 and
@@ -349,8 +369,9 @@ Phases, in order, none of them caught:
               weights drawn leaf by leaf from the serve phase's seed, each
               rank its block; parallel/tp.kv_cache_sharding), with
               serve_loop(scheduler="continuous") on the first 8 of the
-              serve phase's prompts (TP_SERVE_REQUESTS), 8 slots: (a) bf16
-              weights and KV, (b) int8 weights
+              serve phase's prompts (TP_SERVE_REQUESTS), 32 new tokens
+              each (TP_SERVE_NEW), 8 slots: (a) bf16 weights and KV, (b)
+              int8 weights
               quantized from the same draws and int8 KV (K1q).  Both
               ranks' tokens equal, every budget met and in the
               vocabulary, K1 (K1q) launches a rank = layers x model calls,
@@ -5517,6 +5538,19 @@ SHARDED_PARITY = {
                    dict(moe=True, ep=(2, 1.0))),
 }
 ADAM_CASES = ("llama_adam", "blocked_ce", "lora", "t5_adamw", "train_step")
+# the pipelines' cases (tests/torch_pipeline_util.pipeline_case):
+# __graft_entry__.py's three pipeline meshes and the windowed pipelined
+# llama, each against its sequential witness in one process
+PIPE_CASE = "tests.torch_pipeline_util:pipeline_case"
+PIPE_PARITY = {
+    "pipe_pp_tp": ({"pp": 2, "tp": 2, "dp": 2}, dict(kind="lm")),
+    "pipe_pp_fsdp": ({"pp": 2, "fsdp": 2, "dp": 2}, dict(kind="lm")),
+    "pipe_pp_ep": ({"pp": 2, "ep": 2, "dp": 2},
+                   dict(kind="lm", cfg_kw=dict(n_experts=4), factor=4.0)),
+    "pipe_llama_window": ({"pp": 2, "tp": 2, "dp": 2},
+                          dict(kind="llama",
+                               cfg_kw=dict(sliding_window=5))),
+}
 
 
 def _spawn_ranks(flag: str, jobs: list, tag: str, n: int = 2,
@@ -5572,10 +5606,35 @@ def _spawn_ranks(flag: str, jobs: list, tag: str, n: int = 2,
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _background(fn):
+    """fn() on a thread (a spawn, which waits on its ranks); the
+    returned join() gives its result or raises its error."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001  (re-raised by join)
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
 def _probe_job() -> dict:
     """Each collective the sharded step could use, on 16 MB CUDA tensors
     over gloo: its seconds (the second call), or what gloo answers.  A
-    probe reports; sharded_probe_phase fails on a collective the port
+    probe reports; _check_probe fails on a collective the port
     calls that gloo refused."""
     import torch.distributed as dist
 
@@ -5778,13 +5837,45 @@ def _mixtral_ep_job() -> dict:
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
 
 
+# (b) runs t5_3b_decoder at full width cut to T5_TP_LAYERS of its 48
+# layers: gloo's gathers and reduce-scatters through the host take most
+# of its step, in proportion to the depth (39-76 s a step at full depth)
+T5_TP_LAYERS = 12
+
+
+def t5_tp_cfg():
+    from tf_operator_tpu_torch.models import transformer as tfm
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    return tfm.t5_3b_decoder(n_layers=T5_TP_LAYERS, remat=True,
+                             attention_fn=fa.flash_attention)
+
+
+def t5_tp_reference() -> float:
+    """(b)'s first loss in one process on the card: its cut model from
+    the t5-train phase's seed and train_t5's loss of the first global
+    batch, no update."""
+    from tf_operator_tpu_torch import train_t5
+    from tf_operator_tpu_torch.models.transformer import lm_train_loss
+
+    cfg = t5_tp_cfg()
+    model, _, _ = _zoo_transformer(cfg, SEED + 95)
+    (tokens,) = next(train_t5.lm_batches(T5_BATCH, T5_SEQ, cfg.vocab_size,
+                                         SEED + 96, device="cuda"))
+    with torch.no_grad():
+        loss = float(lm_train_loss(model, tokens))
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
 def _t5_tp_job() -> dict:
-    """t5_3b_decoder at full width and depth on a tp 2 x fsdp 2 mesh of
-    four ranks through the library: make_mesh, state_sharding of the
-    train state, parallel/placement.place over the weights drawn leaf by
-    leaf (the t5-train phase's seed), train_t5's step over this data
-    member's rows of the t5-train phase's first 8 x 512 batches,
-    adafactor, SHARDED_STEPS steps."""
+    """t5_3b_decoder at full width, T5_TP_LAYERS layers, on a tp 2 x
+    fsdp 2 mesh of four ranks through the library: make_mesh,
+    state_sharding of the train state, parallel/placement.place over the
+    weights drawn leaf by leaf (the t5-train phase's seed), train_t5's
+    step over this data member's rows of the t5-train phase's first 8 x
+    512 batches, adafactor, SHARDED_STEPS steps."""
     from tf_operator_tpu_torch import train_t5
     from tf_operator_tpu_torch.models import transformer as tfm
     from tf_operator_tpu_torch.models.transformer_bridge import (
@@ -5798,7 +5889,7 @@ def _t5_tp_job() -> dict:
 
     bootstrap.initialize(device="cuda", backend="gloo")
     mesh = make_mesh(T5_MESH)
-    cfg = tfm.t5_3b_decoder(remat=True, attention_fn=fa.flash_attention)
+    cfg = t5_tp_cfg()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.device("meta"):
@@ -5841,9 +5932,238 @@ def _parity_job() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = {tag: u.CASES[case](axes, device="cuda", **kw)
            for tag, (case, axes, kw) in SHARDED_PARITY.items()}
+    out.update({tag: u.case_fn(PIPE_CASE)(axes, device="cuda", **kw)
+                for tag, (axes, kw) in PIPE_PARITY.items()})
     u.ckpt_case(SHARDED_PARITY["llama"][1],
                 save_dir=os.environ["SHARDED_CKPT"], device="cuda")
     return out
+
+
+# ------------------------------------------ Ulysses, pipelines, reshard
+ULYSSES_SEED = SEED + 400
+
+
+def _ulysses_job() -> dict:
+    """(a)'s two ranks with Ulysses attention (ops/ulysses): first
+    ulysses_attention itself over the tp ranks on this rank's sequence
+    block of bf16 q [1, 2048, 32, 128] and k, v [1, 2048, 8, 128] (after
+    the exchange K2 runs at (a)'s tp-local shape, 16 query and 4 kv
+    heads), against one process's flash_attention over the whole
+    sequence (this rank's block of its output), within 2e-2 + 2e-2·|ref|;
+    then one train_llama step of (a)'s model, weights and first tokens
+    with make_ulysses_attention_fn(mesh, "tp", use_flash=True) as its
+    attention_fn (exact attention on the rank's heads: its first loss is
+    (a)'s), K2 launches counted over that step alone."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.ulysses import (
+        make_ulysses_attention_fn, ulysses_attention)
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime import bootstrap
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    job = bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh({"tp": 2})
+    t = mesh.coords()["tp"]
+    gen = torch.Generator(device="cuda").manual_seed(ULYSSES_SEED)
+    q, k, v = (torch.randn((TB, TS, n, TD), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for n in (TH, TKV, TKV))
+    blk = slice(t * TS // 2, (t + 1) * TS // 2)
+    fa.reset_launches()
+    out = ulysses_attention(q[:, blk].contiguous(), k[:, blk].contiguous(),
+                            v[:, blk].contiguous(), True,
+                            group=mesh.group("tp"), use_flash=True)
+    torch.cuda.synchronize()
+    attn_launches = dict(fa.launches)
+    ref = fa.flash_attention(q, k, v, True)[:, blk].float()
+    err = (out.float() - ref).abs()
+    attn = dict(launches=attn_launches, max_abs_err=float(err.max()),
+                ok=bool((err <= 2e-2 + 2e-2 * ref.abs()).all()))
+    del q, k, v, out, ref, err
+    cfg = llama3_train_cfg(attention_fn=make_ulysses_attention_fn(
+        mesh, "tp", use_flash=True))
+    torch.cuda.reset_peak_memory_stats()
+    model, member = train_llama.build_model(cfg, mesh, job, "cuda")
+    state = TrainState.create(model, Adafactor(1e-3))
+    (tokens,) = next(train_llama.lm_batches(
+        TB, TS, cfg.vocab_size, member[0] + SEED + 4, device="cuda"))
+    rec = _new_rec()
+    step = _timed_steps(rec)(train_llama.make_lm_step(model))
+    fa.reset_launches()
+    step(state, tokens)
+    torch.cuda.synchronize()
+    return dict(attn=attn, launches=dict(fa.launches),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+
+
+# pipeline-train: the pipelined llama at llama3_8b's width, 4 layers
+# over pp 2 (two ranks, one stage each), 4 x 1024 global in 4
+# microbatches, adam as __graft_entry__.py's witness steps it
+PIPE_MESH = {"pp": 2}
+PIPE_LAYERS, PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 4, 4, 1024, 4
+PIPE_PEAK_GIB = 30.0
+PIPE_SEED = SEED + 410
+
+
+def pipeline_cfg():
+    from tf_operator_tpu_torch.models import llama
+
+    return llama.llama3_8b(n_layers=PIPE_LAYERS, tie_embeddings=True)
+
+
+def pipeline_inputs(cfg):
+    """The pipelined llama's whole weights (models/pipeline_llama
+    .init_params) and its global batch, from one seeded generator on the
+    card."""
+    from tf_operator_tpu_torch.models import pipeline_llama as pll
+
+    gen = torch.Generator(device="cuda").manual_seed(PIPE_SEED)
+    params = pll.init_params(gen, cfg, PIPE_MESH["pp"])
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ),
+                         generator=gen, device="cuda")
+    return params, toks
+
+
+def _pipeline_job() -> dict:
+    """One stage of the pipelined llama a rank (pipeline_cfg over
+    PIPE_MESH: parallel/pp.place of param_shardings, the schedule's hops
+    between the ranks), SHARDED_STEPS adam(1e-3) steps on the global
+    batch: each step's loss, seconds and collectives (the hops are
+    "send_recv", the stages' sums "all_reduce"), this rank's peak."""
+    from tf_operator_tpu_torch.models import pipeline_llama as pll
+    from tf_operator_tpu_torch.parallel import comm, pp
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime import bootstrap
+    from tf_operator_tpu_torch.runtime.optim import Adam
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh(PIPE_MESH)
+    cfg = pipeline_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole, toks = pipeline_inputs(cfg)
+    tree = pp.place(whole, pll.param_shardings(whole, mesh), mesh)
+    del whole
+    torch.cuda.empty_cache()
+    tree = pp.tree_map(lambda t: t.requires_grad_(), tree)
+    flat = pp.named_leaves(tree)
+    tx = Adam(1e-3)
+    opt = tx.init(flat)
+    apply = pll.make_pipelined_apply(cfg, mesh, PIPE_MICRO)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() / 2**30
+    rec = _new_rec()
+    for _ in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        comm.reset_stats(timing=True)
+        t = time.perf_counter()
+        loss = pll.pipeline_lm_loss(apply, tree, toks)
+        loss.backward()
+        opt = tx.update_(flat, opt)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t)
+        rec["loss"].append(float(loss.detach()))
+        rec["comm_s"].append(comm.STATS["seconds"])
+        rec["comm_calls"].append(comm.STATS["calls"])
+        rec["comm_bytes"].append(comm.STATS["bytes"])
+        rec["comm_kinds"].append(json.loads(json.dumps(
+            comm.STATS["kinds"])))
+    return dict(stage=mesh.coords()["pp"], mesh=dict(mesh.shape),
+                init_s=init_s, held_gib=held,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **rec)
+
+
+def pipeline_reference() -> float:
+    """The pipelined llama's first loss in one process on the card: its
+    sequential_apply (the witness) on the whole weights and batch."""
+    from tf_operator_tpu_torch.models import pipeline_llama as pll
+    from tf_operator_tpu_torch.models.transformer import lm_loss
+
+    cfg = pipeline_cfg()
+    whole, toks = pipeline_inputs(cfg)
+    with torch.no_grad():
+        loss = float(lm_loss(pll.sequential_apply(cfg, whole, toks), toks))
+    del whole
+    torch.cuda.empty_cache()
+    return loss
+
+
+# reshard: mistral_7b's width (llama3_8b's but a 32000-token vocab: a
+# quarter of the embedding, whose fsdp gathers and reduce-scatters
+# through gloo take most of a step) at 1 layer in f32 (the trajectory
+# held at rtol 2e-4), placed by models/reshard.state_shardings on fsdp 2
+# (the two ranks) and fsdp 4 (the four), 4 x 1024 global, adafactor
+RESHARD_LAYERS, RESHARD_BATCH, RESHARD_SEQ = 1, 4, 1024
+RESHARD_SEED = SEED + 420
+RESHARD_RTOL = 2e-4
+
+
+def _reshard_state(mesh):
+    """The f32 1-layer mistral_7b-width model placed on `mesh` by the
+    one rule, its weights drawn leaf by leaf, adafactor; its step; this
+    rank's rows of the two global batches."""
+    from tf_operator_tpu_torch import train_llama
+    from tf_operator_tpu_torch.models import bridge, llama
+    from tf_operator_tpu_torch.models.reshard import state_shardings
+    from tf_operator_tpu_torch.ops.flash_attention import flash_attention
+    from tf_operator_tpu_torch.parallel import placement
+    from tf_operator_tpu_torch.runtime.optim import Adafactor
+    from tf_operator_tpu_torch.runtime.train import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.mistral_7b(n_layers=RESHARD_LAYERS, tie_embeddings=True,
+                           dtype=torch.float32,
+                           attention_fn=flash_attention)
+    with torch.device("meta"):
+        model = llama.Llama(cfg, train=True)
+    specs = state_shardings(model.state_dict(), mesh)
+    pl = placement.place(model, mesh, specs, bridge.iter_params(
+        cfg, RESHARD_SEED, device="cuda", train=True), device="cuda")
+    state = TrainState.create(model, Adafactor(1e-3))
+    i, n = pl.data_index()
+    per = RESHARD_BATCH // n
+    gen = torch.Generator(device="cuda").manual_seed(RESHARD_SEED + 1)
+    rows = [torch.randint(0, cfg.vocab_size, (RESHARD_BATCH, RESHARD_SEQ),
+                          generator=gen, device="cuda")[i * per:(i + 1) * per]
+            for _ in range(2)]
+    return state, train_llama.make_lm_step(model), rows
+
+
+def _reshard_job(leg: str) -> dict:
+    """One leg of the resize under $RESHARD_DIR: "src" on fsdp 2, one
+    step, saved as step 1 to src/; "golden" on fsdp 4, two steps from
+    the start, never resized; "dst" on fsdp 4, step 1 restored from the
+    resharded dst/, then the second step.  Each: its losses, seconds."""
+    import os
+
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime import bootstrap
+    from tf_operator_tpu_torch.runtime.train import Checkpointer
+
+    bootstrap.initialize(device="cuda", backend="gloo")
+    mesh = make_mesh({"fsdp": 2 if leg == "src" else 4})
+    root = os.environ["RESHARD_DIR"]
+    t0 = time.perf_counter()
+    state, step, rows = _reshard_state(mesh)
+    out = {"mesh": dict(mesh.shape), "init_s": time.perf_counter() - t0}
+    if leg == "dst":
+        t0 = time.perf_counter()
+        state = Checkpointer(os.path.join(root, "dst")).restore(state)
+        out.update(restored_step=state.step,
+                   restore_s=time.perf_counter() - t0)
+        rows = rows[state.step:]
+    rec = _new_rec()
+    step = _timed_steps(rec)(step)
+    for toks in rows[:1 if leg == "src" else 2]:
+        state, _ = step(state, toks)
+    if leg == "src":
+        t0 = time.perf_counter()
+        Checkpointer(os.path.join(root, "src")).save(state.step, state)
+        out["save_s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return dict(out, **rec)
 
 
 SMOKE_RING = ["--smoke", "--tp", "2", "--ring"]
@@ -5854,6 +6174,11 @@ SHARDED_JOBS = {"probe": _probe_job, "llama-tp": _llama_tp_job,
                 "entry-ep": lambda: _entry_job(SMOKE_EP),
                 "mixtral-ep": _mixtral_ep_job,
                 "t5-tp": _t5_tp_job, "parity": _parity_job,
+                "llama-tp-ulysses": _ulysses_job,
+                "pipeline-train": _pipeline_job,
+                "reshard-src": lambda: _reshard_job("src"),
+                "reshard-golden": lambda: _reshard_job("golden"),
+                "reshard-dst": lambda: _reshard_job("dst"),
                 "tp-serve": lambda: _tp_serve_job(),
                 "tp-parity": lambda: _tp_parity_job()}
 
@@ -5885,17 +6210,13 @@ def sharded_worker(out_dir: str, jobs: list) -> int:
     return 0
 
 
-def sharded_probe_phase() -> dict:
-    """The gloo probe: each collective on CUDA tensors between two ranks
-    on the one card.  Fails when gloo refuses one the port calls
-    (parallel/comm: all_reduce, all_gather_into_tensor,
-    reduce_scatter_tensor, all_to_all_single with equal and with uneven
-    chunks, over the world and a subgroup; broadcast and barrier in
-    parallel/dp and the Checkpointer)."""
-    torch.cuda.empty_cache()
-    ranks, _ = _spawn_ranks("--sharded-worker", ["probe"], "sharded-probe",
-                            timeout_s=240.0)
-    res = ranks[0]["probe"]
+def _check_probe(res: dict) -> dict:
+    """The gloo probe, the first job of sharded-train's two ranks: each
+    collective on CUDA tensors between two ranks on the one card.  Fails
+    when gloo refuses one the port calls (parallel/comm: all_reduce,
+    all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single
+    with equal and with uneven chunks, over the world and a subgroup;
+    broadcast and barrier in parallel/dp and the Checkpointer)."""
     for name, r in res.items():
         log(f"[sharded-probe] {name}: " + (
             f"ok, {r['s'] * 1e3:.3f} ms for {PROBE_BYTES >> 20} MB"
@@ -5923,12 +6244,13 @@ def _sharded_line(tag: str, r: dict, tokens: int) -> str:
 
 
 def sharded_train_phase(llama_first: float, llama_peak: float,
-                        t5_first: float, t5_peak: float,
-                        mix_first: float, mix_plain: list) -> dict:
+                        t5_peak: float, mix_first: float,
+                        mix_plain: list) -> dict:
     """(a) `train_llama --tp 2 --steps 3` as a job of two ranks on the one
     card (llama3_8b, 1 x 2048, adafactor, gloo), launched as dp-train
-    launches its ranks; (b) t5_3b_decoder on a tp 2 x fsdp 2 mesh of four
-    ranks through the library, 8 x 512 global.  Each: every loss finite,
+    launches its ranks; (b) t5_3b_decoder at T5_TP_LAYERS layers on a tp
+    2 x fsdp 2 mesh of four ranks through the library, 8 x 512 global.
+    Each: every loss finite,
     the first within 2e-2 of the one-process phase's on the same weights
     and tokens (bf16: the tp partial sums round before they add), the
     tp peers' losses equal; K2 launches a rank a step: forward 2 x layers
@@ -5953,13 +6275,70 @@ def sharded_train_phase(llama_first: float, llama_peak: float,
           rank a step as mixtral-train; the all-to-all's calls, MiB and
           seconds a step;
       (f) `train_llama --smoke --model mixtral --tp 2 --ep 2` as four
-          ranks (tp 2 x ep 2), exit 0."""
+          ranks (tp 2 x ep 2), exit 0;
+      (g) (a)'s ranks with Ulysses attention (_ulysses_job,
+          _check_ulysses);
+      (h) the pipelined llama at llama3_8b's width, one stage a rank
+          (_pipeline_job, _check_pipeline);
+      (i) the elastic resize: (a)'s ranks train an f32 1-layer
+          mistral_7b-width model one step on fsdp 2 and save it, this process reshards the
+          checkpoint to fsdp 4 (_reshard_between), and (b)'s ranks run
+          the never-resized fsdp 4 golden and the resumed leg
+          (_reshard_job, _check_reshard)."""
+    import shutil
+    import tempfile
+
     card = device_line()
     out = {}
     torch.cuda.empty_cache()
-    ranks, _ = _spawn_ranks("--sharded-worker", ["llama-tp", "llama-tp-ring",
-                                                 "entry-ring", "mixtral-ep"],
-                            "sharded-train", n=2, timeout_s=700.0)
+    reshard_dir = tempfile.mkdtemp(prefix="chip_smoke_reshard_")
+    try:
+        ranks, _ = _spawn_ranks(
+            "--sharded-worker", ["probe", "llama-tp", "llama-tp-ring",
+                                 "entry-ring", "mixtral-ep",
+                                 "llama-tp-ulysses", "pipeline-train",
+                                 "reshard-src"],
+            "sharded-train", n=2, timeout_s=900.0,
+            extra_env={"RESHARD_DIR": reshard_dir})
+        out["probe"] = _check_probe(ranks[0]["probe"])
+        out.update(_two_rank_checks(ranks, llama_first, llama_peak,
+                                    mix_first, mix_plain, card))
+        out["reshard"] = _reshard_between(reshard_dir, ranks, card)
+        torch.cuda.empty_cache()
+        ranks, _ = _spawn_ranks(
+            "--sharded-worker", ["t5-tp", "entry-ep", "reshard-golden",
+                                 "reshard-dst"], "sharded-train", n=4,
+            timeout_s=600.0, extra_env={"RESHARD_DIR": reshard_dir})
+    finally:
+        shutil.rmtree(reshard_dir, ignore_errors=True)
+    rs = [r["t5-tp"] for r in ranks]
+    t5_first = t5_tp_reference()
+    for r, res in enumerate(rs):
+        log(f"[sharded-train] (b) t5_3b_decoder x {T5_TP_LAYERS} layers, "
+            f"mesh {res['mesh']}, rank {r} (data member "
+            f"{res['data_member']}): losses "
+            f"{[round(x, 4) for x in res['loss']]} (one process, the same "
+            f"layers: first {t5_first:.4f}); "
+            + _sharded_line("b", res, T5_BATCH * T5_SEQ)
+            + f" (t5-train, 48 layers in one process {t5_peak:.3f}); init "
+            f"{res['init_s']:.1f} s, {res['held_gib']:.3f} GiB held; K2 "
+            + json.dumps(res["launches"]) + f"; {card}")
+    out["t5"] = _check_sharded("(b)", rs, t5_first, T5_TP_LAYERS)
+    for r, res in enumerate(ranks):
+        if res["entry-ep"]["rc"] != 0:
+            raise AssertionError(f"[sharded-train] (f) rank {r}: "
+                                 f"{res['entry-ep']}")
+    log(f"[sharded-train] (f) train_llama {' '.join(SMOKE_EP)}: the four "
+        f"ranks exit 0")
+    _check_reshard(out["reshard"], ranks, card)
+    return out
+
+
+def _two_rank_checks(ranks: list, llama_first: float, llama_peak: float,
+                     mix_first: float, mix_plain: list, card: str) -> dict:
+    """The two-rank jobs' checks: (a), (c), (d), (e), (g) Ulysses and (h)
+    the pipeline (sharded_train_phase)."""
+    out = {}
     rs = [r["llama-tp"] for r in ranks]
     for r, res in enumerate(rs):
         log(f"[sharded-train] (a) llama3_8b tp 2, rank {r}: exit "
@@ -5980,26 +6359,131 @@ def sharded_train_phase(llama_first: float, llama_peak: float,
         f"ranks exit 0")
     out["ep"] = _check_mixtral_ep([r["mixtral-ep"] for r in ranks],
                                   mix_first, mix_plain, card)
-    torch.cuda.empty_cache()
-    ranks, _ = _spawn_ranks("--sharded-worker", ["t5-tp", "entry-ep"],
-                            "sharded-train", n=4, timeout_s=500.0)
-    rs = [r["t5-tp"] for r in ranks]
-    for r, res in enumerate(rs):
-        log(f"[sharded-train] (b) t5_3b_decoder mesh {res['mesh']}, rank "
-            f"{r} (data member {res['data_member']}): losses "
-            f"{[round(x, 4) for x in res['loss']]} (one process: first "
-            f"{t5_first:.4f}); " + _sharded_line("b", res, T5_BATCH * T5_SEQ)
-            + f" (one process {t5_peak:.3f}); init {res['init_s']:.1f} s, "
-            f"{res['held_gib']:.3f} GiB held; K2 "
-            + json.dumps(res["launches"]) + f"; {card}")
-    out["t5"] = _check_sharded("(b)", rs, t5_first, 48)
-    for r, res in enumerate(ranks):
-        if res["entry-ep"]["rc"] != 0:
-            raise AssertionError(f"[sharded-train] (f) rank {r}: "
-                                 f"{res['entry-ep']}")
-    log(f"[sharded-train] (f) train_llama {' '.join(SMOKE_EP)}: the four "
-        f"ranks exit 0")
+    out["ulysses"] = _check_ulysses([r["llama-tp-ulysses"] for r in ranks],
+                                    rs, card)
+    out["pipeline"] = _check_pipeline([r["pipeline-train"] for r in ranks],
+                                      card)
     return out
+
+
+def _check_ulysses(rs: list, tp_rs: list, card: str) -> dict:
+    """(g)'s checks: ulysses_attention over the two ranks within 2e-2 +
+    2e-2·|ref| of one process's flash attention, its K2 forward on the
+    tensor cores; the step's first loss (a)'s bit for bit, K2 launches
+    a rank of one remat step, all on the tensor cores.  Returns the
+    step's K2 launches of both ranks, summed."""
+    for r, res in enumerate(rs):
+        a = res["attn"]
+        log(f"[sharded-train] (g) ulysses_attention over tp 2, rank {r}: "
+            f"bf16 q [1, 1024 of 2048, 32, 128], k/v 8 heads -> K2 at 16 / "
+            f"4 heads: max abs err {a['max_abs_err']:.3e} against one "
+            f"process's flash attention (within 2e-2 + 2e-2|ref|: "
+            f"{a['ok']}); K2 {json.dumps(a['launches'])}")
+        log(f"[sharded-train] (g) llama3_8b tp 2 with "
+            f"make_ulysses_attention_fn(mesh, 'tp', use_flash=True), rank "
+            f"{r}: loss {res['loss'][0]:.6f} ((a)'s first "
+            f"{tp_rs[r]['loss'][0]:.6f}); step {res['step_s'][0]:.4f} s "
+            f"((a)'s first {tp_rs[r]['step_s'][0]:.4f}); peak "
+            f"{res['peak_gib']:.3f} GiB; K2 {json.dumps(res['launches'])}; "
+            f"{card}")
+        want_attn = {"flash_fwd": 1, "flash_fwd_mma": 1}
+        if not a["ok"] or {k: v for k, v in a["launches"].items() if v} \
+                != want_attn:
+            raise AssertionError(f"[sharded-train] (g) rank {r}: "
+                                 f"ulysses_attention {a}")
+        if res["loss"][0] != tp_rs[r]["loss"][0]:
+            raise AssertionError(
+                f"[sharded-train] (g) rank {r}: first loss "
+                f"{res['loss'][0]!r} is not (a)'s {tp_rs[r]['loss'][0]!r}")
+        if res["launches"] != _k2_want(32, 1):
+            raise AssertionError(f"[sharded-train] (g) rank {r}: K2 "
+                                 f"launches {res['launches']}")
+    return {name: sum(res["launches"][name] for res in rs)
+            for name in rs[0]["launches"]}
+
+
+def _check_pipeline(rs: list, card: str) -> dict:
+    """(h)'s checks: both stages' losses finite and equal, the first
+    within 2e-2 of the sequential witness in one process on the card;
+    each rank's peak at most PIPE_PEAK_GIB."""
+    t0 = time.perf_counter()
+    ref = pipeline_reference()
+    ref_s = time.perf_counter() - t0
+    for r, res in enumerate(rs):
+        step_s = _steady_s(res["step_s"])
+        log(f"[sharded-train] (h) pipelined llama3_8b width x "
+            f"{PIPE_LAYERS} layers on {res['mesh']}, stage {res['stage']}: "
+            f"losses {[round(x, 4) for x in res['loss']]} (sequential "
+            f"witness in one process {ref:.4f}, {ref_s:.1f} s); step_s "
+            f"{[round(x, 4) for x in res['step_s']]} (steady {step_s:.4f}, "
+            f"tokens_per_s {PIPE_BATCH * PIPE_SEQ / step_s:.2f}); "
+            + _kind_line(res, "send_recv") + " (the hops); "
+            + _kind_line(res, "all_reduce") + " (the stages' sums); init "
+            f"{res['init_s']:.1f} s, {res['held_gib']:.3f} GiB held, peak "
+            f"{res['peak_gib']:.3f} GiB; {card}")
+        if res["peak_gib"] > PIPE_PEAK_GIB:
+            raise AssertionError(f"[sharded-train] (h) stage {r}: peak "
+                                 f"{res['peak_gib']:.3f} GiB")
+        if abs(res["loss"][0] - ref) > 2e-2:
+            raise AssertionError(f"[sharded-train] (h) stage {r}: first "
+                                 f"loss {res['loss'][0]} against the "
+                                 f"witness's {ref}")
+    _check_losses("(h)", rs, None, None)
+    return {"reference": ref, "losses": rs[0]["loss"]}
+
+
+def _reshard_between(root: str, ranks: list, card: str) -> dict:
+    """The two-rank src leg's checkpoint resharded to fsdp 4
+    (models/reshard.reshard_checkpoint, in this process): its seconds and
+    rate."""
+    import os
+
+    from tf_operator_tpu_torch.models.reshard import reshard_checkpoint
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+
+    src = [r["reshard-src"] for r in ranks]
+    t0 = time.perf_counter()
+    step = reshard_checkpoint(os.path.join(root, "src"),
+                              os.path.join(root, "dst"),
+                              make_mesh({"fsdp": 4}, world=4))
+    sec = time.perf_counter() - t0
+    nbytes = _dir_bytes(os.path.join(root, "dst", str(step)))
+    log(f"[sharded-train] (i) reshard: fsdp 2 leg, losses "
+        f"{[r['loss'] for r in src]}, save {src[0]['save_s']:.1f} s, peak "
+        f"{max(r['peak_gib'] for r in src):.3f} GiB; reshard_checkpoint "
+        f"to fsdp 4: step {step}, {nbytes / 1e9:.3f} GB in {sec:.2f} s "
+        f"({nbytes / 1e9 / sec:.3f} GB/s read and written, fsynced); "
+        f"{card}")
+    if step != 1:
+        raise AssertionError(f"[sharded-train] (i) resharded step {step}")
+    return {"src": src[0]["loss"], "step": step, "s": sec, "bytes": nbytes}
+
+
+def _check_reshard(res: dict, ranks: list, card: str) -> None:
+    """(i)'s checks: the never-resized fsdp 4 run's losses, the fsdp 2
+    leg's first within RESHARD_RTOL of its first, the resumed fsdp 4
+    leg (restored at step 1) within RESHARD_RTOL of its second."""
+    golden = [r["reshard-golden"] for r in ranks]
+    dst = [r["reshard-dst"] for r in ranks]
+    log(f"[sharded-train] (i) golden fsdp 4 losses {golden[0]['loss']}, "
+        f"step_s {[round(x, 3) for x in golden[0]['step_s']]}; resumed "
+        f"fsdp 4 (restored step {dst[0]['restored_step']} in "
+        f"{dst[0]['restore_s']:.1f} s) losses {dst[0]['loss']}; fsdp 2 "
+        f"leg {res['src']}; peak {max(r['peak_gib'] for r in golden):.3f} "
+        f"GiB a rank; {card}")
+    for r in golden + dst:
+        if not all(map(math.isfinite, r["loss"])):
+            raise AssertionError(f"[sharded-train] (i) {r}")
+    g = golden[0]["loss"]
+    pairs = [(res["src"][0], g[0]), (dst[0]["loss"][0], g[1])]
+    if dst[0]["restored_step"] != 1 or any(
+            abs(a - b) > RESHARD_RTOL * abs(b) for a, b in pairs):
+        raise AssertionError(f"[sharded-train] (i) the resized trajectory "
+                             f"{pairs} is not the golden's")
+    for rs in (golden, dst):
+        if any(r["loss"] != rs[0]["loss"] for r in rs):
+            raise AssertionError(f"[sharded-train] (i) ranks differ: "
+                                 f"{[r['loss'] for r in rs]}")
 
 
 def _kind_line(res: dict, kind: str) -> str:
@@ -6146,8 +6630,11 @@ def sharded_parity_phase() -> None:
     on the card, after 2 steps: losses and gradient norms within 1e-5,
     parameters within rtol 1e-5 + atol 1e-5 (under Adam and AdamW each
     leaf's update within 1e-3 relative error norm; the test file says
-    why).  Then the sharded job's checkpoint of its first step, resumed
-    in one process: its second step equals one process's two."""
+    why).  The pipelines' cases (PIPE_PARITY) on the same eight ranks,
+    one stage a rank, against their sequential witness in one process on
+    the card, held the same way (Adam), and the MoE aux within 1e-5.
+    Then the sharded job's checkpoint of its first step, resumed in one
+    process: its second step equals one process's two."""
     import shutil
     import tempfile
 
@@ -6158,12 +6645,22 @@ def sharded_parity_phase() -> None:
     torch.cuda.empty_cache()
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_sharded_ckpt_")
     try:
-        ranks, _ = _spawn_ranks("--sharded-worker", ["parity"],
-                                "sharded-parity", n=8, timeout_s=400.0,
-                                extra_env={"SHARDED_CKPT": ckpt})
+        job = _background(lambda: _spawn_ranks(
+            "--sharded-worker", ["parity"], "sharded-parity", n=8,
+            timeout_s=400.0, extra_env={"SHARDED_CKPT": ckpt}))
+        # one process's runs while the ranks run
+        try:
+            wants = {tag: u.CASES[case](None, device="cuda", **kw)
+                     for tag, (case, axes, kw) in SHARDED_PARITY.items()}
+            wants.update({tag: u.case_fn(PIPE_CASE)(
+                axes, form="sequential", device="cuda", **kw)
+                for tag, (axes, kw) in PIPE_PARITY.items()})
+            whole = u.llama_case(None, device="cuda")
+        finally:
+            ranks, _ = job()
         got = ranks[0]["parity"]
         for tag, (case, axes, kw) in SHARDED_PARITY.items():
-            want = u.CASES[case](None, device="cuda", **kw)
+            want = wants[tag]
             worst = u.check(got[tag], want, adam=tag in ADAM_CASES, tag=tag)
             if "ep" in axes and not got[tag]["ep_stats"]["dropped"]:
                 raise AssertionError(f"[sharded-parity] {tag}: the capacity "
@@ -6172,7 +6669,18 @@ def sharded_parity_phase() -> None:
                 f"rel loss {worst['loss']:.2e}, gnorm {worst['gnorm']:.2e}, "
                 f"params {worst['param']:.2e}"
                 + (" (update rel err norm)" if tag in ADAM_CASES else ""))
-        whole = u.llama_case(None, device="cuda")
+        for tag, (axes, kw) in PIPE_PARITY.items():
+            want = wants[tag]
+            worst = u.check(got[tag], want, adam=True, tag=tag)
+            aux = [(a, b) for a, b in zip(got[tag]["aux"], want["aux"])
+                   if b is not None]
+            if any(abs(a - b) > 1e-5 * abs(b) for a, b in aux):
+                raise AssertionError(f"[sharded-parity] {tag}: aux {aux}")
+            log(f"[sharded-parity] {tag} on {axes}, one stage a rank = the "
+                f"sequential witness in one process: worst rel loss "
+                f"{worst['loss']:.2e}, gnorm {worst['gnorm']:.2e}, params "
+                f"{worst['param']:.2e} (update rel err norm)"
+                + (f"; aux {[round(a, 6) for a, _ in aux]}" if aux else ""))
         res = u.ckpt_case(None, load_dir=ckpt, device="cuda")
         if res["restored_step"] != 1:
             raise AssertionError(f"[sharded-parity] restored {res}")
@@ -6197,6 +6705,9 @@ TP_MESH = {"tp": 2}
 # tp-serve serves the first 8 of the serve phase's 16 prompts: one wave
 # of the 8 slots, since each decode step waits on gloo through the host
 TP_SERVE_REQUESTS = 8
+# and decodes TP_SERVE_NEW of the serve phase's MAX_NEW tokens a request
+# (each decode step waits on gloo's 66 collectives: 0.39 s)
+TP_SERVE_NEW = 32
 # tp-serve's first prefill, last position: tp 2's logits against one
 # process's on the same weights and prompt, relative error norm.  bf16:
 # each of the 64 row-parallel products a forward rounds its two partial
@@ -6321,7 +6832,7 @@ def _tp_serve_job() -> dict:
         pa.reset_launches()
         comm.reset_stats(timing=False)
         torch.cuda.reset_peak_memory_stats()
-        res, stats = serve_loop(model, prompts, max_new_tokens=MAX_NEW,
+        res, stats = serve_loop(model, prompts, max_new_tokens=TP_SERVE_NEW,
                                 return_stats=True, **kw)
         torch.cuda.synchronize()
         hook.remove()
@@ -6392,12 +6903,12 @@ def tp_serve_phase(serve: dict, serve_int8: dict) -> dict:
         for r, res in enumerate(rs):
             res = res[run]
             for i, toks in enumerate(res["tokens"]):
-                if len(toks) != MAX_NEW or not all(
+                if len(toks) != TP_SERVE_NEW or not all(
                         0 <= t < cfg.vocab_size for t in toks):
                     raise AssertionError(
                         f"[tp-serve] ({run}) rank {r} request {i}: "
-                        f"{len(toks)} tokens, budget {MAX_NEW}, or one out "
-                        f"of the vocabulary")
+                        f"{len(toks)} tokens, budget {TP_SERVE_NEW}, or one "
+                        f"out of the vocabulary")
             lc = res["launches"]
             want = cfg.n_layers * res["calls"]
             other = lc["k1"] if int8 else lc["k1q"]
@@ -6413,12 +6924,12 @@ def tp_serve_phase(serve: dict, serve_int8: dict) -> dict:
                 raise AssertionError(f"[tp-serve] ({run}) rank {r}: logits "
                                      f"rel err {err}")
         res = rs[0][run]
-        same = sum(g == w for g, w in zip(res["tokens"], ref["tokens"]))
-        diffs = [_first_diff(g, w)
-                 for g, w in zip(res["tokens"], ref["tokens"])]
+        want = [w[:TP_SERVE_NEW] for w in ref["tokens"]]
+        same = sum(g == w for g, w in zip(res["tokens"], want))
+        diffs = [_first_diff(g, w) for g, w in zip(res["tokens"], want)]
         sc = res["step_comm"]
         log(f"[tp-serve] ({run}) llama3_8b tp 2, {label}, continuous, 8 "
-            f"slots, {len(res['tokens'])} requests x {MAX_NEW}: "
+            f"slots, {len(res['tokens'])} requests x {TP_SERVE_NEW}: "
             f"tokens_per_s={res['tokens_per_s']:.2f} ttft_p50_s="
             f"{res['ttft'][0]:.4f} ttft_p99_s={res['ttft'][1]:.4f} "
             f"tpot_mean_s={res['tpot']:.6f} wall_s={res['wall_s']:.4f} "
@@ -6902,13 +7413,12 @@ def _phases(card: str, t_start: float, child) -> int:
     lap("dp-parity", dp_parity_phase())
     # the tp x fsdp x dp training mesh: ranks share the card over gloo
     torch.cuda.empty_cache()
-    lap("sharded-probe", sharded_probe_phase())
     k2tp = lap("kernel2-tp", kernel2_zoo_phase(TP_FLASH, "kernel2-tp",
                                                SEED + 85))
     k3tp = lap("kernel3-tp", kernel3_tp_phase())
     sharded = lap("sharded-train", sharded_train_phase(
-        train["losses"][0], train["peak_gib"], t5["first_loss"],
-        t5["peak_gib"], mixtral["losses"][0], mixtral["ep_plain"]))
+        train["losses"][0], train["peak_gib"], t5["peak_gib"],
+        mixtral["losses"][0], mixtral["ep_plain"]))
     lap("sharded-parity", sharded_parity_phase())
     parity = lap("parity process (wait)", join_parity_child(child))
     # tensor-parallel serving: ranks share the card over gloo
@@ -7038,6 +7548,10 @@ def _phases(card: str, t_start: float, child) -> int:
                 "library_device_ms": t["library_device_ms"],
                 "rel_l2": {o: k2tp[label]["norms"][o]
                            for o in FLASH_OUTS[name]}})
+            if label == "llama3_tp2":
+                # the same shape: both ranks' one step with Ulysses
+                # attention (sharded-train (g))
+                rows[-1]["ulysses_launches"] = sharded["ulysses"][name]
     # each row replaces the Pallas kernel body (_carry_fwd_kernel,
     # _dq_ring_kernel, _dkv_ring_kernel); the _tp2 rows: the same kernels
     # at the ring over tp 2 (S_l = 1024), launched by sharded-train (c)'s

@@ -28,7 +28,8 @@ drops bind: over whole weights, over a model placed on ep 4 x tp 2, and
 over one placed on ep 4 x dp 2 whose cache splits a 4-row batch over dp;
 the MoE Transformer's forward (test_ep.py:101) against JAX's at both
 factors; and train_llama --smoke --model mixtral --tp 2 --ep 2 as the
-eight ranks of a job.
+eight ranks of a job.  A second job, four ranks on pp 2 x dp 2, trains
+a placed llama as one process does (a pp axis replicates every leaf).
 """
 import jax
 import jax.numpy as jnp
@@ -54,7 +55,6 @@ from tf_operator_tpu_torch.models.transformer_bridge import (
     transformer_params_from_jax)
 from tf_operator_tpu_torch.parallel import ep as pep
 from tf_operator_tpu_torch.parallel import mesh as pm
-from tf_operator_tpu_torch.parallel import placement
 from tf_operator_tpu_torch.parallel import tp as ptp
 
 TRAIN = {
@@ -64,6 +64,7 @@ TRAIN = {
                               dict(moe=True, ep=(2, 1.25))),
 }
 JAX_MESH = {"ep": 4, "dp": 2}        # test_ep.py's mesh
+PP_MESH = {"pp": 2, "dp": 2}
 GEN_KW = dict(n_experts=4, moe_every=1, max_len=32)
 GEN = {  # capacity factor, prompt rows
     "top1": (4.0, 3),
@@ -178,6 +179,8 @@ def run(tmp_path_factory):
                                       str(tmp / f"tfm_{tag}.pt"))
     jobs["cli"] = ("cli_parallel", None, dict(argv=CLI))
     job = u.start(jobs, tmp)
+    (tmp / "pp").mkdir()
+    pp_job = u.start({"pp_llama": ("llama", PP_MESH, {})}, tmp / "pp", n=4)
     want = {tag: _jax_moe(axes["ep"], b, s, n_e, f, k, act, i)
             for i, (tag, (axes, b, s, n_e, f, k, act, _)) in enumerate(
                 u.EP_CASES.items())}
@@ -190,7 +193,8 @@ def run(tmp_path_factory):
                             lg.reshape(1, 64, -1)[:, :63], wi, wo)[1])
     one = {tag: u.one_process("llama", **kw)
            for tag, (_, kw) in TRAIN.items()}
-    return {"got": u.join(job), "jax": want, "one": one}
+    return {"got": u.join(job), "jax": want, "one": one,
+            "pp": u.join(pp_job)}
 
 
 # ------------------------------------------------------ one process
@@ -281,13 +285,20 @@ def test_train_llama_ep_exits_with_jax_messages(argv, msg):
     assert str(err.value) == msg
 
 
-def test_placement_refuses_only_pp():
+def test_placement_refuses_only_pp(run):
+    """A pp axis places as JAX's GSPMD path does (no rule maps a model
+    dim to pp: every leaf replicates over it, the batch splits over the
+    data axes alone): a {"pp": 2, "dp": 2} placed llama's train_llama
+    step equals one process's."""
     with torch.device("meta"):
         model = tl.Llama(tl.tiny(), train=True)
-    mesh = pm.make_mesh({"pp": 2, "ep": 2}, world=4)
-    with pytest.raises(NotImplementedError, match="item 11f") as err:
-        placement.shard_model(model, mesh, {}, device="cpu")
-    assert "ep" not in str(err.value).split("(")[0]
+    mesh = pm.make_mesh(PP_MESH, world=4)
+    specs = ptp.transformer_param_sharding(
+        {k: tuple(v.shape) for k, v in model.state_dict().items()}, mesh,
+        min_fsdp_size=0)
+    assert not any("pp" in pm.spec_mesh_axes(s) for s in specs.values())
+    u.check(run["pp"]["pp_llama"], u.one_process("llama"), adam=False,
+            tag="pp_llama")
 
 
 EP_MESHES = [{"tp": 2, "ep": 2, "dp": 2}, {"ep": 4, "fsdp": 2}]

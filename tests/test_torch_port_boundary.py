@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax():
                  "train_bert", "train_t5", "train_resnet", "train_mnist",
                  "train_dist_mnist", "models.lora", "runtime.bootstrap",
                  "parallel.dp", "parallel.tp", "parallel.comm",
-                 "parallel.placement"):
+                 "parallel.placement", "parallel.pp", "models.pipeline",
+                 "models.pipeline_llama", "ops.ulysses", "models.reshard"):
         assert "tf_operator_tpu_torch." + name in names
     code = (
         "import importlib, json, sys\n"

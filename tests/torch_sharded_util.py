@@ -228,16 +228,18 @@ def ep_oracle(n_ep: int, n_experts: int, factor: float, top_k: int = 2,
 def llama_case(axes, full=None, toks=None, moe=False, d_ff=128,
                tied=True, opt="adafactor", min_fsdp_size=0, lora_rank=0,
                ring=False, window=None, ep=None, remat=False,
-               device="cpu"):
+               ulysses=False, device="cpu"):
     """A tiny f32 Llama under train_llama's step (blocked CE over the
     tied embedding, or the untied lm_loss), from `full` (default the
     seeded draws) on `toks` (default seeded); `moe`: the mixtral smoke
     model; `lora_rank`: LoRA adapters of that rank train alone; `ring`:
     attention through the ring over tp (one process: flash attention,
-    the same function); `window`: mistral's sliding window; `remat`:
-    each block recomputed in the backward; `ep` =
-    (ep size, capacity factor): the experts dispatched by
-    make_switch_moe over the mesh (one process: ep_oracle)."""
+    the same function); `ulysses`: attention through
+    make_ulysses_attention_fn(mesh, "tp", use_flash=True) (one process:
+    flash attention, the same function); `window`: mistral's sliding
+    window; `remat`: each block recomputed in the backward; `ep` = (ep
+    size, capacity factor): the experts dispatched by make_switch_moe
+    over the mesh (one process: ep_oracle)."""
     from tf_operator_tpu_torch import train_llama
     from tf_operator_tpu_torch.models import bridge, llama, lora
     from tf_operator_tpu_torch.ops.ring_flash import (
@@ -257,6 +259,11 @@ def llama_case(axes, full=None, toks=None, moe=False, d_ff=128,
     attn = flash_attention if tied else None
     if ring and mesh is not None:
         attn = make_ring_flash_attention_fn(mesh, "tp")
+    if ulysses and mesh is not None:
+        from tf_operator_tpu_torch.ops.ulysses import (
+            make_ulysses_attention_fn)
+
+        attn = make_ulysses_attention_fn(mesh, "tp", use_flash=True)
     cfg = llama.tiny(tie_embeddings=tied, dtype=torch.float32, d_ff=d_ff,
                      attention_fn=attn, sliding_window=window, remat=remat,
                      **extra)
@@ -656,6 +663,17 @@ CASES = {"llama": llama_case, "transformer": transformer_case,
          "cli_parallel": cli_parallel_case}
 
 
+def case_fn(case: str):
+    """CASES[case], or a case of another JAX-free module named
+    "module:function" (tests/torch_pipeline_util.py's)."""
+    if ":" in case:
+        import importlib
+
+        module, name = case.split(":")
+        return getattr(importlib.import_module(module), name)
+    return CASES[case]
+
+
 def _worker(rank, n, init_file, out_path, jobs):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -666,7 +684,7 @@ def _worker(rank, n, init_file, out_path, jobs):
         for tag, (case, axes, kw) in jobs.items():
             if isinstance(kw, str):   # a file of keyword arguments
                 kw = torch.load(kw, weights_only=False)
-            out[tag] = CASES[case](axes, **kw)
+            out[tag] = case_fn(case)(axes, **kw)
         if rank == 0:
             torch.save(out, out_path)
     finally:
@@ -708,6 +726,6 @@ def one_process(case: str, **kw):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return CASES[case](None, **kw)
+        return case_fn(case)(kw.pop("axes", None), **kw)
     finally:
         torch.set_num_threads(threads)

@@ -23,10 +23,11 @@ rows) sums.  `take_chunk` is the transpose of the first: this rank's
 chunk forward, the members' gradients gathered backward (a replicated
 input to a partitioned computation).
 
-`exchange` is the autograd all-to-all over a group: each member's
-tensor split along one dim, chunk j sent to member j, the chunks
-received laid side by side along another dim; its backward is the
-all-to-all the other way.  It turns Megatron's local heads
+`reduce_forward` and `reduce_backward` are g and f over any group
+(the pipeline's over pp: parallel/pp).  `exchange` is the autograd
+all-to-all over a group: each member's tensor split along one dim,
+chunk j sent to member j, the chunks received laid side by side along
+another dim; its backward is the all-to-all the other way.  It turns Megatron's local heads
 [B, S, H/n, D] into a sequence block of every head [B, S/n, H, D] for
 the ring over tp (ops/ring_flash), and carries the expert buckets of
 expert parallelism (parallel/ep).
@@ -281,6 +282,22 @@ class _GatherParam(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.group, ctx.dim), None, None
 
 
+def reduce_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every member's `x` (each holds a part), whose gradient
+    each member takes whole: Megatron's g over any group, as `Tp.exit`."""
+    if group is None:
+        return x
+    return _Exit.apply(x, group)
+
+
+def reduce_backward(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` unchanged, whose gradient is the sum of every member's:
+    Megatron's f over any group, as `Tp.enter`."""
+    if group is None:
+        return x
+    return _Enter.apply(x, group)
+
+
 def gather_param(w: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The whole of a weight sharded along `dim` over `group`; its
     gradient sums over the group and returns to each rank's shard."""
@@ -300,10 +317,10 @@ class Tp:
         return f"Tp({self.rank}/{self.size})"
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
-        return _Enter.apply(x, self.group)
+        return reduce_backward(x, self.group)
 
     def exit(self, x: torch.Tensor) -> torch.Tensor:
-        return _Exit.apply(x, self.group)
+        return reduce_forward(x, self.group)
 
     def gather_out(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return gather_out(x, self.group, dim)

@@ -320,16 +320,23 @@ def _count(valid: torch.Tensor, dispatch: torch.Tensor, top_k: int) -> None:
 def _local_moe(x: torch.Tensor, router_logits: torch.Tensor,
                wi: torch.Tensor, wo: torch.Tensor, valid: torch.Tensor, *,
                n_experts: int, capacity: int, group,
-               activation: str = "gelu", top_k: int = 1) -> torch.Tensor:
+               activation: str = "gelu", top_k: int = 1,
+               with_aux: bool = False):
     """One ep member's body: x [T, d] its block of the tokens, router
     logits [T, E], wi [E_local, d, f] and wo [E_local, f, d] its experts
     (E_local = E / ep over `group`; every expert where group is None, an
     ep axis of 1), valid [T] the real tokens.  Returns the block's
-    output [T, d]."""
+    output [T, d]; with_aux: (output, aux), JAX's _local_moe's pair for
+    a block that is its member's own tokens (models/pipeline): the
+    block's topk_route aux, whose value is JAX's psum(aux · n_valid) /
+    psum(n_valid) over the group and whose gradient reaches this block's
+    logits scaled by ep · n_valid / psum(n_valid) (1 where the blocks
+    are equal), so that the mean of the data members' gradients is the
+    global one (parallel/pp.reduce_gradients_ takes that mean)."""
     ep = 1 if group is None else torch.distributed.get_world_size(group)
     e_local = n_experts // ep
-    dispatch, combine, _ = topk_route(router_logits.to(torch.float32),
-                                      capacity, top_k, valid)
+    dispatch, combine, aux = topk_route(router_logits.to(torch.float32),
+                                        capacity, top_k, valid)
     _count(valid, dispatch, top_k)
     dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
     # bucket the block's tokens by expert: [E, C, d]
@@ -342,7 +349,15 @@ def _local_moe(x: torch.Tensor, router_logits: torch.Tensor,
     out = torch.einsum("secf,efd->secd", h, wo)
     # and back to the members whose tokens they are
     out = comm.exchange(out, group, 0, 0).reshape(n_experts, capacity, -1)
-    return torch.einsum("tec,ecd->td", combine, out)
+    y = torch.einsum("tec,ecd->td", combine, out)
+    if not with_aux or group is None:
+        return (y, aux) if with_aux else y
+    n_valid = valid.sum().to(torch.float32)
+    sums = torch.stack([aux.detach() * n_valid, n_valid])
+    comm.all_reduce_(sums, group)
+    total = torch.clamp(sums[1], min=1.0)
+    mine = aux * (ep * n_valid / total)
+    return y, mine + (sums[0] / total - mine).detach()
 
 
 def ep_aux(router_logits: torch.Tensor, valid: torch.Tensor, ep: int,

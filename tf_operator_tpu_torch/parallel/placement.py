@@ -31,6 +31,11 @@ block at each use.  How the model computes on those blocks:
     .gather_param), and the backward sums the members' gradients into
     each shard.  Under remat the recompute gathers again.
 
+  - pp: no rule maps a model dim to pp, so every leaf replicates over
+    it and the batch splits over the data axes alone, as JAX's GSPMD
+    path places a model on a mesh with a pp axis; the pp members of a
+    data member compute alike (the pipelined models, models/pipeline,
+    place their stages themselves: parallel/pp).
   - ep: the expert banks (moe.wi, moe.wo, and their int8 scales) hold
     this rank's block of experts along dim 0, JAX's ep rule; the
     dispatch function (parallel/ep.make_switch_moe) sends each expert's
@@ -330,10 +335,6 @@ def place(model: nn.Module, mesh: Mesh, specs: Mapping[str, Spec],
     group (module docstring).  Returns the Placement, also kept as
     `model.placement`."""
     dev = resolve_device(device)
-    if mesh.shape["pp"] > 1:
-        raise NotImplementedError(
-            "a pp axis is not ported yet (ROADMAP Queue 1 item 11f: "
-            "pipelines)")
     want = {k: (tuple(v.shape), v.dtype)
             for k, v in model.state_dict().items()}
     if set(specs) != set(want):

@@ -283,6 +283,22 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
+def write_step(directory: str, step: int, params, rest) -> None:
+    """Write one step's files atomically: into `<directory>/.tmp-<step>`
+    (an earlier cut write there removed), each file and the directory
+    fsynced, then renamed to `<directory>/<step>` and the rename
+    fsynced.  A step already there must be removed first."""
+    tmp = os.path.join(directory, f"{_TMP_PREFIX}{step}")
+    shutil.rmtree(tmp, ignore_errors=True)  # an earlier cut save
+    os.makedirs(tmp)
+    for obj, name in ((params, PARAMS_FILE), (rest, STATE_FILE)):
+        torch.save(obj, os.path.join(tmp, name))
+        _fsync(os.path.join(tmp, name))
+    _fsync(tmp)
+    os.replace(tmp, os.path.join(directory, str(step)))
+    _fsync(directory)  # the rename, before older steps go
+
+
 def _whole_to_host(tree, specs, layout, keep: bool):
     """The whole of every leaf of a sharded tree (parallel/placement:
     every rank gathers one leaf at a time), copied to the host where
@@ -436,15 +452,7 @@ class Checkpointer:
             self._error = e
 
     def _write(self, step: int, params, rest) -> None:
-        tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}")
-        shutil.rmtree(tmp, ignore_errors=True)  # an earlier cut save
-        os.makedirs(tmp)
-        for obj, name in ((params, PARAMS_FILE), (rest, STATE_FILE)):
-            torch.save(obj, os.path.join(tmp, name))
-            _fsync(os.path.join(tmp, name))
-        _fsync(tmp)
-        os.replace(tmp, self._step_dir(step))
-        _fsync(self.directory)  # the rename, before older steps go
+        write_step(self.directory, step, params, rest)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
