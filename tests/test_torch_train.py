@@ -29,6 +29,7 @@ from tf_operator_tpu.models import llama as jl
 from tf_operator_tpu.ops.flash_attention import flash_attention as jflash
 from tf_operator_tpu.runtime.train import TrainState as JTrainState
 from tf_operator_tpu_torch import train_llama as ttl
+from tf_operator_tpu_torch.engine.tracing import get_tracer
 from tf_operator_tpu_torch.models import bridge
 from tf_operator_tpu_torch.models import llama as tl
 from tf_operator_tpu_torch.ops import blocked_ce as tce
@@ -432,15 +433,25 @@ def test_step_profile_stats():
 
 
 def test_profiler_trace_window_writes_a_trace(tmp_path):
+    """The window's trace holds the train step's phase ranges, one
+    `train_step` and one `train_step.optimizer` a step, and the tracer's
+    spans of that capture are steps 1 and 2."""
     prof = Profiler(trace_dir=str(tmp_path), trace_start_step=1,
                     trace_num_steps=2)
     state, step = _state()
+    held = get_tracer().traces()
     run_training(state, step, _batches(), num_steps=5, profiler=prof)
     traces = list(tmp_path.glob("trace_*.json"))
     assert len(traces) == 1
-    names = {e.get("name") for e in json.loads(traces[0].read_text())
-             ["traceEvents"]}
-    assert "train_step_1" in names and "train_step_2" in names
+    names = [e.get("name") for e in json.loads(traces[0].read_text())
+             ["traceEvents"] if e.get("cat") == "user_annotation"]
+    assert names.count("train_step") == 2
+    assert names.count("train_step.optimizer") == 2
+    seen = {id(r) for r in held}
+    roots = [r for r in get_tracer().traces()
+             if r.name == "train_step" and id(r) not in seen]
+    assert [r.attrs["step"] for r in roots] == [1, 2]
+    assert get_tracer().phase_totals()["train_step"].count == 2
 
 
 def test_device_memory_stats_without_a_card():

@@ -1,4 +1,5 @@
-"""Span tracing: the port's copy of tf_operator_tpu/engine/tracing.py.
+"""Span tracing: the port's copy of tf_operator_tpu/engine/tracing.py,
+plus device-timed phase spans.
 
 A thread-safe `Tracer` of nested spans (name, attrs, start, duration,
 parent).  The serving telemetry (models/telemetry.py) assembles each
@@ -8,10 +9,29 @@ finished roots export as Chrome trace-event JSON (`to_chrome_trace()`,
 
 Spans nest via a thread-local stack (`Tracer.span()`); finished ROOT
 spans land in a bounded ring buffer, so a long-lived process keeps the
-most recent traces without unbounded growth.  The code is the JAX
+most recent traces without unbounded growth.  That code is the JAX
 package's, line for line (that module imports no JAX, but the port
 imports nothing of the JAX package); tests/test_torch_telemetry.py holds
 the two exports equal for the same span tree.
+
+Phase spans are the port's own: `Tracer.train_step()` and
+`Tracer.phase()` mark the phases of a training step (the step factories,
+`TrainState.apply_gradients`, `parallel/dp.finish_step`), category
+"train".  They are on only while torch.profiler captures
+(`torch.autograd._profiler_enabled()`: the benchmark's traced run, an
+operator's `runtime/profiler.Profiler` window); off, a phase is one call
+and one branch.  On, each records its host start and duration from
+`time.time_ns()` (the clock of the profiler's events), a
+`record_function` range of its name in the device trace, and on CUDA a
+pair of timing events on the current stream, whose elapsed time is the
+phase's device interval (idle time inside it included; on the CPU the
+host interval).  `Tracer.backward_part()` times the part of a phase
+that backward runs, up to the moment a tensor's gradient arrives.
+Finished phases fold into per-name totals (`phase_totals()`: count,
+host and device seconds) once their events complete; the totals cover
+the latest capture only, which starts at the first phase opened with the
+profiler on after one opened with it off (two captures with no phase
+between them count as one).
 """
 from __future__ import annotations
 
@@ -20,9 +40,15 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
+
+import torch
+
+# a phase span while torch.profiler does not capture: shared, so that an
+# untraced step allocates nothing for its spans
+_OFF = nullcontext()
 
 
 @dataclass
@@ -45,6 +71,11 @@ class Span:
     children: List["Span"] = field(default_factory=list)
     thread_id: int = 0
     category: str = "reconcile"
+    # a phase span's device seconds, once its events have completed
+    device_duration: Optional[float] = None
+    # a phase span's clocks until it is folded into the totals
+    timing: Optional["_Timing"] = field(default=None, repr=False,
+                                        compare=False)
 
     def walk(self) -> Iterator["Span"]:
         """Depth-first iteration over this span and all descendants."""
@@ -60,6 +91,38 @@ class Span:
             "attrs": dict(self.attrs),
             "children": [c.to_dict() for c in self.children],
         }
+
+
+@dataclass
+class PhaseTotal:
+    """One phase name's sum over the latest capture."""
+
+    count: int = 0
+    host_s: float = 0.0
+    device_s: float = 0.0
+
+
+class _Timing:
+    """A phase span's clocks: its host start (Unix ns), its CUDA events
+    (None on the CPU), the capture it belongs to, and, on a root, the
+    backward parts its gradient hooks closed: (name, since, end ns,
+    end event)."""
+
+    __slots__ = ("start_ns", "cuda", "begin", "end", "capture", "parts")
+
+    def __init__(self, start_ns: int, cuda: bool, capture: int) -> None:
+        self.start_ns = start_ns
+        self.cuda = cuda
+        self.begin = _event() if cuda else None
+        self.end = None
+        self.capture = capture
+        self.parts: List[tuple] = []
+
+
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 class Tracer:
@@ -78,6 +141,12 @@ class Tracer:
         self._finished: "deque[Span]" = deque(maxlen=max_traces)
         self._local = threading.local()
         self._lock = threading.Lock()
+        # phase spans: the roots whose events are still to complete, the
+        # totals of the latest capture, and which capture that is
+        self._pending: "deque[Span]" = deque()
+        self._totals: Dict[str, PhaseTotal] = {}
+        self._capture = 0
+        self._capturing = False
 
     # ------------------------------------------------------------- spans
     def _stack(self) -> List[Span]:
@@ -129,6 +198,121 @@ class Tracer:
                     self._finished.append(sp)
             if histogram is not None:
                 histogram.observe(sp.duration, labels)
+
+    # ------------------------------------------------------- phase spans
+    def phase(self, name: str):
+        """A phase span of `name` (category "train") while torch.profiler
+        captures, nested under the open span; otherwise a shared context
+        that records nothing."""
+        if not torch.autograd._profiler_enabled():
+            self._capturing = False
+            return _OFF
+        return self._phase(name, None, None)
+
+    def train_step(self, step: int, batch: torch.Tensor):
+        """The root phase `train_step` of one training step, with
+        attributes `step` (the state's step before it) and `tokens`
+        (`batch`'s elements); device-timed when `batch` is on CUDA."""
+        if not torch.autograd._profiler_enabled():
+            self._capturing = False
+            return _OFF
+        return self._phase("train_step",
+                           {"step": step, "tokens": batch.numel()},
+                           batch.is_cuda)
+
+    def backward_part(self, t: torch.Tensor, name: str, since: str) -> None:
+        """While a capture is on, inside a phase root: a part of phase
+        `name` that starts where the root's `since` phase starts and ends
+        when `t`'s gradient arrives (a hook on `t`, which may run on
+        autograd's thread: it writes to the root's record only)."""
+        if not torch.autograd._profiler_enabled() or not t.requires_grad:
+            return
+        stack = self._stack()
+        if not stack or stack[0].timing is None:
+            return
+        timing = stack[0].timing
+        parts, cuda = timing.parts, timing.cuda
+
+        def close(grad):
+            parts.append((name, since, time.time_ns(),
+                          _event() if cuda else None))
+
+        t.register_hook(close)
+
+    @contextmanager
+    def _phase(self, name: str, attrs: Optional[Dict[str, Any]],
+               cuda: Optional[bool]) -> Iterator[Span]:
+        if not self._capturing:
+            # the first phase of a capture starts the totals afresh
+            with self._lock:
+                self._capture += 1
+                self._totals = {}
+            self._capturing = True
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        if cuda is None:
+            up = parent.timing if parent is not None else None
+            cuda = up.cuda if up is not None \
+                else torch.cuda.is_initialized()
+        # the range takes its own clock reading somewhere inside its
+        # entry: the span starts in the middle of the entry
+        rf = torch.profiler.record_function(name)
+        before = time.time_ns()
+        rf.__enter__()
+        ns = (before + time.time_ns()) // 2
+        sp = Span(name=name, start=ns / 1e9, wall_start=ns / 1e9,
+                  attrs=dict(attrs or {}), parent=parent,
+                  thread_id=self._thread_id(), category="train")
+        stack.append(sp)
+        sp.timing = timing = _Timing(ns, cuda, self._capture)
+        try:
+            yield sp
+        finally:
+            if cuda:
+                timing.end = _event()
+            rf.__exit__(None, None, None)
+            sp.duration = (time.time_ns() - ns) / 1e9
+            stack.pop()
+            if parent is not None:
+                parent.children.append(sp)
+            else:
+                with self._lock:
+                    self._finished.append(sp)
+                    self._pending.append(sp)
+                self._fold(wait=False)
+
+    def _fold(self, wait: bool) -> None:
+        """Fold finished phase roots into the totals, oldest first: those
+        whose last event has completed, or all of them (`wait`)."""
+        with self._lock:
+            while self._pending:
+                root = self._pending[0]
+                end = root.timing.end
+                if end is not None and not wait and not end.query():
+                    return
+                self._pending.popleft()
+                current = root.timing.capture == self._capture
+                _close_parts(root)
+                for sp in root.walk():
+                    tm = sp.timing
+                    if tm is not None:
+                        sp.timing = None
+                        sp.device_duration = sp.duration if tm.end is None \
+                            else _elapsed_s(tm.begin, tm.end)
+                    if not current or sp.device_duration is None:
+                        continue
+                    tot = self._totals.setdefault(sp.name, PhaseTotal())
+                    tot.count += 1
+                    tot.host_s += sp.duration
+                    tot.device_s += sp.device_duration
+
+    def phase_totals(self) -> Dict[str, PhaseTotal]:
+        """{name: PhaseTotal} of the phases of the latest capture, every
+        finished one folded in (this waits for their events)."""
+        self._fold(wait=True)
+        with self._lock:
+            return {k: PhaseTotal(v.count, v.host_s, v.device_s)
+                    for k, v in self._totals.items()}
 
     def record(self, span: Span) -> None:
         """Land an externally assembled FINISHED root span in the ring
@@ -210,6 +394,33 @@ class Tracer:
         """Write the Chrome trace-event JSON to `path` (--trace-dump)."""
         with open(path, "w") as fh:
             fh.write(self.export_chrome_json())
+
+
+def _elapsed_s(begin, end) -> float:
+    end.synchronize()
+    return begin.elapsed_time(end) / 1e3
+
+
+def _close_parts(root: Span) -> None:
+    """Each backward part a hook closed becomes a child span of the
+    latest `since` phase that started before it: from that phase's start
+    to the hook, on the host clock and between the CUDA events."""
+    for name, since, end_ns, end_ev in root.timing.parts:
+        owner = None
+        for sp in root.walk():
+            if sp.name == since and sp.timing is not None \
+                    and sp.timing.start_ns <= end_ns:
+                owner = sp
+        if owner is None:
+            continue
+        duration = (end_ns - owner.timing.start_ns) / 1e9
+        part = Span(name=name, start=owner.start, wall_start=owner.wall_start,
+                    duration=duration, parent=owner,
+                    thread_id=owner.thread_id, category="train")
+        part.device_duration = duration if end_ev is None \
+            else _elapsed_s(owner.timing.begin, end_ev)
+        owner.children.append(part)
+    root.timing.parts = []
 
 
 _GLOBAL = Tracer()

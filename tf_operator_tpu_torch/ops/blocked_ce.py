@@ -17,7 +17,10 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
+from tf_operator_tpu_torch.engine.tracing import get_tracer
 from tf_operator_tpu_torch.models.transformer import MOE_AUX_WEIGHT, moe_aux
+
+TRACER = get_tracer()
 
 
 def _pick_chunk(v: int, chunk: Optional[int]) -> int:
@@ -158,15 +161,18 @@ def lm_blocked_loss(model, tokens: torch.Tensor,
         hidden = model(tokens[:, perm], return_hidden=True, positions=perm)
         hidden = hidden[:, torch.argsort(perm)]
     aux = moe_aux(model)
-    x = hidden[:, :-1].reshape(-1, cfg.d_model)
-    labels = tokens[:, 1:].reshape(-1)
-    table = model.embed
-    tp = getattr(model, "tp", None)
-    if tp is not None and table.shape[0] != cfg.vocab_size:
-        # the vocab-parallel tied embedding: each rank its slice
-        loss = blocked_cross_entropy(tp.enter(x.float()), table.float().T,
-                                     labels, chunk, tp=tp)
-    else:
-        loss = blocked_cross_entropy(x.float(), table.float().T, labels,
-                                     chunk)
+    with TRACER.phase("train_step.head"):
+        TRACER.backward_part(hidden, "train_step.head", "train_step.backward")
+        x = hidden[:, :-1].reshape(-1, cfg.d_model)
+        labels = tokens[:, 1:].reshape(-1)
+        table = model.embed
+        tp = getattr(model, "tp", None)
+        if tp is not None and table.shape[0] != cfg.vocab_size:
+            # the vocab-parallel tied embedding: each rank its slice
+            loss = blocked_cross_entropy(tp.enter(x.float()),
+                                         table.float().T, labels, chunk,
+                                         tp=tp)
+        else:
+            loss = blocked_cross_entropy(x.float(), table.float().T, labels,
+                                         chunk)
     return loss + MOE_AUX_WEIGHT * aux

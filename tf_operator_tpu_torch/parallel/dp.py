@@ -32,6 +32,10 @@ from typing import Dict, Iterable, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from tf_operator_tpu_torch.engine.tracing import get_tracer
+
+TRACER = get_tracer()
+
 # the group of the step running now (replicas()); None: no data parallelism
 _ACTIVE: Optional[object] = None
 
@@ -143,12 +147,18 @@ def finish_step(state, metrics: Dict[str, torch.Tensor], group):
     """A step's end after backward: the gradients' and the metrics' means
     over `group`, then one optimizer step in place.  Returns (state,
     metrics).  A sharded state (state.layout) completes its gradients
-    over its mesh instead (parallel/placement)."""
-    if getattr(state, "layout", None) is not None:
-        return state.layout.finish_step(state, metrics)
-    if group is not None:
-        mean_gradients_(state.params, group)
-        metrics = mean_metrics(metrics, group)
+    over its mesh instead (parallel/placement.reduce_gradients_) and
+    takes the metrics' means over its batch axes.  The phase span
+    `train_step.grad_sync` times the exchange, where there is one."""
+    layout = getattr(state, "layout", None)
+    if layout is not None:
+        with TRACER.phase("train_step.grad_sync"):
+            layout.reduce_gradients_(state.params)
+            metrics = mean_metrics(metrics, layout.batch_group)
+    elif group is not None:
+        with TRACER.phase("train_step.grad_sync"):
+            mean_gradients_(state.params, group)
+            metrics = mean_metrics(metrics, group)
     return state.apply_gradients(), metrics
 
 

@@ -290,13 +290,6 @@ class Placement:
         comm.all_reduce_(total, self.group(AXIS_ORDER))
         return math.sqrt(float(total))
 
-    def finish_step(self, state, metrics: Dict[str, torch.Tensor]):
-        """A step's end after backward: the gradients completed, the
-        metrics' global means, one optimizer step in place."""
-        self.reduce_gradients_(state.params)
-        metrics = dp.mean_metrics(metrics, self.batch_group)
-        return state.apply_gradients(), metrics
-
 
 def _bucketed(grads, group) -> None:
     """Sum `grads` over `group` in place, bucket by bucket."""

@@ -4,13 +4,14 @@ The port of tf_operator_tpu/runtime/profiler.py.  `StepProfile`,
 `GoodputTracker` and the metrics line are the JAX package's host-side code
 (copied: that module imports jax at its top).  Device traces come from
 `torch.profiler` where the JAX package uses `jax.profiler`: a Chrome trace
-per window under `trace_dir`, with each train step marked by
-`annotate_step`.  `device_memory_stats` reads `torch.cuda.memory_stats`.
+per window under `trace_dir`.  While a window captures, the train steps'
+phase spans (engine/tracing: `train_step` with its `step` attribute, and
+its forward, backward, grad_sync and optimizer phases) mark each step in
+the trace as record_function ranges and time it on the device.
+`device_memory_stats` reads `torch.cuda.memory_stats`.
 
 Pieces:
   - `StepProfile`: ring-buffer of per-step wall times -> steps/sec, p50/p99.
-  - `annotate_step(n)`: a record_function range so device traces align to
-    steps.
   - `GoodputTracker`: splits wall-clock into productive step time vs
     checkpoint-save, resume-replay, and idle time, plus an MFU estimate
     from a caller-supplied FLOPs-per-step.
@@ -29,11 +30,6 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, Iterator, Optional
 
 import torch
-
-
-def annotate_step(step: int):
-    """Context manager marking one train step in the device trace."""
-    return torch.profiler.record_function(f"train_step_{step}")
 
 
 @dataclass
@@ -299,11 +295,11 @@ class Profiler:
 
     @contextmanager
     def step(self, n: int) -> Iterator[None]:
-        """Wrap one train step: trace annotation + wall-time tick +
-        productive-time attribution for the goodput split."""
+        """Wrap train step `n`: wall-time tick + productive-time
+        attribution for the goodput split (the step's own phase spans
+        mark it in a trace)."""
         t0 = time.perf_counter()
-        with annotate_step(n):
-            yield
+        yield
         self.steps.tick()
         self.goodput.note_productive(time.perf_counter() - t0)
 

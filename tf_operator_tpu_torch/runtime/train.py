@@ -35,8 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.engine.tracing import get_tracer
 from tf_operator_tpu_torch.models.flax_layers import init_
 from tf_operator_tpu_torch.parallel import dp
+
+# the phase spans of a step (engine/tracing: on while torch.profiler
+# captures): train_step > forward, backward, grad_sync, optimizer
+TRACER = get_tracer()
 
 
 @dataclass
@@ -79,12 +84,14 @@ class TrainState:
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer step from the parameters' .grad, in place; the
-        gradients are dropped as they are used."""
-        if self.layout is None:
-            self.opt_state = self.tx.update_(self.params, self.opt_state)
-        else:
-            self.opt_state = self.tx.update_(self.params, self.opt_state,
-                                             self.layout)
+        gradients are dropped as they are used.  The phase span
+        `train_step.optimizer` times it."""
+        with TRACER.phase("train_step.optimizer"):
+            if self.layout is None:
+                self.opt_state = self.tx.update_(self.params, self.opt_state)
+            else:
+                self.opt_state = self.tx.update_(self.params, self.opt_state,
+                                                 self.layout)
         self.step += 1
         return self
 
@@ -131,6 +138,22 @@ def fsdp_param_sharding(params: Mapping[str, Any], mesh,
             spec[d] = "fsdp"
         out[name] = tuple(spec) if d is not None else ()
     return out
+
+
+def loss_step(state: TrainState, batch: torch.Tensor,
+              loss_fn: Callable[[], torch.Tensor], group):
+    """One step of train_llama's, train_t5's and train_bert's step
+    functions: loss_fn()'s forward and backward with the batch split over
+    `group`, then parallel/dp.finish_step.  Returns (state, {"loss"}).
+    The phase spans: train_step > forward, backward, (grad_sync,)
+    optimizer."""
+    with TRACER.train_step(state.step, batch):
+        with dp.replicas(group):
+            with TRACER.phase("train_step.forward"):
+                loss = loss_fn()
+            with TRACER.phase("train_step.backward"):
+                loss.backward()
+        return dp.finish_step(state, {"loss": loss.detach()}, group)
 
 
 def _check_batch_stats(model: nn.Module, has_batch_stats: bool) -> None:
@@ -189,9 +212,11 @@ def make_train_step(model: nn.Module,
 
     def forward_backward(x, y):
         with dp.replicas(group):
-            logits = model(x)
-            loss = loss_fn(logits, y)
-            loss.backward()
+            with TRACER.phase("train_step.forward"):
+                logits = model(x)
+                loss = loss_fn(logits, y)
+            with TRACER.phase("train_step.backward"):
+                loss.backward()
         accuracy = (logits.argmax(dim=-1) == y).float().mean()
         return loss.detach(), accuracy
 
@@ -206,28 +231,29 @@ def make_train_step(model: nn.Module,
         return out
 
     def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
-        model.train()
-        if accum_steps == 1:
-            loss, accuracy = forward_backward(inputs, labels)
-            return finish(state, {"loss": loss, "accuracy": accuracy})
-        b = inputs.shape[0]
-        if b % accum_steps != 0:
-            raise ValueError(
-                f"batch size {b} not divisible by accum_steps {accum_steps}")
-        micro = b // accum_steps
-        loss_sum = torch.zeros((), device=inputs.device)
-        acc_sum = torch.zeros((), device=inputs.device)
-        for i in range(accum_steps):
-            sl = slice(i * micro, (i + 1) * micro)
-            loss, accuracy = forward_backward(inputs[sl], labels[sl])
-            loss_sum = loss_sum + loss
-            acc_sum = acc_sum + accuracy
-        with torch.no_grad():
-            for p in state.params.values():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        return finish(state, {"loss": loss_sum / accum_steps,
-                              "accuracy": acc_sum / accum_steps})
+        with TRACER.train_step(state.step, labels):
+            model.train()
+            if accum_steps == 1:
+                loss, accuracy = forward_backward(inputs, labels)
+                return finish(state, {"loss": loss, "accuracy": accuracy})
+            b = inputs.shape[0]
+            if b % accum_steps != 0:
+                raise ValueError(f"batch size {b} not divisible by "
+                                 f"accum_steps {accum_steps}")
+            micro = b // accum_steps
+            loss_sum = torch.zeros((), device=inputs.device)
+            acc_sum = torch.zeros((), device=inputs.device)
+            for i in range(accum_steps):
+                sl = slice(i * micro, (i + 1) * micro)
+                loss, accuracy = forward_backward(inputs[sl], labels[sl])
+                loss_sum = loss_sum + loss
+                acc_sum = acc_sum + accuracy
+            with torch.no_grad():
+                for p in state.params.values():
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            return finish(state, {"loss": loss_sum / accum_steps,
+                                  "accuracy": acc_sum / accum_steps})
 
     return step
 

@@ -37,7 +37,8 @@ from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import AdamW
 from tf_operator_tpu_torch.runtime.profiler import Profiler
-from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
+from tf_operator_tpu_torch.runtime.train import (
+    Checkpointer, TrainState, loss_step)
 
 MASK_ID = 103  # [MASK]
 
@@ -87,10 +88,9 @@ def make_mlm_step(model: Transformer):
     group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor, labels: torch.Tensor):
-        with dp.replicas(group):
-            loss = mlm_loss(model(tokens, train=True), labels)
-            loss.backward()
-        return dp.finish_step(state, {"loss": loss.detach()}, group)
+        return loss_step(state, tokens,
+                         lambda: mlm_loss(model(tokens, train=True), labels),
+                         group)
 
     return step
 

@@ -79,7 +79,8 @@ from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
-from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
+from tf_operator_tpu_torch.runtime.train import (
+    TRACER, Checkpointer, TrainState, loss_step)
 
 # the JAX script's --smoke --model mixtral: 4 experts in every block, top-2
 SMOKE_MOE = dict(n_experts=4, moe_every=1, moe_top_k=2)
@@ -125,18 +126,25 @@ def make_lm_step(model: Llama):
     gradients, and one optimizer step in place.  In a job of several
     processes `tokens` are this rank's rows; the MoE aux loss spans
     every rank's tokens, and the gradients and the loss are averaged
-    over the ranks (parallel/dp)."""
-    loss_of = lm_blocked_loss if model.cfg.tie_embeddings else (
-        lambda m, t: lm_loss(m(t), t))
+    over the ranks (parallel/dp).  The head and the cross-entropy are
+    the phase span `train_step.head`, forward and backward
+    (runtime/train.loss_step has the others)."""
+    loss_of = lm_blocked_loss if model.cfg.tie_embeddings else untied_loss
     group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor):
-        with dp.replicas(group):
-            loss = loss_of(model, tokens)
-            loss.backward()
-        return dp.finish_step(state, {"loss": loss.detach()}, group)
+        return loss_step(state, tokens, lambda: loss_of(model, tokens), group)
 
     return step
+
+
+def untied_loss(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    """lm_loss(model(tokens), tokens), with the head's logits and the
+    cross-entropy inside the phase span `train_step.head`."""
+    h = model(tokens, return_hidden=True)
+    with TRACER.phase("train_step.head"):
+        TRACER.backward_part(h, "train_step.head", "train_step.backward")
+        return lm_loss(model.logits(h), tokens)
 
 
 def build_model(cfg, mesh, job, dev):

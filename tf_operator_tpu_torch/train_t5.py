@@ -47,7 +47,8 @@ from tf_operator_tpu_torch.runtime import bootstrap
 from tf_operator_tpu_torch.runtime.loop import PreemptionGuard, run_training
 from tf_operator_tpu_torch.runtime.optim import Adafactor
 from tf_operator_tpu_torch.runtime.profiler import Profiler
-from tf_operator_tpu_torch.runtime.train import Checkpointer, TrainState
+from tf_operator_tpu_torch.runtime.train import (
+    Checkpointer, TrainState, loss_step)
 
 
 def lm_batches(batch: int, seq_len: int, vocab: int, seed: int,
@@ -72,10 +73,7 @@ def make_lm_step(model: Transformer, blocked_ce: bool = False):
     group = dp.data_group(model)
 
     def step(state: TrainState, tokens: torch.Tensor):
-        with dp.replicas(group):
-            loss = loss_of(model, tokens)
-            loss.backward()
-        return dp.finish_step(state, {"loss": loss.detach()}, group)
+        return loss_step(state, tokens, lambda: loss_of(model, tokens), group)
 
     return step
 
